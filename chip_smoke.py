@@ -11,10 +11,12 @@ and as the last line ``{"ok": true, "device": {...}}``:
   2. build   - nvcc builds every kernel in ``fami_pose_torch/ops/cuda/csrc``
                for sm_90a (one nvcc per source, in parallel).
   3. kernels - each kernel against its plain torch version on the card at
-               the main-path shapes: the DCN at B=8, 48 channels, 96x72,
-               12 groups, D in {4, 1, exact}, f32 and bf16, offsets drawn
-               past D; the translation warp at (32, 48, 96, 72) with shifts
-               past +-26. Kernel, plain and library times (CUDA events).
+               the main-path shapes: the DCN forward and backward at B=8, 48
+               channels, 96x72, 12 groups, D in {4, 1, exact}, f32 and bf16,
+               a third of the offsets past D and a quarter rounded to
+               integers; the translation warp at (32, 48, 96, 72) and its
+               backward at (8, 48, 96, 72) with shifts past +-26. Kernel,
+               plain and library times (CUDA events).
   4. main    - ``PosePredictor`` on ``configs/posetrack17/fami_pose.yaml``
                (HRNet-W48, 384x288, bf16, D=4, 4 supporting frames,
                flip-test as under VAL.FLIP_VAL) with seeded random weights,
@@ -25,6 +27,17 @@ and as the last line ``{"ok": true, "device": {...}}``:
                torch.profiler (device busy share, top operators).
   5. card-vs-cpu - the same weights in f32, one key frame: final heatmaps of
                the CUDA path against the port on the CPU (plain versions).
+  6. train   - ``Trainer`` on the same config at ``TRAIN.BATCH_SIZE_PER_GPU
+               8`` (the file's 48 is per GPU of the reference's 8-GPU host),
+               seeded init, a seeded synthetic dataset: one epoch of 4 steps
+               through ``Trainer.train`` (launch counts of the four kernels,
+               checkpoint, resume), then timed steps split into forward /
+               backward / optimizer by CUDA events, then 8 steps on one fixed
+               batch (finite loss terms and gradients, ``loss_mse`` falling),
+               and one more step traced with torch.profiler.
+  7. train-card-vs-cpu - f32, TF32 off, full W48 width at 256x192, B=2: the
+               loss terms and every parameter's gradient of one train-mode
+               forward and backward on the card against the port on the CPU.
 
 Any failure raises: the script exits non-zero and prints no last line.
 """
@@ -125,7 +138,10 @@ def dcn_inputs(gen, dtype, d, b=8, c=48, h=96, w=72, g=12):
     spread = 1.5 * d if d > 0 else 6.0  # a third of the offsets past D
     x = torch.randn(b, c, h, w, generator=gen, device=dev).to(dtype)
     off = ((torch.rand(b, 2 * g * 9, h, w, generator=gen, device=dev) * 2 - 1)
-           * spread).to(dtype)
+           * spread)
+    # a quarter exactly integer: where the backward's offset derivative is 0
+    pick = torch.rand(off.shape, generator=gen, device=dev) < 0.25
+    off = torch.where(pick, off.round(), off).to(dtype)
     msk = torch.rand(b, g * 9, h, w, generator=gen, device=dev).to(dtype)
     wgt = (torch.randn(c, c, 3, 3, generator=gen, device=dev) * 0.05).to(dtype)
     return x, off, msk, wgt
@@ -133,9 +149,13 @@ def dcn_inputs(gen, dtype, d, b=8, c=48, h=96, w=72, g=12):
 
 def phase_kernels():
     from fami_pose_torch.ops.deform_conv import (
-        deform_conv2d, deform_conv2d_windowed,
+        deform_conv2d, deform_conv2d_backward, deform_conv2d_backward_plain,
+        deform_conv2d_windowed,
     )
-    from fami_pose_torch.ops.warp import warp_translate, warp_translate_plain
+    from fami_pose_torch.ops.warp import (
+        warp_translate, warp_translate_backward,
+        warp_translate_backward_plain, warp_translate_plain,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
@@ -164,6 +184,45 @@ def phase_kernels():
                 rows["dcn_fwd"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                                        bound_ms=bnd, bound_by=by,
                                        library_ms=None)
+
+            # the backward on the same inputs; every output against the plain
+            # backward (dx and dweight are summed with atomics: last bits vary)
+            gout = torch.randn(got.shape, generator=gen,
+                               device="cuda").to(dtype)
+            run_k = lambda: deform_conv2d_backward(x, off, msk, wgt, gout,
+                                                   max_offset=d, **kw)
+            run_p = lambda: deform_conv2d_backward_plain(
+                x, off, msk, wgt, gout, max_offset=d, **kw)
+            got_b, ref_b = run_k(), run_p()
+            torch.cuda.synchronize()
+            errs = {}
+            for name, a, r in zip(("dx", "doffset", "dmask", "dweight"),
+                                  got_b, ref_b):
+                errs[name] = check_close(f"dcn_bwd {name} D={d} {dtype}", a, r,
+                                         dtype)
+            integer = float(
+                (off.float() == off.float().round()).float().mean())
+            k_ms = time_ms(run_k)
+            p_ms = time_ms(run_p, iters=3, warmup=1)
+            # two contractions (dcol, dweight) and ~30 operations per sampled
+            # (pixel, tap, channel); every input read once, every gradient
+            # written once in its own type
+            ops = 4 * b * h * w * 9 * c * c + 30 * b * h * w * 9 * c
+            bnd, by = bound_ms(nbytes(x, off, msk, wgt, gout, *got_b), ops,
+                               dtype)
+            worst = max(e for e, _ in errs.values())
+            emit("kernels", kernel="dcn_bwd", dtype=str(dtype)[6:], D=d,
+                 shape=list(x.shape), offsets_past_D=round(past, 4),
+                 offsets_integer=round(integer, 4),
+                 max_abs_err={k: e for k, (e, _) in errs.items()},
+                 tol={k: t for k, (_, t) in errs.items()}, ms=k_ms,
+                 plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None,
+                 library="none: no single PyTorch call computes a modulated "
+                 "DCN's gradients")
+            if dtype == torch.bfloat16 and d == 4:
+                rows["dcn_bwd"] = dict(max_abs_err=worst, ms=k_ms,
+                                       plain_ms=p_ms, bound_ms=bnd,
+                                       bound_by=by, library_ms=None)
 
     for dtype in (torch.float32, torch.bfloat16):
         n, c, h, w = 32, 48, 96, 72
@@ -199,14 +258,67 @@ def phase_kernels():
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
                 bound_by=by, library_ms=l_ms,
             )
+
+    # the warp's backward at the train path's shape (one call per supporting
+    # frame, B=8)
+    for dtype in (torch.float32, torch.bfloat16):
+        n, c, h, w = 8, 48, 96, 72
+        img = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
+        offs = (torch.rand(n, 2, generator=gen, device="cuda") * 2 - 1) * 40.0
+        offs[0] = torch.tensor([3.0, -2.0])  # an integer translation
+        gout = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
+        run_k = lambda: warp_translate_backward(img, offs, gout, 26)
+        run_p = lambda: warp_translate_backward_plain(img, offs, gout, 26)
+        got_b, ref_b = run_k(), run_p()
+        torch.cuda.synchronize()
+        err_i, tol_i = check_close(f"warp_bwd d_images {dtype}", got_b[0],
+                                   ref_b[0], dtype)
+        # d_offsets: float32 sums of c*h*w products, in another order
+        err_o, tol_o = check_close(f"warp_bwd d_offsets {dtype}", got_b[1],
+                                   ref_b[1], torch.float32)
+        # library yardstick: autograd through grid_sample, the grid built
+        # from the translations inside the graph
+        img_l = img.clone().requires_grad_()
+        t_l = offs.clone().requires_grad_()
+        tc = t_l.clamp(-26, 26)
+        ys = torch.arange(h, device="cuda", dtype=torch.float32)
+        xs = torch.arange(w, device="cuda", dtype=torch.float32)
+        gx = (xs[None, None, :] - tc[:, 0, None, None]) * (2.0 / (w - 1)) - 1
+        gy = (ys[None, :, None] - tc[:, 1, None, None]) * (2.0 / (h - 1)) - 1
+        grid = torch.stack(torch.broadcast_tensors(gx, gy), dim=-1).to(dtype)
+        out_l = torch.nn.functional.grid_sample(
+            img_l, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+        run_l = lambda: torch.autograd.grad(out_l, [img_l, t_l], gout,
+                                            retain_graph=True)
+        lib = run_l()
+        lib_err = max_err(lib[0], ref_b[0])
+        k_ms, p_ms, l_ms = time_ms(run_k), time_ms(run_p), time_ms(run_l)
+        bnd, by = bound_ms(nbytes(img, offs, gout, *got_b), 30 * img.numel(),
+                           dtype)
+        emit("kernels", kernel="warp_bwd", dtype=str(dtype)[6:],
+             shape=[n, c, h, w], max_shift=26,
+             shifts_past_clamp=float((offs.abs() > 26).float().mean()),
+             max_abs_err={"d_images": err_i, "d_offsets": err_o},
+             tol={"d_images": tol_i, "d_offsets": tol_o}, ms=k_ms,
+             plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms,
+             library="autograd through F.grid_sample(bilinear, zeros, "
+             "align_corners=True) and the grid's construction",
+             library_d_images_max_abs_err=lib_err)
+        if dtype == torch.bfloat16:
+            rows["warp_bwd"] = dict(
+                max_abs_err=max(err_i, err_o), ms=k_ms, plain_ms=p_ms,
+                bound_ms=bnd, bound_by=by, library_ms=l_ms,
+            )
     return rows
 
 
-def profile_batch(pred, dev_frames, reqs):
-    """One B=8 batch under ``torch.profiler``: the device's busy share (the
-    union of the kernels' intervals over the batch's host time, both taken
-    under the profiler, whose host overhead makes this a lower bound) and
-    the operators with the most device time."""
+def profile_call(fn):
+    """One call of ``fn`` (a B=8 serving batch, a train step) under
+    ``torch.profiler``: the device's busy share (the union of the kernels'
+    intervals over the call's host time, both taken under the profiler,
+    whose host overhead makes this a lower bound) and the operators with
+    the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -214,7 +326,7 @@ def profile_batch(pred, dev_frames, reqs):
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pred.predict_batch(dev_frames, reqs)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -227,7 +339,7 @@ def profile_batch(pred, dev_frames, reqs):
     top = sorted(prof.key_averages(), key=lambda a: a.self_device_time_total,
                  reverse=True)[:10]
     return dict(
-        device_events=len(spans), traced_batch_ms=wall_us / 1e3,
+        device_events=len(spans), traced_ms=wall_us / 1e3,
         device_busy_ms=busy / 1e3,
         device_busy_share=busy / wall_us if spans else "not measured",
         top_self_device_ms={a.key[:70]: a.self_device_time_total / 1e3
@@ -331,7 +443,7 @@ def phase_main():
         bb_ms = time_ms(lambda: model.hrnet(x), iters=10, warmup=2)
         head_ms = time_ms(lambda: model.head(feat, kf.shape[0]), iters=10,
                           warmup=2)
-    trace = profile_batch(pred, dev_frames, reqs)
+    trace = profile_call(lambda: pred.predict_batch(dev_frames, reqs))
     emit("main", config="configs/posetrack17/fami_pose.yaml",
          model="FAMIPose HRNet-W48 384x288 bf16 D=4 num_sup=4 flip_test",
          weights="seeded random init (seed 0)", requests=n_req,
@@ -370,22 +482,426 @@ def phase_card_vs_cpu(pred):
          cuda_s=outs["cuda_s"], cpu_s=outs["cpu_s"])
 
 
+KERNEL_COUNTERS = ("dcn_fwd", "dcn_bwd", "warp_translate", "warp_bwd")
+
+
+def kernel_counters():
+    """The four wrappers that hold a launch count, by kernel name."""
+    from fami_pose_torch.ops.deform_conv import (
+        deform_conv2d_backward, deform_conv2d_windowed,
+    )
+    from fami_pose_torch.ops.warp import (
+        warp_translate, warp_translate_backward,
+    )
+
+    return dict(zip(KERNEL_COUNTERS, (
+        deform_conv2d_windowed, deform_conv2d_backward, warp_translate,
+        warp_translate_backward,
+    )))
+
+
+def reset_launches():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+class SyntheticPoseDataset:
+    """Seeded stand-in for a pose dataset: uint8 noise crops with a bright
+    5x5 mark on every visible joint, random joints, ~85% of them visible.
+    Gives the sample dict ``fami_pose_torch.data.loader.collate`` reads."""
+
+    def __init__(self, n, image_size, num_sup, num_joints=17, seed=0):
+        w, h = image_size
+        rs = np.random.RandomState(seed)
+        self.frames = rs.randint(0, 200, size=(n, h, w, 3 * (1 + num_sup)),
+                                 dtype=np.uint8)
+        self.joints = (rs.rand(n, num_joints, 2) * [w - 9, h - 9] + 4).astype(
+            np.float32)
+        self.vis = (rs.rand(n, num_joints) < 0.85).astype(np.float32)
+        for i in range(n):
+            for (x, y), v in zip(self.joints[i].astype(int), self.vis[i]):
+                if v:
+                    self.frames[i, y - 2:y + 3, x - 2:x + 3] = 255
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, i):
+        return {
+            "kf": self.frames[i, :, :, :3], "sup": self.frames[i, :, :, 3:],
+            "joints": self.joints[i], "joints_vis": self.vis[i],
+            "center": np.zeros(2, np.float32), "scale": np.ones(2, np.float32),
+            "rotation": np.float32(0), "score": np.float32(1),
+            "image_path": f"synthetic/{i:06d}.jpg",
+        }
+
+
+def train_cfg(out_dir, *opts):
+    import types
+
+    from fami_pose_torch.config import get_cfg
+
+    return get_cfg(types.SimpleNamespace(
+        cfg=os.path.join(ROOT, "configs/posetrack17/fami_pose.yaml"),
+        opts=["OUTPUT_DIR", out_dir, *opts], root_dir=ROOT,
+    ))
+
+
+GRAD_GROUPS = {
+    "dcn weights": tuple(f"dcn_{i}.weight" for i in range(1, 5)),
+    "offset convs": tuple(f"dcn_offset_{i}.conv.weight" for i in range(1, 5)),
+    "mask convs": tuple(f"dcn_mask_{i}.conv.weight" for i in range(1, 5)),
+    "offset head": ("feat_global_offset_layers.0.layers.0.conv1.weight",
+                    "feat_global_offset_layers.8.weight"),
+    "backbone stem": ("hrnet.conv1.weight",),
+}
+
+
+def check_gradients(model):
+    """Every parameter's gradient finite; the DCN weights, the offset and
+    mask convs, the offset head and the backbone's stem with non-zero norm.
+    Returns the norms of the named groups."""
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    missing = [n for n, g in grads.items() if g is None]
+    if missing:
+        raise AssertionError(f"no gradient for {missing[:5]} "
+                             f"({len(missing)} parameters)")
+    bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
+    if bad:
+        raise AssertionError(f"non-finite gradient in {bad[:5]}")
+    norms = {}
+    for group, names in GRAD_GROUPS.items():
+        for n in names:
+            norms[n] = float(grads[n].float().norm())
+            if not norms[n] > 0.0:
+                raise AssertionError(f"zero gradient for {n} ({group})")
+    return norms
+
+
+def phase_train(smi, batch=8, epoch_steps=4, timed_steps=5, fixed_steps=8):
+    import tempfile
+
+    from fami_pose_torch.engine.trainer import Trainer
+    from fami_pose_torch.losses import fami_total_loss
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as out_dir:
+        cfg = train_cfg(out_dir, "TRAIN.BATCH_SIZE_PER_GPU", batch,
+                        "TRAIN.END_EPOCH", 1, "PRINT_FREQ", 1, "WORKERS", 4)
+        image_size = tuple(int(v) for v in cfg.MODEL.IMAGE_SIZE)
+        num_sup = 2 * (int(cfg.DISTANCE) - 1)
+        dataset = SyntheticPoseDataset(batch * epoch_steps, image_size,
+                                       num_sup, int(cfg.MODEL.NUM_JOINTS))
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, dataset=dataset, device="cuda")
+        if trainer.begin_epoch != 0 or trainer.steps_per_epoch != epoch_steps:
+            raise AssertionError("fresh trainer expected")
+
+        # the main path: one epoch through Trainer.train (its first step
+        # warms up cuDNN and the allocator), then the checkpoint it wrote
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = trainer.train()
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches = read_launches()
+        for name, count in launches.items():
+            if count != 4 * epoch_steps:
+                raise AssertionError(
+                    f"{name}: {count} launches over {epoch_steps} train "
+                    f"steps, expected 4 a step")
+        if state.step != epoch_steps:
+            raise AssertionError(f"step counter {state.step}")
+
+        resumed = Trainer(cfg, dataset=dataset, device="cuda")
+        if resumed.begin_epoch != 1 or resumed.state.step != state.step:
+            raise AssertionError(
+                f"resume: epoch {resumed.begin_epoch}, step "
+                f"{resumed.state.step}, expected 1 and {state.step}")
+        ours, theirs = state.model.state_dict(), resumed.model.state_dict()
+        differ = [k for k in ours if not torch.equal(ours[k], theirs[k])]
+        if differ or len(ours) != len(theirs):
+            raise AssertionError(f"resume changed {differ[:5]}")
+        opt_a = state.optimizer.state_dict()["state"]
+        opt_b = resumed.state.optimizer.state_dict()["state"]
+        for i in opt_a:
+            if not torch.equal(opt_a[i]["exp_avg"], opt_b[i]["exp_avg"]):
+                raise AssertionError(f"resume changed Adam moment {i}")
+        resumed_note = (
+            f"epoch_0_state.ckpt written; resume gave epoch "
+            f"{resumed.begin_epoch}, step {resumed.state.step}, identical "
+            f"parameters and Adam moments")
+        del resumed, theirs, opt_b
+        torch.cuda.empty_cache()
+
+        # timed steps, split by CUDA events; the loader's batches in turn
+        model, opt = state.model, state.optimizer
+        raws = list(trainer.loader)
+        marks = []
+        step_ms = []
+        for i in range(timed_steps):
+            batch_t = trainer.prepare(raws[i % len(raws)])
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ev[0].record()
+            final, sup_hms, _, mi = model(batch_t["kf"], batch_t["sup"],
+                                          train=True)
+            total, _ = fami_total_loss(
+                final, sup_hms, mi, batch_t["target"],
+                batch_t["target_weight"],
+                mse_weight=float(cfg.LOSS.HEATMAP_MSE.WEIGHT))
+            ev[1].record()
+            opt.zero_grad(set_to_none=True)
+            total.backward()
+            ev[2].record()
+            opt.step()
+            state.scheduler.step()
+            ev[3].record()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            marks.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
+        split = np.median(np.asarray(marks), axis=0)
+
+        # 8 steps of the trainer's own step on one fixed batch
+        fixed = trainer.prepare(raws[0])
+        history = []
+        reset_launches()
+        for _ in range(fixed_steps):
+            _, metrics = trainer.train_step(state, fixed)
+            history.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        fixed_launches = read_launches()
+        if any(c != 4 * fixed_steps for c in fixed_launches.values()):
+            raise AssertionError(f"fixed-batch launches {fixed_launches}")
+        for i, rec in enumerate(history):
+            bad = [k for k, v in rec.items() if not math.isfinite(v)]
+            if bad:
+                raise AssertionError(f"step {i}: non-finite {bad}")
+        norms = check_gradients(model)
+        trace = profile_call(lambda: trainer.train_step(state, fixed))
+        first, last = history[0]["loss_mse"], history[-1]["loss_mse"]
+        if not last < first:
+            raise AssertionError(
+                f"loss_mse did not fall on the fixed batch: {first} -> {last}")
+        med = float(np.median(step_ms))
+        emit("train", config="configs/posetrack17/fami_pose.yaml",
+             model="FAMIPose HRNet-W48 384x288 bf16 D=4 num_sup=4, train mode",
+             card=smi, batch_size=batch,
+             batch_size_note="the file's TRAIN.BATCH_SIZE_PER_GPU is 48 per "
+             "GPU of the reference's host; cut to 8 for one card's smoke",
+             optimizer=f"{cfg.TRAIN.OPTIMIZER} lr {cfg.TRAIN.LR}",
+             weights=f"seeded init (seed {int(cfg.SEED)}) + reference head "
+             "init", dataset=f"{len(dataset)} seeded synthetic samples",
+             epoch_steps=epoch_steps, epoch_seconds=epoch_s,
+             launches=launches, launches_per_step=4,
+             step_ms_median=med, step_ms_min=min(step_ms),
+             step_ms_max=max(step_ms), samples_per_s=batch / (med / 1e3),
+             forward_ms=float(split[0]), backward_ms=float(split[1]),
+             optimizer_ms=float(split[2]),
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             fixed_batch_loss_mse=[r["loss_mse"] for r in history],
+             fixed_batch_loss=[r["loss"] for r in history],
+             last_step_terms=history[-1], grad_norms=norms, trace=trace,
+             checkpoint=resumed_note)
+    return launches
+
+
+def train_grads(model, batch, feat=None):
+    """Loss terms and gradients of one train-mode forward and backward: the
+    whole model on ``batch``, or with ``feat`` (backbone features, key frames
+    first) only the head, whose gradient with respect to ``feat`` is
+    returned under the name ``feat``."""
+    from fami_pose_torch.losses import fami_total_loss
+
+    if feat is None:
+        final, sup_hms, _, mi = model(batch["kf"], batch["sup"], train=True)
+    else:
+        feat = feat.clone().requires_grad_()
+        final, sup_hms, mi = model.head(feat, batch["kf"].shape[0])
+    total, aux = fami_total_loss(final, sup_hms, mi, batch["target"],
+                                 batch["target_weight"])
+    model.zero_grad(set_to_none=True)
+    total.backward()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    if feat is not None:
+        grads["feat"] = feat.grad.cpu()
+    return {k: float(v.detach()) for k, v in aux.items()}, grads
+
+
+def grad_errors(got, ref):
+    """Per-tensor max abs difference over the reference's largest entry,
+    and the relative L2 error of all gradients taken as one vector."""
+    rel = {}
+    num = den = 0.0
+    for n, r in ref.items():
+        diff = (got[n] - r).double()
+        num += float(diff.square().sum())
+        den += float(r.double().square().sum())
+        rel[n] = float(diff.abs().max()) / max(float(r.abs().max()), 1e-30)
+    return rel, math.sqrt(num / den)
+
+
+def phase_train_card_vs_cpu():
+    """One train-mode forward and backward in f32 (TF32 off) at full W48
+    width, 256x192, B=2, seeded weights, the card against the port on the
+    CPU (plain kernels), twice:
+
+    * the head alone on the same backbone features (offset head, 4 warps,
+      4 DCN stages, fusion, MI terms: every kernel of the train path, 4
+      launches each): every loss term within 1e-3 of itself (plus 1e-4
+      absolute: the MI terms are ~1e-4 and pass through a temperature-0.05
+      softmax); every gradient, the features' included, within 1% of its
+      own largest entry or 1e-4 of the largest gradient of all (sums in
+      another order, atomics, BatchNorm over as few as 8 values in the
+      offset head);
+    * the whole model: the loss terms as above; every gradient finite; all
+      gradients, taken as one vector, within a relative L2 error of 3 times
+      the change of the CPU's own gradient when noise of 1e-6 (a few
+      float32 ulps) is added to its inputs. No per-parameter bound is set
+      here: the float32 gradient of a randomly initialised network with
+      ~300 train-mode BatchNorm layers is ill-conditioned (each BatchNorm
+      backward subtracts two means from its incoming gradient), so rounding
+      differences of 1e-7 in the forward grow to percents in single
+      parameters, on the CPU alone as between card and CPU. The per-tensor
+      median and maximum are printed.
+    """
+    from fami_pose_torch.data.loader import prepare_train_batch
+    from fami_pose_torch.models.bridge import init_weights
+    from fami_pose_torch.models.fami_pose import FAMIPose
+
+    cfg = train_cfg("", "MODEL.IMAGE_SIZE", "[192, 256]",
+                    "MODEL.HEATMAP_SIZE", "[48, 64]",
+                    "TPU.COMPUTE_DTYPE", "float32")
+    image_size = tuple(int(v) for v in cfg.MODEL.IMAGE_SIZE)
+    heatmap_size = tuple(int(v) for v in cfg.MODEL.HEATMAP_SIZE)
+    num_sup = 2 * (int(cfg.DISTANCE) - 1)
+    data = SyntheticPoseDataset(2, image_size, num_sup, seed=1)
+    base = init_weights(FAMIPose.from_config(cfg), seed=0).train()
+    host_batch = prepare_train_batch(
+        np.stack([data[i]["kf"] for i in range(2)]),
+        np.stack([data[i]["sup"] for i in range(2)]),
+        data.joints, data.vis, int(cfg.MODEL.SIGMA), image_size,
+        heatmap_size, device="cpu")
+    with torch.no_grad():
+        frames = torch.cat([host_batch["kf"]]
+                           + list(torch.split(host_batch["sup"], 3, dim=1)))
+        feat = copy.deepcopy(base.hrnet)(frames)[1][0]
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(base).to(dev)
+        batch = {k: v.to(dev) for k, v in host_batch.items()}
+        reset_launches()
+        t0 = time.perf_counter()
+        head = train_grads(model, batch, feat.to(dev))
+        head_launches = read_launches()
+        whole = train_grads(model, batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = dict(head=head, whole=whole, head_launches=head_launches,
+                        launches=read_launches(),
+                        seconds=time.perf_counter() - t0)
+    # how ill-conditioned the whole model's gradient is: the CPU path again
+    # with noise of 1e-6 (a few float32 ulps of the O(1) normalized pixels)
+    # on its inputs
+    noise = torch.Generator().manual_seed(2)
+    jittered = dict(batch)
+    for k in ("kf", "sup"):
+        jittered[k] = batch[k] + 1e-6 * torch.randn(batch[k].shape,
+                                                    generator=noise)
+    _, cpu_noise_l2 = grad_errors(train_grads(model, jittered)[1],
+                                  out["cpu"]["whole"][1])
+    if (any(c != 4 for c in out["cuda"]["head_launches"].values())
+            or any(c != 8 for c in out["cuda"]["launches"].values())):
+        raise AssertionError(f"card launches {out['cuda']['launches']}")
+    if any(out["cpu"]["launches"].values()):
+        raise AssertionError("the CPU path launched a kernel")
+
+    report = {}
+    for part in ("head", "whole"):
+        (got_t, got_g), (ref_t, ref_g) = out["cuda"][part], out["cpu"][part]
+        term_err = max(abs(got_t[k] - ref_t[k]) / (abs(ref_t[k]) + 1e-4)
+                       for k in ref_t)
+        if not term_err <= 1e-3:
+            raise AssertionError(f"{part}: loss terms {got_t} vs {ref_t}")
+        if set(got_g) != set(ref_g):
+            raise AssertionError(f"{part}: gradients of different parameters")
+        bad = [n for n, g in got_g.items()
+               if not bool(torch.isfinite(g).all())]
+        if bad:
+            raise AssertionError(f"{part}: non-finite gradient in {bad[:5]}")
+        rel, l2 = grad_errors(got_g, ref_g)
+        g_scale = max(float(g.abs().max()) for g in ref_g.values())
+        if part == "head":
+            for n, r in ref_g.items():
+                err = rel[n] * float(r.abs().max())
+                tol = max(1e-2 * float(r.abs().max()), 1e-4 * g_scale)
+                if not err <= tol:
+                    raise AssertionError(
+                        f"head: gradient of {n}: max abs diff {err} > {tol}")
+        elif not l2 <= 3.0 * cpu_noise_l2:
+            raise AssertionError(
+                f"whole model: gradient L2 error {l2} > 3 x {cpu_noise_l2}, "
+                f"the CPU gradient's own change under input noise")
+        # a conv bias before a train-mode BatchNorm has a gradient of exactly
+        # zero: its entries are rounding noise, left out of the statistics
+        sized = sorted((v, n) for n, v in rel.items()
+                       if float(ref_g[n].abs().max()) > 1e-6 * g_scale)
+        report[part] = dict(
+            loss_terms_cpu=ref_t, loss_terms_max_rel_diff=term_err,
+            gradients=len(ref_g),
+            grad_absmax=g_scale, grad_rel_l2_err=l2,
+            grad_rel_err_median=sized[len(sized) // 2][0],
+            grad_rel_err_max=sized[-1][0], grad_rel_err_max_at=sized[-1][1])
+    emit("train-card-vs-cpu", dtype="float32", tf32="off",
+         model="FAMIPose HRNet-W48 256x192 D=4 num_sup=4", batch_size=2,
+         loss_term_tol="1e-3 relative + 1e-4 absolute, each term",
+         head_tol="per gradient: 1% of its largest entry or 1e-4 of the "
+         "largest gradient", whole_tol="relative L2 of all gradients <= 3 x "
+         "the CPU gradient's own change under input noise",
+         head=report["head"], whole=report["whole"],
+         whole_cpu_grad_rel_l2_change_under_input_noise=cpu_noise_l2,
+         input_noise=1e-6,
+         card_launches=out["cuda"]["launches"],
+         cuda_s=out["cuda"]["seconds"], cpu_s=out["cpu"]["seconds"])
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
     phase_build()
     rows = phase_kernels()
-    pred, launches = phase_main()
+    reset_launches()
+    pred, serving = phase_main()
+    if any(read_launches()[k] for k in ("dcn_bwd", "warp_bwd")):
+        raise AssertionError("the serving path launched a backward kernel")
     phase_card_vs_cpu(pred)
+    del pred
+    torch.cuda.empty_cache()
+    train = phase_train(smi)
+    phase_train_card_vs_cpu()
+    csrc = "fami_pose_torch/ops/cuda/csrc/"
+    replaces = {
+        "dcn_fwd": "fami_pose_tpu/ops/pallas/dcn.py:1063",
+        "dcn_bwd": "fami_pose_tpu/ops/pallas/dcn_bwd.py:530",
+        "warp_translate": "fami_pose_tpu/ops/pallas/warp.py:119",
+        "warp_bwd": "none: XLA VJP (fami_pose_tpu/ops/pallas/warp.py:165)",
+    }
+    sources = {"dcn_fwd": "dcn_fwd.cu", "dcn_bwd": "dcn_bwd.cu",
+               "warp_translate": "warp.cu", "warp_bwd": "warp_bwd.cu"}
     kernels = [
-        dict(name="dcn_fwd", route="cuda",
-             source="fami_pose_torch/ops/cuda/csrc/dcn_fwd.cu",
-             replaces="fami_pose_tpu/ops/pallas/dcn.py:1063",
-             launches=launches["dcn_fwd"], **rows["dcn_fwd"]),
-        dict(name="warp_translate", route="cuda",
-             source="fami_pose_torch/ops/cuda/csrc/warp.cu",
-             replaces="fami_pose_tpu/ops/pallas/warp.py:119",
-             launches=launches["warp_translate"], **rows["warp_translate"]),
+        dict(name=name, route="cuda", source=csrc + sources[name],
+             replaces=replaces[name],
+             launches=serving.get(name, 0) + train[name],
+             launches_serving=serving.get(name, 0),
+             launches_train=train[name], **rows[name])
+        for name in KERNEL_COUNTERS
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

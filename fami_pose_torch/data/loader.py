@@ -1,13 +1,25 @@
-"""Eval input preparation on the device: person-box crop + ImageNet
-normalization (``fami_pose_tpu/data/loader.py::prepare_eval_inputs_device_crop``).
+"""Input preparation on the device and the host-side batch loader
+(``fami_pose_tpu/data/loader.py``).
 
-Frames stay uint8 until the crop samples them; the crop runs on the device
-(``ops.warp.crop_and_warp``), so no ``cv2`` is needed on this path.
+Eval: person-box crop + ImageNet normalization
+(:func:`prepare_eval_inputs_device_crop`); frames stay uint8 until the crop
+samples them, and the crop runs on the device (``ops.warp.crop_and_warp``),
+so no ``cv2`` is needed on that path.
+
+Training: host threads run ``dataset[i]`` and stack uint8 crops
+(:func:`collate`, :class:`DataLoader`); normalization and Gaussian target
+stamping run on the device, once per batch (:func:`prepare_train_batch`).
+The loader is single-process: every batch is loaded whole by this process.
 """
+
+import itertools
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from fami_pose_torch.ops.heatmap import generate_heatmaps
 from fami_pose_torch.ops.warp import crop_and_warp
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -46,3 +58,134 @@ def prepare_eval_inputs_device_crop(kf_raw, sup_raw, center, scale, rotation,
         rotation.repeat_interleave(n, 0), out_hw,
     ).reshape(b, c3, *out_hw)
     return normalize(kf), normalize(sup)
+
+
+def prepare_train_batch(kf_u8, sup_u8, joints, joints_vis, sigma, image_size,
+                        heatmap_size, device=None):
+    """uint8 crops + joints -> normalized inputs + heatmap targets, on
+    ``device`` (default: where ``kf_u8`` lies).
+
+    Args:
+      kf_u8: (B, H, W, 3) uint8 crops as the dataset gives them (arrays or
+        tensors); sup_u8: (B, H, W, 3N).
+      joints: (B, J, 2) crop pixels; joints_vis: (B, J).
+      image_size, heatmap_size: (w, h).
+
+    Returns a dict: ``kf`` (B, 3, H, W) and ``sup`` (B, 3N, H, W) float32,
+    ``target`` (B, J, h, w) and ``target_weight`` (B, J).
+    """
+    def on_device(a, dtype=None):
+        t = torch.as_tensor(a)
+        return t.to(device=device if device is not None else t.device,
+                    dtype=dtype, non_blocking=True)
+
+    kf = on_device(kf_u8).permute(0, 3, 1, 2)
+    sup = on_device(sup_u8).permute(0, 3, 1, 2)
+    target, weight = generate_heatmaps(
+        on_device(joints, torch.float32), on_device(joints_vis, torch.float32),
+        sigma, image_size, heatmap_size,
+    )
+    return {"kf": normalize(kf), "sup": normalize(sup), "target": target,
+            "target_weight": weight[..., 0]}
+
+
+def collate(samples):
+    """Stack host samples into a batch of numpy arrays (+ the path list)."""
+    if "crop_center" in samples[0]:
+        raise NotImplementedError(
+            "samples carry 'crop_center' (TPU.DEVICE_CROP): the device crop "
+            "for training is not ported yet"
+        )
+    out = {}
+    for k in ("kf", "sup", "joints", "joints_vis", "center", "scale",
+              "rotation", "score"):
+        out[k] = np.stack([s[k] for s in samples])
+    out["image_path"] = [s["image_path"] for s in samples]
+    return out
+
+
+class DataLoader:
+    """Minimal epoch iterator: seeded shuffling, threaded map, bounded
+    prefetch. A dataset is any object with ``__len__`` and ``__getitem__``
+    that gives the sample dict :func:`collate` reads.
+
+    ``drop_last`` mirrors torch; when False the last partial batch is padded
+    by repeating its last sample and ``batch["valid"]`` counts the real rows.
+    The order of epoch e is ``RandomState(seed + e)``'s shuffle, as in the
+    JAX package's loader.
+    """
+
+    def __init__(self, dataset, batch_size, shuffle=False, num_workers=4,
+                 drop_last=False, seed=0, prefetch=2):
+        self.dataset = dataset
+        self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.num_workers = max(1, int(num_workers))
+        self.drop_last = drop_last
+        self.seed = seed
+        self.prefetch = prefetch
+        self.epoch = 0
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _index_batches(self):
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(order)
+        batches = []
+        for i in range(0, n, self.batch_size):
+            idx = order[i:i + self.batch_size]
+            if len(idx) < self.batch_size:
+                if self.drop_last:
+                    continue
+                pad = np.full(self.batch_size - len(idx), idx[-1])
+                batches.append((np.concatenate([idx, pad]), len(idx)))
+            else:
+                batches.append((idx, len(idx)))
+        return batches
+
+    def _load_batch(self, idx, valid):
+        batch = collate([self.dataset[int(i)] for i in idx])
+        batch["valid"] = valid
+        return batch
+
+    def __iter__(self):
+        """Yield the epoch's batches in order, loaded by ``num_workers``
+        threads at most ``num_workers + prefetch`` batches ahead."""
+        batches = self._index_batches()
+        if self.num_workers <= 1:
+            for idx, valid in batches:
+                yield self._load_batch(idx, valid)
+            self.epoch += 1
+            return
+        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            window = self.num_workers + self.prefetch
+            it = iter(batches)
+            futures = deque(pool.submit(self._load_batch, idx, valid)
+                            for idx, valid in itertools.islice(it, window))
+            while futures:
+                batch = futures.popleft().result()
+                nxt = next(it, None)
+                if nxt is not None:
+                    futures.append(pool.submit(self._load_batch, *nxt))
+                yield batch
+        self.epoch += 1
+
+
+def build_train_loader(cfg, dataset, **kwargs):
+    """The training loader of a config: ``TRAIN.BATCH_SIZE_PER_GPU`` samples
+    a batch (one device), shuffled, last partial batch dropped."""
+    return DataLoader(
+        dataset,
+        batch_size=int(cfg.TRAIN.BATCH_SIZE_PER_GPU),
+        shuffle=bool(cfg.TRAIN.SHUFFLE),
+        num_workers=int(cfg.WORKERS),
+        drop_last=True,
+        seed=int(cfg.SEED),
+        **kwargs,
+    )

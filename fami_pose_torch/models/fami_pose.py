@@ -1,17 +1,24 @@
-"""FAMIPose eval forward (NCHW); counterpart of
+"""FAMIPose forward, eval and train (NCHW); counterpart of
 ``fami_pose_tpu/models/fami_pose.py`` (``FAMIPose.__call__`` mode ``"full"``
-followed by ``_head`` with ``train=False``).
+followed by ``_head``).
 
   * The key frame and its N supporting frames are folded into the batch and
     pushed through one HRNet pass.
   * Global alignment: the ``feat_global_offset_layers`` head reads the
-    feature differences of all N*B supporting frames at once (eval BatchNorm
-    uses running statistics, so folding them is exact) and predicts one
-    translation each; one warp (``ops.warp.warp_translate``) applies them.
+    difference between a supporting frame's features and the key frame's and
+    predicts one translation; ``ops.warp.warp_translate`` applies it. In eval
+    mode all N*B supporting frames go through the head and one warp at once
+    (BatchNorm uses running statistics, so folding them is exact). In
+    training the head and the warp run once per supporting frame, so
+    BatchNorm's batch statistics are per supporting frame and the head's
+    running statistics take N updates per step, and each warped feature map
+    also gives an auxiliary heatmap through the shared ``hrnet.final_layer``.
   * Local alignment: four modulated deformable-conv stages (3x3, dilation 3,
     ``dcn_offset_groups`` groups, offsets clamped to ±``dcn_max_offset``),
     through ``ops.deform_conv.deform_conv2d_windowed``.
   * Fusion + a 3x3 conv to NUM_JOINTS heatmaps.
+  * Training adds the six mutual-information terms of the loss (softmax-KL
+    estimates at temperature 0.05, the estimator side detached, in float32).
 
 Parameter names are the reference ``Alignment_V15`` ones (``hrnet.*``,
 ``feat_global_offset_layers.{0..9}``, ``sup_agg_block``,
@@ -36,6 +43,7 @@ DCN_KERNEL = 3
 DCN_DILATION = 3
 DCN_OFFSET_GROUPS = 12
 OFFSET_HEAD_CHANNELS = 16
+MI_TEMPERATURE = 0.05
 
 
 def _compute_dtype(name):
@@ -75,9 +83,20 @@ def _head_spatial(size):
     return size
 
 
+def _softmax_kl(logits_p, logits_q):
+    """mean(q * log q - q * p) over rows of logits: the reference's
+    ``kl_div(input=softmax(p), target=softmax(q))`` with a probability, not
+    a log-probability, as its input. ``q * log q`` goes through
+    ``log_softmax``, which stays finite where q underflows to 0."""
+    p = torch.softmax(logits_p, dim=1)
+    q = torch.softmax(logits_q, dim=1)
+    log_q = torch.log_softmax(logits_q, dim=1)
+    return torch.mean(q * log_q - q * p)
+
+
 class FAMIPose(nn.Module):
-    """The flagship model, eval mode. Inputs are NCHW: key frame (B, 3, H, W)
-    and supporting frames (B, 3N, H, W) stacked on the channel axis.
+    """The flagship model. Inputs are NCHW: key frame (B, 3, H, W) and
+    supporting frames (B, 3N, H, W) stacked on the channel axis.
 
     ``feat_hw`` is the (h, w) of the backbone's 1/4-resolution features (the
     heatmap size), which sizes the offset head's first linear layer.
@@ -146,9 +165,20 @@ class FAMIPose(nn.Module):
         msk = getattr(self, f"dcn_mask_{idx}")(feat_in)
         return getattr(self, f"dcn_{idx}")(target, off, msk)
 
-    def forward(self, kf_x, sup_x):
-        """Returns ``(final_hm, kf_bb_hm)``, (B, J, h, w) each, in the
-        compute dtype."""
+    def forward(self, kf_x, sup_x, train=None):
+        """Eval (``module.eval()``): returns ``(final_hm, kf_bb_hm)``,
+        (B, J, h, w) each, in the compute dtype. Training
+        (``module.train()``): returns ``(final_hm, sup_warped_hms, kf_bb_hm,
+        mi)`` with one auxiliary heatmap per supporting frame and the six
+        float32 MI terms. ``train`` defaults to ``self.training`` and must
+        agree with it, since BatchNorm follows the module's mode."""
+        train = self.training if train is None else bool(train)
+        if train != self.training:
+            raise ValueError(
+                f"forward(train={train}) on a module in "
+                f"{'train' if self.training else 'eval'} mode: call "
+                f".train() or .eval() first"
+            )
         b = kf_x.shape[0]
         n = sup_x.shape[1] // 3
         if n != self.num_sup:
@@ -156,19 +186,59 @@ class FAMIPose(nn.Module):
                              f"frames, got {n}")
         x = torch.cat([kf_x] + list(torch.split(sup_x, 3, dim=1)), dim=0)
         bb_hm, feats = self.hrnet(x.to(self.compute_dtype))
-        return self.head(feats[0], b), bb_hm[:b]
+        if not train:
+            return self.head(feats[0], b), bb_hm[:b]
+        final_hm, sup_hms, mi = self.head(feats[0], b)
+        return final_hm, sup_hms, bb_hm[:b], mi
+
+    def _feat_label_mi(self, feat_in, y):
+        """I(features; labels) estimate: the shared heatmap head's prediction
+        from ``feat_in``, detached, against the heatmaps ``y``. The JAX
+        package flattens its (B, h, w, J) heatmaps to (B*J, h*w) rows without
+        moving the joints first; the rows here are cut the same way."""
+        rows = y.shape[0] * y.shape[1]
+        pred = self.hrnet.final_layer(feat_in).detach()
+
+        def logits(t):
+            t = t.to(torch.float32).permute(0, 2, 3, 1)
+            return t.reshape(rows, -1) / MI_TEMPERATURE
+
+        return _softmax_kl(logits(pred), logits(y))
+
+    @staticmethod
+    def _feat_feat_mi(f1, f2):
+        """I(features; features) estimate over per-channel maps, ``f1``
+        detached."""
+        rows = f1.shape[0] * f1.shape[1]
+        return _softmax_kl(
+            f1.detach().to(torch.float32).reshape(rows, -1) / MI_TEMPERATURE,
+            f2.to(torch.float32).reshape(rows, -1) / MI_TEMPERATURE,
+        )
 
     def head(self, feat, b):
         """Alignment and fusion (the JAX ``_head``): ``feat`` holds the
         backbone's 1/4-resolution features of the ``b`` key frames followed
-        by those of the supporting frames, frame-major; returns final_hm."""
+        by those of the supporting frames, frame-major. Returns final_hm in
+        eval mode and ``(final_hm, sup_warped_hms, mi)`` in training."""
         n = self.num_sup
         kf_feat = feat[:b]
-        all_sup = feat[b:]
-        diffs = all_sup - kf_feat.repeat(n, 1, 1, 1)
-        offs = self.feat_global_offset_layers(diffs)  # (N*B, 2) = (tx, ty)
-        ga_all = warp_translate(all_sup, offs, max_shift=self.warp_max_shift)
-        aligned = [ga_all[i * b:(i + 1) * b] for i in range(n)]
+        sup_hms = []
+        if self.training:
+            aligned = []
+            for i in range(n):
+                sup_feat = feat[(i + 1) * b:(i + 2) * b]
+                off = self.feat_global_offset_layers(sup_feat - kf_feat)
+                ga = warp_translate(sup_feat, off,
+                                    max_shift=self.warp_max_shift)
+                aligned.append(ga)
+                sup_hms.append(self.hrnet.final_layer(ga))
+        else:
+            all_sup = feat[b:]
+            diffs = all_sup - kf_feat.repeat(n, 1, 1, 1)
+            offs = self.feat_global_offset_layers(diffs)  # (N*B, 2): tx, ty
+            ga_all = warp_translate(all_sup, offs,
+                                    max_shift=self.warp_max_shift)
+            aligned = [ga_all[i * b:(i + 1) * b] for i in range(n)]
 
         agg_sup = self.sup_agg_block(torch.cat(aligned, dim=1))
         combined = self.combined_feat_layers(torch.cat([agg_sup, kf_feat], 1))
@@ -182,4 +252,40 @@ class FAMIPose(nn.Module):
         fused = self.init_feature_agg_block(
             torch.cat([kf_feat, aligned_sup], dim=1)
         )
-        return self.agg_final_layer(fused)
+        final_hm = self.agg_final_layer(fused)
+        if not self.training:
+            return final_hm
+        mi = [
+            self._feat_label_mi(fused, final_hm),    # I(y_t ; z~)
+            self._feat_feat_mi(kf_feat, fused),      # I(z_t ; z~)
+            self._feat_label_mi(agg_sup, final_hm),  # I(y_t ; z_sup)
+            self._feat_feat_mi(agg_sup, fused),      # I(z_sup ; z~)
+            self._feat_label_mi(kf_feat, final_hm),  # I(y_t ; z_t)
+            self._feat_feat_mi(kf_feat, fused),      # I(z_t ; z~), as term 2
+        ]
+        return final_hm, sup_hms, mi
+
+
+def init_weights_reference(model, seed=0, std=0.001):
+    """Re-sample the head's conv and linear weights ~ N(0, std), zero its
+    biases and set its BatchNorm scales to one, as the reference's
+    ``init_weights`` does (``MODEL.INIT_WEIGHTS``). The backbone (``hrnet.*``
+    except the shared ``hrnet.final_layer``, which the JAX package scopes
+    outside the backbone) and the deformable convs' weights stay as they
+    are; the deformable convs' biases are zeroed."""
+    gen = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            parts = name.split(".")
+            if parts[0] == "hrnet" and parts[1] != "final_layer":
+                continue
+            module = model.get_submodule(".".join(parts[:-1]))
+            if parts[-1] == "bias":
+                p.zero_()
+            elif isinstance(module, DeformConv):
+                continue
+            elif p.dim() == 1:  # BatchNorm scale
+                p.fill_(1.0)
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen) * std)
+    return model

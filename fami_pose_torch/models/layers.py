@@ -8,8 +8,8 @@ port ``state_dict`` maps onto the JAX package's flax tree through
 
 Compute dtype: parameters stay float32; :class:`Conv2d` and :class:`Linear`
 cast their weights to the dtype of their input (bfloat16 on the serving path), and
-:class:`BatchNorm` normalizes in float32 with its running statistics and
-casts back. This is the eval slice: BatchNorm has no batch-statistics mode.
+:class:`BatchNorm` normalizes in float32 and casts back: with its running
+statistics in eval mode, with the batch's in training mode.
 """
 
 import torch
@@ -35,9 +35,21 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
+BN_MOMENTUM = 0.1  # update fraction (flax: retain fraction 0.9)
+
+
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm2d (eps 1e-5) over the channel axis, running
-    statistics, float32 arithmetic."""
+    """BatchNorm2d (eps 1e-5) over the channel axis, float32 arithmetic.
+
+    Eval mode normalizes with the running statistics. Training mode
+    (``module.train()``) normalizes with the batch's mean and biased
+    variance and moves the running statistics a fraction 0.1 toward them.
+    The running variance takes the *biased* batch variance, as flax's
+    ``nn.BatchNorm`` does (``F.batch_norm`` alone would store the unbiased
+    one): the fused op writes the batch statistics into scratch buffers
+    (momentum 1), and the unbiased variance it reports is scaled back by
+    (n - 1) / n before the update.
+    """
 
     def __init__(self, num_features):
         super().__init__()
@@ -47,10 +59,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
-        y = F.batch_norm(
-            x.to(torch.float32), self.running_mean, self.running_var,
-            self.weight, self.bias, False, 0.0, BN_EPS,
-        )
+        x32 = x.to(torch.float32)
+        if not self.training:
+            y = F.batch_norm(
+                x32, self.running_mean, self.running_var, self.weight,
+                self.bias, False, 0.0, BN_EPS,
+            )
+            return y.to(x.dtype)
+        count = x.numel() // x.shape[1]
+        # zeros, not empty: the op computes 0 * old + 1 * batch
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x32, mean, var, self.weight, self.bias, True, 1.0,
+                         BN_EPS)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, BN_MOMENTUM)
+            self.running_var.lerp_(var * ((count - 1) / count), BN_MOMENTUM)
         return y.to(x.dtype)
 
 

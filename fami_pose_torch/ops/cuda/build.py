@@ -26,7 +26,7 @@ import tempfile
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "_build")
-SOURCES = ("dcn_fwd.cu", "warp.cu")
+SOURCES = ("dcn_fwd.cu", "dcn_bwd.cu", "warp.cu", "warp_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -42,8 +42,14 @@ SIGNATURES = {
     # x, offset, mask, weight, out, dtype, B, C, H, W, Cout, Ho, Wo,
     # kh, kw, pad, dil, groups, max_offset, stream
     "fami_dcn_fwd": [c_ptr] * 5 + [c_int] * 13 + [c_float, c_ptr],
+    # x, offset, mask, weight, gout, dx, doffset, dmask, dweight, dtype,
+    # B, C, H, W, Cout, Ho, Wo, kh, kw, pad, dil, groups, max_offset, stream
+    "fami_dcn_bwd": [c_ptr] * 9 + [c_int] * 13 + [c_float, c_ptr],
     # images, offsets, out, dtype, N, C, H, W, max_shift, stream
     "fami_warp_translate": [c_ptr] * 3 + [c_int] * 5 + [c_float, c_ptr],
+    # images, offsets, gout, d_images, d_offsets, dtype, N, C, H, W,
+    # max_shift, stream
+    "fami_warp_translate_bwd": [c_ptr] * 5 + [c_int] * 5 + [c_float, c_ptr],
 }
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

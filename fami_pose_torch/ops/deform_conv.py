@@ -18,6 +18,20 @@ gather; the scan is the same function as "clamp, then exact bilinear gather"
 the latter. On a CUDA tensor the wrapper launches the hand-written kernel
 ``ops/cuda/csrc/dcn_fwd.cu`` (which replaces the TPU kernel
 ``fami_pose_tpu/ops/pallas/dcn.py::deform_conv2d_pallas``).
+
+The backward is ``ops/cuda/csrc/dcn_bwd.cu`` on a CUDA tensor (it replaces
+``fami_pose_tpu/ops/pallas/dcn_bwd.py::deform_conv2d_windowed_bwd_pallas``)
+and :func:`deform_conv2d_backward_plain` on a CPU tensor; one
+``torch.autograd.Function`` routes both devices. The derivative with respect
+to an offset follows the TPU kernel, the one the configured train path runs:
+per axis it is the slope of the bilinear blend between the two neighbouring
+samples, **zero where the clamped offset is an integer** (the hat weight's
+``-sign(u) * (|u| < 1)`` vanishes at u = 0 and |u| = 1) and zero where the
+raw offset lies outside ``[-max_offset, max_offset]`` (bounds included in the
+pass-through, as ``torch.clamp``). Autograd through :func:`deform_conv2d`
+would give the right-hand difference at an integer instead, and
+``jax.vjp`` of the XLA form the central one; with bfloat16 offsets integers
+are common, so the backward is written out in closed form here.
 """
 
 import torch
@@ -27,6 +41,12 @@ def _pair(v):
     if isinstance(v, (tuple, list)):
         return int(v[0]), int(v[1])
     return int(v), int(v)
+
+
+def _work_dtype(x):
+    """float32 arithmetic, or float64 for float64 inputs (finite-difference
+    checks)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
 def _bilinear_grouped(xg, py, px):
@@ -65,7 +85,8 @@ def _bilinear_grouped(xg, py, px):
 
 def deform_conv2d(x, offset, mask, weight, bias=None, *, stride=1, padding=0,
                   dilation=1, offset_groups=None, max_offset=None):
-    """Plain torch modulated deformable conv (NCHW), computed in float32.
+    """Plain torch modulated deformable conv (NCHW), computed in float32
+    (float64 for float64 inputs).
 
     Args:
       x: (N, C, H, W); offset: (N, 2*G*K, Ho, Wo); mask: (N, G*K, Ho, Wo) or
@@ -95,7 +116,7 @@ def deform_conv2d(x, offset, mask, weight, bias=None, *, stride=1, padding=0,
     cg = c // g
     ho, wo = offset.shape[2], offset.shape[3]
 
-    f32 = torch.float32
+    f32 = _work_dtype(x)
     off = offset.to(f32).reshape(n, g, k, 2, ho, wo)
     if max_offset is not None and float(max_offset) > 0:
         off = off.clamp(-float(max_offset), float(max_offset))
@@ -189,32 +210,216 @@ def _deform_conv_cuda(x, offset, mask, weight, padding, dilation, groups,
     return out
 
 
+def deform_conv2d_backward_plain(x, offset, mask, weight, gout, *, padding=0,
+                                 dilation=1, offset_groups=None,
+                                 max_offset=None):
+    """Plain torch gradients of the stride-1 :func:`deform_conv2d` (without
+    its bias), computed in float32 in closed form.
+
+    Args as :func:`deform_conv2d`, plus ``gout`` (N, C_out, Ho, Wo), the
+    gradient of the output. Returns ``(dx, doffset, dmask, dweight)``: dx in
+    ``x``'s dtype, doffset and dmask in ``offset``'s (dmask None without a
+    mask), dweight in ``weight``'s. The offset derivative is zero on an axis
+    whose clamped offset is an integer or whose raw offset lies outside
+    ``[-max_offset, max_offset]`` (module docstring).
+    """
+    n, c, h, w = x.shape
+    c_out, _, kh, kw = weight.shape
+    k = kh * kw
+    ph, pw = _pair(padding)
+    dh, dw = _pair(dilation)
+    g = offset_groups or offset.shape[1] // (2 * k)
+    cg = c // g
+    ho, wo = offset.shape[2], offset.shape[3]
+    f32 = _work_dtype(x)
+    dev = x.device
+
+    raw = offset.to(f32).reshape(n, g, k, 2, ho, wo)
+    clamped = max_offset is not None and float(max_offset) > 0
+    if clamped:
+        d = float(max_offset)
+        off = raw.clamp(-d, d)
+        passes = (raw >= -d) & (raw <= d)
+    else:
+        off = raw
+        passes = torch.ones_like(raw, dtype=torch.bool)
+    msk = None if mask is None else mask.to(f32).reshape(n, g, k, ho, wo)
+    flat = x.to(f32).reshape(n, g, cg, h * w)
+    go = gout.to(f32).reshape(n, c_out, ho * wo)
+    w_k = weight.to(f32).reshape(c_out, c, k)
+    ys = (torch.arange(ho, device=dev) - ph).view(1, 1, ho, 1)
+    xs = (torch.arange(wo, device=dev) - pw).view(1, 1, 1, wo)
+
+    dx = torch.zeros(n, g, cg, h * w, dtype=f32, device=dev)
+    doff = torch.zeros_like(raw)
+    dmsk = None if msk is None else torch.zeros_like(msk)
+    dweight = torch.zeros(c_out, c, k, dtype=f32, device=dev)
+    for a in range(kh):
+        for b in range(kw):
+            t = a * kw + b
+            # gradient of the sampled column of this tap: gout . W_t^T
+            dcol = torch.einsum("oc,nop->ncp", w_k[:, :, t], go)
+            dcol = dcol.reshape(n, g, cg, ho, wo)
+            ty, tx = off[:, :, t, 0], off[:, :, t, 1]
+            ty0, tx0 = torch.floor(ty), torch.floor(tx)
+            ly, lx = ty - ty0, tx - tx0
+            y0 = (ys + a * dh + ty0).long()
+            x0 = (xs + b * dw + tx0).long()
+            m = 1.0 if msk is None else msk[:, :, t]
+
+            vals, idxs, valids = [], [], []
+            for yi, xi in ((y0, x0), (y0, x0 + 1), (y0 + 1, x0),
+                           (y0 + 1, x0 + 1)):
+                valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+                idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1))
+                idx = idx.reshape(n, g, 1, -1).expand(-1, -1, cg, -1)
+                v = torch.gather(flat, 3, idx).reshape(n, g, cg, ho, wo)
+                vals.append(v * valid.unsqueeze(2))
+                idxs.append(idx)
+                valids.append(valid)
+            v00, v01, v10, v11 = vals
+            wts = ((1 - ly) * (1 - lx), (1 - ly) * lx, ly * (1 - lx), ly * lx)
+            s = sum(wt.unsqueeze(2) * v for wt, v in zip(wts, vals))
+
+            col = (s * m.unsqueeze(2) if msk is not None else s)
+            dweight[:, :, t] = torch.einsum(
+                "nop,ncp->oc", go, col.reshape(n, c, ho * wo))
+            if dmsk is not None:
+                dmsk[:, :, t] = (s * dcol).sum(dim=2)
+            slope_y = ((v10 - v00) * (1 - lx).unsqueeze(2)
+                       + (v11 - v01) * lx.unsqueeze(2))
+            slope_x = ((v01 - v00) * (1 - ly).unsqueeze(2)
+                       + (v11 - v10) * ly.unsqueeze(2))
+            doff[:, :, t, 0] = ((slope_y * dcol).sum(dim=2) * m
+                                * (passes[:, :, t, 0] & (ly != 0)))
+            doff[:, :, t, 1] = ((slope_x * dcol).sum(dim=2) * m
+                                * (passes[:, :, t, 1] & (lx != 0)))
+            for wt, idx, valid in zip(wts, idxs, valids):
+                contrib = (wt * m * valid).unsqueeze(2) * dcol
+                dx.scatter_add_(3, idx, contrib.reshape(n, g, cg, -1))
+    return (
+        dx.reshape(n, c, h, w).to(x.dtype),
+        doff.reshape(offset.shape).to(offset.dtype),
+        None if dmsk is None else dmsk.reshape(mask.shape).to(offset.dtype),
+        dweight.reshape(weight.shape).to(weight.dtype),
+    )
+
+
+def _deform_conv_backward_cuda(x, offset, mask, weight, gout, padding,
+                               dilation, groups, max_offset):
+    from .cuda.build import DTYPE_CODES, check, load_library, stream_ptr
+
+    dtype = str(x.dtype).replace("torch.", "")
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"DCN kernel takes float32 or bfloat16, got {dtype}")
+    ho, wo = _check_kernel_args(
+        x, offset, mask, weight, padding, dilation, groups
+    )
+    n, c, h, w = x.shape
+    c_out, _, kh, kw = weight.shape
+    if tuple(gout.shape) != (n, c_out, ho, wo) or gout.device != x.device:
+        raise ValueError(f"gout {tuple(gout.shape)} on {gout.device}, expected "
+                         f"{(n, c_out, ho, wo)} on {x.device}")
+    if c > 64:
+        raise ValueError(f"DCN backward kernel takes C <= 64, got {c}")
+    smem = (2 * kh * kw * c * c_out + (c_out + 2 * c) * 68) * 4
+    if smem > 232448:
+        raise ValueError(
+            f"DCN backward kernel: weights, their gradient and the tiles "
+            f"need {smem} B of shared memory (C={c}, C_out={c_out}); the "
+            f"card has 232448"
+        )
+    x, offset, weight = x.contiguous(), offset.contiguous(), weight.contiguous()
+    mask = None if mask is None else mask.contiguous()
+    gout = gout.to(x.dtype).contiguous()
+    f32 = torch.float32
+    # dx and dweight are summed with atomicAdd into float32 buffers, cast once
+    dx = torch.zeros((n, c, h, w), dtype=f32, device=x.device)
+    dweight = torch.zeros(weight.shape, dtype=f32, device=x.device)
+    doffset = torch.empty_like(offset)
+    dmask = None if mask is None else torch.empty_like(mask)
+    lib = load_library()
+    err = lib.fami_dcn_bwd(
+        x.data_ptr(), offset.data_ptr(),
+        None if mask is None else mask.data_ptr(), weight.data_ptr(),
+        gout.data_ptr(), dx.data_ptr(), doffset.data_ptr(),
+        None if dmask is None else dmask.data_ptr(), dweight.data_ptr(),
+        DTYPE_CODES[dtype], n, c, h, w, c_out, ho, wo, kh, kw, padding,
+        dilation, groups,
+        float(max_offset) if max_offset is not None else 0.0,
+        stream_ptr(x),
+    )
+    check(lib, err, "fami_dcn_bwd")
+    deform_conv2d_backward.launches += 1
+    return dx.to(x.dtype), doffset, dmask, dweight.to(weight.dtype)
+
+
+def deform_conv2d_backward(x, offset, mask, weight, gout, *, padding=0,
+                           dilation=1, offset_groups=None, max_offset=None):
+    """Gradients ``(dx, doffset, dmask, dweight)`` of the model's DCN: the
+    plain version for CPU tensors, the CUDA kernel (counted in
+    ``deform_conv2d_backward.launches``) for CUDA tensors, or an error.
+    dx and dweight are summed with atomics on the card, so their last bits
+    vary from run to run."""
+    k = weight.shape[2] * weight.shape[3]
+    groups = int(offset_groups or offset.shape[1] // (2 * k))
+    if x.device.type == "cpu":
+        return deform_conv2d_backward_plain(
+            x, offset, mask, weight, gout, padding=padding, dilation=dilation,
+            offset_groups=groups, max_offset=max_offset,
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"no DCN kernel for device {x.device}")
+    return _deform_conv_backward_cuda(
+        x, offset, mask, weight, gout, int(padding), int(dilation), groups,
+        max_offset,
+    )
+
+
+deform_conv2d_backward.launches = 0
+
+
 class _DeformConvWindowed(torch.autograd.Function):
+    """The bias-free DCN on either device: kernel or plain version, forward
+    and backward, chosen by ``x.device``."""
+
     @staticmethod
     def forward(ctx, x, offset, mask, weight, padding, dilation, groups,
                 max_offset):
+        ctx.save_for_backward(x, offset, mask, weight)
+        ctx.conf = (padding, dilation, groups, max_offset)
+        if x.device.type == "cpu":
+            return deform_conv2d(
+                x, offset, mask, weight, None, stride=1, padding=padding,
+                dilation=dilation, offset_groups=groups,
+                max_offset=max_offset,
+            )
         return _deform_conv_cuda(
             x, offset, mask, weight, padding, dilation, groups, max_offset
         )
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError("DCN backward kernel: ROADMAP Queue 2 item 2")
+    def backward(ctx, gout):
+        x, offset, mask, weight = ctx.saved_tensors
+        padding, dilation, groups, max_offset = ctx.conf
+        grads = deform_conv2d_backward(
+            x, offset, mask, weight, gout, padding=padding, dilation=dilation,
+            offset_groups=groups, max_offset=max_offset,
+        )
+        need = ctx.needs_input_grad
+        return tuple(gr if need[i] else None
+                     for i, gr in enumerate(grads)) + (None,) * 4
 
 
 def deform_conv2d_windowed(x, offset, mask, weight, bias=None, *, padding=0,
                            dilation=1, offset_groups=None, max_offset=6):
     """The model's DCN: stride 1, offsets clamped to ±``max_offset`` (None or
-    <= 0: exact). A CPU tensor runs :func:`deform_conv2d`; a CUDA tensor
-    launches the kernel (``deform_conv2d_windowed.launches`` counts them)
-    or raises. The bias is added after the kernel, in ``x``'s dtype."""
-    if x.device.type == "cpu":
-        return deform_conv2d(
-            x, offset, mask, weight, bias, stride=1, padding=padding,
-            dilation=dilation, offset_groups=offset_groups,
-            max_offset=max_offset,
-        )
-    if x.device.type != "cuda":
+    <= 0: exact), differentiable in x, offset, mask, weight and bias. A CPU
+    tensor runs the plain versions; a CUDA tensor launches the kernels
+    (``deform_conv2d_windowed.launches`` counts the forward's,
+    ``deform_conv2d_backward.launches`` the backward's) or raises. The bias
+    is added after the kernel, in ``x``'s dtype."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no DCN kernel for device {x.device}")
     k = weight.shape[2] * weight.shape[3]
     groups = offset_groups or offset.shape[1] // (2 * k)

@@ -1,6 +1,7 @@
-"""Heatmap decode on the device (``fami_pose_tpu/ops/heatmap.py``):
-argmax, the classic ±0.25-pixel gradient-sign refinement, and the
-inverse-affine back-transform to source-image pixels.
+"""Gaussian heatmap targets and heatmap decode on the device
+(``fami_pose_tpu/ops/heatmap.py``): the separable integer-quantized target
+stamp, and for the decode argmax, the classic ±0.25-pixel gradient-sign
+refinement and the inverse-affine back-transform to source-image pixels.
 
 The back-transform uses the *classic* (non-DARK) affine even though the
 crops are DARK-warped: that asymmetry is part of the reference protocol.
@@ -9,6 +10,45 @@ crops are DARK-warped: that asymmetry is part of the reference protocol.
 import torch
 
 from .affine import affine_matrix, apply_affine
+
+
+def generate_heatmaps(joints, joints_vis, sigma, image_size, heatmap_size):
+    """Batched Gaussian target stamping.
+
+    Args:
+      joints: (..., J, 2) joint coordinates in input-crop pixels.
+      joints_vis: (..., J) visibility (0/1).
+      sigma: Gaussian width in heatmap pixels; the stamp covers 3 sigma.
+      image_size, heatmap_size: (w, h) of the crop and of the target map.
+
+    Returns ``target`` (..., J, Hh, Hw) float32 and ``weight`` (..., J, 1)
+    float32 (1 visible, 0 invisible or window off the map). The centre is
+    quantized as ``trunc(x / stride + 0.5)``; one outer product of two 1-D
+    windows per joint reproduces the reference's windowed stamp.
+    """
+    hw, hh = int(heatmap_size[0]), int(heatmap_size[1])
+    stride_x = image_size[0] / heatmap_size[0]
+    stride_y = image_size[1] / heatmap_size[1]
+    t = int(sigma * 3)
+    joints = torch.as_tensor(joints).to(torch.float32)
+    vis = torch.as_tensor(joints_vis).to(torch.float32).to(joints.device)
+
+    mu_x = torch.trunc(joints[..., 0] / stride_x + 0.5)
+    mu_y = torch.trunc(joints[..., 1] / stride_y + 0.5)
+    in_window = ((mu_x - t < hw) & (mu_y - t < hh)
+                 & (mu_x + t + 1 >= 0) & (mu_y + t + 1 >= 0))
+    weight = vis * in_window.to(torch.float32)
+    stamp = (weight > 0.5).to(torch.float32)
+
+    xs = torch.arange(hw, dtype=torch.float32, device=joints.device)
+    ys = torch.arange(hh, dtype=torch.float32, device=joints.device)
+    dx = xs - mu_x[..., None]  # (..., J, Hw)
+    dy = ys - mu_y[..., None]  # (..., J, Hh)
+    inv_two_sigma2 = 1.0 / (2.0 * float(sigma) ** 2)
+    gx = torch.exp(-dx * dx * inv_two_sigma2) * (dx.abs() <= t)
+    gy = torch.exp(-dy * dy * inv_two_sigma2) * (dy.abs() <= t)
+    target = gy[..., :, None] * gx[..., None, :] * stamp[..., None, None]
+    return target, weight[..., None]
 
 
 def get_max_preds(heatmaps):

@@ -6,7 +6,9 @@ padding, translations clamped to ``±max_shift``. On a CUDA tensor it launches
 the hand-written kernel ``ops/cuda/csrc/warp.cu`` (which replaces the TPU
 kernel ``fami_pose_tpu/ops/pallas/warp.py::warp_translate_pallas``); on a CPU
 tensor it runs :func:`warp_translate_plain`, the same function in plain
-torch. The JAX package's ``WARP_IMPL`` choices (``slice``, ``matmul``,
+torch. Its gradient is the kernel ``ops/cuda/csrc/warp_bwd.cu`` on the card
+and :func:`warp_translate_backward_plain` on the CPU, through one
+``torch.autograd.Function`` for both devices. The JAX package's ``WARP_IMPL`` choices (``slice``, ``matmul``,
 ``pallas``) all compute this one function, so the port has one warp for all
 of them; only the clamp differs (32 for ``slice``).
 """
@@ -14,6 +16,31 @@ of them; only the clamp differs (32 for ``slice``).
 import torch
 
 from .affine import affine_matrix, invert_affine
+
+
+def _shift_parts(offsets, max_shift):
+    """Clamp (N, 2) translations and split them: integer parts (tx0, ty0) as
+    int64 (N,), fractions (fx, fy) as float32 (N, 1, 1, 1), and the per-axis
+    pass-through of the clamp (bounds included, as ``torch.clamp``)."""
+    raw = offsets.to(torch.float32)
+    t = raw.clamp(-max_shift, max_shift)
+    t0 = torch.floor(t)
+    f = (t - t0).view(-1, 2, 1, 1, 1)
+    passes = (raw >= -max_shift) & (raw <= max_shift)
+    return t0[:, 0].long(), t0[:, 1].long(), f[:, 0], f[:, 1], passes
+
+
+def _shifted(img, dy, dx, margin):
+    """``img`` (N, C, H, W) float32 read at (y + dy[n], x + dx[n]), zeros
+    outside; per-image integer shifts within ``±margin``."""
+    n, c, h, w = img.shape
+    pad = torch.nn.functional.pad(img, (margin,) * 4).permute(0, 2, 3, 1)
+    rows = torch.arange(h, device=img.device)
+    cols = torch.arange(w, device=img.device)
+    bidx = torch.arange(n, device=img.device)[:, None, None]
+    yy = (margin + dy[:, None] + rows[None, :])[:, :, None]  # (N, H, 1)
+    xx = (margin + dx[:, None] + cols[None, :])[:, None, :]  # (N, 1, W)
+    return pad[bidx, yy, xx].permute(0, 3, 1, 2)
 
 
 def warp_translate_plain(images, offsets, max_shift=32):
@@ -25,37 +52,52 @@ def warp_translate_plain(images, offsets, max_shift=32):
 
     Returns (N, C, H, W) in ``images``' dtype, blended in float32.
     """
-    n, c, h, w = images.shape
     m = int(max_shift) + 1
-    pad = torch.nn.functional.pad(images.to(torch.float32), (m, m, m, m))
-    t = offsets.to(torch.float32).clamp(-max_shift, max_shift)
-    t0 = torch.floor(t)
-    f = t - t0
-    # integer origin of the (y - ty0, x - tx0) corner inside the padded image
-    ox = (m - t0[:, 0]).long()
-    oy = (m - t0[:, 1]).long()
-    rows = torch.arange(h, device=images.device)
-    cols = torch.arange(w, device=images.device)
-    bidx = torch.arange(n, device=images.device)[:, None, None]
-
-    def window(dy, dx):
-        yy = (oy[:, None] + dy + rows[None, :])[:, :, None]  # (N, H, 1)
-        xx = (ox[:, None] + dx + cols[None, :])[:, None, :]  # (N, 1, W)
-        return pad.permute(0, 2, 3, 1)[bidx, yy, xx].permute(0, 3, 1, 2)
-
-    s11 = window(0, 0)
-    s10 = window(0, -1)
-    s01 = window(-1, 0)
-    s00 = window(-1, -1)
-    fx = f[:, 0].view(n, 1, 1, 1)
-    fy = f[:, 1].view(n, 1, 1, 1)
+    img = images.to(torch.float32)
+    tx0, ty0, fx, fy, _ = _shift_parts(offsets, max_shift)
+    s11 = _shifted(img, -ty0, -tx0, m)
+    s10 = _shifted(img, -ty0, -tx0 - 1, m)
+    s01 = _shifted(img, -ty0 - 1, -tx0, m)
+    s00 = _shifted(img, -ty0 - 1, -tx0 - 1, m)
     top = s00 * fx + s01 * (1 - fx)
     bot = s10 * fx + s11 * (1 - fx)
     return (top * fy + bot * (1 - fy)).to(images.dtype)
 
 
-def _warp_translate_cuda(images, offsets, max_shift):
-    from .cuda.build import DTYPE_CODES, check, load_library, stream_ptr
+def warp_translate_backward_plain(images, offsets, gout, max_shift=32):
+    """Plain torch gradients of :func:`warp_translate_plain`.
+
+    Returns ``(d_images, d_offsets)`` in the inputs' dtypes. d_images is the
+    4-corner adjoint, a translation of ``gout`` by -t. d_offsets sums
+    ``gout * d out / d t`` over channels and pixels; the translation is split
+    into floor and fraction, so at an integer translation this is the
+    right-hand derivative (as in the JAX package's warps, and unlike the
+    DCN's convention), and it is zero on an axis whose raw translation lies
+    outside ``±max_shift``.
+    """
+    m = int(max_shift) + 1
+    img = images.to(torch.float32)
+    g = gout.to(torch.float32)
+    tx0, ty0, fx, fy, passes = _shift_parts(offsets, max_shift)
+    g11 = _shifted(g, ty0, tx0, m)
+    g10 = _shifted(g, ty0, tx0 + 1, m)
+    g01 = _shifted(g, ty0 + 1, tx0, m)
+    g00 = _shifted(g, ty0 + 1, tx0 + 1, m)
+    d_images = (fy * (fx * g00 + (1 - fx) * g01)
+                + (1 - fy) * (fx * g10 + (1 - fx) * g11))
+    s11 = _shifted(img, -ty0, -tx0, m)
+    s10 = _shifted(img, -ty0, -tx0 - 1, m)
+    s01 = _shifted(img, -ty0 - 1, -tx0, m)
+    s00 = _shifted(img, -ty0 - 1, -tx0 - 1, m)
+    d_tx = (g * (fy * (s00 - s01) + (1 - fy) * (s10 - s11))).sum(dim=(1, 2, 3))
+    d_ty = (g * ((fx * s00 + (1 - fx) * s01)
+                 - (fx * s10 + (1 - fx) * s11))).sum(dim=(1, 2, 3))
+    d_offsets = torch.stack([d_tx, d_ty], dim=1) * passes
+    return d_images.to(images.dtype), d_offsets.to(offsets.dtype)
+
+
+def _check_warp_args(images, offsets):
+    from .cuda.build import DTYPE_CODES
 
     dtype = str(images.dtype).replace("torch.", "")
     if dtype not in DTYPE_CODES:
@@ -67,6 +109,13 @@ def _warp_translate_cuda(images, offsets, max_shift):
         )
     if offsets.device != images.device:
         raise ValueError("images and offsets must be on the same device")
+    return DTYPE_CODES[dtype]
+
+
+def _warp_translate_cuda(images, offsets, max_shift):
+    from .cuda.build import check, load_library, stream_ptr
+
+    code = _check_warp_args(images, offsets)
     images = images.contiguous()
     offsets = offsets.to(torch.float32).contiguous()
     out = torch.empty_like(images)
@@ -74,33 +123,82 @@ def _warp_translate_cuda(images, offsets, max_shift):
     n, c, h, w = images.shape
     err = lib.fami_warp_translate(
         images.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-        DTYPE_CODES[dtype], n, c, h, w, float(max_shift), stream_ptr(images),
+        code, n, c, h, w, float(max_shift), stream_ptr(images),
     )
     check(lib, err, "fami_warp_translate")
     warp_translate.launches += 1
     return out
 
 
+def _warp_translate_backward_cuda(images, offsets, gout, max_shift):
+    from .cuda.build import check, load_library, stream_ptr
+
+    code = _check_warp_args(images, offsets)
+    if gout.shape != images.shape or gout.device != images.device:
+        raise ValueError(f"gout {tuple(gout.shape)} on {gout.device}, expected "
+                         f"{tuple(images.shape)} on {images.device}")
+    images = images.contiguous()
+    gout = gout.to(images.dtype).contiguous()
+    offs = offsets.to(torch.float32).contiguous()
+    d_images = torch.empty_like(images)
+    # the blocks add their partial sums into this buffer with atomicAdd
+    d_offsets = torch.zeros_like(offs)
+    lib = load_library()
+    n, c, h, w = images.shape
+    err = lib.fami_warp_translate_bwd(
+        images.data_ptr(), offs.data_ptr(), gout.data_ptr(),
+        d_images.data_ptr(), d_offsets.data_ptr(), code, n, c, h, w,
+        float(max_shift), stream_ptr(images),
+    )
+    check(lib, err, "fami_warp_translate_bwd")
+    warp_translate_backward.launches += 1
+    return d_images, d_offsets.to(offsets.dtype)
+
+
+def warp_translate_backward(images, offsets, gout, max_shift=32):
+    """Gradients ``(d_images, d_offsets)`` of the translation warp: the
+    plain version for CPU tensors, the CUDA kernel ``ops/cuda/csrc/warp_bwd.cu``
+    (counted in ``warp_translate_backward.launches``) for CUDA tensors, or an
+    error."""
+    if images.device.type == "cpu":
+        return warp_translate_backward_plain(images, offsets, gout, max_shift)
+    if images.device.type != "cuda":
+        raise ValueError(f"no warp kernel for device {images.device}")
+    return _warp_translate_backward_cuda(images, offsets, gout, max_shift)
+
+
+warp_translate_backward.launches = 0
+
+
 class _WarpTranslate(torch.autograd.Function):
+    """The warp on either device: kernel or plain version, forward and
+    backward, chosen by ``images.device``."""
+
     @staticmethod
     def forward(ctx, images, offsets, max_shift):
+        ctx.save_for_backward(images, offsets)
+        ctx.max_shift = max_shift
+        if images.device.type == "cpu":
+            return warp_translate_plain(images, offsets, max_shift)
         return _warp_translate_cuda(images, offsets, max_shift)
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(
-            "warp backward: comes with the training slice (ROADMAP Queue 1 "
-            "item 7)"
+    def backward(ctx, gout):
+        images, offsets = ctx.saved_tensors
+        d_images, d_offsets = warp_translate_backward(
+            images, offsets, gout, ctx.max_shift
         )
+        need = ctx.needs_input_grad
+        return (d_images if need[0] else None,
+                d_offsets if need[1] else None, None)
 
 
 def warp_translate(images, offsets, max_shift=32):
-    """Translation warp: the CUDA kernel for a CUDA tensor, the plain torch
-    version for a CPU tensor. ``warp_translate.launches`` counts kernel
-    launches."""
-    if images.device.type == "cpu":
-        return warp_translate_plain(images, offsets, max_shift)
-    if images.device.type != "cuda":
+    """Translation warp, differentiable in images and offsets: the CUDA
+    kernels for a CUDA tensor, the plain torch versions for a CPU tensor.
+    ``warp_translate.launches`` counts the forward kernel's launches,
+    ``warp_translate_backward.launches`` the backward's."""
+    if images.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no warp kernel for device {images.device}")
     return _WarpTranslate.apply(images, offsets, max_shift)
 

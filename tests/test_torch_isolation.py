@@ -41,6 +41,14 @@ def test_port_files_found():
     files = _port_files()
     assert os.path.join(ROOT, "chip_smoke.py") in files
     assert len(files) > 15
+    rel = {os.path.relpath(f, os.path.join(ROOT, "fami_pose_torch"))
+           for f in files}
+    # the train slice's modules are under the same guard
+    for name in ("engine/trainer.py", "engine/train_state.py",
+                 "engine/checkpoints.py", "engine/steps.py",
+                 "losses/heatmap.py", "optim/optimizer.py",
+                 "utils/meters.py", "data/loader.py"):
+        assert name in rel, name
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -60,7 +68,8 @@ def test_imports_without_triton_or_nvcc(tmp_path):
         "for m in pkgutil.walk_packages(fami_pose_torch.__path__, "
         "'fami_pose_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "assert not any(k.split('.')[0] in ('jax', 'flax', 'fami_pose_tpu') "
+        "assert not any(k.split('.')[0] in ('jax', 'flax', 'optax', "
+        "'fami_pose_tpu') "
         "for k in sys.modules), 'the port pulled in JAX'\n"
         "print('ok')\n"
     )
@@ -75,9 +84,11 @@ def test_imports_without_triton_or_nvcc(tmp_path):
 def test_entry_points_default_to_cuda():
     from fami_pose_torch.demo import parse_args
     from fami_pose_torch.engine.predictor import PosePredictor
+    from fami_pose_torch.engine.trainer import Trainer
 
-    sig = inspect.signature(PosePredictor.__init__)
-    assert sig.parameters["device"].default == "cuda"
+    for cls in (PosePredictor, Trainer):
+        sig = inspect.signature(cls.__init__)
+        assert sig.parameters["device"].default == "cuda", cls
     assert parse_args(["--cfg", "c", "--frames", "f"]).device == "cuda"
 
 
