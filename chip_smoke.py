@@ -14,9 +14,10 @@ and as the last line ``{"ok": true, "device": {...}}``:
                the main-path shapes: the DCN forward and backward at B=8, 48
                channels, 96x72, 12 groups, D in {4, 1, exact}, f32 and bf16,
                a third of the offsets past D and a quarter rounded to
-               integers; the translation warp at (32, 48, 96, 72) and its
-               backward at (8, 48, 96, 72) with shifts past +-26. Kernel,
-               plain and library times (CUDA events).
+               integers; the translation warp at (32, 48, 96, 72), the
+               serving path's shape, and at (8, 48, 96, 72), the train
+               path's, and its backward at (8, 48, 96, 72), with shifts past
+               +-26. Kernel, plain and library times (CUDA events).
   4. main    - ``PosePredictor`` on ``configs/posetrack17/fami_pose.yaml``
                (HRNet-W48, 384x288, bf16, D=4, 4 supporting frames,
                flip-test as under VAL.FLIP_VAL) with seeded random weights,
@@ -31,18 +32,23 @@ and as the last line ``{"ok": true, "device": {...}}``:
                8`` (the file's 48 is per GPU of the reference's 8-GPU host),
                seeded init, a seeded synthetic dataset: one epoch of 4 steps
                through ``Trainer.train`` (launch counts of the four kernels,
-               checkpoint, resume), then timed steps split into forward /
-               backward / optimizer by CUDA events, then 8 steps on one fixed
-               batch (finite loss terms and gradients, ``loss_mse`` falling),
-               and one more step traced with torch.profiler.
+               checkpoint, resume), then ``trainer.train_step`` timed from
+               synchronisation to synchronisation, a forward / backward /
+               optimizer split by CUDA events as a per-layer reading, then 8
+               steps on one fixed batch (finite loss terms and gradients,
+               ``loss_mse`` falling), and one more step traced with
+               torch.profiler.
   7. train-card-vs-cpu - f32, TF32 off, full W48 width at 256x192, B=2: the
                loss terms and every parameter's gradient of one train-mode
-               forward and backward on the card against the port on the CPU.
+               forward and backward on the card against the port on the CPU
+               (the head per tensor, the whole model as one vector), and the
+               backbone's gradients in float64 per tensor.
 
 Any failure raises: the script exits non-zero and prints no last line.
 """
 
 import copy
+import itertools
 import json
 import math
 import os
@@ -181,7 +187,8 @@ def phase_kernels():
                  library_ms=None, library="none: no single PyTorch call "
                  "computes a modulated DCN (no torchvision on the machine)")
             if dtype == torch.bfloat16 and d == 4:
-                rows["dcn_fwd"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                rows["dcn_fwd"] = dict(shape=list(x.shape), max_abs_err=err,
+                                       ms=k_ms, plain_ms=p_ms,
                                        bound_ms=bnd, bound_by=by,
                                        library_ms=None)
 
@@ -220,19 +227,23 @@ def phase_kernels():
                  library="none: no single PyTorch call computes a modulated "
                  "DCN's gradients")
             if dtype == torch.bfloat16 and d == 4:
-                rows["dcn_bwd"] = dict(max_abs_err=worst, ms=k_ms,
-                                       plain_ms=p_ms, bound_ms=bnd,
+                rows["dcn_bwd"] = dict(shape=list(x.shape), max_abs_err=worst,
+                                       ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
                                        bound_by=by, library_ms=None)
 
-    for dtype in (torch.float32, torch.bfloat16):
-        n, c, h, w = 32, 48, 96, 72
+    # the forward warp at both shapes the main paths give it: 32 images (one
+    # call for the 4 supporting frames of a B=8 serving batch) and 8 images
+    # (one call per supporting frame of a B=8 train step)
+    for dtype, n in itertools.product((torch.float32, torch.bfloat16),
+                                      (32, 8)):
+        c, h, w = 48, 96, 72
         img = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
         offs = (torch.rand(n, 2, generator=gen, device="cuda") * 2 - 1) * 40.0
         run_k = lambda: warp_translate(img, offs, max_shift=26)
         run_p = lambda: warp_translate_plain(img, offs, max_shift=26)
         got, ref = run_k(), run_p()
         torch.cuda.synchronize()
-        err, tol = check_close(f"warp {dtype}", got, ref, dtype)
+        err, tol = check_close(f"warp n={n} {dtype}", got, ref, dtype)
         # library yardstick: grid_sample (bilinear, zeros) at p - clamp(t)
         t = offs.clamp(-26, 26)
         ys = torch.arange(h, device="cuda", dtype=torch.float32)
@@ -254,9 +265,9 @@ def phase_kernels():
              library="F.grid_sample(bilinear, zeros, align_corners=True) on "
              "a precomputed grid", library_max_abs_err=lib_err)
         if dtype == torch.bfloat16:
-            rows["warp_translate"] = dict(
-                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
-                bound_by=by, library_ms=l_ms,
+            rows["warp_translate", n] = dict(
+                shape=[n, c, h, w], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                bound_ms=bnd, bound_by=by, library_ms=l_ms,
             )
 
     # the warp's backward at the train path's shape (one call per supporting
@@ -307,8 +318,8 @@ def phase_kernels():
              library_d_images_max_abs_err=lib_err)
         if dtype == torch.bfloat16:
             rows["warp_bwd"] = dict(
-                max_abs_err=max(err_i, err_o), ms=k_ms, plain_ms=p_ms,
-                bound_ms=bnd, bound_by=by, library_ms=l_ms,
+                shape=[n, c, h, w], max_abs_err=max(err_i, err_o), ms=k_ms,
+                plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms,
             )
     return rows
 
@@ -582,7 +593,8 @@ def check_gradients(model):
     return norms
 
 
-def phase_train(smi, batch=8, epoch_steps=4, timed_steps=5, fixed_steps=8):
+def phase_train(smi, batch=8, epoch_steps=4, timed_steps=7, split_steps=3,
+                fixed_steps=8):
     import tempfile
 
     from fami_pose_torch.engine.trainer import Trainer
@@ -595,7 +607,6 @@ def phase_train(smi, batch=8, epoch_steps=4, timed_steps=5, fixed_steps=8):
         num_sup = 2 * (int(cfg.DISTANCE) - 1)
         dataset = SyntheticPoseDataset(batch * epoch_steps, image_size,
                                        num_sup, int(cfg.MODEL.NUM_JOINTS))
-        torch.cuda.reset_peak_memory_stats()
         trainer = Trainer(cfg, dataset=dataset, device="cuda")
         if trainer.begin_epoch != 0 or trainer.steps_per_epoch != epoch_steps:
             raise AssertionError("fresh trainer expected")
@@ -637,17 +648,33 @@ def phase_train(smi, batch=8, epoch_steps=4, timed_steps=5, fixed_steps=8):
             f"parameters and Adam moments")
         del resumed, theirs, opt_b
         torch.cuda.empty_cache()
+        # peak memory from here on: one trainer, its Adam moments in place
+        torch.cuda.reset_peak_memory_stats()
 
-        # timed steps, split by CUDA events; the loader's batches in turn
-        model, opt = state.model, state.optimizer
+        # timed steps: the trainer's own step (forward, loss, backward, Adam,
+        # scheduler, the six PCK passes) on the loader's batches in turn,
+        # each from one device synchronisation to the next
         raws = list(trainer.loader)
-        marks = []
-        step_ms = []
+        step_ms, prepare_ms = [], []
         for i in range(timed_steps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            batch_t = trainer.prepare(raws[i % len(raws)])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            trainer.train_step(state, batch_t)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t2) * 1e3)
+            prepare_ms.append((t2 - t1) * 1e3)
+
+        # a per-layer reading, not the step's time: the step's parts written
+        # out here (no PCK passes, no step counter) between CUDA events
+        model, opt = state.model, state.optimizer
+        marks = []
+        for i in range(split_steps):
             batch_t = trainer.prepare(raws[i % len(raws)])
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             torch.cuda.synchronize()
-            t1 = time.perf_counter()
             ev[0].record()
             final, sup_hms, _, mi = model(batch_t["kf"], batch_t["sup"],
                                           train=True)
@@ -663,7 +690,6 @@ def phase_train(smi, batch=8, epoch_steps=4, timed_steps=5, fixed_steps=8):
             state.scheduler.step()
             ev[3].record()
             torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t1) * 1e3)
             marks.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
         split = np.median(np.asarray(marks), axis=0)
 
@@ -701,9 +727,18 @@ def phase_train(smi, batch=8, epoch_steps=4, timed_steps=5, fixed_steps=8):
              launches=launches, launches_per_step=4,
              step_ms_median=med, step_ms_min=min(step_ms),
              step_ms_max=max(step_ms), samples_per_s=batch / (med / 1e3),
-             forward_ms=float(split[0]), backward_ms=float(split[1]),
-             optimizer_ms=float(split[2]),
+             step_timed="trainer.train_step(state, batch), synchronised "
+             "before and after", timed_steps=timed_steps,
+             prepare_ms_median=float(np.median(prepare_ms)),
+             split_forward_ms=float(split[0]),
+             split_backward_ms=float(split[1]),
+             split_optimizer_ms=float(split[2]),
+             split_note=f"median of {split_steps} steps written out in the "
+             "script between CUDA events, without the step's PCK passes: a "
+             "per-layer reading, not the step's time",
              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             peak_mem_note="after the epoch and the resume check: timed, "
+             "split, fixed-batch and traced steps of one trainer",
              fixed_batch_loss_mse=[r["loss_mse"] for r in history],
              fixed_batch_loss=[r["loss"] for r in history],
              last_step_terms=history[-1], grad_norms=norms, trace=trace,
@@ -747,6 +782,26 @@ def grad_errors(got, ref):
     return rel, math.sqrt(num / den)
 
 
+# Relative L2 distance allowed between the card's and the CPU's float32
+# gradient of the whole model. On an H100 host the CPU's own gradient moved
+# 3.1-4.8% under 1e-6 input noise over NOISE_SEEDS and 9.2% under 1e-5
+# (PERF.md, Findings): the limit lies above the first and below the second.
+WHOLE_GRAD_L2_LIMIT = 0.08
+NOISE_SEEDS = (2, 3, 4, 5)
+BACKBONE_F64_TOL = 1e-6
+
+
+def backbone_f64_grads(hrnet, frames, cotangents, device):
+    """Gradients of the float64 backbone under fixed cotangents on its
+    heatmaps and first-branch features."""
+    net = copy.deepcopy(hrnet).double().to(device).train()
+    hm, feats = net(frames.double().to(device))
+    net.zero_grad(set_to_none=True)
+    torch.autograd.backward([hm, feats[0]],
+                            [c.to(device) for c in cotangents])
+    return {n: p.grad.detach().cpu() for n, p in net.named_parameters()}
+
+
 def phase_train_card_vs_cpu():
     """One train-mode forward and backward in f32 (TF32 off) at full W48
     width, 256x192, B=2, seeded weights, the card against the port on the
@@ -760,16 +815,22 @@ def phase_train_card_vs_cpu():
       own largest entry or 1e-4 of the largest gradient of all (sums in
       another order, atomics, BatchNorm over as few as 8 values in the
       offset head);
-    * the whole model: the loss terms as above; every gradient finite; all
-      gradients, taken as one vector, within a relative L2 error of 3 times
-      the change of the CPU's own gradient when noise of 1e-6 (a few
-      float32 ulps) is added to its inputs. No per-parameter bound is set
-      here: the float32 gradient of a randomly initialised network with
-      ~300 train-mode BatchNorm layers is ill-conditioned (each BatchNorm
-      backward subtracts two means from its incoming gradient), so rounding
-      differences of 1e-7 in the forward grow to percents in single
-      parameters, on the CPU alone as between card and CPU. The per-tensor
-      median and maximum are printed.
+    * the backbone alone in float64 on both devices, under one seeded
+      cotangent on its two outputs: every gradient within 1e-6 of its own
+      largest entry. In float64 the two devices' rounding (1e-16) stays far
+      from any ReLU's switching point, so this bound holds per tensor. With
+      the head's gradient with respect to the features (bounded above), it
+      bounds the chain through the whole model;
+    * the whole model in float32: the loss terms as above; every gradient
+      finite; all gradients, taken as one vector, within a relative L2
+      error of ``WHOLE_GRAD_L2_LIMIT``. No per-parameter bound is set in
+      float32: the gradient of this randomly initialised network is not a
+      continuous function of its inputs at float32 resolution (ReLU masks
+      flip under rounding differences of 1e-7, and ~300 train-mode
+      BatchNorms carry each flip on), on the CPU alone as between card and
+      CPU. To show that, the CPU's own gradient is taken again with noise
+      of 1e-6 on its inputs from ``NOISE_SEEDS`` and of 1e-5 from the first
+      of them, and the changes are printed beside the card's distance.
     """
     from fami_pose_torch.data.loader import prepare_train_batch
     from fami_pose_torch.models.bridge import init_weights
@@ -791,7 +852,7 @@ def phase_train_card_vs_cpu():
     with torch.no_grad():
         frames = torch.cat([host_batch["kf"]]
                            + list(torch.split(host_batch["sup"], 3, dim=1)))
-        feat = copy.deepcopy(base.hrnet)(frames)[1][0]
+        bb_hm, (feat, *_) = copy.deepcopy(base.hrnet)(frames)
 
     out = {}
     for dev in ("cuda", "cpu"):
@@ -807,16 +868,45 @@ def phase_train_card_vs_cpu():
         out[dev] = dict(head=head, whole=whole, head_launches=head_launches,
                         launches=read_launches(),
                         seconds=time.perf_counter() - t0)
-    # how ill-conditioned the whole model's gradient is: the CPU path again
-    # with noise of 1e-6 (a few float32 ulps of the O(1) normalized pixels)
-    # on its inputs
-    noise = torch.Generator().manual_seed(2)
-    jittered = dict(batch)
-    for k in ("kf", "sup"):
-        jittered[k] = batch[k] + 1e-6 * torch.randn(batch[k].shape,
-                                                    generator=noise)
-    _, cpu_noise_l2 = grad_errors(train_grads(model, jittered)[1],
-                                  out["cpu"]["whole"][1])
+    # how far the CPU's own float32 gradient moves under input noise of a
+    # few float32 ulps of the O(1) normalized pixels (`model` and `batch`
+    # are the CPU's here)
+    def cpu_change(seed, eps):
+        noise = torch.Generator().manual_seed(seed)
+        jittered = dict(batch)
+        for k in ("kf", "sup"):
+            jittered[k] = batch[k] + eps * torch.randn(batch[k].shape,
+                                                       generator=noise)
+        ref = out["cpu"]["whole"][1]
+        got = train_grads(model, jittered)[1]
+        floor = 1e-6 * max(float(g.abs().max()) for g in ref.values())
+        worst = max(float((got[n] - r).norm() / r.norm())
+                    for n, r in ref.items() if float(r.abs().max()) > floor)
+        return grad_errors(got, ref)[1], worst
+
+    noise_l2, noise_worst = zip(*(cpu_change(seed, 1e-6)
+                                  for seed in NOISE_SEEDS))
+    noise_l2_tenfold, _ = cpu_change(NOISE_SEEDS[0], 1e-5)
+
+    # the backbone in float64, card against CPU, per tensor
+    cot_gen = torch.Generator().manual_seed(3)
+    cots = [torch.randn(t.shape, generator=cot_gen, dtype=torch.float64)
+            / t.numel() ** 0.5 for t in (bb_hm, feat)]
+    t0 = time.perf_counter()
+    bb_ref = backbone_f64_grads(base.hrnet, frames, cots, "cpu")
+    bb_cpu_s = time.perf_counter() - t0
+    bb_got = backbone_f64_grads(base.hrnet, frames, cots, "cuda")
+    bb_rel, bb_l2 = grad_errors(bb_got, bb_ref)
+    bb_scale = max(float(g.abs().max()) for g in bb_ref.values())
+    bb_sized = {n: v for n, v in bb_rel.items()
+                if float(bb_ref[n].abs().max()) > 1e-6 * bb_scale}
+    bb_worst = max(bb_sized, key=bb_sized.get)
+    if not (bb_sized[bb_worst] <= BACKBONE_F64_TOL
+            and len(bb_sized) >= 0.9 * len(bb_ref)):
+        raise AssertionError(
+            f"float64 backbone: gradient of {bb_worst} differs by "
+            f"{bb_sized[bb_worst]} of its largest entry "
+            f"({len(bb_sized)} of {len(bb_ref)} tensors compared)")
     if (any(c != 4 for c in out["cuda"]["head_launches"].values())
             or any(c != 8 for c in out["cuda"]["launches"].values())):
         raise AssertionError(f"card launches {out['cuda']['launches']}")
@@ -845,10 +935,11 @@ def phase_train_card_vs_cpu():
                 if not err <= tol:
                     raise AssertionError(
                         f"head: gradient of {n}: max abs diff {err} > {tol}")
-        elif not l2 <= 3.0 * cpu_noise_l2:
+        elif not l2 <= WHOLE_GRAD_L2_LIMIT:
             raise AssertionError(
-                f"whole model: gradient L2 error {l2} > 3 x {cpu_noise_l2}, "
-                f"the CPU gradient's own change under input noise")
+                f"whole model: gradient L2 error {l2} > "
+                f"{WHOLE_GRAD_L2_LIMIT}; the CPU gradient's own changes "
+                f"under input noise: {list(noise_l2)}")
         # a conv bias before a train-mode BatchNorm has a gradient of exactly
         # zero: its entries are rounding noise, left out of the statistics
         sized = sorted((v, n) for n, v in rel.items()
@@ -863,11 +954,18 @@ def phase_train_card_vs_cpu():
          model="FAMIPose HRNet-W48 256x192 D=4 num_sup=4", batch_size=2,
          loss_term_tol="1e-3 relative + 1e-4 absolute, each term",
          head_tol="per gradient: 1% of its largest entry or 1e-4 of the "
-         "largest gradient", whole_tol="relative L2 of all gradients <= 3 x "
-         "the CPU gradient's own change under input noise",
+         "largest gradient", whole_tol="relative L2 of all gradients <= "
+         f"{WHOLE_GRAD_L2_LIMIT}",
          head=report["head"], whole=report["whole"],
-         whole_cpu_grad_rel_l2_change_under_input_noise=cpu_noise_l2,
-         input_noise=1e-6,
+         whole_cpu_grad_rel_l2_change_under_input_noise=dict(
+             noise=1e-6, seeds=list(NOISE_SEEDS), changes=list(noise_l2),
+             worst_tensor_rel_l2=list(noise_worst),
+             tenfold_noise=1e-5, tenfold_change=noise_l2_tenfold),
+         backbone_float64=dict(
+             tol=f"{BACKBONE_F64_TOL} of each gradient's largest entry",
+             gradients=len(bb_ref), compared=len(bb_sized),
+             grad_rel_l2_err=bb_l2, grad_rel_err_max=bb_sized[bb_worst],
+             grad_rel_err_max_at=bb_worst, cpu_s=bb_cpu_s),
          card_launches=out["cuda"]["launches"],
          cuda_s=out["cuda"]["seconds"], cpu_s=out["cpu"]["seconds"])
 
@@ -895,14 +993,24 @@ def main():
     }
     sources = {"dcn_fwd": "dcn_fwd.cu", "dcn_bwd": "dcn_bwd.cu",
                "warp_translate": "warp.cu", "warp_bwd": "warp_bwd.cu"}
-    kernels = [
-        dict(name=name, route="cuda", source=csrc + sources[name],
-             replaces=replaces[name],
-             launches=serving.get(name, 0) + train[name],
-             launches_serving=serving.get(name, 0),
-             launches_train=train[name], **rows[name])
-        for name in KERNEL_COUNTERS
-    ]
+    # one row per kernel and shape: the forward warp has a row for each of
+    # the two paths, whose calls differ in size; the other kernels see the
+    # same shape on both paths
+    kernels = []
+    for name in KERNEL_COUNTERS:
+        counts = dict(launches_serving=serving.get(name, 0),
+                      launches_train=train[name])
+        common = dict(name=name, route="cuda", source=csrc + sources[name],
+                      replaces=replaces[name])
+        if name == "warp_translate":
+            kernels.append(dict(common, path="serving", launches=serving[name],
+                                **rows[name, 32]))
+            kernels.append(dict(common, path="train", launches=train[name],
+                                **rows[name, 8]))
+        else:
+            kernels.append(dict(common, path="serving and train",
+                                launches=sum(counts.values()), **counts,
+                                **rows[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

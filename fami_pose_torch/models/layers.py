@@ -39,7 +39,8 @@ BN_MOMENTUM = 0.1  # update fraction (flax: retain fraction 0.9)
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm2d (eps 1e-5) over the channel axis, float32 arithmetic.
+    """BatchNorm2d (eps 1e-5) over the channel axis, in float32 arithmetic
+    (float64 for a float64 module and input, as a reference computation).
 
     Eval mode normalizes with the running statistics. Training mode
     (``module.train()``) normalizes with the batch's mean and biased
@@ -59,7 +60,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
-        x32 = x.to(torch.float32)
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             y = F.batch_norm(
                 x32, self.running_mean, self.running_var, self.weight,

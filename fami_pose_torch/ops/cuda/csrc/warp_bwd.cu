@@ -26,8 +26,8 @@
 // atomicAdd, so its last bits vary from run to run.
 //
 // What bounds it on an H100: images and g are read once, d_images written
-// once (~2.7 MB each at (8, 48, 96, 72) bf16), ~30 flops per element: the
-// bytes set the least time (~2.4 us at 3.35 TB/s). At that size the launch
+// once (~5.3 MB each at (8, 48, 96, 72) bf16), ~30 flops per element: the
+// bytes set the least time (~4.8 us at 3.35 TB/s). At that size the launch
 // and the tail of the reduction weigh as much as the traffic.
 
 #include <cuda_bf16.h>

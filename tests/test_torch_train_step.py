@@ -7,9 +7,20 @@ few f32 operations per element). One whole step at the tiny topology
 largest entry of the whole gradient, plus 2e-3 relative (XLA and torch sum
 in other orders; the train-mode BatchNorms, down to B = 2 values per channel
 in the offset head, amplify that rounding on the way back to the stem).
-Post-step parameters: with SGD the same bound times the learning rate; with
-Adam, whose first step is ``lr * g / (|g| + 1e-8)``, 1e-2 lr where the
-gradient is well above its own tolerance (its sign is certain) and 2 lr
+On top of that, each gradient tensor at its own scale: its relative L2
+distance from the JAX tensor is at most 0.1, and the median over the tensors
+at most 5e-3 (measured: worst 1.4e-2 in the stem's bottlenecks, median
+4.7e-4). A gradient here is not a continuous function (ReLU masks, the
+DCN's clamp gate and integer offsets), so single entries jump with the sum
+order, even between thread counts of one package; the L2 distance of a
+tensor does not. Tensors whose largest entry is below 2e-5 of the largest
+gradient are left out of this: a conv bias before a train-mode BatchNorm
+has a true gradient of zero, and what is computed is rounding noise.
+Post-step parameters: with SGD the max-abs bound times the learning rate;
+with Adam, whose first step is ``lr * g / (|g| + 1e-8)``, the port's
+parameters first follow that closed form of the port's own gradient to 1e-6;
+against JAX, 1e-2 lr wherever both gradients exceed 1e-5 and agree in sign
+(outside the tensors of rounding noise named above), which must hold for at least 95% of all entries (measured 99.0%), and 2 lr
 elsewhere, plus 1e-6 for the float32 rounding of the parameters themselves.
 BatchNorm statistics after the step: 5e-4.
 """
@@ -327,6 +338,15 @@ def test_train_step_matches_jax(variables, batch, jax_step, optimizer):
     for name, p in model.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), ref_grads[name].numpy(),
                                    rtol=2e-3, atol=atol, err_msg=name)
+    floor = 2e-5 * max(float(g.abs().max()) for g in ref_grads.values())
+    rel_l2 = {name: float((p.grad - ref_grads[name]).norm()
+                          / ref_grads[name].norm())
+              for name, p in model.named_parameters()
+              if float(ref_grads[name].abs().max()) > floor}
+    assert len(rel_l2) >= 0.95 * len(names)
+    worst = max(rel_l2, key=rel_l2.get)
+    assert rel_l2[worst] <= 0.1, (worst, rel_l2[worst])
+    assert float(np.median(list(rel_l2.values()))) <= 5e-3
 
     # post-step parameters and BatchNorm statistics
     want = state_dict_from_flax({
@@ -334,7 +354,8 @@ def test_train_step_matches_jax(variables, batch, jax_step, optimizer):
         "batch_stats": jax.tree.map(np.asarray, jax_step["batch_stats"])})
     got = model.state_dict()
     assert set(got) == set(want)
-    moved = 0
+    moved = sure_entries = entries = 0
+    port_grads = {n: p.grad for n, p in model.named_parameters()}
     for key, ref in want.items():
         if "running_" in key:
             np.testing.assert_allclose(got[key].numpy(), ref.numpy(),
@@ -344,11 +365,20 @@ def test_train_step_matches_jax(variables, batch, jax_step, optimizer):
         if optimizer == "sgd":
             bound = lr * (atol + 2e-3 * ref_grads[key].abs()) + 1e-7
         else:
-            sure = ref_grads[key].abs() > 10 * atol
+            g, g_ref = port_grads[key], ref_grads[key]
+            closed_form = before[key] - lr * g / (g.abs() + 1e-8)
+            assert bool(((got[key] - closed_form).abs() <= 1e-6).all()), key
+            sure = ((g_ref.abs() > 1e-5) & (g.abs() > 1e-5)
+                    & (torch.sign(g) == torch.sign(g_ref))
+                    & (key in rel_l2))  # not in a tensor of rounding noise
+            sure_entries += int(sure.sum())
+            entries += sure.numel()
             bound = torch.where(sure, torch.tensor(1e-2 * lr),
                                 torch.tensor(2 * lr))
         # + 1e-6: the parameters are O(1) float32 values, a few ulps each
         assert bool((diff <= bound + 1e-6).all()), key
         moved += int(not torch.equal(got[key], before[key]))
     assert moved > 100
+    if optimizer == "adam":
+        assert sure_entries >= 0.95 * entries, (sure_entries, entries)
     assert opt.param_groups[0]["lr"] == pytest.approx(lr)
