@@ -17,7 +17,14 @@ and as the last line ``{"ok": true, "device": {...}}``:
                integers; the translation warp at (32, 48, 96, 72), the
                serving path's shape, and at (8, 48, 96, 72), the train
                path's, and its backward at (8, 48, 96, 72), with shifts past
-               +-26. Kernel, plain and library times (CUDA events).
+               +-26, and both at the val path's shapes (the DCN at B=32 with
+               D in {4, 3, exact}, the warp at 128 images). Kernel, plain and
+               library times by CUDA events around host-paced calls, and for
+               the warps and the probes also device-side (``device_ms``: 50
+               launches in one CUDA graph), since host-paced calls cannot
+               read a kernel below the wrapper's ~40-60 us. Then the four
+               on-chip gather / rotate probes (``ops/probes.py``) at the TPU
+               probes' shapes, bitwise against ``torch.gather`` / ``torch.roll``.
   4. main    - ``PosePredictor`` on ``configs/posetrack17/fami_pose.yaml``
                (HRNet-W48, 384x288, bf16, D=4, 4 supporting frames,
                flip-test as under VAL.FLIP_VAL) with seeded random weights,
@@ -43,6 +50,24 @@ and as the last line ``{"ok": true, "device": {...}}``:
                forward and backward on the card against the port on the CPU
                (the head per tensor, the whole model as one vector), and the
                backbone's gradients in float64 per tensor.
+
+  8. probes  - ``fami_pose_torch.tools.hopper_watch``'s ``main()`` as the
+               tool runs: every probe ``SUPPORTED``, exit code 0.
+  9. val     - ``Runner(cfg, args).launch(val=True)`` on the same config at
+               full width: the script writes a seeded synthetic PoseTrack17
+               fixture (640x480 jpegs, 3 videos x 12 frames x 2 people = 72
+               samples, COCO json, GT annolists) and a seeded,
+               BatchNorm-calibrated W48 checkpoint, then scores it through
+               the dataset class, the padded eval loader (batch 32: two full
+               batches and one of 8), the flip-tested forward, the decode and
+               the poseval protocol. Checks: 72 samples, 8 DCN + 2 warp
+               launches a batch, finite AP tables for both heatmaps,
+               predictions inside their boxes, GT as predictions -> Mean 100,
+               card vs CPU in f32 on one batch of 4. Then a pass with the
+               DARK decode (``VAL.POST_PROCESS``) and two with
+               ``TPU.DCN_AUTO_WINDOW`` on checkpoints whose offset heads are
+               pinned (D = 3 chosen; beyond the cap, the kernel's exact mode).
+               Eval-loop samples/s, the loader's share, the decode's ms.
 
 Any failure raises: the script exits non-zero and prints no last line.
 """
@@ -81,6 +106,45 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, launches=50, replays=5):
+    """Device-side time of one call of ``fn``: ``launches`` calls captured
+    in one CUDA graph, the graph replayed ``replays`` times between two
+    events, the fastest replay over ``launches``. A replay runs the
+    recorded kernels with no Python, ctypes or allocator work between them,
+    so this reads the kernels (and the few hundred nanoseconds the card
+    needs between two of them), where :func:`time_ms`, which paces every
+    launch from the host, cannot read below the wrapper's cost per call.
+    The inputs stay in the 50 MB L2 between launches when they fit."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / launches)
+    del graph
+    return best
+
+
+DEVICE_TIMING = ("ms and library_ms: 50 launches in one CUDA graph, fastest "
+                 "of 5 replays; *host_paced_ms: 20 calls made one by one")
 
 
 def bound_ms(n_bytes, n_ops, dtype):
@@ -231,11 +295,41 @@ def phase_kernels():
                                        ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
                                        bound_by=by, library_ms=None)
 
-    # the forward warp at both shapes the main paths give it: 32 images (one
-    # call for the 4 supporting frames of a B=8 serving batch) and 8 images
-    # (one call per supporting frame of a B=8 train step)
+    # the DCN forward at the val path's shape (VAL.BATCH_SIZE_PER_GPU 32):
+    # the configured window, one the auto-window picks, and the exact mode
+    for d in (4, 3, 0):
+        dtype = torch.bfloat16
+        x, off, msk, wgt = dcn_inputs(gen, dtype, d, b=32)
+        kw = dict(padding=3, dilation=3, offset_groups=12)
+        run_k = lambda: deform_conv2d_windowed(x, off, msk, wgt, max_offset=d, **kw)
+        run_p = lambda: deform_conv2d(x, off, msk, wgt, max_offset=d, **kw)
+        got, ref = run_k(), run_p()
+        torch.cuda.synchronize()
+        err, tol = check_close(f"dcn B=32 D={d}", got, ref, dtype)
+        del ref
+        k_ms, d_ms = time_ms(run_k), device_ms(run_k, launches=20)
+        p_ms = time_ms(run_p, iters=3, warmup=1)
+        b, c, h, w = x.shape
+        ops = 2 * b * h * w * 9 * c * c + 9 * b * h * w * 9 * c
+        bnd, by = bound_ms(nbytes(x, off, msk, wgt, got), ops, dtype)
+        emit("kernels", kernel="dcn_fwd", dtype="bfloat16", D=d,
+             shape=list(x.shape), max_abs_err=err, tol=tol, ms=k_ms,
+             device_ms=d_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by,
+             library_ms=None)
+        if d == 4:
+            rows["dcn_fwd", 32] = dict(shape=list(x.shape), max_abs_err=err,
+                                       ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                                       bound_ms=bnd, bound_by=by,
+                                       library_ms=None)
+        del x, off, msk, got
+    torch.cuda.empty_cache()
+
+    # the forward warp at the shapes the main paths give it: 128 images (one
+    # call for the 4 supporting frames of a B=32 val batch), 32 images (the
+    # same of a B=8 serving batch) and 8 images (one call per supporting
+    # frame of a B=8 train step)
     for dtype, n in itertools.product((torch.float32, torch.bfloat16),
-                                      (32, 8)):
+                                      (128, 32, 8)):
         c, h, w = 48, 96, 72
         img = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
         offs = (torch.rand(n, 2, generator=gen, device="cuda") * 2 - 1) * 40.0
@@ -255,25 +349,31 @@ def phase_kernels():
             img, grid, mode="bilinear", padding_mode="zeros",
             align_corners=True)
         lib_err = max_err(run_l(), ref)
-        k_ms, p_ms, l_ms = time_ms(run_k), time_ms(run_p), time_ms(run_l)
+        del ref
+        host_ms, p_ms, l_host_ms = time_ms(run_k), time_ms(run_p), time_ms(run_l)
+        k_ms, l_ms = device_ms(run_k), device_ms(run_l)
         bnd, by = bound_ms(nbytes(img, offs, got), 9 * img.numel(), dtype)
         past = float((offs.abs() > 26).float().mean())
         emit("kernels", kernel="warp_translate", dtype=str(dtype)[6:],
              shape=[n, c, h, w], max_shift=26, shifts_past_clamp=past,
-             max_abs_err=err, tol=tol, ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
-             bound_by=by, library_ms=l_ms,
+             max_abs_err=err, tol=tol, ms=k_ms, host_paced_ms=host_ms,
+             plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms,
+             library_host_paced_ms=l_host_ms, timing=DEVICE_TIMING,
              library="F.grid_sample(bilinear, zeros, align_corners=True) on "
              "a precomputed grid", library_max_abs_err=lib_err)
         if dtype == torch.bfloat16:
             rows["warp_translate", n] = dict(
-                shape=[n, c, h, w], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                bound_ms=bnd, bound_by=by, library_ms=l_ms,
+                shape=[n, c, h, w], max_abs_err=err, ms=k_ms,
+                host_paced_ms=host_ms, plain_ms=p_ms, bound_ms=bnd,
+                bound_by=by, library_ms=l_ms,
+                library_host_paced_ms=l_host_ms, timing=DEVICE_TIMING,
             )
 
     # the warp's backward at the train path's shape (one call per supporting
-    # frame, B=8)
-    for dtype in (torch.float32, torch.bfloat16):
-        n, c, h, w = 8, 48, 96, 72
+    # frame, B=8) and at 32 images
+    for dtype, n in itertools.product((torch.float32, torch.bfloat16),
+                                      (8, 32)):
+        c, h, w = 48, 96, 72
         img = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
         offs = (torch.rand(n, 2, generator=gen, device="cuda") * 2 - 1) * 40.0
         offs[0] = torch.tensor([3.0, -2.0])  # an integer translation
@@ -304,7 +404,8 @@ def phase_kernels():
                                             retain_graph=True)
         lib = run_l()
         lib_err = max_err(lib[0], ref_b[0])
-        k_ms, p_ms, l_ms = time_ms(run_k), time_ms(run_p), time_ms(run_l)
+        host_ms, p_ms, l_ms = time_ms(run_k), time_ms(run_p), time_ms(run_l)
+        k_ms = device_ms(run_k)
         bnd, by = bound_ms(nbytes(img, offs, gout, *got_b), 30 * img.numel(),
                            dtype)
         emit("kernels", kernel="warp_bwd", dtype=str(dtype)[6:],
@@ -312,15 +413,75 @@ def phase_kernels():
              shifts_past_clamp=float((offs.abs() > 26).float().mean()),
              max_abs_err={"d_images": err_i, "d_offsets": err_o},
              tol={"d_images": tol_i, "d_offsets": tol_o}, ms=k_ms,
+             host_paced_ms=host_ms, timing=DEVICE_TIMING,
              plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms,
              library="autograd through F.grid_sample(bilinear, zeros, "
-             "align_corners=True) and the grid's construction",
+             "align_corners=True) and the grid's construction (host-paced: "
+             "it is far above the wrapper's cost)",
              library_d_images_max_abs_err=lib_err)
         if dtype == torch.bfloat16:
-            rows["warp_bwd"] = dict(
+            rows["warp_bwd", n] = dict(
                 shape=[n, c, h, w], max_abs_err=max(err_i, err_o), ms=k_ms,
+                host_paced_ms=host_ms, timing=DEVICE_TIMING,
                 plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms,
             )
+    rows.update(probe_kernel_rows())
+    return rows
+
+
+PROBES = {
+    # kernel name: (wrapper's name in ops.probes, kwargs, TPU probe's line,
+    # the library call timed beside it)
+    "probe_gather_lane": ("gather_lane", {}, 55, "torch.gather(x, 1, idx)"),
+    "probe_gather_lane_shfl": ("gather_lane", {"variant": "shfl"}, 55,
+                               "torch.gather(x, 1, idx)"),
+    "probe_gather_3d": ("gather_3d", {}, 69, "torch.gather(x, 2, idx)"),
+    "probe_gather_rows": ("gather_rows", {}, 86, "torch.gather(x, 0, idx)"),
+    "probe_dynamic_roll": ("dynamic_roll", {}, 100,
+                           "torch.roll(x, 5, 1), the shift a host integer"),
+}
+
+
+def probe_kernel_rows():
+    """The on-chip gather / rotate probes at the TPU probes' shapes: each
+    kernel against its plain version, bitwise (the outputs are copies of
+    input values), timed device-side and host-paced; the bound is the tile
+    and its indices read once and the tile written once."""
+    from fami_pose_torch.ops import probes
+
+    rows = {}
+    for kernel, (fn_name, kw, _, library) in PROBES.items():
+        fn = getattr(probes, fn_name)
+        plain = probes.PLAIN[fn]
+        cases = ([probes.probe_inputs(fn_name, seed=11, device="cuda", shift=s)
+                  for s in (5, 0, 127, 128, -3)]
+                 if fn_name == "dynamic_roll"
+                 else [probes.probe_inputs(fn_name, seed=11, device="cuda")])
+        for args in cases:
+            before = fn.launches
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            ref = plain(*args)
+            if fn.launches != before + 1:
+                raise AssertionError(f"{kernel}: no launch was counted")
+            if got.dtype != ref.dtype or not torch.equal(got, ref):
+                raise AssertionError(f"{kernel}: differs from {library}")
+        x, other = cases[0]
+        run_k = lambda: fn(x, other, **kw)
+        if fn_name == "dynamic_roll":  # torch.roll takes a host integer
+            run_p = lambda: torch.roll(x, 5, 1)
+        else:
+            long_idx = other.long()  # torch.gather wants int64 indices
+            run_p = lambda: plain(x, long_idx)
+        host_ms, p_host_ms = time_ms(run_k), time_ms(run_p)
+        k_ms, p_ms = device_ms(run_k), device_ms(run_p)
+        bnd, by = bound_ms(nbytes(x, other, got), 0, x.dtype)
+        rows[kernel] = dict(
+            shape=list(x.shape), dtype=str(x.dtype)[6:], max_abs_err=0.0,
+            ms=k_ms, host_paced_ms=host_ms, plain_ms=p_ms, bound_ms=bnd,
+            bound_by=by, library_ms=p_ms, library_host_paced_ms=p_host_ms,
+            library=library, timing=DEVICE_TIMING)
+        emit("kernels", kernel=kernel, compared="bitwise", **rows[kernel])
     return rows
 
 
@@ -970,6 +1131,345 @@ def phase_train_card_vs_cpu():
          cuda_s=out["cuda"]["seconds"], cpu_s=out["cpu"]["seconds"])
 
 
+def phase_probes():
+    """The capability tool as it runs from the command line."""
+    from fami_pose_torch.ops import probes
+    from fami_pose_torch.tools import hopper_watch
+
+    wrappers = (probes.gather_lane, probes.gather_3d, probes.gather_rows,
+                probes.dynamic_roll)
+    for fn in wrappers:
+        fn.launches = 0
+    probes.gather_lane.shfl_launches = 0
+    rc = hopper_watch.main([])
+    if rc != 0:
+        raise AssertionError(f"hopper_watch exited {rc}")
+    launches = {
+        "probe_gather_lane": (probes.gather_lane.launches
+                              - probes.gather_lane.shfl_launches),
+        "probe_gather_lane_shfl": probes.gather_lane.shfl_launches,
+        "probe_gather_3d": probes.gather_3d.launches,
+        "probe_gather_rows": probes.gather_rows.launches,
+        "probe_dynamic_roll": probes.dynamic_roll.launches,
+    }
+    # one launch for each of the tool's lines, five shifts for the roll's
+    want = dict.fromkeys(launches, 1)
+    want["probe_dynamic_roll"] = 5
+    if launches != want:
+        raise AssertionError(f"hopper_watch launches {launches}, expected "
+                             f"{want}")
+    emit("probes", tool="python -m fami_pose_torch.tools.hopper_watch",
+         exit_code=rc, launches=launches)
+    return launches
+
+
+VAL_VIDEOS, VAL_FRAMES, VAL_PEOPLE = 3, 12, 2
+AP_KEYS = ("Head", "Shoulder", "Elbow", "Wrist", "Hip", "Knee", "Ankle", "Mean")
+
+
+def write_val_fixture(root, seed=0, w=640, h=480):
+    """A seeded synthetic PoseTrack17-style dataset under ``root``: jpeg
+    frames ``images/video_000v/0000000f.jpg`` (8 digits from 1), the COCO
+    json ``json/posetrack_val.json`` with 17 visible keypoints and a box per
+    person, and GT annolists ``annolists/video_000v.json`` in the 15-joint
+    order. Returns (json_dir, img_dir, annot_dir)."""
+    import cv2
+
+    from fami_pose_torch.data.keypoints import coco2posetrack_ord_infer
+
+    rs = np.random.RandomState(seed)
+    img_dir = os.path.join(root, "images")
+    json_dir = os.path.join(root, "json")
+    annot_dir = os.path.join(root, "annolists")
+    os.makedirs(json_dir)
+    os.makedirs(annot_dir)
+    images, annotations = [], []
+    for v in range(VAL_VIDEOS):
+        video = f"video_{v:04d}"
+        os.makedirs(os.path.join(img_dir, video))
+        centers = rs.uniform([130, 180], [w - 130, h - 180],
+                             size=(VAL_PEOPLE, 2))
+        skeleton = rs.uniform([-70, -130], [70, 130],
+                              size=(VAL_PEOPLE, 17, 2))
+        velocity = rs.uniform(-4, 4, size=(VAL_PEOPLE, 2))
+        annolist = []
+        for f in range(1, VAL_FRAMES + 1):
+            fname = f"{video}/{f:08d}.jpg"
+            frame = rs.randint(0, 256, size=(h, w, 3), dtype=np.uint8)
+            cv2.imwrite(os.path.join(img_dir, fname), frame)
+            img_id = len(images) + 1
+            images.append(dict(id=img_id, file_name=fname, width=w, height=h,
+                               nframes=VAL_FRAMES, frame_id=f, vid_id=video,
+                               is_labeled=True))
+            rects = []
+            for p in range(VAL_PEOPLE):
+                pts = centers[p] + f * velocity[p] + skeleton[p]
+                pts = np.clip(pts, [2, 2], [w - 3, h - 3])
+                x0, y0 = pts.min(0) - 8
+                x1, y1 = pts.max(0) + 8
+                kps = np.concatenate([pts, np.ones((17, 1))], axis=1)
+                head = [float(x0), float(y0), 40.0, 40.0]
+                annotations.append(dict(
+                    id=len(annotations) + 1, image_id=img_id, category_id=1,
+                    bbox=[float(x0), float(y0), float(x1 - x0),
+                          float(y1 - y0)],
+                    area=float((x1 - x0) * (y1 - y0)), iscrowd=0,
+                    keypoints=[float(t) for t in kps.ravel()], track_id=p,
+                    bbox_head=head, scores=[]))
+                pt15 = coco2posetrack_ord_infer(kps)
+                rects.append({
+                    "x1": [head[0]], "y1": [head[1]],
+                    "x2": [head[0] + head[2]], "y2": [head[1] + head[3]],
+                    "track_id": [p], "score": [1.0],
+                    "annopoints": [{"point": [
+                        {"id": [j], "x": [float(x)], "y": [float(y)]}
+                        for j, (x, y, _) in enumerate(pt15)]}]})
+            annolist.append({"image": [{"name": "images/" + fname}],
+                             "annorect": rects})
+        with open(os.path.join(annot_dir, video + ".json"), "w") as fh:
+            json.dump({"annolist": annolist}, fh)
+    with open(os.path.join(json_dir, "posetrack_val.json"), "w") as fh:
+        json.dump(dict(images=images, annotations=annotations,
+                       categories=[dict(id=1, name="person")]), fh)
+    return json_dir, img_dir, annot_dir
+
+
+def val_cfg(root, dirs, *opts):
+    """The full-width config pointed at the fixture, with the command line
+    namespace ``Runner`` reads."""
+    import types
+
+    from fami_pose_torch.config import get_cfg
+
+    json_dir, img_dir, annot_dir = dirs
+    args = types.SimpleNamespace(
+        cfg=os.path.join(ROOT, "configs/posetrack17/fami_pose.yaml"),
+        opts=["OUTPUT_DIR", os.path.join(root, "out"),
+              "DATASET.JSON_DIR", json_dir, "DATASET.IMG_DIR", img_dir,
+              "DATASET.TEST_IMG_DIR", img_dir, "VAL.ANNOT_DIR", annot_dir,
+              "VAL.USE_GT_BBOX", True, "WORKERS", 4, *opts],
+        root_dir=ROOT, device="cuda", val_from_checkpoint=-1)
+    return get_cfg(args), args
+
+
+def check_val_results(results, evaluator, n_samples, in_box=True):
+    """One checkpoint scored; finite AP tables with the eight keys for both
+    heatmaps; every sample scored once; finite predictions, with ``in_box``
+    inside each sample's enlarged crop box (one heatmap pixel of slack).
+    Returns the checkpoint, the tables and the share of predictions inside
+    their boxes."""
+    ((path, tables),) = results["val"].items()
+    for tag in ("final", "backbone"):
+        name_value, mean = tables[tag]
+        if tuple(name_value) != AP_KEYS:
+            raise AssertionError(f"[{tag}] AP keys {tuple(name_value)}")
+        bad = {k: v for k, v in name_value.items()
+               if not (math.isfinite(v) and 0.0 <= v <= 100.0)}
+        if bad or mean != name_value["Mean"]:
+            raise AssertionError(f"[{tag}] AP table {dict(name_value)}")
+    scored = sorted(i for idxs in evaluator.img_path_map.values()
+                    for i in idxs)
+    if (evaluator.timings["samples"] != n_samples
+            or scored != list(range(n_samples))):
+        raise AssertionError(
+            f"{evaluator.timings['samples']} samples scored, {n_samples} "
+            f"expected")
+    boxes = evaluator.all_boxes
+    hm_w = int(evaluator.cfg.MODEL.HEATMAP_SIZE[0])
+    inside = []
+    for preds in (evaluator.all_preds, evaluator.all_preds_bb):
+        if not np.all(np.isfinite(preds)):
+            raise AssertionError("non-finite predictions")
+        half = boxes[:, None, 2:4] * 100.0
+        slack = boxes[:, None, 2:3] * 200.0 / hm_w
+        lo = boxes[:, None, 0:2] - half - slack
+        hi = boxes[:, None, 0:2] + half + slack
+        ok = np.all((preds[..., :2] >= lo) & (preds[..., :2] <= hi), axis=-1)
+        inside.append(float(ok.mean()))
+        if in_box and not ok.all():
+            raise AssertionError("predictions outside their crop boxes")
+    if not np.allclose(boxes[:, 4], np.prod(boxes[:, 2:4] * 200, axis=1)):
+        raise AssertionError("all_boxes[:, 4] is not prod(scale * 200)")
+    return path, {tag: dict(tables[tag][0]) for tag in tables}, min(inside)
+
+
+def val_pass(root, dirs, n_samples, *opts, calibration_batches=0,
+             in_box=True):
+    """One ``Runner.launch(val=True)`` with the launch counts around it."""
+    from fami_pose_torch.engine.runner import Runner
+
+    cfg, args = val_cfg(root, dirs, *opts)
+    runner = Runner(cfg, args)
+    batch = int(cfg.VAL.BATCH_SIZE_PER_GPU)
+    batches = math.ceil(n_samples / batch)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = runner.launch(val=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    ev = runner.evaluator
+    # 8 DCN + 2 warp launches a flip-tested batch; a calibration batch of
+    # the auto-window is one plain forward: 4 + 1
+    want = {"dcn_fwd": 8 * batches + 4 * calibration_batches,
+            "warp_translate": 2 * batches + calibration_batches,
+            "dcn_bwd": 0, "warp_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"val launches {launches}, expected {want}")
+    path, tables, inside = check_val_results(results, ev, n_samples, in_box)
+    t = ev.timings
+    report = dict(
+        opts=[str(o) for o in opts], checkpoint=os.path.basename(path),
+        samples=t["samples"], batches=t["batches"], batch_size=batch,
+        launches=launches, dcn_window=ev.dcn_max_offset or "exact",
+        ap_final=tables["final"], ap_backbone=tables["backbone"],
+        predictions_inside_their_boxes=inside,
+        launch_seconds=wall, eval_loop_s=t["loop_s"],
+        samples_per_s=t["samples"] / t["loop_s"],
+        loader_share=t["loader_s"] / t["loop_s"],
+        forward_ms_per_batch=t["forward_s"] / t["batches"] * 1e3,
+        decode_ms_per_batch=t["decode_s"] / t["batches"] * 1e3)
+    return runner, report
+
+
+def phase_val(smi):
+    import tempfile
+
+    from fami_pose_torch.engine.checkpoints import save_checkpoint
+    from fami_pose_torch.engine.evaluator import Evaluator
+    from fami_pose_torch.engine.runner import Runner
+    from fami_pose_torch.engine.train_state import TrainState
+    from fami_pose_torch.models.bridge import (
+        calibrate_batch_norm, init_weights,
+    )
+    from fami_pose_torch.models.fami_pose import FAMIPose
+    from fami_pose_torch.optim import build_optimizer
+
+    n_samples = VAL_VIDEOS * VAL_FRAMES * VAL_PEOPLE
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_val_") as root:
+        t0 = time.perf_counter()
+        dirs = write_val_fixture(os.path.join(root, "data"))
+        fixture_s = time.perf_counter() - t0
+
+        # a seeded, BatchNorm-calibrated W48 checkpoint, written as the
+        # trainer writes its own
+        cfg, args = val_cfg(root, dirs)
+        runner = Runner(cfg, args)
+        model = init_weights(FAMIPose.from_config(cfg), seed=0).cuda().eval()
+        w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
+        gen = torch.Generator().manual_seed(0)
+        frames = torch.randn(2, 3 * (1 + model.num_sup), h, w,
+                             generator=gen).cuda()
+        with torch.inference_mode():
+            calibrate_batch_norm(model, frames[:, :3], frames[:, 3:])
+        optimizer, scheduler = build_optimizer(cfg, model, steps_per_epoch=1)
+        state = TrainState(model, optimizer, scheduler)
+        save_checkpoint(runner.dirs["checkpoints"], 0, state)
+
+        # checkpoints with every offset head pinned to a constant, for the
+        # auto-window passes (kernel zero, bias the value)
+        pinned = {}
+        for value in (2.6, 9.5):
+            sd = {k: v.clone() for k, v in model.state_dict().items()}
+            for i in range(1, 5):
+                sd[f"dcn_offset_{i}.conv.weight"].zero_()
+                sd[f"dcn_offset_{i}.conv.bias"].fill_(value)
+            pinned[value] = os.path.join(root, f"pinned_{value}.ckpt")
+            torch.save({"model": sd, "begin_epoch": 0}, pinned[value])
+        del state, optimizer, scheduler
+
+        # the main pass, twice: the first warms up cuDNN and the allocator
+        val_pass(root, dirs, n_samples)
+        torch.cuda.reset_peak_memory_stats()
+        runner, main = val_pass(root, dirs, n_samples)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ev = runner.evaluator
+        log_files = os.listdir(runner.dirs["log"])
+        if not any(f.startswith("validate-") for f in log_files):
+            raise AssertionError(f"no validate log file in {log_files}")
+
+        # GT keypoints fed as predictions through the protocol: Mean 100
+        gt = np.zeros_like(ev.all_preds)
+        for i, item in enumerate(ev.dataset.data):
+            gt[i, :, :2] = item["joints_3d"][:, :2]
+            gt[i, :, 2] = 0.9
+        gt_table, gt_mean = ev.dataset.evaluate(
+            cfg, gt, os.path.join(root, "gt_json"), ev.all_boxes,
+            ev.img_path_map)
+        if abs(gt_mean - 100.0) > 1e-9:
+            raise AssertionError(f"GT as predictions: {dict(gt_table)}")
+
+        # card vs the port on the CPU: f32, TF32 off, one batch of 4 (two
+        # people of one frame, one of each other video)
+        f32_cfg, _ = val_cfg(root, dirs, "TPU.COMPUTE_DTYPE", "float32",
+                             "VAL.BATCH_SIZE_PER_GPU", 4)
+        subset = copy.copy(ev.dataset)
+        per_video = VAL_FRAMES * VAL_PEOPLE  # one video's samples
+        subset.data = [ev.dataset.data[i]
+                       for i in (0, 1, per_video, 2 * per_video)]
+        weights = {k: v.cpu() for k, v in model.state_dict().items()}
+        side = {}
+        for dev in ("cuda", "cpu"):
+            one = Evaluator(f32_cfg, dataset=subset, device=dev,
+                            output_dirs={"results": os.path.join(
+                                root, f"f32_{dev}")})
+            t1 = time.perf_counter()
+            one.eval_checkpoint(weights)
+            side[dev] = (one.all_preds.copy(), one.all_preds_bb.copy(),
+                         time.perf_counter() - t1)
+        px = max(float(np.abs(side["cuda"][i][..., :2]
+                              - side["cpu"][i][..., :2]).max())
+                 for i in (0, 1))
+        mv = max(float(np.abs(side["cuda"][i][..., 2]
+                              - side["cpu"][i][..., 2]).max())
+                 for i in (0, 1))
+        if not px <= 0.1:
+            raise AssertionError(f"card vs CPU predictions differ by {px} px")
+
+        # DARK decode; then the per-checkpoint window: D = 3 for offsets of
+        # 2.6 px, and past the cap of 8 the exact mode of the kernel
+        # (seeded random weights give heatmaps that are no Gaussians: where
+        # the Hessian is near-singular DARK's Newton step is long, and the
+        # reference does not bound it, so this pass is not held to the boxes:
+        # the share inside them and the share moved by less than a heatmap
+        # pixel from the argmax pass's predictions are reported)
+        dark_runner, dark = val_pass(root, dirs, n_samples,
+                                     "VAL.POST_PROCESS", True, in_box=False)
+        step = np.abs(dark_runner.evaluator.all_preds[..., :2]
+                      - ev.all_preds[..., :2]).max(-1)
+        px_per_hm = ev.all_boxes[:, None, 2] * 200.0 / int(
+            cfg.MODEL.HEATMAP_SIZE[0])
+        dark["moved_under_one_heatmap_px"] = float(
+            (step <= px_per_hm).mean())
+        _, win3 = val_pass(root, dirs, n_samples, "TPU.DCN_AUTO_WINDOW", True,
+                           "VAL.MODEL_FILE", pinned[2.6],
+                           calibration_batches=2)
+        _, exact = val_pass(root, dirs, n_samples, "TPU.DCN_AUTO_WINDOW",
+                            True, "VAL.MODEL_FILE", pinned[9.5],
+                            calibration_batches=2)
+        if (main["dcn_window"], win3["dcn_window"], exact["dcn_window"]) != (
+                4, 3, "exact"):
+            raise AssertionError(
+                f"DCN windows {main['dcn_window']}, {win3['dcn_window']}, "
+                f"{exact['dcn_window']}; expected 4, 3, exact")
+        emit("val", config="configs/posetrack17/fami_pose.yaml",
+             model="FAMIPose HRNet-W48 384x288 bf16 D=4 num_sup=4 flip_test",
+             card=smi, entry="Runner(cfg, args).launch(val=True)",
+             fixture=f"{VAL_VIDEOS} videos x {VAL_FRAMES} frames x "
+             f"{VAL_PEOPLE} people, 640x480 jpeg, seeded",
+             fixture_seconds=fixture_s,
+             weights="seeded init (seed 0), BatchNorm calibrated",
+             main=main, peak_mem_gb=peak_gb,
+             gt_as_predictions_mean=gt_mean,
+             card_vs_cpu=dict(dtype="float32", tf32="off", samples=4,
+                              max_px_diff=px, tol_px=0.1,
+                              max_maxval_diff=mv, cuda_s=side["cuda"][2],
+                              cpu_s=side["cpu"][2]),
+             dark=dark, auto_window_3=win3, auto_window_exact=exact)
+    return main["launches"]
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
@@ -984,6 +1484,9 @@ def main():
     torch.cuda.empty_cache()
     train = phase_train(smi)
     phase_train_card_vs_cpu()
+    torch.cuda.empty_cache()
+    probe_launches = phase_probes()
+    val = phase_val(smi)
     csrc = "fami_pose_torch/ops/cuda/csrc/"
     replaces = {
         "dcn_fwd": "fami_pose_tpu/ops/pallas/dcn.py:1063",
@@ -993,24 +1496,42 @@ def main():
     }
     sources = {"dcn_fwd": "dcn_fwd.cu", "dcn_bwd": "dcn_bwd.cu",
                "warp_translate": "warp.cu", "warp_bwd": "warp_bwd.cu"}
-    # one row per kernel and shape: the forward warp has a row for each of
-    # the two paths, whose calls differ in size; the other kernels see the
-    # same shape on both paths
+    # one row per kernel and shape: the forward kernels have a row for each
+    # path whose calls differ in size (serving and train at B=8, val at
+    # B=32); `launches` is the count of that row's path
     kernels = []
     for name in KERNEL_COUNTERS:
-        counts = dict(launches_serving=serving.get(name, 0),
-                      launches_train=train[name])
         common = dict(name=name, route="cuda", source=csrc + sources[name],
                       replaces=replaces[name])
         if name == "warp_translate":
+            kernels.append(dict(common, path="val", launches=val[name],
+                                **rows[name, 128]))
             kernels.append(dict(common, path="serving", launches=serving[name],
                                 **rows[name, 32]))
             kernels.append(dict(common, path="train", launches=train[name],
                                 **rows[name, 8]))
+        elif name == "dcn_fwd":
+            kernels.append(dict(common, path="val", launches=val[name],
+                                **rows[name, 32]))
+            kernels.append(dict(
+                common, path="serving and train",
+                launches=serving[name] + train[name],
+                launches_serving=serving[name], launches_train=train[name],
+                **rows[name]))
+        elif name == "warp_bwd":
+            kernels.append(dict(common, path="train", launches=train[name],
+                                **rows[name, 8]))
+            kernels.append(dict(common, path="none: the shape of 32 images, "
+                                "timed for comparison", launches=0,
+                                **rows[name, 32]))
         else:
-            kernels.append(dict(common, path="serving and train",
-                                launches=sum(counts.values()), **counts,
+            kernels.append(dict(common, path="train", launches=train[name],
                                 **rows[name]))
+    for name, (_, _, line, _) in PROBES.items():
+        kernels.append(dict(
+            name=name, route="cuda", source=csrc + "probes.cu",
+            replaces=f"tools/mosaic_watch.py:{line}", path="probes",
+            launches=probe_launches[name], **rows[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

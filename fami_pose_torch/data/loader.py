@@ -1,10 +1,12 @@
 """Input preparation on the device and the host-side batch loader
 (``fami_pose_tpu/data/loader.py``).
 
-Eval: person-box crop + ImageNet normalization
-(:func:`prepare_eval_inputs_device_crop`); frames stay uint8 until the crop
-samples them, and the crop runs on the device (``ops.warp.crop_and_warp``),
-so no ``cv2`` is needed on that path.
+Eval: host-cropped uint8 batches are normalized on the device
+(:func:`prepare_eval_inputs`); with raw frames or raw person windows
+(``TPU.DEVICE_CROP``, the serving predictor) the person-box crop runs on the
+device too (:func:`prepare_eval_inputs_device_crop`,
+``ops.warp.crop_and_warp``): frames stay uint8 until the crop samples them,
+and no ``cv2`` is needed on that path.
 
 Training: host threads run ``dataset[i]`` and stack uint8 crops
 (:func:`collate`, :class:`DataLoader`); normalization and Gaussian target
@@ -22,8 +24,7 @@ import torch
 from fami_pose_torch.ops.heatmap import generate_heatmaps
 from fami_pose_torch.ops.warp import crop_and_warp
 
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+from .video_dataset import IMAGENET_MEAN, IMAGENET_STD
 
 
 def normalize(x):
@@ -33,6 +34,18 @@ def normalize(x):
     std = torch.as_tensor(np.tile(IMAGENET_STD, c), device=x.device)
     x = x.to(torch.float32) / 255.0
     return (x - mean.view(1, -1, 1, 1)) / std.view(1, -1, 1, 1)
+
+
+def prepare_eval_inputs(kf_u8, sup_u8, device=None):
+    """Host-cropped uint8 batches as the datasets give them, (B, H, W, 3) and
+    (B, H, W, 3N) arrays or tensors, -> normalized float32 (B, 3, H, W) and
+    (B, 3N, H, W) on ``device`` (default: where ``kf_u8`` lies)."""
+    def on_device(a):
+        t = torch.as_tensor(a)
+        return t.to(device=device if device is not None else t.device,
+                    non_blocking=True).permute(0, 3, 1, 2)
+
+    return normalize(on_device(kf_u8)), normalize(on_device(sup_u8))
 
 
 def prepare_eval_inputs_device_crop(kf_raw, sup_raw, center, scale, rotation,
@@ -91,16 +104,13 @@ def prepare_train_batch(kf_u8, sup_u8, joints, joints_vis, sigma, image_size,
 
 def collate(samples):
     """Stack host samples into a batch of numpy arrays (+ the path list)."""
-    if "crop_center" in samples[0]:
-        raise NotImplementedError(
-            "samples carry 'crop_center' (TPU.DEVICE_CROP): the device crop "
-            "for training is not ported yet"
-        )
     out = {}
     for k in ("kf", "sup", "joints", "joints_vis", "center", "scale",
               "rotation", "score"):
         out[k] = np.stack([s[k] for s in samples])
     out["image_path"] = [s["image_path"] for s in samples]
+    if "crop_center" in samples[0]:  # TPU.DEVICE_CROP: raw person windows
+        out["crop_center"] = np.stack([s["crop_center"] for s in samples])
     return out
 
 
@@ -187,5 +197,20 @@ def build_train_loader(cfg, dataset, **kwargs):
         num_workers=int(cfg.WORKERS),
         drop_last=True,
         seed=int(cfg.SEED),
+        **kwargs,
+    )
+
+
+def build_eval_loader(cfg, dataset, phase="validate", **kwargs):
+    """The eval loader of a config: ``VAL`` / ``TEST.BATCH_SIZE_PER_GPU``
+    samples a batch (one device), in dataset order, the last batch padded
+    (``batch["valid"]`` counts its real rows)."""
+    sub = cfg.VAL if phase == "validate" else cfg.TEST
+    return DataLoader(
+        dataset,
+        batch_size=int(sub.BATCH_SIZE_PER_GPU),
+        shuffle=False,
+        num_workers=int(cfg.WORKERS),
+        drop_last=False,
         **kwargs,
     )

@@ -19,17 +19,31 @@ import time
 
 import torch
 
+import fami_pose_torch.data.jhmdb  # noqa: F401  (dataset registration)
+import fami_pose_torch.data.posetrack  # noqa: F401
 from fami_pose_torch.data.loader import build_train_loader, prepare_train_batch
 from fami_pose_torch.models.bridge import init_weights
 from fami_pose_torch.models.fami_pose import FAMIPose, init_weights_reference
 from fami_pose_torch.optim import build_optimizer
 from fami_pose_torch.utils.meters import AverageMeter
+from fami_pose_torch.utils.registry import DATASET_REGISTRY, TRAIN_PHASE
 
 from . import checkpoints
 from .steps import make_train_step
 from .train_state import TrainState
 
 CORE_FUNCTIONS = ("", "FAMIPoseFunction", "AlignmentMIFunction_Term6_V1")
+
+
+def check_model(cfg):
+    """Raise for a core function or a model the port does not have."""
+    if str(cfg.CORE_FUNCTION or "") not in CORE_FUNCTIONS:
+        raise KeyError(
+            f"Unknown core function {cfg.CORE_FUNCTION!r}; available: "
+            f"{sorted(n for n in CORE_FUNCTIONS if n)}"
+        )
+    if str(cfg.MODEL.NAME) not in ("FAMIPose", "Alignment_V15"):
+        raise KeyError(f"Unknown model {cfg.MODEL.NAME!r}")
 
 
 def check_supported(cfg):
@@ -48,13 +62,7 @@ def check_supported(cfg):
         raise NotImplementedError(
             f"not ported to fami_pose_torch's trainer yet: {', '.join(on)}"
         )
-    if str(cfg.CORE_FUNCTION or "") not in CORE_FUNCTIONS:
-        raise KeyError(
-            f"Unknown core function {cfg.CORE_FUNCTION!r}; available: "
-            f"{sorted(n for n in CORE_FUNCTIONS if n)}"
-        )
-    if str(cfg.MODEL.NAME) not in ("FAMIPose", "Alignment_V15"):
-        raise KeyError(f"Unknown model {cfg.MODEL.NAME!r}")
+    check_model(cfg)
 
 
 class Trainer:
@@ -66,18 +74,16 @@ class Trainer:
         ``cfg.OUTPUT_DIR``.
       dataset: any object with ``__len__`` and ``__getitem__`` that gives the
         sample dict ``data.loader.collate`` reads (uint8 ``kf`` (H, W, 3) and
-        ``sup`` (H, W, 3N), ``joints`` (J, 2), ``joints_vis`` (J,), ...).
-        The port has no dataset classes yet, so it must be given.
+        ``sup`` (H, W, 3N), ``joints`` (J, 2), ``joints_vis`` (J,), ...);
+        None builds ``DATASET.NAME``'s class from the registry for the train
+        phase.
       device: where the model and the batches live.
     """
 
     def __init__(self, cfg, output_dirs=None, dataset=None, device="cuda"):
         check_supported(cfg)
         if dataset is None:
-            raise NotImplementedError(
-                "the dataset classes (PoseTrack, JHMDB) are not ported yet: "
-                "pass dataset="
-            )
+            dataset = DATASET_REGISTRY.get(cfg.DATASET.NAME)(cfg, TRAIN_PHASE)
         self.cfg = cfg
         self.device = torch.device(device)
         self.logger = logging.getLogger(__name__)
@@ -127,6 +133,11 @@ class Trainer:
     def prepare(self, raw):
         """A collated host batch -> the train step's batch on the device."""
         cfg = self.cfg
+        if "crop_center" in raw:
+            raise NotImplementedError(
+                "the batch carries 'crop_center' (TPU.DEVICE_CROP): the "
+                "device crop for training is not ported yet"
+            )
         return prepare_train_batch(
             raw["kf"], raw["sup"], raw["joints"], raw["joints_vis"],
             sigma=int(cfg.MODEL.SIGMA),

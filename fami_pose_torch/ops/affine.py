@@ -119,16 +119,43 @@ def invert_affine(mat):
 
 
 def _host_matrix(center, scale, rot, output_size, shift, inv, dark):
-    scale = np.asarray(scale, dtype=np.float32)
+    """:func:`affine_matrix` for one box in numpy float32, operation for
+    operation as the JAX package's host path computes it: the datasets hand
+    this matrix to ``cv2.warpAffine``, where a last-bit difference moves
+    pixels, so the host crops of both packages agree bit for bit."""
+    f32 = np.float32
+    center = np.asarray(center, f32)
+    scale = np.asarray(scale, f32)
     if scale.ndim == 0:
-        scale = np.array([scale, scale], dtype=np.float32)
-    m = affine_matrix(
-        torch.from_numpy(np.asarray(center, np.float32)),
-        torch.from_numpy(scale), float(rot), output_size,
-        shift=torch.from_numpy(np.asarray(shift, np.float32)),
-        inv=bool(inv), dark=dark,
-    )
-    return m.numpy().astype(np.float64)
+        scale = np.array([scale, scale], f32)
+    rot = np.asarray(float(rot), f32) * (np.pi / 180.0)
+    dst_w, dst_h = float(output_size[0]), float(output_size[1])
+    src_w = scale[..., 0] * PIXEL_STD
+    if dark:
+        s = (dst_w - 1.0) / (src_w - 1.0)
+        d0 = np.stack([np.full_like(src_w, (dst_w - 1.0) * 0.5),
+                       np.full_like(src_w, (dst_h - 1.0) * 0.5)], axis=-1)
+    else:
+        s = dst_w / src_w
+        d0 = np.stack([np.full_like(src_w, dst_w * 0.5),
+                       np.full_like(src_w, dst_h * 0.5)], axis=-1)
+    p0 = center + scale * PIXEL_STD * np.asarray(shift, f32)
+    cs, sn = np.cos(rot), np.sin(rot)
+
+    def matvec(m, v):
+        return np.stack([m[0, 0] * v[0] + m[0, 1] * v[1],
+                         m[1, 0] * v[0] + m[1, 1] * v[1]], axis=-1)
+
+    if inv:
+        inv_s = 1.0 / s
+        lin = np.stack([np.stack([cs * inv_s, -sn * inv_s], axis=-1),
+                        np.stack([sn * inv_s, cs * inv_s], axis=-1)], axis=-2)
+        trans = p0 - matvec(lin, d0)
+    else:
+        lin = np.stack([np.stack([cs * s, sn * s], axis=-1),
+                        np.stack([-sn * s, cs * s], axis=-1)], axis=-2)
+        trans = d0 - matvec(lin, p0)
+    return np.concatenate([lin, trans[..., None]], axis=-1).astype(np.float64)
 
 
 def get_affine_transform(center, scale, rot, output_size,
@@ -141,3 +168,9 @@ def dark_get_affine_transform(center, scale, rot, output_size,
                               shift=np.array([0, 0], np.float32), inv=0):
     """DARK-convention crop matrix, numpy, one box."""
     return _host_matrix(center, scale, rot, output_size, shift, inv, True)
+
+
+def exec_affine_transform(pt, t):
+    """Warp one 2-D point by a 2x3 matrix (host-side, numpy)."""
+    pt = np.asarray(pt, dtype=np.float64)
+    return t[:, :2] @ pt[:2] + t[:, 2]

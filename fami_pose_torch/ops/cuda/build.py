@@ -26,7 +26,7 @@ import tempfile
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "_build")
-SOURCES = ("dcn_fwd.cu", "dcn_bwd.cu", "warp.cu", "warp_bwd.cu")
+SOURCES = ("dcn_fwd.cu", "dcn_bwd.cu", "warp.cu", "warp_bwd.cu", "probes.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -50,6 +50,14 @@ SIGNATURES = {
     # images, offsets, gout, d_images, d_offsets, dtype, N, C, H, W,
     # max_shift, stream
     "fami_warp_translate_bwd": [c_ptr] * 5 + [c_int] * 5 + [c_float, c_ptr],
+    # x, idx, out, dtype, rows, cols, variant, stream
+    "fami_probe_gather_lane": [c_ptr] * 3 + [c_int] * 4 + [c_ptr],
+    # x, idx, out, batch, rows, cols, stream
+    "fami_probe_gather_3d": [c_ptr] * 3 + [c_int] * 3 + [c_ptr],
+    # x, idx, out, rows, cols, stream
+    "fami_probe_gather_rows": [c_ptr] * 3 + [c_int] * 2 + [c_ptr],
+    # x, shift, out, rows, cols, stream
+    "fami_probe_dynamic_roll": [c_ptr] * 3 + [c_int] * 2 + [c_ptr],
 }
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

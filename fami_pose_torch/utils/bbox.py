@@ -25,3 +25,16 @@ def xywh2cs(x, y, w, h, aspect_ratio, enlarge_factor=1.0):
 def box2cs(box, aspect_ratio, enlarge_factor=1.0):
     x, y, w, h = box[:4]
     return xywh2cs(x, y, w, h, aspect_ratio, enlarge_factor)
+
+
+def cs2box(center, scale, pixel_std=PIXEL_STD, pattern="xywh"):
+    w = scale[0] * pixel_std
+    h = scale[1] * pixel_std
+    if pattern == "xyxy":
+        return [
+            center[0] - w * 0.5,
+            center[1] - h * 0.5,
+            center[0] + w * 0.5,
+            center[1] + h * 0.5,
+        ]
+    return [center[0] - w * 0.5, center[1] - h * 0.5, w, h]

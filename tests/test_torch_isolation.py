@@ -8,6 +8,7 @@ import inspect
 import os
 import subprocess
 import sys
+import types
 
 import pytest
 
@@ -40,7 +41,7 @@ def _imported_roots(path):
 def test_port_files_found():
     files = _port_files()
     assert os.path.join(ROOT, "chip_smoke.py") in files
-    assert len(files) > 15
+    assert len(files) > 40
     rel = {os.path.relpath(f, os.path.join(ROOT, "fami_pose_torch"))
            for f in files}
     # the train slice's modules are under the same guard
@@ -48,6 +49,19 @@ def test_port_files_found():
                  "engine/checkpoints.py", "engine/steps.py",
                  "losses/heatmap.py", "optim/optimizer.py",
                  "utils/meters.py", "data/loader.py"):
+        assert name in rel, name
+    # and the evaluation slice's: datasets, protocol, evaluator, runner, CLI,
+    # the probe kernels' wrappers and tool
+    for name in ("utils/registry.py", "data/keypoints.py", "data/coco_json.py",
+                 "data/video_dataset.py", "data/posetrack.py", "data/jhmdb.py",
+                 "evaluation/__init__.py", "evaluation/poseval_data.py",
+                 "evaluation/assign.py", "evaluation/ap.py",
+                 "evaluation/tracking.py", "evaluation/evaluate.py",
+                 "evaluation/pckh.py", "evaluation/convert.py",
+                 "evaluation/seq_ids.py", "evaluation/annolist_writer.py",
+                 "engine/evaluator.py", "engine/runner.py",
+                 "engine/argument_parser.py", "run.py", "ops/probes.py",
+                 "tools/hopper_watch.py"):
         assert name in rel, name
 
 
@@ -84,12 +98,46 @@ def test_imports_without_triton_or_nvcc(tmp_path):
 def test_entry_points_default_to_cuda():
     from fami_pose_torch.demo import parse_args
     from fami_pose_torch.engine.predictor import PosePredictor
+    from fami_pose_torch.engine.argument_parser import default_parse_args
+    from fami_pose_torch.engine.evaluator import Evaluator
+    from fami_pose_torch.engine.runner import Runner
     from fami_pose_torch.engine.trainer import Trainer
+    from fami_pose_torch.tools import hopper_watch
 
-    for cls in (PosePredictor, Trainer):
+    for cls in (PosePredictor, Trainer, Evaluator):
         sig = inspect.signature(cls.__init__)
         assert sig.parameters["device"].default == "cuda", cls
     assert parse_args(["--cfg", "c", "--frames", "f"]).device == "cuda"
+    # python -m fami_pose_torch.run, and the Runner with or without its
+    # command line's namespace
+    args = default_parse_args(["--cfg", "c", "--val"])
+    assert args.device == "cuda"
+    for runner_args in (None, args, types.SimpleNamespace()):
+        runner = Runner.__new__(Runner)  # no directories are made
+        runner.setup_cfg = lambda: None
+        runner.__init__(None, runner_args)
+        assert runner.device == "cuda"
+    # python -m fami_pose_torch.tools.hopper_watch
+    source = inspect.getsource(hopper_watch.main)
+    assert '"--device", default="cuda"' in source
+
+
+def test_cuda_tensor_never_reaches_a_plain_version():
+    """Every probe wrapper takes its plain version only for a CPU tensor:
+    any other device type but ``cuda`` raises, and the CUDA branch has no
+    fallback (it builds and launches, or raises: here, without nvcc)."""
+    import torch
+
+    from fami_pose_torch.ops import probes
+
+    for fn in (probes.gather_lane, probes.gather_3d, probes.gather_rows,
+               probes.dynamic_roll):
+        source = inspect.getsource(fn)
+        assert source.count("_plain(") == 1, fn.__name__
+        assert "except" not in source and "try:" not in source, fn.__name__
+        x = torch.empty(2, 128, device="meta")
+        with pytest.raises(ValueError, match="no probe kernel for device"):
+            fn(x, x)
 
 
 def test_cuda_build_needs_nvcc(tmp_path, monkeypatch):

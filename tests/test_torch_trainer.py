@@ -189,8 +189,11 @@ def test_unported_options_are_refused(tmp_path, key, value):
 
 def test_other_refusals(tmp_path):
     cfg = _cfg(str(tmp_path), 1)
-    with pytest.raises(NotImplementedError, match="dataset"):
+    # without dataset= the class comes from the registry by DATASET.NAME
+    cfg.DATASET.NAME = "NoSuchDataset"
+    with pytest.raises(KeyError, match="DATASET registry"):
         Trainer(cfg, device="cpu")
+    cfg = _cfg(str(tmp_path), 1)
     pretrained = tmp_path / "hrnet.pth"
     pretrained.write_bytes(b"x")
     cfg.MODEL.PRETRAINED = str(pretrained)
@@ -204,9 +207,15 @@ def test_other_refusals(tmp_path):
     cfg.MODEL.NAME = "PoseWarper"
     with pytest.raises(KeyError, match="Unknown model"):
         check_supported(cfg)
+    # raw person windows (TPU.DEVICE_CROP samples) collate for the
+    # evaluator, and the trainer's batch preparation refuses them
     sample = dict(_dataset(n=1)[0], crop_center=np.zeros(2))
+    raw = collate([sample] * 4)
+    assert raw["crop_center"].shape == (4, 2)
+    trainer = Trainer(_cfg(str(tmp_path), 1), dataset=_dataset(n=4),
+                      device="cpu")
     with pytest.raises(NotImplementedError, match="crop_center"):
-        collate([sample])
+        trainer.prepare(raw)
 
 
 def test_checkpoint_directory_contract_matches_jax(tmp_path):

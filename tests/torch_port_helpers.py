@@ -48,3 +48,73 @@ def nchw(a):
 def nhwc(t):
     """NCHW torch -> NHWC numpy."""
     return t.detach().float().numpy().transpose(0, 2, 3, 1)
+
+
+def make_port_cfg(json_dir, img_dir, posetrack18=False, distance=3):
+    """The port's twin of ``fixtures.make_cfg``: the same settings on a
+    ``fami_pose_torch`` config."""
+    from fami_pose_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.DISTANCE = distance
+    cfg.MODEL.NUM_JOINTS = 17
+    cfg.MODEL.IMAGE_SIZE = [96, 128]
+    cfg.MODEL.HEATMAP_SIZE = [24, 32]
+    cfg.MODEL.SIGMA = 2
+    cfg.DATASET.NAME = "PoseTrack"
+    cfg.DATASET.JSON_DIR = json_dir
+    cfg.DATASET.IMG_DIR = img_dir
+    cfg.DATASET.TEST_IMG_DIR = img_dir
+    cfg.DATASET.IS_POSETRACK18 = posetrack18
+    cfg.DATASET.COLOR_RGB = True
+    cfg.DATASET.BBOX_ENLARGE_FACTOR = 1.25
+    cfg.TRAIN.PROB_HALF_BODY = 0.0
+    cfg.VAL.USE_GT_BBOX = True
+    cfg.WORKERS = 1
+    return cfg
+
+
+def tiny_model_cfg(cfg, out_dir):
+    """The tiny FAMIPose settings of the JAX package's evaluator tests, on
+    either package's config (``TINY_EXTRA`` is the same dict in both)."""
+    from fami_pose_torch.models.hrnet import TINY_EXTRA
+
+    cfg.MODEL.NAME = "FAMIPose"
+    cfg.MODEL.EXTRA = TINY_EXTRA
+    cfg.MODEL.PRETRAINED = ""
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.DCN_OFFSET_GROUPS = 4
+    cfg.TPU.DCN_MAX_OFFSET = 2
+    cfg.TPU.MESH_SHAPE = [1, 1]
+    cfg.VAL.BATCH_SIZE_PER_GPU = 4
+    cfg.TEST.BATCH_SIZE_PER_GPU = 4
+    cfg.OUTPUT_DIR = out_dir
+    return cfg
+
+
+def save_port_checkpoint(directory, epoch, variables):
+    """Flax variables (nested dicts of numpy arrays, as a JAX checkpoint
+    holds them) -> a port checkpoint ``epoch_{N}_state.ckpt`` that
+    ``fami_pose_torch``'s ``Evaluator.load_variables`` reads; returns its
+    path."""
+    import os
+
+    from fami_pose_torch.engine.checkpoints import checkpoint_path
+    from fami_pose_torch.models.bridge import state_dict_from_flax
+
+    os.makedirs(directory, exist_ok=True)
+    path = checkpoint_path(directory, epoch)
+    torch.save({"model": state_dict_from_flax(variables),
+                "begin_epoch": int(epoch)}, path)
+    return path
+
+
+def flax_variables_from_port(state_dict):
+    """A port ``state_dict`` -> flax ``{"params", "batch_stats"}`` through
+    the JAX package's reference-name remap (the reverse bridge)."""
+    from fami_pose_tpu.models.torch_remap import remap_fami_pose_state_dict
+
+    params, stats, unmapped = remap_fami_pose_state_dict(
+        {k: v.detach().cpu().numpy() for k, v in state_dict.items()})
+    assert unmapped == [], unmapped
+    return {"params": params, "batch_stats": stats}
