@@ -18,11 +18,14 @@ and as the last line ``{"ok": true, "device": {...}}``:
                serving path's shape, and at (8, 48, 96, 72), the train
                path's, and its backward at (8, 48, 96, 72), with shifts past
                +-26, and both at the val path's shapes (the DCN at B=32 with
-               D in {4, 3, exact}, the warp at 128 images). Kernel, plain and
-               library times by CUDA events around host-paced calls, and for
-               the warps and the probes also device-side (``device_ms``: 50
-               launches in one CUDA graph), since host-paced calls cannot
-               read a kernel below the wrapper's ~40-60 us. Then the four
+               D in {4, 3, exact}, the warp at 128 images). Each kernel call
+               is synchronised before its plain version runs, so that a
+               fault names the kernel (``run_kernel``). Every kernel is timed
+               device-side (``device_ms``: its launches in one CUDA graph),
+               since host-paced calls cannot read a kernel below the
+               wrapper's ~40-60 us, beside the host-paced reading; the
+               library yardsticks likewise (``grid_sample`` and
+               ``grid_sampler_2d_backward`` for the warps). Then the four
                on-chip gather / rotate probes (``ops/probes.py``) at the TPU
                probes' shapes, bitwise against ``torch.gather`` / ``torch.roll``.
   4. main    - ``PosePredictor`` on ``configs/posetrack17/fami_pose.yaml``
@@ -32,7 +35,8 @@ and as the last line ``{"ok": true, "device": {...}}``:
                (20 requests, batches of 8). Launch counts of every kernel in
                that run, output checks, latency and clips/s; then one B=8
                batch split into crop / forward / backbone, and traced with
-               torch.profiler (device busy share, top operators).
+               torch.profiler (device busy share, top operators); and the
+               DCN forward on ``dcn_1``'s own inputs from one such batch.
   5. card-vs-cpu - the same weights in f32, one key frame: final heatmaps of
                the CUDA path against the port on the CPU (plain versions).
   6. train   - ``Trainer`` on the same config at ``TRAIN.BATCH_SIZE_PER_GPU
@@ -145,6 +149,8 @@ def device_ms(fn, launches=50, replays=5):
 
 DEVICE_TIMING = ("ms and library_ms: 50 launches in one CUDA graph, fastest "
                  "of 5 replays; *host_paced_ms: 20 calls made one by one")
+DCN_TIMING = ("ms: 20 launches in one CUDA graph, fastest of 5 replays; "
+              "host_paced_ms: 20 calls made one by one")
 
 
 def bound_ms(n_bytes, n_ops, dtype):
@@ -162,6 +168,19 @@ def nbytes(*tensors):
 
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def run_kernel(name, fn):
+    """One call of a kernel's wrapper, synchronised at once, before anything
+    else runs: a fault on the card during the kernel is reported here under
+    the kernel's name, not at the next call that checks for errors."""
+    out = fn()
+    try:
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        raise RuntimeError(f"{name}: CUDA fault during the kernel: {err}") \
+            from err
+    return out
 
 
 def check_close(name, got, ref, dtype):
@@ -217,6 +236,34 @@ def dcn_inputs(gen, dtype, d, b=8, c=48, h=96, w=72, g=12):
     return x, off, msk, wgt
 
 
+DCN_NO_LIBRARY = ("none: no single PyTorch call computes a modulated DCN "
+                  "(no torchvision on the machine)")
+WARP_BWD_LIBRARY = (
+    "torch.ops.aten.grid_sampler_2d_backward(bilinear, zeros, "
+    "align_corners=True) on a precomputed grid, device-side: the image "
+    "gradient and a per-pixel grid gradient, which is not summed into "
+    "d_offsets as the kernel does")
+
+
+def dcn_fwd_bound(x, off, msk, wgt, out):
+    """Every input read once and the output written once; the contraction
+    (2 * 9C * Cout a pixel) and ~9 operations a sampled value."""
+    b, c, h, w = x.shape
+    ops = 2 * b * h * w * 9 * c * wgt.shape[0] + 9 * b * h * w * 9 * c
+    return bound_ms(nbytes(x, off, msk, wgt, out), ops, x.dtype)
+
+
+def translation_grid(offs, h, w, dtype):
+    """grid_sample's sampling grid (align_corners=True) for the warp at
+    p - clamp(t, +-26)."""
+    t = offs.clamp(-26, 26)
+    ys = torch.arange(h, device=offs.device, dtype=torch.float32)
+    xs = torch.arange(w, device=offs.device, dtype=torch.float32)
+    gx = (xs[None, None, :] - t[:, 0, None, None]) * (2.0 / (w - 1)) - 1
+    gy = (ys[None, :, None] - t[:, 1, None, None]) * (2.0 / (h - 1)) - 1
+    return torch.stack(torch.broadcast_tensors(gx, gy), dim=-1).to(dtype)
+
+
 def phase_kernels():
     from fami_pose_torch.ops.deform_conv import (
         deform_conv2d, deform_conv2d_backward, deform_conv2d_backward_plain,
@@ -235,26 +282,26 @@ def phase_kernels():
             kw = dict(padding=3, dilation=3, offset_groups=12)
             run_k = lambda: deform_conv2d_windowed(x, off, msk, wgt, max_offset=d, **kw)
             run_p = lambda: deform_conv2d(x, off, msk, wgt, max_offset=d, **kw)
-            got, ref = run_k(), run_p()
-            torch.cuda.synchronize()
-            err, tol = check_close(f"dcn D={d} {dtype}", got, ref, dtype)
+            name = f"dcn_fwd D={d} {dtype}"
+            got = run_kernel(name, run_k)
+            err, tol = check_close(name, got, run_p(), dtype)
             past = float((off.float().abs() > d).float().mean()) if d else 0.0
-            k_ms = time_ms(run_k)
+            host_ms, k_ms = time_ms(run_k), device_ms(run_k, launches=20)
             p_ms = time_ms(run_p, iters=5, warmup=1)
-            b, c, h, w = x.shape
-            ops = 2 * b * h * w * 9 * c * c + 9 * b * h * w * 9 * c
-            bnd, by = bound_ms(nbytes(x, off, msk, wgt, got), ops, dtype)
+            bnd, by = dcn_fwd_bound(x, off, msk, wgt, got)
             emit("kernels", kernel="dcn_fwd", dtype=str(dtype)[6:], D=d,
                  shape=list(x.shape), offsets_past_D=round(past, 4),
-                 max_abs_err=err, tol=tol, ms=k_ms, plain_ms=p_ms,
-                 bound_ms=bnd, bound_by=by,
-                 library_ms=None, library="none: no single PyTorch call "
-                 "computes a modulated DCN (no torchvision on the machine)")
+                 max_abs_err=err, tol=tol, ms=k_ms, host_paced_ms=host_ms,
+                 timing=DCN_TIMING, plain_ms=p_ms,
+                 bound_ms=bnd, bound_by=by, library_ms=None,
+                 library=DCN_NO_LIBRARY)
             if dtype == torch.bfloat16 and d == 4:
                 rows["dcn_fwd"] = dict(shape=list(x.shape), max_abs_err=err,
-                                       ms=k_ms, plain_ms=p_ms,
+                                       ms=k_ms, host_paced_ms=host_ms,
+                                       timing=DCN_TIMING, plain_ms=p_ms,
                                        bound_ms=bnd, bound_by=by,
-                                       library_ms=None)
+                                       library_ms=None,
+                                       library=DCN_NO_LIBRARY)
 
             # the backward on the same inputs; every output against the plain
             # backward (dx and dweight are summed with atomics: last bits vary)
@@ -264,8 +311,8 @@ def phase_kernels():
                                                    max_offset=d, **kw)
             run_p = lambda: deform_conv2d_backward_plain(
                 x, off, msk, wgt, gout, max_offset=d, **kw)
-            got_b, ref_b = run_k(), run_p()
-            torch.cuda.synchronize()
+            got_b = run_kernel(f"dcn_bwd D={d} {dtype}", run_k)
+            ref_b = run_p()
             errs = {}
             for name, a, r in zip(("dx", "doffset", "dmask", "dweight"),
                                   got_b, ref_b):
@@ -273,8 +320,9 @@ def phase_kernels():
                                          dtype)
             integer = float(
                 (off.float() == off.float().round()).float().mean())
-            k_ms = time_ms(run_k)
+            host_ms, k_ms = time_ms(run_k), device_ms(run_k, launches=20)
             p_ms = time_ms(run_p, iters=3, warmup=1)
+            b, c, h, w = x.shape
             # two contractions (dcol, dweight) and ~30 operations per sampled
             # (pixel, tap, channel); every input read once, every gradient
             # written once in its own type
@@ -287,13 +335,16 @@ def phase_kernels():
                  offsets_integer=round(integer, 4),
                  max_abs_err={k: e for k, (e, _) in errs.items()},
                  tol={k: t for k, (_, t) in errs.items()}, ms=k_ms,
+                 host_paced_ms=host_ms, timing=DCN_TIMING,
                  plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None,
                  library="none: no single PyTorch call computes a modulated "
                  "DCN's gradients")
             if dtype == torch.bfloat16 and d == 4:
                 rows["dcn_bwd"] = dict(shape=list(x.shape), max_abs_err=worst,
-                                       ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
-                                       bound_by=by, library_ms=None)
+                                       ms=k_ms, host_paced_ms=host_ms,
+                                       timing=DCN_TIMING, plain_ms=p_ms,
+                                       bound_ms=bnd, bound_by=by,
+                                       library_ms=None)
 
     # the DCN forward at the val path's shape (VAL.BATCH_SIZE_PER_GPU 32):
     # the configured window, one the auto-window picks, and the exact mode
@@ -303,24 +354,24 @@ def phase_kernels():
         kw = dict(padding=3, dilation=3, offset_groups=12)
         run_k = lambda: deform_conv2d_windowed(x, off, msk, wgt, max_offset=d, **kw)
         run_p = lambda: deform_conv2d(x, off, msk, wgt, max_offset=d, **kw)
-        got, ref = run_k(), run_p()
-        torch.cuda.synchronize()
-        err, tol = check_close(f"dcn B=32 D={d}", got, ref, dtype)
-        del ref
-        k_ms, d_ms = time_ms(run_k), device_ms(run_k, launches=20)
+        name = f"dcn_fwd B=32 D={d}"
+        got = run_kernel(name, run_k)
+        err, tol = check_close(name, got, run_p(), dtype)
+        host_ms, k_ms = time_ms(run_k), device_ms(run_k, launches=20)
         p_ms = time_ms(run_p, iters=3, warmup=1)
-        b, c, h, w = x.shape
-        ops = 2 * b * h * w * 9 * c * c + 9 * b * h * w * 9 * c
-        bnd, by = bound_ms(nbytes(x, off, msk, wgt, got), ops, dtype)
+        bnd, by = dcn_fwd_bound(x, off, msk, wgt, got)
         emit("kernels", kernel="dcn_fwd", dtype="bfloat16", D=d,
              shape=list(x.shape), max_abs_err=err, tol=tol, ms=k_ms,
-             device_ms=d_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by,
-             library_ms=None)
+             host_paced_ms=host_ms, timing=DCN_TIMING, plain_ms=p_ms,
+             bound_ms=bnd, bound_by=by, library_ms=None,
+             library=DCN_NO_LIBRARY)
         if d == 4:
             rows["dcn_fwd", 32] = dict(shape=list(x.shape), max_abs_err=err,
-                                       ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                                       ms=k_ms, host_paced_ms=host_ms,
+                                       timing=DCN_TIMING, plain_ms=p_ms,
                                        bound_ms=bnd, bound_by=by,
-                                       library_ms=None)
+                                       library_ms=None,
+                                       library=DCN_NO_LIBRARY)
         del x, off, msk, got
     torch.cuda.empty_cache()
 
@@ -335,16 +386,12 @@ def phase_kernels():
         offs = (torch.rand(n, 2, generator=gen, device="cuda") * 2 - 1) * 40.0
         run_k = lambda: warp_translate(img, offs, max_shift=26)
         run_p = lambda: warp_translate_plain(img, offs, max_shift=26)
-        got, ref = run_k(), run_p()
-        torch.cuda.synchronize()
-        err, tol = check_close(f"warp n={n} {dtype}", got, ref, dtype)
+        name = f"warp_translate n={n} {dtype}"
+        got = run_kernel(name, run_k)
+        ref = run_p()
+        err, tol = check_close(name, got, ref, dtype)
         # library yardstick: grid_sample (bilinear, zeros) at p - clamp(t)
-        t = offs.clamp(-26, 26)
-        ys = torch.arange(h, device="cuda", dtype=torch.float32)
-        xs = torch.arange(w, device="cuda", dtype=torch.float32)
-        gx = (xs[None, None, :] - t[:, 0, None, None]) * (2.0 / (w - 1)) - 1
-        gy = (ys[None, :, None] - t[:, 1, None, None]) * (2.0 / (h - 1)) - 1
-        grid = torch.stack(torch.broadcast_tensors(gx, gy), dim=-1).to(dtype)
+        grid = translation_grid(offs, h, w, dtype)
         run_l = lambda: torch.nn.functional.grid_sample(
             img, grid, mode="bilinear", padding_mode="zeros",
             align_corners=True)
@@ -380,32 +427,22 @@ def phase_kernels():
         gout = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
         run_k = lambda: warp_translate_backward(img, offs, gout, 26)
         run_p = lambda: warp_translate_backward_plain(img, offs, gout, 26)
-        got_b, ref_b = run_k(), run_p()
-        torch.cuda.synchronize()
+        got_b = run_kernel(f"warp_bwd n={n} {dtype}", run_k)
+        ref_b = run_p()
         err_i, tol_i = check_close(f"warp_bwd d_images {dtype}", got_b[0],
                                    ref_b[0], dtype)
         # d_offsets: float32 sums of c*h*w products, in another order
         err_o, tol_o = check_close(f"warp_bwd d_offsets {dtype}", got_b[1],
                                    ref_b[1], torch.float32)
-        # library yardstick: autograd through grid_sample, the grid built
-        # from the translations inside the graph
-        img_l = img.clone().requires_grad_()
-        t_l = offs.clone().requires_grad_()
-        tc = t_l.clamp(-26, 26)
-        ys = torch.arange(h, device="cuda", dtype=torch.float32)
-        xs = torch.arange(w, device="cuda", dtype=torch.float32)
-        gx = (xs[None, None, :] - tc[:, 0, None, None]) * (2.0 / (w - 1)) - 1
-        gy = (ys[None, :, None] - tc[:, 1, None, None]) * (2.0 / (h - 1)) - 1
-        grid = torch.stack(torch.broadcast_tensors(gx, gy), dim=-1).to(dtype)
-        out_l = torch.nn.functional.grid_sample(
-            img_l, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=True)
-        run_l = lambda: torch.autograd.grad(out_l, [img_l, t_l], gout,
-                                            retain_graph=True)
-        lib = run_l()
-        lib_err = max_err(lib[0], ref_b[0])
-        host_ms, p_ms, l_ms = time_ms(run_k), time_ms(run_p), time_ms(run_l)
-        k_ms = device_ms(run_k)
+        # library yardstick: grid_sample's own backward on a precomputed
+        # grid, device-side. It returns the image gradient and a per-pixel
+        # grid gradient; the sum of the latter into d_offsets is not in it
+        grid = translation_grid(offs, h, w, dtype)
+        run_l = lambda: torch.ops.aten.grid_sampler_2d_backward(
+            gout, img, grid, 0, 0, True, [True, True])
+        lib_err = max_err(run_l()[0], ref_b[0])
+        host_ms, p_ms = time_ms(run_k), time_ms(run_p)
+        k_ms, l_ms = device_ms(run_k), device_ms(run_l)
         bnd, by = bound_ms(nbytes(img, offs, gout, *got_b), 30 * img.numel(),
                            dtype)
         emit("kernels", kernel="warp_bwd", dtype=str(dtype)[6:],
@@ -415,15 +452,13 @@ def phase_kernels():
              tol={"d_images": tol_i, "d_offsets": tol_o}, ms=k_ms,
              host_paced_ms=host_ms, timing=DEVICE_TIMING,
              plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms,
-             library="autograd through F.grid_sample(bilinear, zeros, "
-             "align_corners=True) and the grid's construction (host-paced: "
-             "it is far above the wrapper's cost)",
-             library_d_images_max_abs_err=lib_err)
+             library=WARP_BWD_LIBRARY, library_d_images_max_abs_err=lib_err)
         if dtype == torch.bfloat16:
             rows["warp_bwd", n] = dict(
                 shape=[n, c, h, w], max_abs_err=max(err_i, err_o), ms=k_ms,
                 host_paced_ms=host_ms, timing=DEVICE_TIMING,
                 plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms,
+                library=WARP_BWD_LIBRARY,
             )
     rows.update(probe_kernel_rows())
     return rows
@@ -459,8 +494,7 @@ def probe_kernel_rows():
                  else [probes.probe_inputs(fn_name, seed=11, device="cuda")])
         for args in cases:
             before = fn.launches
-            got = fn(*args, **kw)
-            torch.cuda.synchronize()
+            got = run_kernel(kernel, lambda: fn(*args, **kw))
             ref = plain(*args)
             if fn.launches != before + 1:
                 raise AssertionError(f"{kernel}: no launch was counted")
@@ -550,6 +584,54 @@ def check_outputs(records, boxes, aspect, enlarge, heatmap_w):
             )
 
 
+def dcn_on_model_inputs(pred, dev_frames, reqs):
+    """``dcn_fwd`` on the model's own inputs: ``dcn_1``'s (x, offset, mask,
+    weight) captured by a forward hook in one flip-tested B=8 serving batch
+    (the first of its two forwards), the kernel held against its plain
+    version on them and timed device-side; the offsets' spread and their
+    share past D. Random i.i.d. offsets are the gather's worst case; a
+    trained model's are smoother (these are seeded random weights)."""
+    from fami_pose_torch.models.fami_pose import DCN_DILATION
+    from fami_pose_torch.ops.deform_conv import (
+        deform_conv2d, deform_conv2d_windowed,
+    )
+
+    module = pred.model.dcn_1
+    seen = []
+    hook = module.register_forward_hook(
+        lambda mod, args, out: seen.append(tuple(a.clone() for a in args))
+        if not seen else None)
+    try:
+        pred.predict_batch(dev_frames, reqs)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    x, off, msk = seen[0]
+    off, msk = off.to(x.dtype), msk.to(x.dtype)  # as DeformConv.forward
+    wgt = module.weight.detach().to(x.dtype)
+    d = module.max_offset
+    kw = dict(padding=DCN_DILATION, dilation=DCN_DILATION,
+              offset_groups=module.offset_groups, max_offset=d)
+    run_k = lambda: deform_conv2d_windowed(x, off, msk, wgt, **kw)
+    run_p = lambda: deform_conv2d(x, off, msk, wgt, **kw)
+    got = run_kernel("dcn_fwd on dcn_1's inputs", run_k)
+    err, tol = check_close("dcn_fwd on dcn_1's inputs", got, run_p(), x.dtype)
+    k_ms = device_ms(run_k, launches=20)
+    p_ms = time_ms(run_p, iters=3, warmup=1)
+    bnd, by = dcn_fwd_bound(x, off, msk, wgt, got)
+    o = off.float()
+    q = torch.quantile(o.abs().flatten()[:: max(1, o.numel() // 2_000_000)],
+                       torch.tensor([0.5, 0.9, 0.99], device=o.device))
+    return dict(
+        layer="dcn_1", shape=list(x.shape), dtype=str(x.dtype)[6:],
+        D=d, max_abs_err=err, tol=tol, ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
+        bound_by=by, timing=DCN_TIMING,
+        offsets_std=float(o.std()), offsets_abs_max=float(o.abs().max()),
+        offsets_abs_p50_p90_p99=[float(v) for v in q],
+        offsets_past_D=float((o.abs() > d).float().mean()) if d else 0.0,
+        mask_abs_max=float(msk.float().abs().max()))
+
+
 def phase_main():
     import types
 
@@ -616,6 +698,8 @@ def phase_main():
         head_ms = time_ms(lambda: model.head(feat, kf.shape[0]), iters=10,
                           warmup=2)
     trace = profile_call(lambda: pred.predict_batch(dev_frames, reqs))
+    model_dcn = dcn_on_model_inputs(pred, dev_frames, reqs)
+    emit("kernels", kernel="dcn_fwd", inputs="the model's own", **model_dcn)
     emit("main", config="configs/posetrack17/fami_pose.yaml",
          model="FAMIPose HRNet-W48 384x288 bf16 D=4 num_sup=4 flip_test",
          weights="seeded random init (seed 0)", requests=n_req,
@@ -626,7 +710,7 @@ def phase_main():
          crop_b8_ms=crop_ms, forward_b8_ms=fwd_ms, backbone_b8_ms=bb_ms,
          head_b8_ms=head_ms,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, trace=trace)
-    return pred, launches
+    return pred, launches, model_dcn
 
 
 def phase_card_vs_cpu(pred):
@@ -1476,7 +1560,7 @@ def main():
     phase_build()
     rows = phase_kernels()
     reset_launches()
-    pred, serving = phase_main()
+    pred, serving, model_dcn = phase_main()
     if any(read_launches()[k] for k in ("dcn_bwd", "warp_bwd")):
         raise AssertionError("the serving path launched a backward kernel")
     phase_card_vs_cpu(pred)
@@ -1517,7 +1601,7 @@ def main():
                 common, path="serving and train",
                 launches=serving[name] + train[name],
                 launches_serving=serving[name], launches_train=train[name],
-                **rows[name]))
+                model_inputs=model_dcn, **rows[name]))
         elif name == "warp_bwd":
             kernels.append(dict(common, path="train", launches=train[name],
                                 **rows[name, 8]))

@@ -39,9 +39,9 @@ c_float = ctypes.c_float
 # argtypes of each C entry point (csrc/*.cu); every entry returns the
 # cudaError_t of its launch as an int
 SIGNATURES = {
-    # x, offset, mask, weight, out, dtype, B, C, H, W, Cout, Ho, Wo,
-    # kh, kw, pad, dil, groups, max_offset, stream
-    "fami_dcn_fwd": [c_ptr] * 5 + [c_int] * 13 + [c_float, c_ptr],
+    # x, x_grouped (scratch of x's size), offset, mask, weight, out, dtype,
+    # B, C, H, W, Cout, Ho, Wo, kh, kw, pad, dil, groups, max_offset, stream
+    "fami_dcn_fwd": [c_ptr] * 6 + [c_int] * 13 + [c_float, c_ptr],
     # x, offset, mask, weight, gout, dx, doffset, dmask, dweight, dtype,
     # B, C, H, W, Cout, Ho, Wo, kh, kw, pad, dil, groups, max_offset, stream
     "fami_dcn_bwd": [c_ptr] * 9 + [c_int] * 13 + [c_float, c_ptr],

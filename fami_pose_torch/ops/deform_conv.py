@@ -172,13 +172,34 @@ def _check_kernel_args(x, offset, mask, weight, padding, dilation, groups):
         )
     if c_out not in (16, 32, 48, 64):
         raise ValueError(f"DCN kernel takes C_out in 16/32/48/64, got {c_out}")
-    smem = k * c * (c_out + 64) * 4
-    if smem > 232448:
+    smem = dcn_fwd_smem(x.dtype, c, c_out, k, groups)
+    if smem > SMEM_PER_BLOCK:
         raise ValueError(
             f"DCN kernel: weights + column tile need {smem} B of shared "
-            f"memory (C={c}, C_out={c_out}); the card has 232448"
+            f"memory (C={c}, C_out={c_out}, {x.dtype}); the card has "
+            f"{SMEM_PER_BLOCK}"
         )
     return ho, wo
+
+
+SMEM_PER_BLOCK = 232448  # an H100 block's dynamic shared memory, opted in
+
+
+def dcn_fwd_smem(dtype, c, c_out, k, groups):
+    """Shared memory of one block of the forward kernel (``dcn_fwd.cu``), in
+    bytes. bfloat16: W and the sampled column as wgmma operands (the
+    reduction ``k * c`` padded to a multiple of 16) and the f32 result
+    tile; float32: W and the column in f32. Both: a table of the gather's
+    units (group, tap, 4-channel chunk), 16 bytes each."""
+    r = k * c
+    cg = c // groups
+    units = groups * k * (cg // 4 if cg % 4 == 0 else cg)
+    if dtype != torch.bfloat16:
+        return r * (c_out + 64) * 4 + units * 16
+    rp = -(-r // 16) * 16
+    a128 = lambda n: -(-n // 128) * 128  # noqa: E731
+    return (a128(rp * c_out * 2) + a128(rp * 64 * 2) + a128(c_out * 68 * 4)
+            + a128(units * 16))
 
 
 def _deform_conv_cuda(x, offset, mask, weight, padding, dilation, groups,
@@ -196,9 +217,11 @@ def _deform_conv_cuda(x, offset, mask, weight, padding, dilation, groups,
     n, c, h, w = x.shape
     c_out, _, kh, kw = weight.shape
     out = torch.empty((n, c_out, ho, wo), dtype=x.dtype, device=x.device)
+    # the kernel's copy of x in (N, G, H, W, C/G) order, which it gathers from
+    x_grouped = torch.empty_like(x)
     lib = load_library()
     err = lib.fami_dcn_fwd(
-        x.data_ptr(), offset.data_ptr(),
+        x.data_ptr(), x_grouped.data_ptr(), offset.data_ptr(),
         None if mask is None else mask.data_ptr(), weight.data_ptr(),
         out.data_ptr(), DTYPE_CODES[dtype], n, c, h, w, c_out, ho, wo, kh, kw,
         padding, dilation, groups,

@@ -16,6 +16,7 @@ so that a read or write outside an argument faults: a check that needs no
 """
 
 import ctypes
+import itertools
 import os
 import subprocess
 import sys
@@ -73,6 +74,110 @@ def test_warp_kernel_matches_plain(gen, dtype, max_shift):
     torch.cuda.synchronize()
     assert warp_translate.launches == before + 1
     _assert_close(got, warp_translate_plain(img, offs, max_shift), dtype)
+
+
+# shapes the redesigned kernels take by different internal paths: 16x24 has
+# whole 64-pixel tiles and 16-byte output rows (16-byte stores), 13x11 a
+# ragged last tile and 286-byte rows (scalar stores)
+DCN_SIZES = [(16, 24), (13, 11)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [16, 48])
+@pytest.mark.parametrize("c_out", [16, 32, 48, 64])
+@pytest.mark.parametrize("max_offset", [4, 1, 0])
+def test_dcn_kernel_shapes(gen, dtype, c, c_out, max_offset):
+    """C in {16, 48} (G = C/4), every C_out, D in {4, 1, exact} with some
+    offsets exactly at +-D, with and without a mask, at both sizes."""
+    g = c // 4
+    for (h, w), with_mask in itertools.product(DCN_SIZES, (True, False)):
+        x = torch.randn(2, c, h, w, generator=gen, device="cuda").to(dtype)
+        off = _offsets(gen, (2, 2 * g * 9, h, w), max_offset, dtype)
+        msk = torch.rand(2, g * 9, h, w, generator=gen, device="cuda")
+        msk = msk.to(dtype) if with_mask else None
+        wgt = (torch.randn(c_out, c, 3, 3, generator=gen, device="cuda")
+               * 0.05).to(dtype)
+        kw = dict(padding=3, dilation=3, offset_groups=g,
+                  max_offset=max_offset)
+        got = deform_conv2d_windowed(x, off, msk, wgt, **kw)
+        torch.cuda.synchronize()
+        _assert_close(got, deform_conv2d(x, off, msk, wgt, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c, g", [(48, 48), (12, 4), (24, 3), (64, 16)])
+def test_dcn_kernel_other_groupings(gen, dtype, c, g):
+    """Cg = 1 and 3: the scalar gather (432 and 108 units); Cg = 8: two
+    vector loads a corner; C = 64: the bf16 layout takes it, the f32 one
+    (258 KB) is refused."""
+    for h, w in DCN_SIZES:
+        x = torch.randn(2, c, h, w, generator=gen, device="cuda").to(dtype)
+        off = _offsets(gen, (2, 2 * g * 9, h, w), 3, dtype)
+        msk = torch.rand(2, g * 9, h, w, generator=gen, device="cuda").to(dtype)
+        wgt = (torch.randn(48, c, 3, 3, generator=gen, device="cuda")
+               * 0.05).to(dtype)
+        kw = dict(padding=3, dilation=3, offset_groups=g, max_offset=3)
+        if dtype == torch.float32 and c == 64:
+            with pytest.raises(ValueError, match="shared memory"):
+                deform_conv2d_windowed(x, off, msk, wgt, **kw)
+            continue
+        got = deform_conv2d_windowed(x, off, msk, wgt, **kw)
+        torch.cuda.synchronize()
+        _assert_close(got, deform_conv2d(x, off, msk, wgt, **kw), dtype)
+
+
+def test_dcn_kernel_padded_reduction(gen):
+    """C = 12, G = 3: 9C = 108 is padded to 112 in the wgmma operands."""
+    x = torch.randn(2, 12, 13, 11, generator=gen, device="cuda").bfloat16()
+    off = _offsets(gen, (2, 2 * 3 * 9, 13, 11), 2, torch.bfloat16)
+    msk = torch.rand(2, 27, 13, 11, generator=gen, device="cuda").bfloat16()
+    wgt = (torch.randn(16, 12, 3, 3, generator=gen, device="cuda")
+           * 0.1).bfloat16()
+    kw = dict(padding=3, dilation=3, offset_groups=3, max_offset=2)
+    got = deform_conv2d_windowed(x, off, msk, wgt, **kw)
+    torch.cuda.synchronize()
+    _assert_close(got, deform_conv2d(x, off, msk, wgt, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 3, 17, 24), (4, 3, 17, 20),
+                                   (3, 2, 9, 23), (8, 48, 96, 72)])
+def test_warp_kernel_vector_and_scalar_paths(gen, dtype, shape):
+    """W a multiple of 8 (the bf16 16-byte rows), of 4 only (f32 rows, the
+    bf16 scalar path) and of neither; shifts at, inside and past the clamp,
+    integers, and both signs of a fraction."""
+    n = shape[0]
+    img = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    offs = (torch.rand(n, 2, generator=gen, device="cuda") * 2 - 1) * 40
+    offs[:4] = torch.tensor([[26.0, -26.0], [-3.0, 2.0], [0.25, -0.75],
+                             [-100.0, 7.5]])[:n]
+    before = warp_translate.launches
+    got = warp_translate(img, offs, max_shift=26)
+    torch.cuda.synchronize()
+    assert warp_translate.launches == before + 1
+    _assert_close(got, warp_translate_plain(img, offs, 26), dtype)
+
+
+def test_kernels_refuse_what_they_do_not_take(gen):
+    """A CUDA tensor goes to the kernel or raises: no plain fallback."""
+    x = torch.zeros(1, 16, 8, 8, device="cuda")
+    off = torch.zeros(1, 72, 8, 8, device="cuda")
+    before = deform_conv2d_windowed.launches
+    with pytest.raises(ValueError, match="C_out"):
+        deform_conv2d_windowed(x, off, None, torch.zeros(24, 16, 3, 3,
+                               device="cuda"), padding=3, dilation=3)
+    xb = torch.zeros(1, 256, 8, 8, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        deform_conv2d_windowed(
+            xb, torch.zeros(1, 2 * 16 * 9, 8, 8, device="cuda",
+                            dtype=torch.bfloat16), None,
+            torch.zeros(64, 256, 3, 3, device="cuda", dtype=torch.bfloat16),
+            padding=3, dilation=3, offset_groups=16)
+    assert deform_conv2d_windowed.launches == before
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        warp_translate(torch.zeros(1, 2, 8, 8, device="cuda",
+                                   dtype=torch.float64),
+                       torch.zeros(1, 2, device="cuda"))
 
 
 def _offsets(gen, shape, d, dtype):
@@ -419,31 +524,45 @@ def test_guard_pages_fault_on_an_overrun(gen):
     assert run.returncode != 0 and "CUresult 700" in run.stderr, run.stderr
 
 
+# (N, C, H, W, G): the main path's plane (8-byte gathers, 16-byte stores,
+# forward and backward), a ragged one (scalar stores), 48 groups (scalar
+# gathers, 432 units), Cg = 3 (scalar gathers, the reduction padded)
+DCN_GUARDED = {"main": (2, 48, 96, 72, 12), "ragged": (2, 16, 13, 11, 4),
+               "groups48": (1, 48, 20, 18, 48), "cg3": (2, 12, 13, 11, 4)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("max_offset", [4, 0])
+@pytest.mark.parametrize("case", list(DCN_GUARDED))
 def test_dcn_kernels_stay_inside_their_buffers(guarded, gen, dtype,
-                                               max_offset):
-    """Forward and backward at the main path's plane size (96x72, C=48,
-    G=12, a third of the offsets past D), results equal to the wrappers'."""
+                                               max_offset, case):
+    """The forward (its channels-last copy of x included) on every internal
+    path, and at the main path's plane size (96x72, C=48, G=12, a third of
+    the offsets past D) the backward; results equal to the wrappers'."""
     from fami_pose_torch.ops.deform_conv import deform_conv2d_backward
 
-    n, c, h, w, g = 2, 48, 96, 72, 12
+    n, c, h, w, g = DCN_GUARDED[case]
+    c_out = c if c in (16, 32, 48, 64) else 16
     code = 0 if dtype == torch.float32 else 1
     x = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
     off = _offsets(gen, (n, 2 * g * 9, h, w), max_offset, dtype)
     msk = torch.rand(n, g * 9, h, w, generator=gen, device="cuda").to(dtype)
-    wgt = (torch.randn(c, c, 3, 3, generator=gen, device="cuda")
+    wgt = (torch.randn(c_out, c, 3, 3, generator=gen, device="cuda")
            * 0.05).to(dtype)
-    gout = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
     kw = dict(padding=3, dilation=3, offset_groups=g, max_offset=max_offset)
     ref = deform_conv2d_windowed(x, off, msk, wgt, **kw)
-    ref_b = deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
     lib = _kernel_library()
-    px, po, pm, pw, pout = (guarded.put(t) for t in (x, off, msk, wgt, ref))
-    dims = (code, n, c, h, w, c, h, w, 3, 3, 3, 3, g, float(max_offset), None)
-    assert lib.fami_dcn_fwd(px, po, pm, pw, pout, *dims) == 0
+    px, pxg, po, pm, pw, pout = (guarded.put(t)
+                                 for t in (x, x, off, msk, wgt, ref))
+    dims = (code, n, c, h, w, c_out, h, w, 3, 3, 3, 3, g, float(max_offset),
+            None)
+    assert lib.fami_dcn_fwd(px, pxg, po, pm, pw, pout, *dims) == 0
     guarded.sync()
     assert torch.equal(guarded.get(pout, ref), ref)
+    if case != "main":
+        return
+    gout = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
+    ref_b = deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
     dx0 = torch.zeros(x.shape, device="cuda")
     dw0 = torch.zeros(wgt.shape, device="cuda")
     pg, pdx, pdo, pdm, pdw = (guarded.put(t)
@@ -459,11 +578,13 @@ def test_dcn_kernels_stay_inside_their_buffers(guarded, gen, dtype,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_warp_kernels_stay_inside_their_buffers(guarded, gen, dtype):
-    """Shifts at, inside and far past the clamp of 26 in both directions."""
+@pytest.mark.parametrize("shape", [(8, 48, 96, 72), (3, 5, 17, 23)])
+def test_warp_kernels_stay_inside_their_buffers(guarded, gen, dtype, shape):
+    """Shifts at, inside and far past the clamp of 26 in both directions;
+    the forward's 16-byte row path (W = 72) and its scalar path (W = 23)."""
     from fami_pose_torch.ops.warp import warp_translate_backward
 
-    n, c, h, w = 8, 48, 96, 72
+    n, c, h, w = shape
     code = 0 if dtype == torch.float32 else 1
     img = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
     offs = (torch.rand(n, 2, generator=gen, device="cuda") * 2 - 1) * 40
