@@ -25,7 +25,9 @@ and as the last line ``{"ok": true, "device": {...}}``:
                since host-paced calls cannot read a kernel below the
                wrapper's ~40-60 us, beside the host-paced reading; the
                library yardsticks likewise (``grid_sample`` and
-               ``grid_sampler_2d_backward`` for the warps). Then the four
+               ``grid_sampler_2d_backward`` for the warps); the build phase
+               counts each bf16 DCN instance's ``HGMMA`` instructions with
+               ``cuobjdump -sass``. Then the four
                on-chip gather / rotate probes (``ops/probes.py``) at the TPU
                probes' shapes, bitwise against ``torch.gather`` / ``torch.roll``.
   4. main    - ``PosePredictor`` on ``configs/posetrack17/fami_pose.yaml``
@@ -47,8 +49,10 @@ and as the last line ``{"ok": true, "device": {...}}``:
                synchronisation to synchronisation, a forward / backward /
                optimizer split by CUDA events as a per-layer reading, then 8
                steps on one fixed batch (finite loss terms and gradients,
-               ``loss_mse`` falling), and one more step traced with
-               torch.profiler.
+               ``loss_mse`` falling), one more step traced with
+               torch.profiler, and one in which ``dcn_1``'s inputs and the
+               gradient of its output are captured by hooks: ``dcn_bwd`` on
+               them against its plain version, timed device-side.
   7. train-card-vs-cpu - f32, TF32 off, full W48 width at 256x192, B=2: the
                loss terms and every parameter's gradient of one train-mode
                forward and backward on the card against the port on the CPU
@@ -212,14 +216,41 @@ def phase_device():
     return smi
 
 
+def hgmma_counts(sass):
+    """``HGMMA`` (wgmma) instructions of each bf16 DCN kernel instance in
+    ``cuobjdump -sass`` output: {"dcn_fwd" or "dcn_bwd": {instance: n}}."""
+    import re
+
+    counts, row = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            m = re.search(r"(dcn_(?:fwd|bwd))_bf16_kernelILi(\d+)ELi(\d+)E",
+                          line)
+            row = m and counts.setdefault(m.group(1), {})
+            key = m and f"{m.group(1)}_bf16_kernel<{m.group(2)}, {m.group(3)}>"
+            if row is not None:
+                row[key] = 0
+        elif row is not None and "HGMMA" in line:
+            row[key] += 1
+    return counts
+
+
 def phase_build():
+    """Builds the kernels; returns the bf16 DCN instances' HGMMA counts."""
     from fami_pose_torch.ops.cuda import build
 
     t0 = time.perf_counter()
     so = build.build(verbose=True)
     build.load_library()
-    emit("build", seconds=round(time.perf_counter() - t0, 3),
-         library=os.path.relpath(so, ROOT), sources=list(build.SOURCES))
+    seconds = time.perf_counter() - t0
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    hgmma = hgmma_counts(subprocess.run(
+        [tool, "-sass", so], capture_output=True, text=True, check=True,
+        timeout=300).stdout)
+    emit("build", seconds=round(seconds, 3),
+         library=os.path.relpath(so, ROOT), sources=list(build.SOURCES),
+         hgmma=hgmma)
+    return hgmma
 
 
 def dcn_inputs(gen, dtype, d, b=8, c=48, h=96, w=72, g=12):
@@ -253,6 +284,15 @@ def dcn_fwd_bound(x, off, msk, wgt, out):
     return bound_ms(nbytes(x, off, msk, wgt, out), ops, x.dtype)
 
 
+def dcn_bwd_bound(x, off, msk, wgt, gout, grads):
+    """Every input read once and every gradient written once in its own
+    type; two contractions (dcol, dweight) and ~30 operations per sampled
+    (pixel, tap, channel)."""
+    b, c, h, w = x.shape
+    ops = 4 * b * h * w * 9 * c * wgt.shape[0] + 30 * b * h * w * 9 * c
+    return bound_ms(nbytes(x, off, msk, wgt, gout, *grads), ops, x.dtype)
+
+
 def translation_grid(offs, h, w, dtype):
     """grid_sample's sampling grid (align_corners=True) for the warp at
     p - clamp(t, +-26)."""
@@ -264,7 +304,7 @@ def translation_grid(offs, h, w, dtype):
     return torch.stack(torch.broadcast_tensors(gx, gy), dim=-1).to(dtype)
 
 
-def phase_kernels():
+def phase_kernels(hgmma):
     from fami_pose_torch.ops.deform_conv import (
         deform_conv2d, deform_conv2d_backward, deform_conv2d_backward_plain,
         deform_conv2d_windowed,
@@ -304,7 +344,7 @@ def phase_kernels():
                                        library=DCN_NO_LIBRARY)
 
             # the backward on the same inputs; every output against the plain
-            # backward (dx and dweight are summed with atomics: last bits vary)
+            # backward (dx is summed with atomics: its last bits vary)
             gout = torch.randn(got.shape, generator=gen,
                                device="cuda").to(dtype)
             run_k = lambda: deform_conv2d_backward(x, off, msk, wgt, gout,
@@ -322,13 +362,7 @@ def phase_kernels():
                 (off.float() == off.float().round()).float().mean())
             host_ms, k_ms = time_ms(run_k), device_ms(run_k, launches=20)
             p_ms = time_ms(run_p, iters=3, warmup=1)
-            b, c, h, w = x.shape
-            # two contractions (dcol, dweight) and ~30 operations per sampled
-            # (pixel, tap, channel); every input read once, every gradient
-            # written once in its own type
-            ops = 4 * b * h * w * 9 * c * c + 30 * b * h * w * 9 * c
-            bnd, by = bound_ms(nbytes(x, off, msk, wgt, gout, *got_b), ops,
-                               dtype)
+            bnd, by = dcn_bwd_bound(x, off, msk, wgt, gout, got_b)
             worst = max(e for e, _ in errs.values())
             emit("kernels", kernel="dcn_bwd", dtype=str(dtype)[6:], D=d,
                  shape=list(x.shape), offsets_past_D=round(past, 4),
@@ -344,7 +378,8 @@ def phase_kernels():
                                        ms=k_ms, host_paced_ms=host_ms,
                                        timing=DCN_TIMING, plain_ms=p_ms,
                                        bound_ms=bnd, bound_by=by,
-                                       library_ms=None)
+                                       library_ms=None,
+                                       hgmma=hgmma["dcn_bwd"])
 
     # the DCN forward at the val path's shape (VAL.BATCH_SIZE_PER_GPU 32):
     # the configured window, one the auto-window picks, and the exact mode
@@ -838,6 +873,72 @@ def check_gradients(model):
     return norms
 
 
+def dcn_bwd_on_model_inputs(trainer, state, batch):
+    """``dcn_bwd`` on the model's own inputs and gradient: ``dcn_1``'s (x,
+    offset, mask, weight) captured by a forward hook and the gradient of its
+    output by a tensor hook during one bf16 train step, the kernel held
+    against its plain version on them and timed device-side; the offsets'
+    spread and their share past D."""
+    from fami_pose_torch.models.fami_pose import DCN_DILATION
+    from fami_pose_torch.ops.deform_conv import (
+        deform_conv2d_backward, deform_conv2d_backward_plain,
+    )
+
+    module = state.model.dcn_1
+    seen, grads = [], []
+
+    def capture(mod, args, out):
+        if not seen:
+            seen.append(tuple(a.detach().clone() for a in args)
+                        + (mod.weight.detach().clone(),))
+            out.register_hook(lambda g: grads.append(g.detach().clone()))
+
+    hook = module.register_forward_hook(capture)
+    try:
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    x, off, msk, wgt = seen[0]
+    # as DeformConv.forward hands them to the kernel
+    off, msk, wgt = off.to(x.dtype), msk.to(x.dtype), wgt.to(x.dtype)
+    # the seeded model's gradient at dcn_1 is tiny (~1e-17): scaled by a
+    # power of two to a largest entry in [1, 2), exactly in bf16 (the
+    # gradients are linear in it), so that the tolerances, 2^-7 of the
+    # larger of 1 and each gradient's scale, bound something
+    raw_max = float(grads[0].float().abs().max())
+    if not raw_max > 0:
+        raise AssertionError(f"dcn_1's output gradient is {raw_max}")
+    exponent = -math.floor(math.log2(raw_max))
+    gout = grads[0] * 2.0 ** exponent
+    d = module.max_offset
+    kw = dict(padding=DCN_DILATION, dilation=DCN_DILATION,
+              offset_groups=module.offset_groups, max_offset=d)
+    run_k = lambda: deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
+    run_p = lambda: deform_conv2d_backward_plain(x, off, msk, wgt, gout, **kw)
+    got = run_kernel("dcn_bwd on dcn_1's inputs", run_k)
+    errs = {name: check_close(f"dcn_bwd {name} on dcn_1's inputs", a, r,
+                              x.dtype)
+            for name, a, r in zip(("dx", "doffset", "dmask", "dweight"),
+                                  got, run_p())}
+    k_ms = device_ms(run_k, launches=20)
+    p_ms = time_ms(run_p, iters=3, warmup=1)
+    bnd, by = dcn_bwd_bound(x, off, msk, wgt, gout, got)
+    o = off.float()
+    q = torch.quantile(o.abs().flatten()[:: max(1, o.numel() // 2_000_000)],
+                       torch.tensor([0.5, 0.9, 0.99], device=o.device))
+    return dict(
+        layer="dcn_1", shape=list(x.shape), dtype=str(x.dtype)[6:], D=d,
+        max_abs_err={k: e for k, (e, _) in errs.items()},
+        tol={k: t for k, (_, t) in errs.items()}, ms=k_ms, plain_ms=p_ms,
+        bound_ms=bnd, bound_by=by, timing=DCN_TIMING,
+        gout_abs_max=raw_max, gout_scaled_by=f"2^{exponent}",
+        offsets_std=float(o.std()), offsets_abs_max=float(o.abs().max()),
+        offsets_abs_p50_p90_p99=[float(v) for v in q],
+        offsets_past_D=float((o.abs() > d).float().mean()) if d else 0.0,
+        mask_abs_max=float(msk.float().abs().max()))
+
+
 def phase_train(smi, batch=8, epoch_steps=4, timed_steps=7, split_steps=3,
                 fixed_steps=8):
     import tempfile
@@ -955,6 +1056,9 @@ def phase_train(smi, batch=8, epoch_steps=4, timed_steps=7, split_steps=3,
                 raise AssertionError(f"step {i}: non-finite {bad}")
         norms = check_gradients(model)
         trace = profile_call(lambda: trainer.train_step(state, fixed))
+        model_dcn_bwd = dcn_bwd_on_model_inputs(trainer, state, fixed)
+        emit("kernels", kernel="dcn_bwd", inputs="the model's own",
+             **model_dcn_bwd)
         first, last = history[0]["loss_mse"], history[-1]["loss_mse"]
         if not last < first:
             raise AssertionError(
@@ -988,7 +1092,7 @@ def phase_train(smi, batch=8, epoch_steps=4, timed_steps=7, split_steps=3,
              fixed_batch_loss=[r["loss"] for r in history],
              last_step_terms=history[-1], grad_norms=norms, trace=trace,
              checkpoint=resumed_note)
-    return launches
+    return launches, model_dcn_bwd
 
 
 def train_grads(model, batch, feat=None):
@@ -1557,8 +1661,7 @@ def phase_val(smi):
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
-    phase_build()
-    rows = phase_kernels()
+    rows = phase_kernels(phase_build())
     reset_launches()
     pred, serving, model_dcn = phase_main()
     if any(read_launches()[k] for k in ("dcn_bwd", "warp_bwd")):
@@ -1566,7 +1669,7 @@ def main():
     phase_card_vs_cpu(pred)
     del pred
     torch.cuda.empty_cache()
-    train = phase_train(smi)
+    train, model_dcn_bwd = phase_train(smi)
     phase_train_card_vs_cpu()
     torch.cuda.empty_cache()
     probe_launches = phase_probes()
@@ -1608,9 +1711,9 @@ def main():
             kernels.append(dict(common, path="none: the shape of 32 images, "
                                 "timed for comparison", launches=0,
                                 **rows[name, 32]))
-        else:
+        else:  # dcn_bwd
             kernels.append(dict(common, path="train", launches=train[name],
-                                **rows[name]))
+                                model_inputs=model_dcn_bwd, **rows[name]))
     for name, (_, _, line, _) in PROBES.items():
         kernels.append(dict(
             name=name, route="cuda", source=csrc + "probes.cu",

@@ -42,9 +42,10 @@ SIGNATURES = {
     # x, x_grouped (scratch of x's size), offset, mask, weight, out, dtype,
     # B, C, H, W, Cout, Ho, Wo, kh, kw, pad, dil, groups, max_offset, stream
     "fami_dcn_fwd": [c_ptr] * 6 + [c_int] * 13 + [c_float, c_ptr],
-    # x, offset, mask, weight, gout, dx, doffset, dmask, dweight, dtype,
-    # B, C, H, W, Cout, Ho, Wo, kh, kw, pad, dil, groups, max_offset, stream
-    "fami_dcn_bwd": [c_ptr] * 9 + [c_int] * 13 + [c_float, c_ptr],
+    # x, x_grouped, offset, mask, weight, gout, dx, doffset, dmask, dweight,
+    # dx_acc, dw_part (scratch), dw_slots, dtype, B, C, H, W, Cout, Ho, Wo,
+    # kh, kw, pad, dil, groups, max_offset, stream
+    "fami_dcn_bwd": [c_ptr] * 12 + [c_int] * 14 + [c_float, c_ptr],
     # images, offsets, out, dtype, N, C, H, W, max_shift, stream
     "fami_warp_translate": [c_ptr] * 3 + [c_int] * 5 + [c_float, c_ptr],
     # images, offsets, gout, d_images, d_offsets, dtype, N, C, H, W,

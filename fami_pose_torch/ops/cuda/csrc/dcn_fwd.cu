@@ -69,13 +69,9 @@
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py): 0.0886 ms at B=8, D = 4,
 // against the 0.0139 ms bound.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dcn_common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kTilePix = 64;   // output pixels per tile: wgmma's M
 constexpr int kThreads = 256;  // two warpgroups, each a wgmma issuer
@@ -84,10 +80,6 @@ constexpr int kEpiStride = kTilePix + 4;  // f32 result rows, bank-spread
 constexpr int kPixPerThread = 4;          // f32 contraction: 4 pixels
 constexpr int kPixGroups = kTilePix / kPixPerThread;  // 16
 constexpr int kOcGroups = kThreads / kPixGroups;      // 16
-
-__host__ __device__ constexpr size_t align128(size_t n) {
-  return (n + 127) & ~size_t(127);
-}
 
 // Byte offsets of the bf16 kernel's dynamic shared memory: B operand (W),
 // A operand (the sampled column), the f32 result tile, the table of gather
@@ -110,62 +102,6 @@ __host__ __device__ inline BfLayout bf16_layout(int Rp, int cout, int units) {
 __host__ __device__ inline size_t f32_smem(int R, int cout, int units) {
   return (size_t)R * (cout + kTilePix) * 4 + (size_t)units * 16;
 }
-
-// ---- loads and conversions -------------------------------------------------
-
-__device__ __forceinline__ float bf_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf_hi(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-// VW consecutive channels of one corner as one load, unpacked to f32
-template <typename T, int VW>
-struct Corner;
-template <>
-struct Corner<bf16, 4> {
-  uint2 v;
-  __device__ __forceinline__ void load(const bf16* p) {
-    v = __ldg(reinterpret_cast<const uint2*>(p));
-  }
-  __device__ __forceinline__ void zero() { v = make_uint2(0u, 0u); }
-  __device__ __forceinline__ float get(int i) const {
-    return i == 0 ? bf_lo(v.x) : i == 1 ? bf_hi(v.x) : i == 2 ? bf_lo(v.y)
-                                                              : bf_hi(v.y);
-  }
-};
-template <>
-struct Corner<bf16, 1> {
-  unsigned short v;
-  __device__ __forceinline__ void load(const bf16* p) {
-    v = __ldg(reinterpret_cast<const unsigned short*>(p));
-  }
-  __device__ __forceinline__ void zero() { v = 0; }
-  __device__ __forceinline__ float get(int) const {
-    return __uint_as_float((uint32_t)v << 16);
-  }
-};
-template <>
-struct Corner<float, 4> {
-  float4 v;
-  __device__ __forceinline__ void load(const float* p) {
-    v = __ldg(reinterpret_cast<const float4*>(p));
-  }
-  __device__ __forceinline__ void zero() { v = make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ __forceinline__ float get(int i) const {
-    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-  }
-};
-template <>
-struct Corner<float, 1> {
-  float v;
-  __device__ __forceinline__ void load(const float* p) { v = __ldg(p); }
-  __device__ __forceinline__ void zero() { v = 0.f; }
-  __device__ __forceinline__ float get(int) const { return v; }
-};
 
 // ---- column stores -----------------------------------------------------------
 
@@ -292,98 +228,6 @@ __device__ __forceinline__ void sample_tile(
       store.template put<VW>(rr[q], p, out);
     }
   }
-}
-
-// ---- wgmma --------------------------------------------------------------------
-
-// Shared-memory matrix descriptor, no swizzle: start address, leading byte
-// offset (between the two 8-wide k halves of a k16 step) and stride byte
-// offset (between 8-row groups), all in 16-byte units.
-__device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo,
-                                              uint32_t sbo) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
-  return (uint64_t)((addr >> 4) & 0x3FFF) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D[64 x N] += A[64 x 16] . B[16 x N], both from shared memory, K-major;
-// each of the two warpgroups takes N = Cout / 2 of the output channels
-template <int N>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
-                                           uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<8>(float (&d)[4], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3"
-      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[8], uint64_t da,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<24>(float (&d)[12], uint64_t da,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
-      "}, %12, %13, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t da,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-      "%13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
 }
 
 // ---- kernels -----------------------------------------------------------------
@@ -641,13 +485,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---- launches ----------------------------------------------------------------
-
-int device_attr(cudaDeviceAttr attr) {
-  int dev = 0, v = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&v, attr, dev);
-  return v;
-}
 
 template <typename T>
 cudaError_t launch_persistent(void (*kernel)(const T*, const T*, const T*,

@@ -10,22 +10,29 @@
 //
 // The kernels here compute exactly those functions at the probes' shapes and
 // types, and they do it the same way: the tile is first staged into shared
-// memory (or, in the shuffle variant, into registers), the block
-// synchronises, and the gather or rotation reads the staged copy, never
-// device memory. A launch that builds, runs and returns the input's values
-// bit for bit says that a Hopper kernel can rely on the mechanism.
+// memory (or, in the shuffle variants, into registers), and the gather or
+// rotation reads the staged copy, never device memory. A launch that
+// builds, runs and returns the input's values bit for bit says that a Hopper
+// kernel can rely on the mechanism.
 //
 // What bounds them on an H100: nothing but the launch. Each moves 4-32 KB in
 // and as much out (a few nanoseconds at 3.35 TB/s) and does no arithmetic,
-// so the time is the ~2-3 us a kernel launch occupies the card. They are
-// probes, not hot-path kernels; one block (one per batch entry for the 3-D
-// probe) keeps the whole tile in one SM's shared memory, which is the point.
+// so the time is the ~1.5-4 us a kernel launch and its dependent trips to
+// memory occupy the card. They are probes, not hot-path kernels; one block
+// (one per batch entry for the 3-D probe) keeps the whole tile in one SM's
+// shared memory, which is the point. The rotation at the probe's shape
+// ((16, 128) f32) runs from registers, one warp a row, with its shift read
+// from device memory while the tile's loads are in flight: one round trip to
+// memory, as torch.roll with a host shift makes (PERF.md: 1.42-1.49 us
+// against torch.roll's 1.58-1.70 on an H100 80GB HBM3 at 700 W,
+// device-side; nvcc 12.9: 20 registers, no shared memory, no spills).
 //
 // Indices must lie inside the gathered axis, as for torch.gather; the kernels
 // clamp them so that no thread ever reads outside the staged tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -137,17 +144,21 @@ __global__ void probe_gather_rows_kernel(const float* __restrict__ x,
 
 // out[r][j] = x[r][(j - s) mod cols]: a rotation along the lane axis by an
 // amount the kernel reads from device memory (any integer, negative too).
+// The shift's load is issued before the tile's, so that the two trips to
+// memory overlap (reading it after the staging barrier made them two
+// dependent trips, where torch.roll, with a host shift, makes one).
 // Neighbouring threads read neighbouring words of the staged row: no bank
-// conflicts.
+// conflicts. The general path, for any (rows, cols) tile.
 __global__ void probe_dynamic_roll_kernel(const float* __restrict__ x,
                                           const int* __restrict__ shift,
                                           float* __restrict__ out, int rows,
                                           int cols) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* tile = reinterpret_cast<float*>(smem);
+  const int shift_raw = __ldg(shift);
   const int count = rows * cols;
   stage(tile, x, count);
-  int s = shift[0] % cols;
+  int s = shift_raw % cols;
   if (s < 0) s += cols;
   for (int e = threadIdx.x; e < count; e += blockDim.x) {
     const int r = e / cols;
@@ -155,6 +166,41 @@ __global__ void probe_dynamic_roll_kernel(const float* __restrict__ x,
     if (j < 0) j += cols;
     out[e] = tile[r * cols + j];
   }
+}
+
+// The same rotation from registers, for rows of 128 columns (16-byte
+// aligned): a warp holds one row, lane l its columns 4l .. 4l + 3 as one
+// float4, loaded while the shift's load is in flight. With s mod 128 = 4q +
+// r, output column 4l + i comes from lane l - q (component i - r) when
+// i >= r, else from lane l - q - 1 (component i - r + 4): eight shuffles
+// and a warp-uniform choice of four components, then one 16-byte store. No
+// shared memory and no barrier.
+__global__ void probe_dynamic_roll_shfl_kernel(const float4* __restrict__ x,
+                                               const int* __restrict__ shift,
+                                               float4* __restrict__ out,
+                                               int rows) {
+  const int shift_raw = __ldg(shift);
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (row >= rows) return;  // whole warps: blockDim is a multiple of 32
+  const int lane = threadIdx.x & 31;
+  const float4 v = __ldg(x + row * 32 + lane);
+  int s = shift_raw % 128;
+  if (s < 0) s += 128;
+  const int q = s >> 2;
+  const int la = (lane - q) & 31, lb = (lane - q - 1) & 31;
+  const unsigned all = 0xffffffffu;
+  const float a0 = __shfl_sync(all, v.x, la), a1 = __shfl_sync(all, v.y, la);
+  const float a2 = __shfl_sync(all, v.z, la), a3 = __shfl_sync(all, v.w, la);
+  const float b1 = __shfl_sync(all, v.y, lb), b2 = __shfl_sync(all, v.z, lb);
+  const float b3 = __shfl_sync(all, v.w, lb);
+  float4 o;
+  switch (s & 3) {
+    case 0: o = make_float4(a0, a1, a2, a3); break;
+    case 1: o = make_float4(b3, a0, a1, a2); break;
+    case 2: o = make_float4(b2, b3, a0, a1); break;
+    default: o = make_float4(b1, b2, b3, a0); break;
+  }
+  out[row * 32 + lane] = o;
 }
 
 bool tile_fits(long long bytes) {
@@ -227,15 +273,26 @@ extern "C" int fami_probe_gather_rows(const void* x, const void* idx,
   return (int)cudaGetLastError();
 }
 
-// x, out: (rows, cols) float32; shift: one int32 in device memory.
+// x, out: (rows, cols) float32; shift: one int32 in device memory. Rows of
+// 128 columns with 16-byte aligned x and out take the register kernel, one
+// warp a row; any other tile the shared-memory kernel.
 extern "C" int fami_probe_dynamic_roll(const void* x, const void* shift,
                                        void* out, int rows, int cols,
                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long bytes = (long long)rows * cols * 4;
   if (rows <= 0 || cols <= 0 || !tile_fits(bytes))
     return (int)cudaErrorInvalidValue;
-  probe_dynamic_roll_kernel<<<1, kThreads, bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
+  if (cols == 128 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+    const int threads = rows * 32 < 512 ? rows * 32 : 512;
+    const int blocks = (rows * 32 + threads - 1) / threads;
+    probe_dynamic_roll_shfl_kernel<<<blocks, threads, 0, s>>>(
+        static_cast<const float4*>(x), static_cast<const int*>(shift),
+        static_cast<float4*>(out), rows);
+    return (int)cudaGetLastError();
+  }
+  probe_dynamic_roll_kernel<<<1, kThreads, bytes, s>>>(
       static_cast<const float*>(x), static_cast<const int*>(shift),
       static_cast<float*>(out), rows, cols);
   return (int)cudaGetLastError();

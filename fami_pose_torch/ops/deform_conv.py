@@ -143,7 +143,7 @@ def deform_conv2d(x, offset, mask, weight, bias=None, *, stride=1, padding=0,
     return out
 
 
-def _check_kernel_args(x, offset, mask, weight, padding, dilation, groups):
+def _check_shapes(x, offset, mask, weight, padding, dilation, groups):
     tensors = {"x": x, "offset": offset, "weight": weight}
     if mask is not None:
         tensors["mask"] = mask
@@ -172,6 +172,13 @@ def _check_kernel_args(x, offset, mask, weight, padding, dilation, groups):
         )
     if c_out not in (16, 32, 48, 64):
         raise ValueError(f"DCN kernel takes C_out in 16/32/48/64, got {c_out}")
+    return ho, wo
+
+
+def _check_kernel_args(x, offset, mask, weight, padding, dilation, groups):
+    ho, wo = _check_shapes(x, offset, mask, weight, padding, dilation, groups)
+    c, c_out = x.shape[1], weight.shape[0]
+    k = weight.shape[2] * weight.shape[3]
     smem = dcn_fwd_smem(x.dtype, c, c_out, k, groups)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
@@ -328,6 +335,55 @@ def deform_conv2d_backward_plain(x, offset, mask, weight, gout, *, padding=0,
     )
 
 
+BWD_BLOCKS_PER_SM = 2  # dcn_bwd.cu's bf16 kernel: __launch_bounds__(256, 2)
+
+
+def dcn_bwd_smem(dtype, c, c_out, groups):
+    """Shared memory of one block of the backward kernel (``dcn_bwd.cu``), in
+    bytes. A block owns 3 taps: with ``cp`` = C rounded up to 16 and ``nw =
+    3 * cp`` columns, bfloat16 holds W's slice (C_out x nw) and gout
+    transposed (64 x C_out) as the dcol wgmma's operands, gout (64 x 64,
+    rows past C_out zero) and the sampled column (64 x nw) as dW's, dcol in
+    f32 (64 rows of nw + 4); float32 holds W's slice, gout (C_out rows of
+    68) and the column (nw rows of 68) in f32, and the same dcol. Both: a
+    table of 3 * groups gather units, 16 bytes each. Each region is rounded
+    up to 128 bytes."""
+    cp = -(-c // 16) * 16
+    nw = 3 * cp
+    a128 = lambda n: -(-n // 128) * 128  # noqa: E731
+    dcol_tab = a128(64 * (nw + 4) * 4) + a128(3 * groups * 16)
+    if dtype != torch.bfloat16:
+        return (a128(c_out * nw * 4) + a128(c_out * 68 * 4) + a128(nw * 68 * 4)
+                + dcol_tab)
+    return (a128(c_out * nw * 2) + a128(64 * c_out * 2) + a128(64 * 64 * 2)
+            + a128(64 * nw * 2) + dcol_tab)
+
+
+def _check_backward_args(x, offset, mask, weight, gout, padding, dilation,
+                         groups):
+    """The backward kernel's refusals, as ``_check_kernel_args`` for the
+    forward: the same shape, type and C_out checks, ``gout`` of the output's
+    shape on x's device, the block's shared memory (:func:`dcn_bwd_smem`)
+    and C <= 64 (the kernel is instantiated for C padded to 16, 32, 48 or
+    64). Returns (Ho, Wo)."""
+    ho, wo = _check_shapes(x, offset, mask, weight, padding, dilation, groups)
+    n, c = x.shape[:2]
+    c_out = weight.shape[0]
+    if tuple(gout.shape) != (n, c_out, ho, wo) or gout.device != x.device:
+        raise ValueError(f"gout {tuple(gout.shape)} on {gout.device}, expected "
+                         f"{(n, c_out, ho, wo)} on {x.device}")
+    smem = dcn_bwd_smem(x.dtype, c, c_out, groups)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"DCN backward kernel: W's slice, the gout, column and dcol tiles "
+            f"need {smem} B of shared memory (C={c}, C_out={c_out}, "
+            f"{x.dtype}); the card has {SMEM_PER_BLOCK}"
+        )
+    if c > 64:
+        raise ValueError(f"DCN backward kernel takes C <= 64, got {c}")
+    return ho, wo
+
+
 def _deform_conv_backward_cuda(x, offset, mask, weight, gout, padding,
                                dilation, groups, max_offset):
     from .cuda.build import DTYPE_CODES, check, load_library, stream_ptr
@@ -335,46 +391,42 @@ def _deform_conv_backward_cuda(x, offset, mask, weight, gout, padding,
     dtype = str(x.dtype).replace("torch.", "")
     if dtype not in DTYPE_CODES:
         raise TypeError(f"DCN kernel takes float32 or bfloat16, got {dtype}")
-    ho, wo = _check_kernel_args(
-        x, offset, mask, weight, padding, dilation, groups
+    ho, wo = _check_backward_args(
+        x, offset, mask, weight, gout, padding, dilation, groups
     )
     n, c, h, w = x.shape
     c_out, _, kh, kw = weight.shape
-    if tuple(gout.shape) != (n, c_out, ho, wo) or gout.device != x.device:
-        raise ValueError(f"gout {tuple(gout.shape)} on {gout.device}, expected "
-                         f"{(n, c_out, ho, wo)} on {x.device}")
-    if c > 64:
-        raise ValueError(f"DCN backward kernel takes C <= 64, got {c}")
-    smem = (2 * kh * kw * c * c_out + (c_out + 2 * c) * 68) * 4
-    if smem > 232448:
-        raise ValueError(
-            f"DCN backward kernel: weights, their gradient and the tiles "
-            f"need {smem} B of shared memory (C={c}, C_out={c_out}); the "
-            f"card has 232448"
-        )
     x, offset, weight = x.contiguous(), offset.contiguous(), weight.contiguous()
     mask = None if mask is None else mask.contiguous()
     gout = gout.to(x.dtype).contiguous()
-    f32 = torch.float32
-    # dx and dweight are summed with atomicAdd into float32 buffers, cast once
-    dx = torch.zeros((n, c, h, w), dtype=f32, device=x.device)
-    dweight = torch.zeros(weight.shape, dtype=f32, device=x.device)
+    dx = torch.empty_like(x)
+    dweight = torch.empty_like(weight)
     doffset = torch.empty_like(offset)
     dmask = None if mask is None else torch.empty_like(mask)
+    # scratch: x in (N, G, H, W, C/G) order, the f32 dx accumulator of that
+    # order, and a f32 dW partial per block (3 taps a block, at most
+    # BWD_BLOCKS_PER_SM blocks an SM spread over the tap groups)
+    tap_groups = -(-(kh * kw) // 3)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    slots = -(-BWD_BLOCKS_PER_SM * sms // tap_groups)
+    x_grouped = torch.empty_like(x)
+    dx_acc = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    dw_part = torch.empty(slots * tap_groups * c_out * 3 * c,
+                          dtype=torch.float32, device=x.device)
     lib = load_library()
     err = lib.fami_dcn_bwd(
-        x.data_ptr(), offset.data_ptr(),
+        x.data_ptr(), x_grouped.data_ptr(), offset.data_ptr(),
         None if mask is None else mask.data_ptr(), weight.data_ptr(),
         gout.data_ptr(), dx.data_ptr(), doffset.data_ptr(),
         None if dmask is None else dmask.data_ptr(), dweight.data_ptr(),
-        DTYPE_CODES[dtype], n, c, h, w, c_out, ho, wo, kh, kw, padding,
-        dilation, groups,
+        dx_acc.data_ptr(), dw_part.data_ptr(), slots, DTYPE_CODES[dtype], n,
+        c, h, w, c_out, ho, wo, kh, kw, padding, dilation, groups,
         float(max_offset) if max_offset is not None else 0.0,
         stream_ptr(x),
     )
     check(lib, err, "fami_dcn_bwd")
     deform_conv2d_backward.launches += 1
-    return dx.to(x.dtype), doffset, dmask, dweight.to(weight.dtype)
+    return dx, doffset, dmask, dweight
 
 
 def deform_conv2d_backward(x, offset, mask, weight, gout, *, padding=0,
@@ -382,8 +434,8 @@ def deform_conv2d_backward(x, offset, mask, weight, gout, *, padding=0,
     """Gradients ``(dx, doffset, dmask, dweight)`` of the model's DCN: the
     plain version for CPU tensors, the CUDA kernel (counted in
     ``deform_conv2d_backward.launches``) for CUDA tensors, or an error.
-    dx and dweight are summed with atomics on the card, so their last bits
-    vary from run to run."""
+    dx is summed with atomics on the card, so its last bits vary from run to
+    run; dweight is summed from per-block partials in a fixed order."""
     k = weight.shape[2] * weight.shape[3]
     groups = int(offset_groups or offset.shape[1] // (2 * k))
     if x.device.type == "cpu":

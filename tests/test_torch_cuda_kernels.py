@@ -6,9 +6,9 @@ These tests need an NVIDIA GPU with ``nvcc`` (they build the kernels from
     python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda
 
 Tolerances: f32 1e-4 of the output's scale (the kernel sums the 9*C products
-in another order than the plain matmul, and the backward's dx and dweight
-are summed with atomics); bf16 one bf16 ulp of the largest output (both
-sides round one f32 sum to bf16).
+in another order than the plain matmul, the backward's dx is summed with
+atomics and its dweight from per-block partials); bf16 one bf16 ulp of the
+largest output (both sides round one f32 sum to bf16).
 
 The last group runs every kernel on buffers placed between unmapped pages,
 so that a read or write outside an argument faults: a check that needs no
@@ -232,6 +232,116 @@ def test_dcn_backward_kernel_matches_plain(gen, dtype, max_offset, with_mask):
             _assert_grad_close(name, a, b, dtype)
 
 
+def _check_backward(gen, x, off, msk, wgt, **kw):
+    """The backward kernel against its plain version on these inputs, with a
+    seeded gout; one launch counted."""
+    from fami_pose_torch.ops.deform_conv import (
+        deform_conv2d_backward, deform_conv2d_backward_plain,
+    )
+
+    dtype = x.dtype
+    ho = x.shape[2] + 2 * kw["padding"] - kw["dilation"] * (wgt.shape[2] - 1)
+    wo = x.shape[3] + 2 * kw["padding"] - kw["dilation"] * (wgt.shape[3] - 1)
+    gout = torch.randn(x.shape[0], wgt.shape[0], ho, wo, generator=gen,
+                       device="cuda").to(dtype)
+    before = deform_conv2d_backward.launches
+    got = deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
+    torch.cuda.synchronize()
+    assert deform_conv2d_backward.launches == before + 1
+    ref = deform_conv2d_backward_plain(x, off, msk, wgt, gout, **kw)
+    for name, a, b in zip(("dx", "doffset", "dmask", "dweight"), got, ref):
+        if b is None:
+            assert a is None, name
+        else:
+            _assert_grad_close(name, a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [16, 48])
+@pytest.mark.parametrize("c_out", [16, 32, 48, 64])
+@pytest.mark.parametrize("max_offset", [4, 1, 0])
+def test_dcn_backward_kernel_shapes(gen, dtype, c, c_out, max_offset):
+    """The forward's shape cases for the backward: C in {16, 48} (G = C/4,
+    the float4 atomics), every C_out, D in {4, 1, exact} with integer
+    offsets, offsets exactly at +-D and past D, with and without a mask,
+    whole and ragged tiles."""
+    g = c // 4
+    for (h, w), with_mask in itertools.product(DCN_SIZES, (True, False)):
+        x = torch.randn(2, c, h, w, generator=gen, device="cuda").to(dtype)
+        off = _offsets(gen, (2, 2 * g * 9, h, w), max_offset, dtype)
+        msk = torch.rand(2, g * 9, h, w, generator=gen, device="cuda")
+        msk = msk.to(dtype) if with_mask else None
+        wgt = (torch.randn(c_out, c, 3, 3, generator=gen, device="cuda")
+               * 0.05).to(dtype)
+        _check_backward(gen, x, off, msk, wgt, padding=3, dilation=3,
+                        offset_groups=g, max_offset=max_offset)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c, g", [(48, 48), (12, 4), (24, 3), (64, 16)])
+def test_dcn_backward_kernel_other_groupings(gen, dtype, c, g):
+    """Cg = 1 and 3: scalar gathers and scalar atomics; Cg = 8: two float4
+    atomics a corner; C = 64: the widest slice (both types)."""
+    for h, w in DCN_SIZES:
+        x = torch.randn(2, c, h, w, generator=gen, device="cuda").to(dtype)
+        off = _offsets(gen, (2, 2 * g * 9, h, w), 3, dtype)
+        msk = torch.rand(2, g * 9, h, w, generator=gen, device="cuda").to(dtype)
+        wgt = (torch.randn(48, c, 3, 3, generator=gen, device="cuda")
+               * 0.05).to(dtype)
+        _check_backward(gen, x, off, msk, wgt, padding=3, dilation=3,
+                        offset_groups=g, max_offset=3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("max_offset", [4, 0])
+def test_dcn_backward_kernel_smooth_offsets(gen, dtype, max_offset):
+    """A smooth field of small offsets (|t| < 1.5 px), as a trained model
+    gives: neighbouring pixels scatter into the same corners, so the dx
+    atomics collide; at the main path's channels and plane size."""
+    n, c, h, w, g = 2, 48, 96, 72, 12
+    x = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
+    yy = torch.arange(h, device="cuda").view(1, 1, h, 1).float()
+    xx = torch.arange(w, device="cuda").view(1, 1, 1, w).float()
+    phase = torch.rand(n, 2 * g * 9, 1, 1, generator=gen, device="cuda") * 6.3
+    freq = torch.rand(n, 2 * g * 9, 1, 1, generator=gen, device="cuda") * 0.3
+    off = (1.5 * torch.sin(freq * (yy + 0.7 * xx) + phase)).to(dtype)
+    msk = torch.rand(n, g * 9, h, w, generator=gen, device="cuda").to(dtype)
+    wgt = (torch.randn(48, c, 3, 3, generator=gen, device="cuda")
+           * 0.05).to(dtype)
+    _check_backward(gen, x, off, msk, wgt, padding=3, dilation=3,
+                    offset_groups=g, max_offset=max_offset)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dcn_backward_kernel_taps_not_a_multiple_of_three(gen, dtype):
+    """A 2x2 kernel: 4 taps, so the second tap group holds one tap and the
+    slice's other columns stay zero."""
+    x = torch.randn(2, 16, 13, 11, generator=gen, device="cuda").to(dtype)
+    off = _offsets(gen, (2, 2 * 4 * 4, 14, 12), 2, dtype)
+    msk = torch.rand(2, 4 * 4, 14, 12, generator=gen, device="cuda").to(dtype)
+    wgt = (torch.randn(32, 16, 2, 2, generator=gen, device="cuda")
+           * 0.1).to(dtype)
+    _check_backward(gen, x, off, msk, wgt, padding=1, dilation=1,
+                    offset_groups=4, max_offset=2)
+
+
+def test_dcn_backward_refuses_what_it_does_not_take(gen):
+    from fami_pose_torch.ops.deform_conv import deform_conv2d_backward
+
+    before = deform_conv2d_backward.launches
+    x = torch.zeros(1, 80, 8, 8, device="cuda", dtype=torch.bfloat16)
+    off = torch.zeros(1, 2 * 16 * 9, 8, 8, device="cuda", dtype=torch.bfloat16)
+    wgt = torch.zeros(16, 80, 3, 3, device="cuda", dtype=torch.bfloat16)
+    gout = torch.zeros(1, 16, 8, 8, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C <= 64"):
+        deform_conv2d_backward(x, off, None, wgt, gout, padding=3, dilation=3,
+                               offset_groups=16)
+    with pytest.raises(ValueError, match="gout"):
+        deform_conv2d_backward(x[:, :64], off, None, wgt[:, :64], gout[..., :4],
+                               padding=3, dilation=3, offset_groups=16)
+    assert deform_conv2d_backward.launches == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dcn_autograd_on_the_card(gen, dtype):
     """The autograd Function launches both kernels for CUDA tensors and
@@ -367,6 +477,20 @@ def test_probe_dynamic_roll_matches_plain(gen, shift):
     assert probes.dynamic_roll.launches == before + 2
     assert torch.equal(got, torch.roll(x, shift % 128, dims=1))
     assert torch.equal(again, probes.dynamic_roll_plain(x, s))
+
+
+@pytest.mark.parametrize("shape", [(5, 96), (3, 128), (40, 128)])
+@pytest.mark.parametrize("shift", [0, 7, -130])
+def test_probe_dynamic_roll_other_shapes(gen, shape, shift):
+    """Rows of 128 columns take the register kernel (one warp a row, one
+    block or several); other widths the shared-memory kernel."""
+    from fami_pose_torch.ops import probes
+
+    x = torch.rand(shape, generator=gen, device="cuda")
+    s = torch.tensor([shift], dtype=torch.int32, device="cuda")
+    got = probes.dynamic_roll(x, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.roll(x, shift % shape[1], dims=1))
 
 
 def test_probes_refuse_what_the_kernels_do_not_take(gen):
@@ -526,9 +650,11 @@ def test_guard_pages_fault_on_an_overrun(gen):
 
 # (N, C, H, W, G): the main path's plane (8-byte gathers, 16-byte stores,
 # forward and backward), a ragged one (scalar stores), 48 groups (scalar
-# gathers, 432 units), Cg = 3 (scalar gathers, the reduction padded)
+# gathers, 432 units), Cg = 3 (scalar gathers, the reduction padded), Cg = 8
+# (two vectors a corner)
 DCN_GUARDED = {"main": (2, 48, 96, 72, 12), "ragged": (2, 16, 13, 11, 4),
-               "groups48": (1, 48, 20, 18, 48), "cg3": (2, 12, 13, 11, 4)}
+               "groups48": (1, 48, 20, 18, 48), "cg3": (2, 12, 13, 11, 4),
+               "cg8": (2, 24, 13, 11, 3)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -536,10 +662,13 @@ DCN_GUARDED = {"main": (2, 48, 96, 72, 12), "ragged": (2, 16, 13, 11, 4),
 @pytest.mark.parametrize("case", list(DCN_GUARDED))
 def test_dcn_kernels_stay_inside_their_buffers(guarded, gen, dtype,
                                                max_offset, case):
-    """The forward (its channels-last copy of x included) on every internal
-    path, and at the main path's plane size (96x72, C=48, G=12, a third of
-    the offsets past D) the backward; results equal to the wrappers'."""
-    from fami_pose_torch.ops.deform_conv import deform_conv2d_backward
+    """The forward (its channels-last copy of x included) and the backward
+    (its copy and zeroed accumulator, its main kernel on the vector and the
+    scalar atomics, the ragged last tile, the finishing transpose and dW
+    sum) on every internal path; results equal to the wrappers'."""
+    from fami_pose_torch.ops.deform_conv import (
+        BWD_BLOCKS_PER_SM, deform_conv2d_backward,
+    )
 
     n, c, h, w, g = DCN_GUARDED[case]
     c_out = c if c in (16, 32, 48, 64) else 16
@@ -559,22 +688,21 @@ def test_dcn_kernels_stay_inside_their_buffers(guarded, gen, dtype,
     assert lib.fami_dcn_fwd(px, pxg, po, pm, pw, pout, *dims) == 0
     guarded.sync()
     assert torch.equal(guarded.get(pout, ref), ref)
-    if case != "main":
-        return
-    gout = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
+    gout = torch.randn(ref.shape, generator=gen, device="cuda").to(dtype)
     ref_b = deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
-    dx0 = torch.zeros(x.shape, device="cuda")
-    dw0 = torch.zeros(wgt.shape, device="cuda")
-    pg, pdx, pdo, pdm, pdw = (guarded.put(t)
-                              for t in (gout, dx0, off, msk, dw0))
-    assert lib.fami_dcn_bwd(px, po, pm, pw, pg, pdx, pdo, pdm, pdw,
-                            *dims) == 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = -(-BWD_BLOCKS_PER_SM * sms // 3)
+    acc = torch.zeros(x.shape, device="cuda")
+    part = torch.zeros(slots * 3 * c_out * 3 * c, device="cuda")
+    pg, pxg2, pdx, pdo, pdm, pdw, pacc, ppart = (
+        guarded.put(t) for t in (gout, x, x, off, msk, wgt, acc, part))
+    assert lib.fami_dcn_bwd(px, pxg2, po, pm, pw, pg, pdx, pdo, pdm, pdw,
+                            pacc, ppart, slots, *dims) == 0
     guarded.sync()
-    _assert_grad_close("dx", guarded.get(pdx, dx0).to(dtype), ref_b[0], dtype)
+    _assert_grad_close("dx", guarded.get(pdx, x), ref_b[0], dtype)
     assert torch.equal(guarded.get(pdo, off), ref_b[1])
     assert torch.equal(guarded.get(pdm, msk), ref_b[2])
-    _assert_grad_close("dweight", guarded.get(pdw, dw0).to(dtype), ref_b[3],
-                       dtype)
+    _assert_grad_close("dweight", guarded.get(pdw, wgt), ref_b[3], dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -632,7 +760,12 @@ def test_probe_kernels_stay_inside_their_buffers(guarded, gen):
     assert torch.equal(guarded.get(po, x), probes.gather_rows_plain(x, idx))
     for shift in (0, 5, 127, 128, -3, -1000003):
         _, (x, s) = _probe_on_card("dynamic_roll", seed=4, shift=shift)
-        px, ps, po = guarded.put(x), guarded.put(s), guarded.put(x)
-        assert lib.fami_probe_dynamic_roll(px, ps, po, *x.shape, None) == 0
-        guarded.sync()
-        assert torch.equal(guarded.get(po, x), probes.dynamic_roll_plain(x, s))
+        # the probe's tile (register kernel) and a 96-column one (shared
+        # memory kernel)
+        for tile in (x, x[:5, :96].contiguous()):
+            px, ps, po = guarded.put(tile), guarded.put(s), guarded.put(tile)
+            assert lib.fami_probe_dynamic_roll(px, ps, po, *tile.shape,
+                                               None) == 0
+            guarded.sync()
+            assert torch.equal(guarded.get(po, tile),
+                               probes.dynamic_roll_plain(tile, s))

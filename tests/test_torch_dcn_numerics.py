@@ -1,5 +1,5 @@
-"""The bf16 DCN forward kernel's arithmetic, emulated on the CPU, and the
-wrappers' argument checks.
+"""The bf16 DCN kernels' arithmetic, emulated on the CPU, and the wrappers'
+argument checks.
 
 ``ops/cuda/csrc/dcn_fwd.cu`` rounds the sampled column (``s * mask``) to
 bf16 once, so that the tensor cores can take it; the products are exact
@@ -15,9 +15,18 @@ output; the error stays 2.4-2.8x inside the tolerance), which is why the
 kernel needs no hi/lo pair; the pair (5e-4 of that ulp, 2.7-3.9x inside)
 is emulated too, as the fallback the design keeps in reserve.
 
-The second half calls ``_check_kernel_args`` and ``_check_warp_args`` on
-CPU tensors: the kernels' shared-memory limit (recomputed for the bf16
-wgmma layout), the C_out / group / shape refusals and the warp's checks.
+The backward kernel (``ops/cuda/csrc/dcn_bwd.cu``) gets the same treatment:
+gout and W are bf16, so dcol is exact products summed in f32; the sampled
+column is rounded to bf16 once for the dW contraction; dx, dmask and
+doffset are computed in f32; each output is rounded to bf16 once. The
+emulation holds every gradient to 2^-7 of its scale against the plain f32
+``deform_conv2d_backward_plain``; the column's rounding alone moves dW by
+~0.2 of that tolerance, and with dW's own rounding ~0.4.
+
+The second half calls ``_check_kernel_args``, ``_check_backward_args`` and
+``_check_warp_args`` on CPU tensors: the kernels' shared-memory limits
+(recomputed for the bf16 wgmma layouts), the C / C_out / group / shape
+refusals and the warp's checks.
 """
 
 import numpy as np
@@ -25,8 +34,9 @@ import pytest
 import torch
 
 from fami_pose_torch.ops.deform_conv import (
-    SMEM_PER_BLOCK, _bilinear_grouped, _check_kernel_args, deform_conv2d,
-    dcn_fwd_smem,
+    SMEM_PER_BLOCK, _bilinear_grouped, _check_backward_args,
+    _check_kernel_args, dcn_bwd_smem, dcn_fwd_smem, deform_conv2d,
+    deform_conv2d_backward_plain,
 )
 from fami_pose_torch.ops.warp import _check_warp_args
 
@@ -124,6 +134,41 @@ def test_bf16_column_stays_within_tolerance(d, smooth, hilo):
     assert float((got - ref_bf16).abs().max()) <= ulp
 
 
+def _bf16(t):
+    return t.bfloat16().float()
+
+
+@pytest.mark.parametrize("smooth", [False, True], ids=["random", "smooth"])
+@pytest.mark.parametrize("d", [4, 1, 0])
+def test_bf16_backward_stays_within_tolerance(d, smooth):
+    """The backward kernel's order: the plain f32 gradients for dx, doffset
+    and dmask (dcol from exact bf16 products summed in f32), dW from the
+    bf16-rounded column, every output rounded to bf16 once."""
+    x, off, msk, wgt = _inputs(20 + d, d, smooth)
+    gout = _bf16(torch.from_numpy(
+        np.random.RandomState(30 + d).randn(*x.shape).astype(np.float32)))
+    kw = dict(padding=PAD, dilation=DIL, offset_groups=G, max_offset=d)
+    ref = deform_conv2d_backward_plain(x, off, msk, wgt, gout, **kw)
+    col = _columns(x, off, msk, d)  # (N, K, C, P), f32
+    n = x.shape[0]
+    go = gout.reshape(n, COUT, -1).double()
+    dw_col = torch.einsum("nop,nkcp->ock", go, _bf16(col).double()).float()
+    emulated = {"dx": ref[0], "doffset": ref[1], "dmask": ref[2],
+                "dweight": dw_col.reshape(wgt.shape)}
+    for (name, got), want in zip(emulated.items(), ref):
+        scale = max(1.0, float(want.abs().max()))
+        tol = 2.0 ** -7 * scale
+        err = float((_bf16(got) - want).abs().max())
+        assert err <= tol, (name, err, tol)
+    # the margin of dW: the column's rounding alone, then with dW's own
+    # (measured ~0.2 and ~0.4 of the tolerance)
+    scale = max(1.0, float(ref[3].abs().max()))
+    tol = 2.0 ** -7 * scale
+    shift = float((emulated["dweight"] - ref[3]).abs().max()) / tol
+    total = float((_bf16(emulated["dweight"]) - ref[3]).abs().max()) / tol
+    assert shift < 0.3 and total < 0.55, (shift, total)
+
+
 # -- the wrappers' argument checks ---------------------------------------------
 
 def _dcn_args(c=48, c_out=48, g=12, h=10, w=9, dtype=torch.bfloat16,
@@ -187,6 +232,54 @@ def test_check_kernel_args_shared_memory_limit_per_dtype():
     # C = 256: even the bf16 operands exceed a block's shared memory
     with pytest.raises(ValueError, match="shared memory"):
         _check_kernel_args(*_dcn_args(c=256, c_out=64, g=16), 3, 3, 16)
+
+
+def test_backward_smem_at_the_main_path_shape():
+    # bf16, 3 taps a block: W's slice 48 x 144 13,824 B + gout^T 6,144 +
+    # gout 64 x 64 8,192 + column 64 x 144 18,432 + dcol f32 64 x 148
+    # 37,888 + 36 units 576 (640 rounded up to 128 B): two blocks an SM
+    assert dcn_bwd_smem(torch.bfloat16, 48, 48, 12) == 85120
+    assert 2 * 85120 <= 228 * 1024
+    # f32: W's slice 27,648 + gout 48 x 68 13,056 + column 144 x 68 39,168
+    # + dcol 37,888 + units 640
+    assert dcn_bwd_smem(torch.float32, 48, 48, 12) == 118400
+    # C = 12 is padded to 16 columns a tap; C = 64 the widest slice
+    assert dcn_bwd_smem(torch.bfloat16, 12, 16, 4) == (
+        1536 + 2048 + 8192 + 6144 + 13312 + 256)
+    assert dcn_bwd_smem(torch.float32, 64, 64, 64) <= SMEM_PER_BLOCK
+
+
+def _bwd_args(c=48, c_out=48, g=12, h=10, w=9, dtype=torch.bfloat16):
+    x, off, msk, wgt = _dcn_args(c=c, c_out=c_out, g=g, h=h, w=w,
+                                 dtype=dtype)
+    return x, off, msk, wgt, torch.zeros(2, c_out, h, w, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c, g", [(48, 12), (16, 4), (12, 4), (48, 48),
+                                  (64, 16), (24, 3)])
+def test_check_backward_args_takes_the_kernel_shapes(dtype, c, g):
+    for c_out in (16, 32, 48, 64):
+        args = _bwd_args(c=c, c_out=c_out, g=g, dtype=dtype)
+        assert _check_backward_args(*args, 3, 3, g) == (10, 9)
+
+
+def test_check_backward_args_refusals():
+    with pytest.raises(ValueError, match="C <= 64"):
+        _check_backward_args(*_bwd_args(c=80, g=16), 3, 3, 16)
+    with pytest.raises(ValueError, match="C_out in 16/32/48/64"):
+        _check_backward_args(*_bwd_args(c_out=24), 3, 3, 12)
+    with pytest.raises(ValueError, match="bad channels"):
+        _check_backward_args(*_bwd_args(), 3, 3, 5)
+    with pytest.raises(ValueError, match="shared memory"):
+        _check_backward_args(*_bwd_args(c=256, g=16), 3, 3, 16)
+    x, off, msk, wgt, gout = _bwd_args()
+    with pytest.raises(ValueError, match="gout"):
+        _check_backward_args(x, off, msk, wgt, gout[:, :16], 3, 3, 12)
+    with pytest.raises(ValueError, match="gout"):
+        _check_backward_args(x, off, msk, wgt, gout[..., :-1], 3, 3, 12)
+    with pytest.raises(TypeError, match="mask is torch.float32"):
+        _check_backward_args(x, off, msk.float(), wgt, gout, 3, 3, 12)
 
 
 def test_check_warp_args():
