@@ -27,9 +27,13 @@ and as the last line ``{"ok": true, "device": {...}}``:
                library yardsticks likewise (``grid_sample`` and
                ``grid_sampler_2d_backward`` for the warps); the build phase
                counts each bf16 DCN instance's ``HGMMA`` instructions with
-               ``cuobjdump -sass``. Then the four
+               ``cuobjdump -sass``. The warp backward is also timed with
+               the L2 flushed between launches (``device_ms_cold``) and
+               called twice for bitwise equal outputs. Then the four
                on-chip gather / rotate probes (``ops/probes.py``) at the TPU
-               probes' shapes, bitwise against ``torch.gather`` / ``torch.roll``.
+               probes' shapes, bitwise against ``torch.gather`` /
+               ``torch.roll``, beside the floor of one empty kernel node in
+               a replayed CUDA graph.
   4. main    - ``PosePredictor`` on ``configs/posetrack17/fami_pose.yaml``
                (HRNet-W48, 384x288, bf16, D=4, 4 supporting frames,
                flip-test as under VAL.FLIP_VAL) with seeded random weights,
@@ -155,6 +159,33 @@ DEVICE_TIMING = ("ms and library_ms: 50 launches in one CUDA graph, fastest "
                  "of 5 replays; *host_paced_ms: 20 calls made one by one")
 DCN_TIMING = ("ms: 20 launches in one CUDA graph, fastest of 5 replays; "
               "host_paced_ms: 20 calls made one by one")
+
+
+FLUSH_BYTES = 96 * 2 ** 20  # read between launches: more than the 50 MB L2
+COLD_TIMING = ("cold_ms: 50 launches in one CUDA graph, each after a read "
+               "of 96 MB (more than the 50 MB L2), fastest of 5 replays, "
+               "less the reads timed alone the same way")
+
+
+def device_ms_cold(fn, launches=50):
+    """Device-side time of one call of ``fn`` that finds its inputs outside
+    the L2, as the train path's warp backward finds the supporting frame's
+    features: :func:`device_ms` of (a read of a 96 MB buffer, then ``fn``)
+    less :func:`device_ms` of the read alone. The read leaves the L2 full
+    of clean lines, so ``fn`` pays no write-back of another kernel's
+    output."""
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    sink = torch.empty((), device="cuda")
+
+    def read():
+        torch.sum(flush, dim=0, out=sink)
+
+    def both():
+        read()
+        fn()
+
+    return (device_ms(both, launches=launches)
+            - device_ms(read, launches=launches))
 
 
 def bound_ms(n_bytes, n_ops, dtype):
@@ -413,18 +444,22 @@ def phase_kernels(hgmma):
     # the forward warp at the shapes the main paths give it: 128 images (one
     # call for the 4 supporting frames of a B=32 val batch), 32 images (the
     # same of a B=8 serving batch) and 8 images (one call per supporting
-    # frame of a B=8 train step)
-    for dtype, n in itertools.product((torch.float32, torch.bfloat16),
-                                      (128, 32, 8)):
+    # frame of a B=8 train step), with the configured blend (TPU.WARP_IMPL
+    # matmul); in bf16 at 32 images also the other two blends
+    cases = [(dtype, n, "matmul") for dtype, n in itertools.product(
+        (torch.float32, torch.bfloat16), (128, 32, 8))]
+    cases[4:4] = [(torch.bfloat16, 32, "pallas"), (torch.bfloat16, 32, "slice")]
+    for dtype, n, impl in cases:
         c, h, w = 48, 96, 72
         img = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
         offs = (torch.rand(n, 2, generator=gen, device="cuda") * 2 - 1) * 40.0
-        run_k = lambda: warp_translate(img, offs, max_shift=26)
-        run_p = lambda: warp_translate_plain(img, offs, max_shift=26)
-        name = f"warp_translate n={n} {dtype}"
+        run_k = lambda: warp_translate(img, offs, max_shift=26, impl=impl)
+        run_p = lambda: warp_translate_plain(img, offs, 26, impl)
+        name = f"warp_translate n={n} {dtype} {impl}"
         got = run_kernel(name, run_k)
         ref = run_p()
         err, tol = check_close(name, got, ref, dtype)
+        bitwise = bool(torch.equal(got, ref))
         # library yardstick: grid_sample (bilinear, zeros) at p - clamp(t)
         grid = translation_grid(offs, h, w, dtype)
         run_l = lambda: torch.nn.functional.grid_sample(
@@ -437,15 +472,16 @@ def phase_kernels(hgmma):
         bnd, by = bound_ms(nbytes(img, offs, got), 9 * img.numel(), dtype)
         past = float((offs.abs() > 26).float().mean())
         emit("kernels", kernel="warp_translate", dtype=str(dtype)[6:],
-             shape=[n, c, h, w], max_shift=26, shifts_past_clamp=past,
-             max_abs_err=err, tol=tol, ms=k_ms, host_paced_ms=host_ms,
+             impl=impl, shape=[n, c, h, w], max_shift=26,
+             shifts_past_clamp=past, max_abs_err=err, tol=tol,
+             bitwise_equal=bitwise, ms=k_ms, host_paced_ms=host_ms,
              plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms,
              library_host_paced_ms=l_host_ms, timing=DEVICE_TIMING,
              library="F.grid_sample(bilinear, zeros, align_corners=True) on "
              "a precomputed grid", library_max_abs_err=lib_err)
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 and impl == "matmul":
             rows["warp_translate", n] = dict(
-                shape=[n, c, h, w], max_abs_err=err, ms=k_ms,
+                shape=[n, c, h, w], impl=impl, max_abs_err=err, ms=k_ms,
                 host_paced_ms=host_ms, plain_ms=p_ms, bound_ms=bnd,
                 bound_by=by, library_ms=l_ms,
                 library_host_paced_ms=l_host_ms, timing=DEVICE_TIMING,
@@ -476,8 +512,14 @@ def phase_kernels(hgmma):
         run_l = lambda: torch.ops.aten.grid_sampler_2d_backward(
             gout, img, grid, 0, 0, True, [True, True])
         lib_err = max_err(run_l()[0], ref_b[0])
+        # d_offsets is summed in a fixed order: a second call, same bits
+        again = run_kernel(f"warp_bwd n={n} {dtype}", run_k)
+        if not (torch.equal(again[0], got_b[0])
+                and torch.equal(again[1], got_b[1])):
+            raise AssertionError(f"warp_bwd n={n} {dtype}: two calls differ")
         host_ms, p_ms = time_ms(run_k), time_ms(run_p)
         k_ms, l_ms = device_ms(run_k), device_ms(run_l)
+        cold_ms = device_ms_cold(run_k)
         bnd, by = bound_ms(nbytes(img, offs, gout, *got_b), 30 * img.numel(),
                            dtype)
         emit("kernels", kernel="warp_bwd", dtype=str(dtype)[6:],
@@ -485,18 +527,34 @@ def phase_kernels(hgmma):
              shifts_past_clamp=float((offs.abs() > 26).float().mean()),
              max_abs_err={"d_images": err_i, "d_offsets": err_o},
              tol={"d_images": tol_i, "d_offsets": tol_o}, ms=k_ms,
-             host_paced_ms=host_ms, timing=DEVICE_TIMING,
+             cold_ms=cold_ms, host_paced_ms=host_ms,
+             timing=DEVICE_TIMING + "; " + COLD_TIMING, deterministic=True,
              plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms,
              library=WARP_BWD_LIBRARY, library_d_images_max_abs_err=lib_err)
-        if dtype == torch.bfloat16:
-            rows["warp_bwd", n] = dict(
-                shape=[n, c, h, w], max_abs_err=max(err_i, err_o), ms=k_ms,
-                host_paced_ms=host_ms, timing=DEVICE_TIMING,
-                plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms,
-                library=WARP_BWD_LIBRARY,
-            )
+        rows["warp_bwd", n, str(dtype)[6:]] = dict(
+            shape=[n, c, h, w], dtype=str(dtype)[6:],
+            max_abs_err=max(err_i, err_o), ms=k_ms, cold_ms=cold_ms,
+            host_paced_ms=host_ms,
+            timing=DEVICE_TIMING + "; " + COLD_TIMING, deterministic=True,
+            plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms,
+            library=WARP_BWD_LIBRARY,
+        )
     rows.update(probe_kernel_rows())
     return rows
+
+
+def launch_floor_ms():
+    """One empty kernel's node in a replayed CUDA graph (``device_ms``):
+    the least time a launch of one block occupies the card."""
+    from fami_pose_torch.ops.cuda.build import check, load_library
+
+    lib = load_library()
+
+    def run():
+        check(lib, lib.fami_empty_launch(
+            torch.cuda.current_stream().cuda_stream), "fami_empty_launch")
+
+    return device_ms(run)
 
 
 PROBES = {
@@ -515,10 +573,14 @@ PROBES = {
 def probe_kernel_rows():
     """The on-chip gather / rotate probes at the TPU probes' shapes: each
     kernel against its plain version, bitwise (the outputs are copies of
-    input values), timed device-side and host-paced; the bound is the tile
-    and its indices read once and the tile written once."""
+    input values), timed device-side and host-paced beside the floor of an
+    empty launch; the bound is the tile and its indices read once and the
+    tile written once. ``gather_rows`` is also timed cold."""
     from fami_pose_torch.ops import probes
 
+    floor = launch_floor_ms()
+    emit("kernels", kernel="empty launch", graph_node_floor_ms=floor,
+         timing=DEVICE_TIMING)
     rows = {}
     for kernel, (fn_name, kw, _, library) in PROBES.items():
         fn = getattr(probes, fn_name)
@@ -549,7 +611,10 @@ def probe_kernel_rows():
             shape=list(x.shape), dtype=str(x.dtype)[6:], max_abs_err=0.0,
             ms=k_ms, host_paced_ms=host_ms, plain_ms=p_ms, bound_ms=bnd,
             bound_by=by, library_ms=p_ms, library_host_paced_ms=p_host_ms,
-            library=library, timing=DEVICE_TIMING)
+            library=library, graph_node_floor_ms=floor, timing=DEVICE_TIMING)
+        if kernel == "probe_gather_rows":
+            rows[kernel]["cold_ms"] = device_ms_cold(run_k)
+            rows[kernel]["timing"] += "; " + COLD_TIMING
         emit("kernels", kernel=kernel, compared="bitwise", **rows[kernel])
     return rows
 
@@ -1707,10 +1772,10 @@ def main():
                 model_inputs=model_dcn, **rows[name]))
         elif name == "warp_bwd":
             kernels.append(dict(common, path="train", launches=train[name],
-                                **rows[name, 8]))
+                                **rows[name, 8, "bfloat16"]))
             kernels.append(dict(common, path="none: the shape of 32 images, "
                                 "timed for comparison", launches=0,
-                                **rows[name, 32]))
+                                **rows[name, 32, "bfloat16"]))
         else:  # dcn_bwd
             kernels.append(dict(common, path="train", launches=train[name],
                                 model_inputs=model_dcn_bwd, **rows[name]))

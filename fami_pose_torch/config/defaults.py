@@ -3,8 +3,9 @@
 The key surface is the JAX package's, so every YAML under ``configs/`` merges
 unchanged. Of the ``TPU`` sub-tree the port reads only the knobs that change
 what the model computes: ``COMPUTE_DTYPE``, ``DCN_MAX_OFFSET`` (<= 0 or null
-selects the exact, unclamped DCN), ``DCN_OFFSET_GROUPS``, ``WARP_IMPL`` (which
-only picks the warp clamp: 32 for ``"slice"``, else ``WARP_MAX_SHIFT``) and
+selects the exact, unclamped DCN), ``DCN_OFFSET_GROUPS``, ``WARP_IMPL`` (where a
+bf16 warp rounds, as the JAX warp of that name, and the warp clamp: 32 for
+``"slice"``, else ``WARP_MAX_SHIFT``) and
 ``WARP_MAX_SHIFT``. The other ``TPU`` keys (mesh, Pallas, remat, int8, device
 crop, ...) are accepted and ignored.
 """

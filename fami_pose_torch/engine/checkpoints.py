@@ -3,7 +3,9 @@
 a checkpoints directory, the latest found by the index in the name, payload
 ``{begin_epoch, model, optimizer, scheduler, step}`` written with
 ``torch.save`` (to a temporary name, then renamed). ``resume`` returns the
-epoch to continue with, ``begin_epoch + 1``."""
+epoch to continue with, ``begin_epoch + 1``. The JAX package writes the same
+file names as flax msgpack; loading one here raises a ``ValueError`` that
+names the weight bridge (``models/bridge.py::state_dict_from_flax``)."""
 
 import os
 import os.path as osp
@@ -52,6 +54,20 @@ def save_checkpoint(directory, epoch, state):
 
 
 def _load(path, device):
+    """The payload of a port checkpoint. ``torch.save`` writes a zip archive,
+    which starts with ``PK``; anything else (the JAX package writes the same
+    file name as flax msgpack) is refused with a ``ValueError`` before
+    ``torch.load`` could suggest unpickling it."""
+    with open(path, "rb") as f:
+        magic = f.read(2)
+    if magic != b"PK":
+        raise ValueError(
+            f"{path} is not a fami_pose_torch checkpoint (torch.save's zip "
+            f"archive): it may be a flax msgpack checkpoint written by "
+            f"fami_pose_tpu, which shares the file name. Convert its "
+            f"variables with fami_pose_torch/models/bridge.py::"
+            f"state_dict_from_flax and save them with torch.save"
+        )
     return torch.load(path, map_location=device, weights_only=True)
 
 

@@ -105,7 +105,8 @@ class FAMIPose(nn.Module):
     def __init__(self, extra=W48_EXTRA, num_joints=17, num_sup=4,
                  feat_channels=48, feat_hw=(96, 72),
                  dcn_offset_groups=DCN_OFFSET_GROUPS, dcn_max_offset=6,
-                 warp_max_shift=26, compute_dtype=torch.float32):
+                 warp_max_shift=26, compute_dtype=torch.float32,
+                 warp_impl="matmul"):
         super().__init__()
         c = int(feat_channels)
         g = int(dcn_offset_groups)
@@ -113,6 +114,7 @@ class FAMIPose(nn.Module):
             dcn_max_offset = None  # <= 0 selects the exact DCN, as None
         self.num_sup = int(num_sup)
         self.warp_max_shift = int(warp_max_shift)
+        self.warp_impl = str(warp_impl)  # where a bf16 warp rounds
         self.compute_dtype = compute_dtype
         self.hrnet = HRNet(extra, num_joints)
         hc = OFFSET_HEAD_CHANNELS
@@ -158,6 +160,7 @@ class FAMIPose(nn.Module):
             warp_max_shift=32 if warp_impl == "slice"
             else int(cfg.TPU.WARP_MAX_SHIFT),
             compute_dtype=_compute_dtype(cfg.TPU.COMPUTE_DTYPE),
+            warp_impl=warp_impl,
         )
 
     def _dcn_stage(self, idx, feat_in, target):
@@ -229,7 +232,8 @@ class FAMIPose(nn.Module):
                 sup_feat = feat[(i + 1) * b:(i + 2) * b]
                 off = self.feat_global_offset_layers(sup_feat - kf_feat)
                 ga = warp_translate(sup_feat, off,
-                                    max_shift=self.warp_max_shift)
+                                    max_shift=self.warp_max_shift,
+                                    impl=self.warp_impl)
                 aligned.append(ga)
                 sup_hms.append(self.hrnet.final_layer(ga))
         else:
@@ -237,7 +241,8 @@ class FAMIPose(nn.Module):
             diffs = all_sup - kf_feat.repeat(n, 1, 1, 1)
             offs = self.feat_global_offset_layers(diffs)  # (N*B, 2): tx, ty
             ga_all = warp_translate(all_sup, offs,
-                                    max_shift=self.warp_max_shift)
+                                    max_shift=self.warp_max_shift,
+                                    impl=self.warp_impl)
             aligned = [ga_all[i * b:(i + 1) * b] for i in range(n)]
 
         agg_sup = self.sup_agg_block(torch.cat(aligned, dim=1))
@@ -255,7 +260,14 @@ class FAMIPose(nn.Module):
         final_hm = self.agg_final_layer(fused)
         if not self.training:
             return final_hm
-        mi = [
+        return final_hm, sup_hms, self.mi_terms(kf_feat, agg_sup, fused,
+                                                final_hm)
+
+    def mi_terms(self, kf_feat, agg_sup, fused, final_hm):
+        """The six MI estimates of a train-mode forward, from the key
+        frame's backbone features, the aggregated supporting features, the
+        fused features and the final heatmap."""
+        return [
             self._feat_label_mi(fused, final_hm),    # I(y_t ; z~)
             self._feat_feat_mi(kf_feat, fused),      # I(z_t ; z~)
             self._feat_label_mi(agg_sup, final_hm),  # I(y_t ; z_sup)
@@ -263,7 +275,6 @@ class FAMIPose(nn.Module):
             self._feat_label_mi(kf_feat, final_hm),  # I(y_t ; z_t)
             self._feat_feat_mi(kf_feat, fused),      # I(z_t ; z~), as term 2
         ]
-        return final_hm, sup_hms, mi
 
 
 def init_weights_reference(model, seed=0, std=0.001):

@@ -7,7 +7,8 @@ port ``state_dict`` maps onto the JAX package's flax tree through
 ``fami_pose_tpu.models.torch_remap``.
 
 Compute dtype: parameters stay float32; :class:`Conv2d` and :class:`Linear`
-cast their weights to the dtype of their input (bfloat16 on the serving path), and
+cast their weights to the dtype of their input (bfloat16 on the serving path)
+and add their bias to the rounded output, as flax does, and
 :class:`BatchNorm` normalizes in float32 and casts back: with its running
 statistics in eval mode, with the batch's in training mode.
 """
@@ -20,19 +21,26 @@ BN_EPS = 1e-5
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` that computes in its input's dtype."""
+    """``nn.Conv2d`` that computes in its input's dtype. The bias is added
+    to the convolution's output in that dtype, as flax's ``nn.Conv`` does:
+    a bfloat16 output is rounded, then the bias added and rounded again (a
+    bias fused into the convolution, as the CPU's kernels do, rounds once
+    and differs from the JAX package in the last bit)."""
 
     def forward(self, x):
-        w = self.weight.to(x.dtype)
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, w, b)
+        y = self._conv_forward(x, self.weight.to(x.dtype), None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(x.dtype).view(1, -1, 1, 1)
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` that computes in its input's dtype."""
+    """``nn.Linear`` that computes in its input's dtype, the bias added to
+    the product's output in that dtype (flax's ``nn.Dense``; see
+    :class:`Conv2d`)."""
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
 
 
 BN_MOMENTUM = 0.1  # update fraction (flax: retain fraction 0.9)

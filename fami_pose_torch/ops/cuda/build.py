@@ -46,11 +46,11 @@ SIGNATURES = {
     # dx_acc, dw_part (scratch), dw_slots, dtype, B, C, H, W, Cout, Ho, Wo,
     # kh, kw, pad, dil, groups, max_offset, stream
     "fami_dcn_bwd": [c_ptr] * 12 + [c_int] * 14 + [c_float, c_ptr],
-    # images, offsets, out, dtype, N, C, H, W, max_shift, stream
-    "fami_warp_translate": [c_ptr] * 3 + [c_int] * 5 + [c_float, c_ptr],
-    # images, offsets, gout, d_images, d_offsets, dtype, N, C, H, W,
-    # max_shift, stream
-    "fami_warp_translate_bwd": [c_ptr] * 5 + [c_int] * 5 + [c_float, c_ptr],
+    # images, offsets, out, dtype, blend, N, C, H, W, max_shift, stream
+    "fami_warp_translate": [c_ptr] * 3 + [c_int] * 6 + [c_float, c_ptr],
+    # images, offsets, gout, d_images, d_offsets, partials (scratch), dtype,
+    # N, C, H, W, max_shift, stream
+    "fami_warp_translate_bwd": [c_ptr] * 6 + [c_int] * 5 + [c_float, c_ptr],
     # x, idx, out, dtype, rows, cols, variant, stream
     "fami_probe_gather_lane": [c_ptr] * 3 + [c_int] * 4 + [c_ptr],
     # x, idx, out, batch, rows, cols, stream
@@ -59,6 +59,8 @@ SIGNATURES = {
     "fami_probe_gather_rows": [c_ptr] * 3 + [c_int] * 2 + [c_ptr],
     # x, shift, out, rows, cols, stream
     "fami_probe_dynamic_roll": [c_ptr] * 3 + [c_int] * 2 + [c_ptr],
+    # stream (an empty kernel: the floor of a launch)
+    "fami_empty_launch": [c_ptr],
 }
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
@@ -143,6 +145,9 @@ def load_library():
         fn.restype = c_int
     lib.fami_cuda_error_string.argtypes = [c_int]
     lib.fami_cuda_error_string.restype = ctypes.c_char_p
+    # dtype, C, H, W -> blocks a warp_bwd launch gives each image
+    lib.fami_warp_translate_bwd_blocks.argtypes = [c_int] * 4
+    lib.fami_warp_translate_bwd_blocks.restype = ctypes.c_longlong
     return lib
 
 

@@ -26,82 +26,87 @@
 //   - each source row is loaded once per band and kept in registers for the
 //     next output row, so a source element is read from device memory
 //     (9 / 8) times, not four;
-//   - the V outputs are blended in f32 (the plain version's order) and
-//     written with one 16-byte store.
+//   - the V outputs are blended (below) and written with one 16-byte
+//     store.
 // The grid's y axis walks the images, so a block never spans two translations
 // and the clamp, floor and fraction are computed per block from the image's
 // two floats. Where a row is not a whole number of 16-byte vectors (W % V,
 // or a pointer not 16-byte aligned) the same kernel takes a scalar path: a
 // thread per output element with 4 scalar corner reads.
 //
-// Build (nvcc 12.9, -Xptxas -v, sm_90a): 38 registers (bf16), 32 (f32), no
-// spills, no shared memory.
+// The blend. The JAX package's three warps compute one function and round
+// a bf16 warp at different points; `blend` names the one to follow
+// (ops/warp.py::BLEND_CODES; TPU.WARP_IMPL picks it): the Pallas kernel's
+// f32 blend, rounded once; the matmul form's two passes, rows first, with
+// the weights and the row pass rounded to bf16; the slice form's bf16
+// elementwise ops, every product and sum rounded. A bf16 product of two
+// bf16 values is exact in f32, so a fused multiply-add gives the same bits
+// as the plain version's separate product and sum in the last two. f32
+// images always take the first (the three agree to an ulp there).
+//
+// Build (nvcc 12.9, -Xptxas -v, sm_90a): 38 registers (bf16, the first two
+// blends), 40 (the slice blend), 34 (f32), no spills, no shared memory. The
+// slice blend's ten roundings an output make it 2.3 times the others' time
+// at 32 images (31.4 us against 13.4-13.7, chip_smoke.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 #include <string.h>
+
+#include "warp_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kBand = 8;  // output rows a vector thread walks
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+// ops/warp.py::BLEND_CODES
+enum Blend : int { kOnce = 0, kRows = 1, kEachOp = 2 };
+
+// v rounded to T, as f32
 template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+__device__ __forceinline__ float rnd(float v) {
+  return to_f(from_f<T>(v));
 }
 
-// element e (0 <= e < 2V) of two 16-byte vectors, as f32
-template <typename T>
-__device__ __forceinline__ float elem(const uint4& a, const uint4& b, int e);
-template <>
-__device__ __forceinline__ float elem<float>(const uint4& a, const uint4& b,
-                                             int e) {
-  const uint4& v = e < 4 ? a : b;
-  const int i = e & 3;
-  return __uint_as_float(i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w);
-}
-template <>
-__device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& a,
-                                                     const uint4& b, int e) {
-  const uint4& v = e < 8 ? a : b;
-  const int i = (e & 7) >> 1;
-  const uint32_t w = i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-  return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
-}
-
-// the V + 1 source values of one row for a strip, zero outside the image
-template <typename T, int SH>
-__device__ __forceinline__ void load_row(const T* __restrict__ src, int sy,
-                                         int a, int H, int W,
-                                         float (&r)[16 / sizeof(T) + 1]) {
-  constexpr int V = 16 / sizeof(T);
-  uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
-  if ((unsigned)sy < (unsigned)H) {
-    const T* row = src + (size_t)sy * W;
-    if ((unsigned)a < (unsigned)W)
-      lo = __ldg(reinterpret_cast<const uint4*>(row + a));
-    if ((unsigned)(a + V) < (unsigned)W)
-      hi = __ldg(reinterpret_cast<const uint4*>(row + a + V));
+// the weights of one image: fx, 1 - fx, fy, 1 - fy as blend B rounds them
+struct Weights {
+  float x, x1, y, y1;
+};
+template <typename T, int B>
+__device__ __forceinline__ Weights weights(float fx, float fy) {
+  if (B == kRows) return {rnd<T>(fx), rnd<T>(1.f - fx), rnd<T>(fy),
+                          rnd<T>(1.f - fy)};
+  if (B == kEachOp) {
+    const float x = rnd<T>(fx), y = rnd<T>(fy);
+    return {x, rnd<T>(1.f - x), y, rnd<T>(1.f - y)};
   }
-#pragma unroll
-  for (int i = 0; i <= V; ++i) r[i] = elem<T>(lo, hi, SH + i);
+  return {fx, 1.f - fx, fy, 1.f - fy};
+}
+
+// the output from its corners s00 (row y - ty0 - 1, column x - tx0 - 1),
+// s01 (same row, column x - tx0), s10 and s11 (row y - ty0), before its
+// last rounding to T
+template <typename T, int B>
+__device__ __forceinline__ float blend(float s00, float s01, float s10,
+                                       float s11, const Weights& w) {
+  if (B == kRows) {
+    const float left = rnd<T>(w.y * s00 + w.y1 * s10);
+    const float right = rnd<T>(w.y * s01 + w.y1 * s11);
+    return w.x * left + w.x1 * right;
+  }
+  if (B == kEachOp) {
+    const float top = rnd<T>(rnd<T>(s00 * w.x) + rnd<T>(s01 * w.x1));
+    const float bot = rnd<T>(rnd<T>(s10 * w.x) + rnd<T>(s11 * w.x1));
+    return rnd<T>(top * w.y) + rnd<T>(bot * w.y1);
+  }
+  const float top = s00 * w.x + s01 * w.x1;
+  const float bot = s10 * w.x + s11 * w.x1;
+  return top * w.y + bot * w.y1;
 }
 
 // one strip of V columns over a band of rows; W % V == 0
-template <typename T, int SH>
+template <typename T, int SH, int B>
 __device__ void warp_strip(const T* __restrict__ src, T* __restrict__ dst,
                            int H, int W, int x, int y_begin, int y_end,
-                           int tx0, int ty0, float fx, float fy) {
+                           int tx0, int ty0, const Weights& wt) {
   constexpr int V = 16 / sizeof(T);
   const int a = x - tx0 - 1 - SH;  // a multiple of V
   float prev[V + 1], cur[V + 1];
@@ -110,11 +115,9 @@ __device__ void warp_strip(const T* __restrict__ src, T* __restrict__ dst,
     load_row<T, SH>(src, y - ty0, a, H, W, cur);
     T o[V];
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const float top = prev[i] * fx + prev[i + 1] * (1.f - fx);
-      const float bot = cur[i] * fx + cur[i + 1] * (1.f - fx);
-      o[i] = from_f<T>(top * fy + bot * (1.f - fy));
-    }
+    for (int i = 0; i < V; ++i)
+      o[i] = from_f<T>(blend<T, B>(prev[i], prev[i + 1], cur[i], cur[i + 1],
+                                   wt));
     uint4 w;
     memcpy(&w, o, 16);
     *reinterpret_cast<uint4*>(dst + (size_t)y * W + x) = w;
@@ -123,30 +126,8 @@ __device__ void warp_strip(const T* __restrict__ src, T* __restrict__ dst,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void warp_strip_sh(int sh, const T* src, T* dst,
-                                              int H, int W, int x, int y0,
-                                              int y1, int tx0, int ty0,
-                                              float fx, float fy) {
-  switch (sh) {
-    case 0: warp_strip<T, 0>(src, dst, H, W, x, y0, y1, tx0, ty0, fx, fy); break;
-    case 1: warp_strip<T, 1>(src, dst, H, W, x, y0, y1, tx0, ty0, fx, fy); break;
-    case 2: warp_strip<T, 2>(src, dst, H, W, x, y0, y1, tx0, ty0, fx, fy); break;
-    case 3: warp_strip<T, 3>(src, dst, H, W, x, y0, y1, tx0, ty0, fx, fy); break;
-    default:
-      if constexpr (sizeof(T) == 2) {
-        switch (sh) {
-          case 4: warp_strip<T, 4>(src, dst, H, W, x, y0, y1, tx0, ty0, fx, fy); break;
-          case 5: warp_strip<T, 5>(src, dst, H, W, x, y0, y1, tx0, ty0, fx, fy); break;
-          case 6: warp_strip<T, 6>(src, dst, H, W, x, y0, y1, tx0, ty0, fx, fy); break;
-          default: warp_strip<T, 7>(src, dst, H, W, x, y0, y1, tx0, ty0, fx, fy); break;
-        }
-      }
-  }
-}
-
 // grid (blocks over one image's work, N): blockIdx.y is the image
-template <typename T>
+template <typename T, int B>
 __global__ void __launch_bounds__(kThreads)
     warp_translate_kernel(const T* __restrict__ img,
                           const float* __restrict__ offsets,
@@ -166,6 +147,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* src_n = img + (size_t)n * C * hw;
   T* dst_n = out + (size_t)n * C * hw;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const Weights wt = weights<T, B>(fx, fy);
   if (vec) {
     const int strips = W / V;
     const int bands = (H + kBand - 1) / kBand;
@@ -176,8 +158,11 @@ __global__ void __launch_bounds__(kThreads)
     const int c = rest / bands;
     const int sh = ((-tx0 - 1) % V + V) % V;
     const int y0 = band * kBand;
-    warp_strip_sh<T>(sh, src_n + c * hw, dst_n + c * hw, H, W, strip * V, y0,
-                     min(H, y0 + kBand), tx0, ty0, fx, fy);
+    dispatch_shift<V>(sh, [&](auto s) {
+      warp_strip<T, decltype(s)::value, B>(src_n + c * hw, dst_n + c * hw, H,
+                                           W, strip * V, y0,
+                                           min(H, y0 + kBand), tx0, ty0, wt);
+    });
     return;
   }
   for (long long e = t; e < (long long)C * hw;
@@ -196,15 +181,14 @@ __global__ void __launch_bounds__(kThreads)
     const float s10 = (r1 && c0) ? to_f(src[sy * W + sx - 1]) : 0.f;
     const float s01 = (r0 && c1) ? to_f(src[(sy - 1) * W + sx]) : 0.f;
     const float s00 = (r0 && c0) ? to_f(src[(sy - 1) * W + sx - 1]) : 0.f;
-    const float top = s00 * fx + s01 * (1.f - fx);
-    const float bot = s10 * fx + s11 * (1.f - fx);
-    dst_n[e] = from_f<T>(top * fy + bot * (1.f - fy));
+    dst_n[e] = from_f<T>(blend<T, B>(s00, s01, s10, s11, wt));
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* img, const float* offsets, void* out, int N,
-                   int C, int H, int W, float max_shift, cudaStream_t s) {
+cudaError_t launch(const void* img, const float* offsets, void* out,
+                   int blend_impl, int N, int C, int H, int W,
+                   float max_shift, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   if (N == 0 || C == 0 || H == 0 || W == 0) return cudaSuccess;
   if (N > 65535) return cudaErrorInvalidValue;
@@ -215,27 +199,35 @@ cudaError_t launch(const void* img, const float* offsets, void* out, int N,
   long long blocks = (work + kThreads - 1) / kThreads;
   if (!vec && blocks > 1024) blocks = 1024;  // grid-stride
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  warp_translate_kernel<T><<<dim3((unsigned)blocks, (unsigned)N), kThreads, 0,
-                             s>>>(static_cast<const T*>(img), offsets,
-                                  static_cast<T*>(out), C, H, W, max_shift,
-                                  vec ? 1 : 0);
+  // f32 images take kOnce whatever the blend: the three agree to an ulp
+  auto* kernel = warp_translate_kernel<T, kOnce>;
+  if (!std::is_same<T, float>::value && blend_impl == kRows)
+    kernel = warp_translate_kernel<T, kRows>;
+  if (!std::is_same<T, float>::value && blend_impl == kEachOp)
+    kernel = warp_translate_kernel<T, kEachOp>;
+  kernel<<<dim3((unsigned)blocks, (unsigned)N), kThreads, 0, s>>>(
+      static_cast<const T*>(img), offsets, static_cast<T*>(out), C, H, W,
+      max_shift, vec ? 1 : 0);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (images and out); offsets are (N, 2)
-// float32 (tx, ty).
+// float32 (tx, ty); blend: a Blend (ops/warp.py::BLEND_CODES).
 extern "C" int fami_warp_translate(const void* images, const void* offsets,
-                                   void* out, int dtype, int N, int C, int H,
-                                   int W, float max_shift, void* stream) {
+                                   void* out, int dtype, int blend, int N,
+                                   int C, int H, int W, float max_shift,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* off = static_cast<const float*>(offsets);
+  if (blend < kOnce || blend > kEachOp) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)launch<float>(images, off, out, N, C, H, W, max_shift, s);
+    return (int)launch<float>(images, off, out, blend, N, C, H, W, max_shift,
+                              s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(images, off, out, N, C, H, W, max_shift,
-                                      s);
+    return (int)launch<__nv_bfloat16>(images, off, out, blend, N, C, H, W,
+                                      max_shift, s);
   return (int)cudaErrorInvalidValue;
 }
 

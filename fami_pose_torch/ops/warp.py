@@ -8,14 +8,34 @@ kernel ``fami_pose_tpu/ops/pallas/warp.py::warp_translate_pallas``); on a CPU
 tensor it runs :func:`warp_translate_plain`, the same function in plain
 torch. Its gradient is the kernel ``ops/cuda/csrc/warp_bwd.cu`` on the card
 and :func:`warp_translate_backward_plain` on the CPU, through one
-``torch.autograd.Function`` for both devices. The JAX package's ``WARP_IMPL`` choices (``slice``, ``matmul``,
-``pallas``) all compute this one function, so the port has one warp for all
-of them; only the clamp differs (32 for ``slice``).
+``torch.autograd.Function`` for both devices. The JAX package's ``WARP_IMPL``
+choices (``slice``, ``matmul``, ``pallas``) compute this one function and
+differ only where a bf16 warp rounds (and in the clamp: 32 for ``slice``), so
+the port's warp takes the choice as ``impl`` and rounds at the same points
+(:data:`BLEND_CODES`); in float32 the three agree to an ulp and the port
+blends once. The backward is the gradient of the exact blend whatever
+``impl`` is.
 """
 
 import torch
 
 from .affine import affine_matrix, invert_affine
+
+# where a bf16 warp rounds, by the JAX warp it follows (the kernel's
+# ``blend`` argument, ``csrc/warp.cu::Blend``):
+#   pallas - blends columns, then rows, in f32 and rounds once;
+#   matmul - rounds the four weights, blends rows first and rounds that
+#            pass, then blends columns and rounds (two bf16 matmuls);
+#   slice  - rounds fx, fy, then 1 - fx, 1 - fy, and every product and
+#            sum of the column-then-row blend (bf16 elementwise ops).
+BLEND_CODES = {"pallas": 0, "matmul": 1, "slice": 2}
+
+
+def _blend_code(impl):
+    if impl not in BLEND_CODES:
+        raise ValueError(f"warp impl {impl!r}, expected one of "
+                         f"{sorted(BLEND_CODES)}")
+    return BLEND_CODES[impl]
 
 
 def _shift_parts(offsets, max_shift):
@@ -43,14 +63,39 @@ def _shifted(img, dy, dx, margin):
     return pad[bidx, yy, xx].permute(0, 3, 1, 2)
 
 
-def warp_translate_plain(images, offsets, max_shift=32):
+def _blend(s00, s01, s10, s11, fx, fy, impl, dtype):
+    """The bilinear blend of the four corners (float32), rounded to
+    ``dtype`` where the JAX warp ``impl`` rounds (:data:`BLEND_CODES`);
+    in f32 and wider types the three agree to an ulp and blend once."""
+    if _blend_code(impl) == BLEND_CODES["pallas"] or dtype.itemsize >= 4:
+        top = s00 * fx + s01 * (1 - fx)
+        bot = s10 * fx + s11 * (1 - fx)
+        return top * fy + bot * (1 - fy)
+
+    def rnd(t):
+        return t.to(dtype).to(torch.float32)
+
+    if impl == "matmul":
+        wx, wx1, wy, wy1 = rnd(fx), rnd(1 - fx), rnd(fy), rnd(1 - fy)
+        left = rnd(wy * s00 + wy1 * s10)  # the row pass, column x - tx0 - 1
+        right = rnd(wy * s01 + wy1 * s11)  # column x - tx0
+        return wx * left + wx1 * right
+    wx, wy = rnd(fx), rnd(fy)
+    wx1, wy1 = rnd(1 - wx), rnd(1 - wy)
+    top = rnd(rnd(s00 * wx) + rnd(s01 * wx1))
+    bot = rnd(rnd(s10 * wx) + rnd(s11 * wx1))
+    return rnd(top * wy) + rnd(bot * wy1)
+
+
+def warp_translate_plain(images, offsets, max_shift=32, impl="matmul"):
     """Plain torch translation warp.
 
     Args:
       images: (N, C, H, W).
       offsets: (N, 2) translations (tx, ty) in destination pixels.
+      impl: the JAX warp whose bf16 roundings to follow (:data:`BLEND_CODES`).
 
-    Returns (N, C, H, W) in ``images``' dtype, blended in float32.
+    Returns (N, C, H, W) in ``images``' dtype.
     """
     m = int(max_shift) + 1
     img = images.to(torch.float32)
@@ -59,9 +104,8 @@ def warp_translate_plain(images, offsets, max_shift=32):
     s10 = _shifted(img, -ty0, -tx0 - 1, m)
     s01 = _shifted(img, -ty0 - 1, -tx0, m)
     s00 = _shifted(img, -ty0 - 1, -tx0 - 1, m)
-    top = s00 * fx + s01 * (1 - fx)
-    bot = s10 * fx + s11 * (1 - fx)
-    return (top * fy + bot * (1 - fy)).to(images.dtype)
+    return _blend(s00, s01, s10, s11, fx, fy, impl,
+                  images.dtype).to(images.dtype)
 
 
 def warp_translate_backward_plain(images, offsets, gout, max_shift=32):
@@ -112,10 +156,11 @@ def _check_warp_args(images, offsets):
     return DTYPE_CODES[dtype]
 
 
-def _warp_translate_cuda(images, offsets, max_shift):
+def _warp_translate_cuda(images, offsets, max_shift, impl):
     from .cuda.build import check, load_library, stream_ptr
 
     code = _check_warp_args(images, offsets)
+    blend = _blend_code(impl)
     images = images.contiguous()
     offsets = offsets.to(torch.float32).contiguous()
     out = torch.empty_like(images)
@@ -123,7 +168,8 @@ def _warp_translate_cuda(images, offsets, max_shift):
     n, c, h, w = images.shape
     err = lib.fami_warp_translate(
         images.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-        code, n, c, h, w, float(max_shift), stream_ptr(images),
+        code, blend, n, c, h, w, float(max_shift),
+        stream_ptr(images),
     )
     check(lib, err, "fami_warp_translate")
     warp_translate.launches += 1
@@ -141,14 +187,20 @@ def _warp_translate_backward_cuda(images, offsets, gout, max_shift):
     gout = gout.to(images.dtype).contiguous()
     offs = offsets.to(torch.float32).contiguous()
     d_images = torch.empty_like(images)
-    # the blocks add their partial sums into this buffer with atomicAdd
-    d_offsets = torch.zeros_like(offs)
+    # the blocks write their partial sums into the scratch buffer; a second
+    # launch sums each image's partials in a fixed order into d_offsets
+    d_offsets = torch.empty_like(offs)
     lib = load_library()
     n, c, h, w = images.shape
+    blocks = lib.fami_warp_translate_bwd_blocks(code, c, h, w)
+    if blocks < 0:
+        raise ValueError(f"warp_bwd takes no shape {tuple(images.shape)}")
+    partials = torch.empty(2 * n * blocks, dtype=torch.float32,
+                           device=images.device)
     err = lib.fami_warp_translate_bwd(
         images.data_ptr(), offs.data_ptr(), gout.data_ptr(),
-        d_images.data_ptr(), d_offsets.data_ptr(), code, n, c, h, w,
-        float(max_shift), stream_ptr(images),
+        d_images.data_ptr(), d_offsets.data_ptr(), partials.data_ptr(), code,
+        n, c, h, w, float(max_shift), stream_ptr(images),
     )
     check(lib, err, "fami_warp_translate_bwd")
     warp_translate_backward.launches += 1
@@ -159,7 +211,8 @@ def warp_translate_backward(images, offsets, gout, max_shift=32):
     """Gradients ``(d_images, d_offsets)`` of the translation warp: the
     plain version for CPU tensors, the CUDA kernel ``ops/cuda/csrc/warp_bwd.cu``
     (counted in ``warp_translate_backward.launches``) for CUDA tensors, or an
-    error."""
+    error. The kernel sums ``d_offsets`` in an order fixed by the shape, so
+    two calls on the same inputs give the same bits."""
     if images.device.type == "cpu":
         return warp_translate_backward_plain(images, offsets, gout, max_shift)
     if images.device.type != "cuda":
@@ -175,12 +228,12 @@ class _WarpTranslate(torch.autograd.Function):
     backward, chosen by ``images.device``."""
 
     @staticmethod
-    def forward(ctx, images, offsets, max_shift):
+    def forward(ctx, images, offsets, max_shift, impl):
         ctx.save_for_backward(images, offsets)
         ctx.max_shift = max_shift
         if images.device.type == "cpu":
-            return warp_translate_plain(images, offsets, max_shift)
-        return _warp_translate_cuda(images, offsets, max_shift)
+            return warp_translate_plain(images, offsets, max_shift, impl)
+        return _warp_translate_cuda(images, offsets, max_shift, impl)
 
     @staticmethod
     def backward(ctx, gout):
@@ -190,17 +243,19 @@ class _WarpTranslate(torch.autograd.Function):
         )
         need = ctx.needs_input_grad
         return (d_images if need[0] else None,
-                d_offsets if need[1] else None, None)
+                d_offsets if need[1] else None, None, None)
 
 
-def warp_translate(images, offsets, max_shift=32):
+def warp_translate(images, offsets, max_shift=32, impl="matmul"):
     """Translation warp, differentiable in images and offsets: the CUDA
     kernels for a CUDA tensor, the plain torch versions for a CPU tensor.
+    ``impl`` names the JAX warp (``TPU.WARP_IMPL``, default ``matmul`` as
+    in both packages' configs) whose bf16 roundings the forward follows.
     ``warp_translate.launches`` counts the forward kernel's launches,
     ``warp_translate_backward.launches`` the backward's."""
     if images.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no warp kernel for device {images.device}")
-    return _WarpTranslate.apply(images, offsets, max_shift)
+    return _WarpTranslate.apply(images, offsets, max_shift, impl)
 
 
 warp_translate.launches = 0

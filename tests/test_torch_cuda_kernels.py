@@ -76,6 +76,29 @@ def test_warp_kernel_matches_plain(gen, dtype, max_shift):
     _assert_close(got, warp_translate_plain(img, offs, max_shift), dtype)
 
 
+@pytest.mark.parametrize("impl", ["matmul", "slice", "pallas"])
+@pytest.mark.parametrize("shape", [(4, 3, 17, 24), (3, 2, 9, 23),
+                                   (8, 48, 96, 72)])
+def test_warp_kernel_blends_as_the_plain_version(gen, impl, shape):
+    """bf16, each JAX warp's roundings, on the vector and the scalar path:
+    the matmul and slice blends round every f32 sum of exact bf16 products,
+    so the kernel gives the plain version's bits; the Pallas blend's
+    products are not exact (one bf16 ulp)."""
+    n = shape[0]
+    img = torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+    offs = (torch.rand(n, 2, generator=gen, device="cuda") * 2 - 1) * 40
+    offs[:3] = torch.tensor([[26.0, -26.0], [-3.0, 2.0], [0.25, -0.75]])[:n]
+    before = warp_translate.launches
+    got = warp_translate(img, offs, max_shift=26, impl=impl)
+    torch.cuda.synchronize()
+    assert warp_translate.launches == before + 1
+    ref = warp_translate_plain(img, offs, 26, impl)
+    if impl == "pallas":
+        _assert_close(got, ref, torch.bfloat16)
+    else:
+        assert torch.equal(got, ref)
+
+
 # shapes the redesigned kernels take by different internal paths: 16x24 has
 # whole 64-pixel tiles and 16-byte output rows (16-byte stores), 13x11 a
 # ragged last tile and 286-byte rows (scalar stores)
@@ -415,6 +438,79 @@ def test_warp_autograd_on_the_card(gen):
     assert float((offs.grad.cpu() - ref_offs.grad).abs().max()) <= 1e-3
 
 
+# the row-strip backward: image 0's translation (tx, ty) in each case, the
+# other images' random within +-40 (past the clamp of 26 on either axis)
+WARP_BWD_CASES = {"integer": (3.0, -2.0), "x_past_clamp": (-40.0, 2.5),
+                  "y_past_clamp": (1.25, 33.0)}
+
+
+def _warp_bwd_inputs(gen, dtype, shape, first):
+    img = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    offs = (torch.rand(shape[0], 2, generator=gen, device="cuda") * 2 - 1) * 40
+    offs[0] = torch.tensor(first)
+    gout = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    return img, offs, gout
+
+
+def _check_warp_bwd(img, offs, gout):
+    """The kernel against the plain version; a second call bitwise equal to
+    the first in both outputs (d_offsets is summed in a fixed order)."""
+    from fami_pose_torch.ops.warp import (
+        warp_translate_backward, warp_translate_backward_plain,
+    )
+
+    before = warp_translate_backward.launches
+    got = warp_translate_backward(img, offs, gout, 26)
+    again = warp_translate_backward(img, offs, gout, 26)
+    torch.cuda.synchronize()
+    assert warp_translate_backward.launches == before + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    ref = warp_translate_backward_plain(img, offs, gout, 26)
+    _assert_grad_close("d_images", got[0], ref[0], img.dtype)
+    # d_offsets: f32 sums of C*H*W terms in another order
+    assert got[1].dtype == torch.float32
+    scale = max(1.0, float(ref[1].abs().max()))
+    assert float((got[1] - ref[1]).abs().max()) <= 1e-4 * scale
+    return got, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 8, 32])
+@pytest.mark.parametrize("case", list(WARP_BWD_CASES))
+def test_warp_backward_row_strips(gen, dtype, n, case):
+    """The train path's plane (48, 96, 72): 16-byte row strips. An axis
+    whose raw translation lies past the clamp gets d_offsets 0, the other
+    axis not."""
+    first = WARP_BWD_CASES[case]
+    got, ref = _check_warp_bwd(*_warp_bwd_inputs(gen, dtype, (n, 48, 96, 72),
+                                                 first))
+    for axis in (0, 1):
+        past = abs(first[axis]) > 26
+        assert (float(got[1][0, axis]) == 0.0) == past
+        assert (float(ref[1][0, axis]) == 0.0) == past
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["width_23", "width_20", "unaligned"])
+def test_warp_backward_scalar_path(gen, dtype, layout):
+    """W = 23 (no 16-byte rows), W = 20 (f32 rows, the bf16 scalar path)
+    and a contiguous view one element past an aligned address (the scalar
+    path at W = 72)."""
+    shape = {"width_23": (8, 5, 17, 23), "width_20": (8, 5, 17, 20),
+             "unaligned": (8, 6, 24, 72)}[layout]
+    img, offs, gout = _warp_bwd_inputs(gen, dtype, shape, (3.0, -2.0))
+    if layout == "unaligned":
+        def shifted(t):
+            flat = torch.empty(t.numel() + 1, dtype=dtype, device="cuda")
+            view = flat[1:].view(shape)
+            view.copy_(t)
+            assert view.is_contiguous() and view.data_ptr() % 16 != 0
+            return view
+
+        img, gout = shifted(img), shifted(gout)
+    _check_warp_bwd(img, offs, gout)
+
+
 # -- the on-chip gather and rotate probes (bitwise: copies of input values) --
 
 def _probe_on_card(name, **kw):
@@ -462,6 +558,21 @@ def test_probe_gather_rows_matches_plain(gen):
     torch.cuda.synchronize()
     assert probes.gather_rows.launches == before + 1
     assert torch.equal(got, probes.gather_rows_plain(x, idx))
+
+
+@pytest.mark.parametrize("shape", [(40, 100), (300, 37), (5, 7)])
+def test_probe_gather_rows_other_shapes(gen, shape):
+    """Column counts that are not a multiple of 32 (a last strip of 4, 5
+    and 7 columns), more rows than a block's warps take ahead (300) and
+    fewer columns than a strip."""
+    from fami_pose_torch.ops import probes
+
+    x = torch.rand(shape, generator=gen, device="cuda")
+    idx = torch.randint(0, shape[0], shape, generator=gen, device="cuda",
+                        dtype=torch.int32)
+    got = probes.gather_rows(x, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.gather(x, 0, idx.long()))
 
 
 @pytest.mark.parametrize("shift", [0, 5, 127, 128, -3, -1000, 2 ** 31 - 1])
@@ -633,8 +744,8 @@ def _overrun_child():
     bufs = GuardedBuffers("end")
     img = torch.zeros(1, 1, 96, 72, device="cuda")
     a, o = bufs.put(img), bufs.put(torch.zeros(1, 2, device="cuda"))
-    _kernel_library().fami_warp_translate(a, o, bufs.put(img), 0, 1, 400, 96,
-                                          72, 26.0, None)
+    _kernel_library().fami_warp_translate(a, o, bufs.put(img), 0, 1, 1, 400,
+                                          96, 72, 26.0, None)
     bufs.sync()
 
 
@@ -709,8 +820,10 @@ def test_dcn_kernels_stay_inside_their_buffers(guarded, gen, dtype,
 @pytest.mark.parametrize("shape", [(8, 48, 96, 72), (3, 5, 17, 23)])
 def test_warp_kernels_stay_inside_their_buffers(guarded, gen, dtype, shape):
     """Shifts at, inside and far past the clamp of 26 in both directions;
-    the forward's 16-byte row path (W = 72) and its scalar path (W = 23)."""
-    from fami_pose_torch.ops.warp import warp_translate_backward
+    the 16-byte row paths (W = 72) and the scalar paths (W = 23) of the
+    forward (each blend) and the backward, the backward's partials buffer
+    included."""
+    from fami_pose_torch.ops.warp import BLEND_CODES, warp_translate_backward
 
     n, c, h, w = shape
     code = 0 if dtype == torch.float32 else 1
@@ -718,24 +831,27 @@ def test_warp_kernels_stay_inside_their_buffers(guarded, gen, dtype, shape):
     offs = (torch.rand(n, 2, generator=gen, device="cuda") * 2 - 1) * 40
     offs[:3] = torch.tensor([[26.0, -26.0], [-100.0, 100.0], [3.0, -7.0]])
     gout = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
-    ref = warp_translate(img, offs, max_shift=26)
     d_img, d_offs = warp_translate_backward(img, offs, gout, max_shift=26)
     lib = _kernel_library()
-    pi, pf, pout = (guarded.put(t) for t in (img, offs, ref))
-    assert lib.fami_warp_translate(pi, pf, pout, code, n, c, h, w, 26.0,
-                                   None) == 0
-    guarded.sync()
-    assert torch.equal(guarded.get(pout, ref), ref)
+    pi, pf = guarded.put(img), guarded.put(offs)
+    for impl, blend in BLEND_CODES.items():
+        ref = warp_translate(img, offs, max_shift=26, impl=impl)
+        pout = guarded.put(ref)
+        assert lib.fami_warp_translate(pi, pf, pout, code, blend, n, c, h, w,
+                                       26.0, None) == 0
+        guarded.sync()
+        assert torch.equal(guarded.get(pout, ref), ref)
     zeros = torch.zeros(n, 2, device="cuda")
-    pg, pdi, pdo = (guarded.put(t) for t in (gout, img, zeros))
-    assert lib.fami_warp_translate_bwd(pi, pf, pg, pdi, pdo, code, n, c, h,
-                                       w, 26.0, None) == 0
+    blocks = lib.fami_warp_translate_bwd_blocks(code, c, h, w)
+    partials = torch.zeros(2 * n * blocks, device="cuda")
+    pg, pdi, pdo, ppart = (guarded.put(t)
+                           for t in (gout, img, zeros, partials))
+    assert lib.fami_warp_translate_bwd(pi, pf, pg, pdi, pdo, ppart, code, n,
+                                       c, h, w, 26.0, None) == 0
     guarded.sync()
     assert torch.equal(guarded.get(pdi, img), d_img)
-    # the blocks' partial sums are added with atomics: last bits vary
-    scale = max(1.0, float(d_offs.abs().max()))
-    assert float((guarded.get(pdo, zeros) - d_offs.float()).abs().max()
-                 ) <= 1e-3 * scale
+    # the partials are summed in a fixed order: the wrapper's bits
+    assert torch.equal(guarded.get(pdo, zeros), d_offs)
 
 
 def test_probe_kernels_stay_inside_their_buffers(guarded, gen):
@@ -754,10 +870,14 @@ def test_probe_kernels_stay_inside_their_buffers(guarded, gen):
     guarded.sync()
     assert torch.equal(guarded.get(po, x), probes.gather_3d_plain(x, idx))
     _, (x, idx) = _probe_on_card("gather_rows", seed=3)
-    px, pi, po = guarded.put(x), guarded.put(idx), guarded.put(x)
-    assert lib.fami_probe_gather_rows(px, pi, po, *x.shape, None) == 0
-    guarded.sync()
-    assert torch.equal(guarded.get(po, x), probes.gather_rows_plain(x, idx))
+    # the probe's tile and one whose last strip has 4 of 32 columns
+    for tile, rows in ((x, idx), (x[:40, :100].contiguous(),
+                                  (idx[:40, :100] % 40).contiguous())):
+        px, pi, po = guarded.put(tile), guarded.put(rows), guarded.put(tile)
+        assert lib.fami_probe_gather_rows(px, pi, po, *tile.shape, None) == 0
+        guarded.sync()
+        assert torch.equal(guarded.get(po, tile),
+                           probes.gather_rows_plain(tile, rows))
     for shift in (0, 5, 127, 128, -3, -1000003):
         _, (x, s) = _probe_on_card("dynamic_roll", seed=4, shift=shift)
         # the probe's tile (register kernel) and a 96-column one (shared

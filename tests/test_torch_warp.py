@@ -5,7 +5,8 @@ Pallas kernel ``warp_translate_pallas`` (interpret mode), with shifts past
 the clamp; and the device crop ``crop_and_warp``.
 
 Tolerance: 1e-5 absolute for the f32 warps (the JAX matmul form is itself
-1 ulp from the slice form); 5e-3 absolute on 0..255 pixel values for the
+1 ulp from the slice form); none in bf16, where each JAX warp rounds at its
+own points and the port's ``impl`` follows them bit for bit; 5e-3 absolute on 0..255 pixel values for the
 crop: both compute the sample coordinates in f32, which differ by ~1e-5 px
 (XLA fuses and orders the multiply-adds differently), times an image
 gradient of up to 255 per pixel.
@@ -66,6 +67,38 @@ def test_matches_pallas_warp(rng, max_shift):
                                 max_shift=max_shift)
     np.testing.assert_allclose(_port(img, off, max_shift), np.asarray(ref),
                                atol=1e-5, rtol=0)
+
+
+JAX_WARPS = {"slice": jax_warp_translate, "matmul": warp_translate_matmul,
+             "pallas": warp_translate_pallas}
+
+
+@pytest.mark.parametrize("impl", sorted(JAX_WARPS))
+def test_bf16_rounds_as_the_jax_warp(rng, impl):
+    """In bf16 the three JAX warps differ (the matmul form rounds its
+    weights and its row pass, the slice form every elementwise op, the
+    Pallas kernel once); the port's warp with the same ``impl`` equals each
+    bitwise, and differs from the other two."""
+    img, off = _inputs(rng, n=4, h=8, w=8, c=3)
+    img = torch.from_numpy(img).bfloat16().float().numpy()
+    refs = {k: np.asarray(f(jnp.asarray(img, jnp.bfloat16), jnp.asarray(off),
+                            max_shift=26).astype(jnp.float32))
+            for k, f in JAX_WARPS.items()}
+    got = warp_translate(
+        torch.from_numpy(np.ascontiguousarray(img.transpose(0, 3, 1, 2)))
+        .bfloat16(), torch.from_numpy(off), max_shift=26, impl=impl)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy().transpose(0, 2, 3, 1)
+    np.testing.assert_array_equal(got, refs[impl])
+    for other in set(JAX_WARPS) - {impl}:
+        assert not np.array_equal(refs[other], refs[impl])
+
+
+def test_unknown_impl_is_refused(rng):
+    img, off = _inputs(rng)
+    with pytest.raises(ValueError, match="warp impl"):
+        warp_translate(torch.from_numpy(img).bfloat16(),
+                       torch.from_numpy(off), impl="gather")
 
 
 def test_small_shift_moves_content(rng):
