@@ -45,6 +45,17 @@ and as the last line ``{"ok": true, "device": {...}}``:
                DCN forward on ``dcn_1``'s own inputs from one such batch.
   5. card-vs-cpu - the same weights in f32, one key frame: final heatmaps of
                the CUDA path against the port on the CPU (plain versions).
+  5b. streaming - ``engine/streaming.py`` on the same model: 8 streams, one
+               a box of frames 0-3 of the clip, crops locked, every frame
+               fed (flip-test; paired, then ``flip_batched``). Launches a
+               streamed frame (8 DCN + 2 warp, no backward; 4 + 1 batched)
+               and backbone calls a step (a forward hook: 2 of B, or 1 of
+               2B); every key frame against the batch protocol's eval step
+               on the same locked crops (f32 with TF32 off: heatmaps and
+               decoded keypoints; bf16: within the batch protocol's own
+               bf16-vs-f32 gap); ms a step, key
+               frames/s, device-busy ms of a traced step and peak memory,
+               beside the batch protocol's.
   6. train   - ``Trainer`` on the same config at ``TRAIN.BATCH_SIZE_PER_GPU
                8`` (the file's 48 is per GPU of the reference's 8-GPU host),
                seeded init, a seeded synthetic dataset: one epoch of 4 steps
@@ -800,17 +811,18 @@ def phase_main():
     trace = profile_call(lambda: pred.predict_batch(dev_frames, reqs))
     model_dcn = dcn_on_model_inputs(pred, dev_frames, reqs)
     emit("kernels", kernel="dcn_fwd", inputs="the model's own", **model_dcn)
+    batch = dict(batch8_ms=batch_ms,
+                 batch8_clips_per_s=8 / (float(np.median(batch_ms)) / 1e3),
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 trace=trace)
     emit("main", config="configs/posetrack17/fami_pose.yaml",
          model="FAMIPose HRNet-W48 384x288 bf16 D=4 num_sup=4 flip_test",
          weights="seeded random init (seed 0)", requests=n_req,
          batches=n_batches, launches=launches,
          run_seconds=wall, latency_ms_per_request=wall / n_req * 1e3,
-         clips_per_s=n_req / wall, batch8_ms=batch_ms,
-         batch8_clips_per_s=8 / (float(np.median(batch_ms)) / 1e3),
-         crop_b8_ms=crop_ms, forward_b8_ms=fwd_ms, backbone_b8_ms=bb_ms,
-         head_b8_ms=head_ms,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, trace=trace)
-    return pred, launches, model_dcn
+         clips_per_s=n_req / wall, crop_b8_ms=crop_ms, forward_b8_ms=fwd_ms,
+         backbone_b8_ms=bb_ms, head_b8_ms=head_ms, **batch)
+    return pred, launches, model_dcn, batch
 
 
 def phase_card_vs_cpu(pred):
@@ -836,6 +848,247 @@ def phase_card_vs_cpu(pred):
     emit("card-vs-cpu", dtype="float32", tf32="off", key_frames=1,
          max_abs_diff=err, tol=tol, heatmap_absmax=float(ref.abs().max()),
          cuda_s=outs["cuda_s"], cpu_s=outs["cpu_s"])
+
+
+def locked_crops(pred, dev_frames, tracks):
+    """Every frame of the clip cropped with each stream's locked box (one
+    affine a stream for all its frames) and normalised on the card, as
+    ``PosePredictor.crop`` crops a frame: (T, B, 3, h, w) float32, and the
+    boxes' centers and scales (B, 2)."""
+    from fami_pose_torch.data.loader import normalize
+    from fami_pose_torch.ops.warp import crop_and_warp
+    from fami_pose_torch.utils.bbox import box2cs
+
+    cs = [box2cs(bbox, pred.aspect, pred.enlarge) for bbox in tracks]
+    center = torch.as_tensor(np.stack([c for c, _ in cs]), device="cuda")
+    scale = torch.as_tensor(np.stack([s for _, s in cs]), device="cuda")
+    b = len(tracks)
+    out_hw = (pred.image_size[1], pred.image_size[0])
+    rot = torch.zeros(b, device="cuda")
+    with torch.inference_mode():
+        crops = torch.stack([
+            normalize(crop_and_warp(frame.expand(b, -1, -1, -1), center,
+                                    scale, rot, out_hw))
+            for frame in dev_frames])
+    return crops, center, scale
+
+
+def batch_window(crops, t, span):
+    """The batch protocol's (kf, sup) of key frame t on the locked crops:
+    supporting frames t - span .. t + span clamped to the clip, in
+    ``PosePredictor.window``'s order."""
+    n = crops.shape[0]
+    sup = [t - d for d in range(span, 0, -1)] + [t + d
+                                                 for d in range(1, span + 1)]
+    return crops[t], torch.cat([crops[min(max(s, 0), n - 1)] for s in sup],
+                               dim=1)
+
+
+def stream_clip(model, crops, span, calls=None, **kw):
+    """Every key frame of the clip through a stream primed with frame 0
+    and fed ``span`` more copies of the last frame: (T, B, J, h, w)
+    float32. ``calls``, a list, receives the batch size of every backbone
+    call the steps make (not the priming's)."""
+    from fami_pose_torch.engine.streaming import StreamingPosePredictor
+
+    spred = StreamingPosePredictor(model, distance=span + 1, **kw)
+    spred.prime(crops[0])
+    calls = [] if calls is None else calls
+    hook = model.hrnet.register_forward_hook(
+        lambda mod, args, out: calls.append(int(args[0].shape[0])))
+    try:
+        n = crops.shape[0]
+        out = [spred(crops[min(t, n - 1)])[0] for t in range(n + span)]
+    finally:
+        hook.remove()
+    return torch.stack(out[span:])
+
+
+def keypoint_px(hms, center, scale):
+    """Decoded keypoints (T, B, J, 2) in image pixels."""
+    from fami_pose_torch.ops.heatmap import get_final_preds
+
+    return torch.stack([get_final_preds(hm, center, scale)[0] for hm in hms])
+
+
+STREAM_F32_TOL = 1e-4  # of the heatmaps' largest magnitude
+STREAM_PX_TOL = 1e-3
+
+
+def phase_streaming(pred, batch):
+    """Streaming serving (``engine/streaming.py``) of the serving config at
+    full W48, bf16, flip-test: 8 streams, one a box of frames 0-3 of the
+    synthetic clip, crops locked, every frame of the clip fed and every key
+    frame emitted. The counted run checks the launches of each streamed
+    frame (8 ``dcn_fwd``, 2 ``warp_translate``, no backward) and the
+    backbone calls of each step (a forward hook: 2 of B frames with paired
+    flip; 1 of 2B with ``flip_batched``, 4 DCN and 1 warp launch). Every
+    key frame against the batch protocol (``PosePredictor``'s eval step on
+    the same locked crops, windows clamped to the clip as the stream
+    clamps): in f32 with TF32 off the heatmaps within STREAM_F32_TOL of
+    their scale and the decoded keypoints within STREAM_PX_TOL pixels. In
+    bf16 the backbone's convolutions round differently at batch 8 (the
+    stream's calls) and 40 (the batch protocol's), and the seeded model
+    amplifies a rounding, so the heatmaps are held within the batch
+    protocol's own gap between bf16 and f32 (the 1e-3 of the scale that
+    card-vs-cpu allows in f32 is printed beside it). Then ms a step
+    (synchronised, 20 steps), key frames/s, device-busy ms of one traced
+    step and peak memory, beside the batch protocol's on the same crops
+    and phase main's."""
+    from fami_pose_torch.engine.steps import make_eval_step
+    from fami_pose_torch.engine.streaming import StreamingPosePredictor
+
+    frames, boxes = synthetic_clip()
+    tracks = [bbox for fi in range(4) for bbox, _ in boxes[fi]]
+    dev_frames = torch.from_numpy(frames).cuda().permute(0, 3, 1, 2)
+    crops, center, scale = locked_crops(pred, dev_frames, tracks)
+    n, b = crops.shape[:2]
+    span = pred.span
+    steps = n + span
+    model = pred.model
+
+    # the counted run: bf16, paired flip
+    stream_clip(model, crops, span, flip_test=True)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls = []
+    reset_launches()
+    hm_bf16 = stream_clip(model, crops, span, calls=calls, flip_test=True)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    calls_batched = []
+    reset_launches()
+    hm_batched = stream_clip(model, crops, span, calls=calls_batched,
+                             flip_test=True, flip_batched=True)
+    torch.cuda.synchronize()
+    launches_batched = read_launches()
+
+    with torch.inference_mode():
+        ref_bf16 = torch.stack([pred.eval_step(*batch_window(crops, t, span))[0]
+                                for t in range(n)])
+    m32 = copy.deepcopy(model).float()
+    m32.compute_dtype = torch.float32
+    hm_f32 = stream_clip(m32, crops, span, flip_test=True)
+    step32 = make_eval_step(m32, flip_test=True)
+    ref_f32 = torch.stack([step32(*batch_window(crops, t, span))[0]
+                           for t in range(n)])
+    px = keypoint_px(hm_f32, center, scale)
+    px_ref = keypoint_px(ref_f32, center, scale)
+    px_err = (px - px_ref).abs().amax(dim=-1)  # (T, B, J)
+    px_bf16 = (keypoint_px(hm_bf16, center, scale)
+               - keypoint_px(ref_bf16, center, scale)).abs().amax(dim=-1)
+    # where the two protocols part: the same 40 frames through the
+    # backbone in one call (the batch protocol's) and in 5 calls of 8 (the
+    # stream's), in each type
+    fold_diff = {}
+    with torch.inference_mode():
+        for m in (model, m32):
+            f40 = m.features(crops[:5].flatten(0, 1))[1]
+            f8 = torch.cat([m.features(crops[i])[1] for i in range(5)])
+            fold_diff[str(f40.dtype)[6:]] = max_err(f8, f40)
+    del m32, step32
+
+    def gap(got, ref):
+        scale_ = max(1.0, float(ref.abs().max()))
+        return max_err(got, ref), scale_
+
+    f32_err, f32_scale = gap(hm_f32, ref_f32)
+    bf16_err, bf16_scale = gap(hm_bf16, ref_bf16)
+    bf16_own_gap = max_err(ref_bf16, ref_f32)
+    interior = slice(span, n - span)
+    checks = dict(
+        f32_max_abs_diff=f32_err, f32_scale=f32_scale,
+        f32_tol=STREAM_F32_TOL * f32_scale,
+        f32_interior_max_abs_diff=max_err(hm_f32[interior], ref_f32[interior]),
+        f32_keypoints_max_px=float(px_err.max()),
+        f32_keypoints_px_tol=STREAM_PX_TOL,
+        f32_joints_differing=int((px_err > STREAM_PX_TOL).sum()),
+        joints=int(px_err.numel()),
+        bf16_max_abs_diff=bf16_err, bf16_scale=bf16_scale,
+        bf16_tol=bf16_own_gap,
+        bf16_card_vs_cpu_gap=1e-3 * bf16_scale,
+        bf16_interior_max_abs_diff=max_err(hm_bf16[interior],
+                                           ref_bf16[interior]),
+        bf16_keypoints_equal_share=float((px_bf16 <= STREAM_PX_TOL)
+                                         .float().mean()),
+        backbone_b8_vs_b40_max_abs_diff=fold_diff,
+        bf16_vs_f32_stream_max_abs_diff=max_err(hm_bf16, hm_f32),
+        batched_vs_paired_max_abs_diff=max_err(hm_batched, hm_bf16),
+    )
+
+    # steady state: ms a step, synchronised, and one traced step
+    spred = StreamingPosePredictor(model, distance=span + 1, flip_test=True)
+    spred.prime(crops[0])
+    for t in range(3):
+        spred(crops[t])
+    step_ms = []
+    for t in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spred(crops[t % n])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    trace = profile_call(lambda: spred(crops[0]))
+    state = spred._state
+    state_gb = nbytes(state.feats, state.feats_f, state.bb_hms) / 1e9
+    with torch.inference_mode():
+        bb_hm, feat = model.features(crops[0])
+        fold = feat.repeat(1 + model.num_sup, 1, 1, 1)
+        features_ms = time_ms(lambda: model.features(crops[0]), iters=10,
+                              warmup=2)
+        head_ms = time_ms(lambda: model.head_eval(fold, bb_hm), iters=10,
+                          warmup=2)
+        kf, sup = batch_window(crops, n // 2, span)
+        batch_ms = time_ms(lambda: pred.eval_step(kf, sup), iters=5,
+                           warmup=1)
+    batch_trace = profile_call(lambda: pred.eval_step(kf, sup))
+    med = float(np.median(step_ms))
+    emit("streaming", config="configs/posetrack17/fami_pose.yaml",
+         model="FAMIPose HRNet-W48 384x288 bf16 D=4 num_sup=4 flip_test",
+         streams=b, frames=n, steps=steps, crops="locked (one box a stream)",
+         launches=launches, launches_per_step={
+             k: v / steps for k, v in launches.items()},
+         backbone_calls_per_step=len(calls) / steps,
+         backbone_call_batch=sorted(set(calls)),
+         flip_batched=dict(launches=launches_batched,
+                           backbone_calls_per_step=len(calls_batched) / steps,
+                           backbone_call_batch=sorted(set(calls_batched))),
+         **checks,
+         step_ms=step_ms, step_ms_median=med,
+         key_frames_per_s=b / (med / 1e3),
+         features_b8_ms=features_ms, head_eval_fold40_ms=head_ms,
+         trace=trace, peak_mem_gb=peak_gb, state_gb=state_gb,
+         batch_protocol=dict(
+             eval_step_b8_ms=batch_ms,
+             eval_step_key_frames_per_s=b / (batch_ms / 1e3),
+             eval_step_device_busy_ms=batch_trace["device_busy_ms"],
+             main_batch8_ms_median=float(np.median(batch["batch8_ms"])),
+             main_batch8_clips_per_s=batch["batch8_clips_per_s"],
+             main_device_busy_ms=batch["trace"]["device_busy_ms"],
+             main_peak_mem_gb=batch["peak_mem_gb"]))
+
+    want = {"dcn_fwd": 8 * steps, "warp_translate": 2 * steps, "dcn_bwd": 0,
+            "warp_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"streaming launches {launches}, expected "
+                             f"{want} (8 DCN + 2 warp a streamed frame)")
+    want_b = dict(want, dcn_fwd=4 * steps, warp_translate=steps)
+    if launches_batched != want_b:
+        raise AssertionError(f"flip_batched launches {launches_batched}, "
+                             f"expected {want_b}")
+    if calls != [b] * (2 * steps) or calls_batched != [2 * b] * steps:
+        raise AssertionError(f"backbone calls {calls} / {calls_batched}: "
+                             f"expected 2 of {b} / 1 of {2 * b} a step")
+    if not (math.isfinite(f32_err) and f32_err <= STREAM_F32_TOL * f32_scale):
+        raise AssertionError(f"stream vs batch protocol, f32: {f32_err}")
+    if not float(px_err.max()) <= STREAM_PX_TOL:
+        raise AssertionError(f"keypoints differ by {float(px_err.max())} px")
+    if not (math.isfinite(bf16_err) and bf16_err <= bf16_own_gap):
+        raise AssertionError(f"stream vs batch protocol, bf16: {bf16_err} "
+                             f"past the batch protocol's own bf16-vs-f32 "
+                             f"gap {bf16_own_gap}")
+    return launches
 
 
 KERNEL_COUNTERS = ("dcn_fwd", "dcn_bwd", "warp_translate", "warp_bwd")
@@ -1728,10 +1981,11 @@ def main():
     sys.path.insert(0, ROOT)
     rows = phase_kernels(phase_build())
     reset_launches()
-    pred, serving, model_dcn = phase_main()
+    pred, serving, model_dcn, batch = phase_main()
     if any(read_launches()[k] for k in ("dcn_bwd", "warp_bwd")):
         raise AssertionError("the serving path launched a backward kernel")
     phase_card_vs_cpu(pred)
+    streaming = phase_streaming(pred, batch)
     del pred
     torch.cuda.empty_cache()
     train, model_dcn_bwd = phase_train(smi)
@@ -1758,17 +2012,21 @@ def main():
         if name == "warp_translate":
             kernels.append(dict(common, path="val", launches=val[name],
                                 **rows[name, 128]))
-            kernels.append(dict(common, path="serving", launches=serving[name],
-                                **rows[name, 32]))
+            kernels.append(dict(
+                common, path="serving and streaming",
+                launches=serving[name] + streaming[name],
+                launches_serving=serving[name],
+                launches_streaming=streaming[name], **rows[name, 32]))
             kernels.append(dict(common, path="train", launches=train[name],
                                 **rows[name, 8]))
         elif name == "dcn_fwd":
             kernels.append(dict(common, path="val", launches=val[name],
                                 **rows[name, 32]))
             kernels.append(dict(
-                common, path="serving and train",
-                launches=serving[name] + train[name],
-                launches_serving=serving[name], launches_train=train[name],
+                common, path="serving, streaming and train",
+                launches=serving[name] + streaming[name] + train[name],
+                launches_serving=serving[name],
+                launches_streaming=streaming[name], launches_train=train[name],
                 model_inputs=model_dcn, **rows[name]))
         elif name == "warp_bwd":
             kernels.append(dict(common, path="train", launches=train[name],

@@ -21,6 +21,25 @@ from fami_pose_torch.utils.bbox import box2cs
 from .steps import make_eval_step
 
 
+def serving_model(cfg, state_dict=None, device="cuda", seed=0):
+    """The FAMIPose of ``cfg`` in eval mode on ``device``, with the weights
+    of ``state_dict``, or, for None, the seeded random weights of
+    ``models.bridge.init_weights(seed)`` with BatchNorm statistics
+    calibrated on seeded random frames."""
+    dev = torch.device(device)
+    model = FAMIPose.from_config(cfg).to(dev).eval()
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+        return model
+    init_weights(model, seed)
+    w, h = int(cfg.MODEL.IMAGE_SIZE[0]), int(cfg.MODEL.IMAGE_SIZE[1])
+    gen = torch.Generator().manual_seed(int(seed))
+    frames = torch.randn(2, 3 * (1 + model.num_sup), h, w,
+                         generator=gen).to(dev)
+    calibrate_batch_norm(model, frames[:, :3], frames[:, 3:])
+    return model
+
+
 class PosePredictor:
     """Serve a FAMIPose model.
 
@@ -39,16 +58,7 @@ class PosePredictor:
         self.device = torch.device(device)
         self.image_size = (int(cfg.MODEL.IMAGE_SIZE[0]),
                            int(cfg.MODEL.IMAGE_SIZE[1]))  # (w, h)
-        self.model = FAMIPose.from_config(cfg).to(self.device).eval()
-        if state_dict is not None:
-            self.model.load_state_dict(state_dict)
-        else:
-            init_weights(self.model, seed)
-            w, h = self.image_size
-            gen = torch.Generator().manual_seed(int(seed))
-            frames = torch.randn(2, 3 * (1 + self.model.num_sup), h, w,
-                                 generator=gen).to(self.device)
-            calibrate_batch_norm(self.model, frames[:, :3], frames[:, 3:])
+        self.model = serving_model(cfg, state_dict, device, seed)
         self.eval_step = make_eval_step(self.model, flip_test=flip_test)
         self.aspect = self.image_size[0] / self.image_size[1]
         self.enlarge = float(cfg.DATASET.BBOX_ENLARGE_FACTOR)

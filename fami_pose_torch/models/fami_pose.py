@@ -1,6 +1,8 @@
 """FAMIPose forward, eval and train (NCHW); counterpart of
 ``fami_pose_tpu/models/fami_pose.py`` (``FAMIPose.__call__`` mode ``"full"``
-followed by ``_head``).
+followed by ``_head``, and the serving split of modes ``"features"`` and
+``"head"``: :meth:`FAMIPose.features` and :meth:`FAMIPose.head_eval`, whose
+composition is the eval forward).
 
   * The key frame and its N supporting frames are folded into the batch and
     pushed through one HRNet pass.
@@ -170,7 +172,8 @@ class FAMIPose(nn.Module):
 
     def forward(self, kf_x, sup_x, train=None):
         """Eval (``module.eval()``): returns ``(final_hm, kf_bb_hm)``,
-        (B, J, h, w) each, in the compute dtype. Training
+        (B, J, h, w) each, in the compute dtype: :meth:`features` on the
+        folded frames, then :meth:`head_eval`. Training
         (``module.train()``): returns ``(final_hm, sup_warped_hms, kf_bb_hm,
         mi)`` with one auxiliary heatmap per supporting frame and the six
         float32 MI terms. ``train`` defaults to ``self.training`` and must
@@ -188,11 +191,44 @@ class FAMIPose(nn.Module):
             raise ValueError(f"model built for {self.num_sup} supporting "
                              f"frames, got {n}")
         x = torch.cat([kf_x] + list(torch.split(sup_x, 3, dim=1)), dim=0)
-        bb_hm, feats = self.hrnet(x.to(self.compute_dtype))
         if not train:
-            return self.head(feats[0], b), bb_hm[:b]
+            bb_hm, feat = self.features(x)
+            return self.head_eval(feat, bb_hm[:b])
+        bb_hm, feats = self.hrnet(x.to(self.compute_dtype))
         final_hm, sup_hms, mi = self.head(feats[0], b)
         return final_hm, sup_hms, bb_hm[:b], mi
+
+    def _serving_only(self, name):
+        if self.training:
+            raise ValueError(f"{name} is a serving (eval-only) path: call "
+                             ".eval() first")
+
+    def features(self, frames):
+        """The serving split's first half (JAX mode ``"features"``): a flat
+        (M, 3, H, W) frame batch through the backbone, returning ``(bb_hm,
+        feat)``, the backbone's heatmaps (M, J, h, w) and its 1/4-resolution
+        features (M, C, h, w), in the compute dtype. In video serving these
+        are computed once a frame and cached across the 1 + num_sup sliding
+        windows each frame appears in (``engine/streaming.py``). Eval only:
+        in eval mode BatchNorm uses its running statistics, so a frame's
+        features do not depend on the rest of its batch (up to the order
+        in which a library convolution sums at another batch size)."""
+        self._serving_only("features")
+        bb_hm, feats = self.hrnet(frames.to(self.compute_dtype))
+        return bb_hm, feats[0]
+
+    def head_eval(self, fold, kf_bb_hm):
+        """The serving split's second half (JAX mode ``"head"``): ``fold``
+        holds the backbone features of ``[key, sup1, ...]``, frame-major,
+        ((1 + num_sup) * B, C, h, w); ``kf_bb_hm`` is the key frames'
+        backbone heatmap (B, J, h, w). Returns ``(final_hm, kf_bb_hm)``.
+        Eval only."""
+        self._serving_only("head_eval")
+        b = kf_bb_hm.shape[0]
+        if fold.shape[0] != (1 + self.num_sup) * b:
+            raise ValueError(f"a fold of (1 + {self.num_sup}) x {b} frames "
+                             f"expected, got {fold.shape[0]}")
+        return self.head(fold, b), kf_bb_hm
 
     def _feat_label_mi(self, feat_in, y):
         """I(features; labels) estimate: the shared heatmap head's prediction

@@ -17,22 +17,28 @@
 //
 // What bounds them on an H100: nothing but the launch. Each moves 4-32 KB in
 // and as much out (a few nanoseconds at 3.35 TB/s) and does no arithmetic,
-// so the time is the ~1.5-4 us a kernel launch and its dependent trips to
-// memory occupy the card. They are probes, not hot-path kernels; one block
-// (one per batch entry for the 3-D probe, one per strip of 32 columns for
-// the row gather, whose columns never mix) keeps what it gathers from in one
-// SM's shared memory, which is the point. The rotation at the probe's shape
-// ((16, 128) f32) runs from registers, one warp a row, with its shift read
-// from device memory while the tile's loads are in flight: one round trip to
-// memory, as torch.roll with a host shift makes (PERF.md: 1.42-1.49 us
-// against torch.roll's 1.58-1.70 on an H100 80GB HBM3 at 700 W,
-// device-side; nvcc 12.9: 20 registers, no shared memory, no spills).
+// so the time is the ~1.1 us an empty kernel's launch occupies the card
+// (an empty node of a replayed CUDA graph) plus the dependent trips to
+// memory. They are probes, not hot-path kernels. Each kernel makes one
+// round trip: every thread issues its loads of the tile and of the indices
+// (or the shift) together, before the one barrier. The lane gathers split
+// their tile into groups of rows, one block each (a lane gather never
+// mixes rows; the 3-D probe has several blocks a batch entry), and the row
+// gather into strips of 32 columns (its columns never mix), so that what a
+// block gathers from sits in its SM's shared memory, which is the point.
+// The rotation at the probe's shape ((16, 128) f32) runs from registers,
+// one warp a row, with its shift read from device memory while the tile's
+// loads are in flight, as torch.roll with a host shift makes one trip
+// (PERF.md: 1.42-1.49 us against torch.roll's 1.58-1.70 on an H100 80GB
+// HBM3 at 700 W, device-side; nvcc 12.9: 20 registers, no shared memory,
+// no spills).
 //
 // Indices must lie inside the gathered axis, as for torch.gather; the kernels
 // clamp them so that no thread ever reads outside the staged tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -52,43 +58,135 @@ __device__ __forceinline__ void stage(T* tile, const T* __restrict__ src,
   __syncthreads();
 }
 
-// out[r][j] = x[r][idx[r][j]]: a gather along the last (lane) axis of one
-// (rows, cols) tile held in one block's shared memory. Thread j of a warp
-// reads word idx of row r: random columns of one row, so up to 32 threads
-// can meet in one bank (a gather's own pattern; a broadcast where they ask
-// for the same word). Two bf16 values share a 32-bit bank word.
-template <typename T>
-__global__ void probe_gather_lane_kernel(const T* __restrict__ x,
-                                         const int* __restrict__ idx,
-                                         T* __restrict__ out, int rows,
-                                         int cols) {
+// The lane gathers move element bits (16 for bf16, 32 for f32), so one
+// template serves both types: E is the element's unsigned integer of the
+// same width. A chunk is V neighbouring elements of one row, moved as one
+// access of V * sizeof(E) bytes, and their V indices: on the vector path V
+// = 4 (8 bytes of bf16 or 16 of f32, the indices one 16-byte load), on the
+// scalar path one element (rows of a column count that is not a multiple
+// of 4, or a pointer not 16-byte aligned). Four bf16 values a chunk, not
+// eight: half the serial shared-memory reads a thread, twice the threads
+// (1.51-1.54 us against 1.69-1.73 for 16-byte bf16 chunks in turns on an
+// H100 80GB HBM3 at 700 W, PERF.md).
+template <int Bytes> struct RawOf;
+template <> struct RawOf<16> { using type = uint4; };
+template <> struct RawOf<8> { using type = uint2; };
+template <> struct RawOf<4> { using type = unsigned; };
+template <> struct RawOf<2> { using type = unsigned short; };
+
+template <typename E, int V>
+union Chunk {
+  typename RawOf<sizeof(E) * V>::type raw;
+  E e[V];
+};
+
+// A chunk's indices: V = 4, one 16-byte load; V = 1, one int in i[0].
+union IdxChunk {
+  int4 q;
+  int i[4];
+};
+
+template <int V>
+__device__ __forceinline__ IdxChunk load_idx(const int* __restrict__ p,
+                                             int c) {
+  static_assert(V == 1 || V == 4, "a chunk is 1 or 4 elements");
+  IdxChunk id;
+  if constexpr (V == 4)
+    id.q = __ldg(reinterpret_cast<const int4*>(p) + c);
+  else
+    id.i[0] = __ldg(p + c);
+  return id;
+}
+
+constexpr int kChunksAhead = 2;  // chunks a thread holds in registers
+constexpr int kChunksPerBlock = 64;  // the row group's size, in chunks
+constexpr int kLaneMaxThreads = 256;
+
+// out[r][j] = x[r][idx[r][j]] on a group of `group` rows of one (rows, cols)
+// tile: block b takes tile b / groups, rows (b % groups) * group onward. A
+// lane gather never mixes rows, so the blocks need nothing of each other.
+// Each thread issues the loads of its chunks of x AND of idx together,
+// before the barrier, into registers (one round trip to memory; the
+// earlier form staged the whole tile by a strided loop of scalar loads in
+// one block and read idx only after the barrier: two dependent trips);
+// then it writes its x chunks into the staged rows, passes the one
+// barrier, gathers V values from the staged row and stores them as one
+// chunk. Thread j of a warp reads random words of its row: up to 32 threads
+// can meet in one bank (a gather's own pattern; two bf16 values share a
+// bank word).
+template <typename E, int V>
+__device__ __forceinline__ void gather_lane_group(const E* __restrict__ x,
+                                                  const int* __restrict__ idx,
+                                                  E* __restrict__ out,
+                                                  int rows, int cols,
+                                                  int group, int groups) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* tile = reinterpret_cast<T*>(smem);
-  const int count = rows * cols;
-  stage(tile, x, count);
-  for (int e = threadIdx.x; e < count; e += blockDim.x) {
-    const int r = e / cols;
-    out[e] = tile[r * cols + clamp_index(idx[e], cols)];
+  using Raw = typename RawOf<sizeof(E) * V>::type;
+  const int tile = blockIdx.x / groups;
+  const int r0 = (blockIdx.x - tile * groups) * group;
+  const int nr = rows - r0 < group ? rows - r0 : group;
+  const size_t base = ((size_t)tile * rows + r0) * cols;
+  const Raw* xs = reinterpret_cast<const Raw*>(x + base);
+  const int* is = idx + base;
+  Raw* os = reinterpret_cast<Raw*>(out + base);
+  Raw* staged = reinterpret_cast<Raw*>(smem);
+  const E* rowsm = reinterpret_cast<const E*>(smem);
+  const int chunks = nr * cols / V;  // cols % V == 0: no chunk spans rows
+  Chunk<E, V> vals[kChunksAhead];
+  IdxChunk ids[kChunksAhead];
+#pragma unroll
+  for (int k = 0; k < kChunksAhead; ++k) {
+    const int c = threadIdx.x + k * blockDim.x;
+    if (c < chunks) {
+      vals[k].raw = __ldg(xs + c);
+      ids[k] = load_idx<V>(is, c);
+    }
   }
+#pragma unroll
+  for (int k = 0; k < kChunksAhead; ++k) {
+    const int c = threadIdx.x + k * blockDim.x;
+    if (c < chunks) staged[c] = vals[k].raw;
+  }
+  for (int c = threadIdx.x + kChunksAhead * blockDim.x; c < chunks;
+       c += blockDim.x)
+    staged[c] = __ldg(xs + c);  // rows wider than the block's chunks
+  __syncthreads();
+  auto gather = [&](int c, const IdxChunk& id) {
+    const E* row = rowsm + (c * V / cols) * cols;
+    Chunk<E, V> o;
+#pragma unroll
+    for (int i = 0; i < V; ++i) o.e[i] = row[clamp_index(id.i[i], cols)];
+    os[c] = o.raw;
+  };
+#pragma unroll
+  for (int k = 0; k < kChunksAhead; ++k) {
+    const int c = threadIdx.x + k * blockDim.x;
+    if (c < chunks) gather(c, ids[k]);
+  }
+  for (int c = threadIdx.x + kChunksAhead * blockDim.x; c < chunks;
+       c += blockDim.x)
+    gather(c, load_idx<V>(is, c));
+}
+
+// The lane gather of one (rows, cols) tile, bf16 or f32 (tiles = 1).
+template <typename E, int V>
+__global__ void probe_gather_lane_kernel(const E* __restrict__ x,
+                                         const int* __restrict__ idx,
+                                         E* __restrict__ out, int rows,
+                                         int cols, int group, int groups) {
+  gather_lane_group<E, V>(x, idx, out, rows, cols, group, groups);
 }
 
 // out[b][r][j] = x[b][r][idx[b][r][j]]: the lane gather on a batch of f32
-// tiles (axis 2 of a 3-D array). One block per leading index b stages its
-// own (rows, cols) tile, so the batch spreads over the SMs and each gather
-// still stays inside one block's shared memory.
-__global__ void probe_gather_3d_kernel(const float* __restrict__ x,
+// tiles (axis 2 of a 3-D array), `groups` blocks a batch entry, so the
+// batch and its rows spread over the SMs and each gather still stays inside
+// one block's shared memory.
+template <int V>
+__global__ void probe_gather_3d_kernel(const unsigned* __restrict__ x,
                                        const int* __restrict__ idx,
-                                       float* __restrict__ out, int rows,
-                                       int cols) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* tile = reinterpret_cast<float*>(smem);
-  const int count = rows * cols;
-  const size_t base = (size_t)blockIdx.x * count;
-  stage(tile, x + base, count);
-  for (int e = threadIdx.x; e < count; e += blockDim.x) {
-    const int r = e / cols;
-    out[base + e] = tile[r * cols + clamp_index(idx[base + e], cols)];
-  }
+                                       unsigned* __restrict__ out, int rows,
+                                       int cols, int group, int groups) {
+  gather_lane_group<unsigned, V>(x, idx, out, rows, cols, group, groups);
 }
 
 // The same lane gather from registers, by warp shuffles: a warp owns a row
@@ -256,6 +354,38 @@ bool tile_fits(long long bytes) {
   return bytes > 0 && bytes <= kMaxStaticTileBytes;
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The vector path needs rows of whole chunks of 4 and 16-byte aligned x,
+// idx and out; any other tile takes the scalar path.
+bool lane_vector(const void* x, const void* idx, const void* out, int cols) {
+  return cols % 4 == 0 && aligned16(x) && aligned16(idx) && aligned16(out);
+}
+
+// Launches a lane gather over `tiles` (rows, cols) tiles: a row group of
+// about kChunksPerBlock chunks a block (2 rows of 128 columns),
+// one chunk a thread where the group allows it, at most kLaneMaxThreads
+// threads; the group's rows are the block's shared memory.
+template <typename E, int V>
+int launch_lane(void (*kernel)(const E*, const int*, E*, int, int, int, int),
+                const void* x, const int* idx, void* out, int tiles, int rows,
+                int cols, cudaStream_t s) {
+  const int per_row = cols / V;
+  int group = kChunksPerBlock / per_row;
+  group = group < 1 ? 1 : (group > rows ? rows : group);
+  const int groups = (rows + group - 1) / group;
+  const long long blocks = (long long)tiles * groups;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int want = (group * per_row + 31) / 32 * 32;
+  const int threads = want < kLaneMaxThreads ? want : kLaneMaxThreads;
+  kernel<<<(unsigned)blocks, threads, (size_t)group * cols * sizeof(E), s>>>(
+      static_cast<const E*>(x), idx, static_cast<E*>(out), rows, cols, group,
+      groups);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x and out, (rows, cols)); idx is int32
@@ -276,22 +406,22 @@ extern "C" int fami_probe_gather_lane(const void* x, const void* idx,
         static_cast<__nv_bfloat16*>(out), rows);
     return (int)cudaGetLastError();
   }
-  if (variant != 0) return (int)cudaErrorInvalidValue;
-  const long long elems = (long long)rows * cols;
-  if (dtype == 0) {
-    if (!tile_fits(elems * 4)) return (int)cudaErrorInvalidValue;
-    probe_gather_lane_kernel<float><<<1, kThreads, elems * 4, s>>>(
-        static_cast<const float*>(x), ix, static_cast<float*>(out), rows,
-        cols);
-  } else if (dtype == 1) {
-    if (!tile_fits(elems * 2)) return (int)cudaErrorInvalidValue;
-    probe_gather_lane_kernel<__nv_bfloat16><<<1, kThreads, elems * 2, s>>>(
-        static_cast<const __nv_bfloat16*>(x), ix,
-        static_cast<__nv_bfloat16*>(out), rows, cols);
-  } else {
+  if (variant != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (!tile_fits((long long)rows * cols * (dtype == 0 ? 4 : 2)))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return lane_vector(x, idx, out, cols)
+               ? launch_lane<unsigned, 4>(probe_gather_lane_kernel<unsigned, 4>,
+                                          x, ix, out, 1, rows, cols, s)
+               : launch_lane<unsigned, 1>(probe_gather_lane_kernel<unsigned, 1>,
+                                          x, ix, out, 1, rows, cols, s);
+  using u16 = unsigned short;
+  return lane_vector(x, idx, out, cols)
+             ? launch_lane<u16, 4>(probe_gather_lane_kernel<u16, 4>, x, ix,
+                                   out, 1, rows, cols, s)
+             : launch_lane<u16, 1>(probe_gather_lane_kernel<u16, 1>, x, ix,
+                                   out, 1, rows, cols, s);
 }
 
 // x, out: (batch, rows, cols) float32; idx: int32 of the same shape.
@@ -301,11 +431,13 @@ extern "C" int fami_probe_gather_3d(const void* x, const void* idx, void* out,
   const long long bytes = (long long)rows * cols * 4;
   if (batch <= 0 || rows <= 0 || cols <= 0 || !tile_fits(bytes))
     return (int)cudaErrorInvalidValue;
-  probe_gather_3d_kernel<<<batch, kThreads, bytes,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(idx),
-      static_cast<float*>(out), rows, cols);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ix = static_cast<const int*>(idx);
+  return lane_vector(x, idx, out, cols)
+             ? launch_lane<unsigned, 4>(probe_gather_3d_kernel<4>, x, ix, out,
+                                        batch, rows, cols, s)
+             : launch_lane<unsigned, 1>(probe_gather_3d_kernel<1>, x, ix, out,
+                                        batch, rows, cols, s);
 }
 
 // x, out: (rows, cols) float32; idx: (rows, cols) int32 row numbers.

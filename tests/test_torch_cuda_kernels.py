@@ -542,6 +542,84 @@ def test_probe_gather_lane_f32_and_other_shapes(gen):
         probes.gather_lane(x, idx, variant="shfl")
 
 
+# (shape, dtype) of the lane gather's row groups (2 rows of 128 columns a
+# block, chunks of 4 elements): rows not a multiple of the group, a last
+# group of one row, rows whose bytes are not a multiple of 16 (200-byte
+# bf16 rows in 8-byte chunks), column counts not a multiple of 4 (the
+# scalar path), rows wider than a block's chunks (the loop past the
+# registers)
+LANE_CASES = [((5, 96), torch.float32), ((5, 96), torch.bfloat16),
+              ((37, 128), torch.float32), ((37, 128), torch.bfloat16),
+              ((300, 64), torch.bfloat16), ((150, 64), torch.float32),
+              ((7, 100), torch.bfloat16), ((6, 102), torch.bfloat16),
+              ((9, 37), torch.float32), ((9, 37), torch.bfloat16),
+              ((1, 8192), torch.bfloat16), ((2, 6000), torch.float32),
+              ((3, 8), torch.bfloat16)]
+
+
+def _lane_inputs(gen, shape, dtype, low=0, high=None):
+    x = torch.rand(shape, generator=gen, device="cuda").to(dtype)
+    high = shape[-1] if high is None else high
+    idx = torch.randint(low, high, shape, generator=gen, device="cuda",
+                        dtype=torch.int32)
+    return x, idx
+
+
+@pytest.mark.parametrize("shape,dtype", LANE_CASES,
+                         ids=[f"{s[0]}x{s[1]}-{str(d)[6:]}"
+                              for s, d in LANE_CASES])
+def test_probe_gather_lane_row_groups(gen, shape, dtype):
+    from fami_pose_torch.ops import probes
+
+    x, idx = _lane_inputs(gen, shape, dtype)
+    got = probes.gather_lane(x, idx)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got, probes.gather_lane_plain(x, idx))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_probe_gather_lane_unaligned_and_clamped(gen, dtype):
+    """A view one element into its buffer takes the scalar path; indices
+    past either end of the row are clamped into it (no read outside the
+    staged rows), on the vector and the scalar path."""
+    from fami_pose_torch.ops import probes
+
+    flat = torch.rand(16 * 128 + 1, generator=gen, device="cuda").to(dtype)
+    x = flat[1:].view(16, 128)
+    _, idx = _lane_inputs(gen, (16, 128), dtype)
+    assert torch.equal(probes.gather_lane(x, idx),
+                       probes.gather_lane_plain(x, idx))
+    for tile in (x, x.clone(), x[:, :37].clone()):
+        cols = tile.shape[1]
+        _, wild = _lane_inputs(gen, tuple(tile.shape), dtype, low=-40,
+                               high=cols + 40)
+        got = probes.gather_lane(tile, wild)
+        torch.cuda.synchronize()
+        assert torch.equal(got, torch.gather(
+            tile, 1, wild.long().clamp(0, cols - 1)))
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 128), (7, 16, 128), (7, 5, 96),
+                                   (3, 9, 37), (2, 40, 300)])
+def test_probe_gather_3d_row_groups(gen, shape):
+    """Batch 1 and 7, rows not a multiple of the group (5, 9), a scalar
+    row (37 f32: 148 bytes), groups of one row (300 columns); out-of-range
+    indices clamped."""
+    from fami_pose_torch.ops import probes
+
+    x, idx = _lane_inputs(gen, shape, torch.float32)
+    before = probes.gather_3d.launches
+    got = probes.gather_3d(x, idx)
+    torch.cuda.synchronize()
+    assert probes.gather_3d.launches == before + 1
+    assert torch.equal(got, probes.gather_3d_plain(x, idx))
+    _, wild = _lane_inputs(gen, shape, torch.float32, low=-9,
+                           high=shape[-1] + 9)
+    assert torch.equal(probes.gather_3d(x, wild), torch.gather(
+        x, 2, wild.long().clamp(0, shape[-1] - 1)))
+
+
 def test_probe_gather_3d_matches_plain(gen):
     probes, (x, idx) = _probe_on_card("gather_3d", seed=2)
     before = probes.gather_3d.launches
@@ -757,6 +835,31 @@ def test_guard_pages_fault_on_an_overrun(gen):
     run = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
     assert run.returncode != 0 and "CUresult 700" in run.stderr, run.stderr
+
+
+@pytest.mark.parametrize("case", ["37x128-bf16", "9x37-f32", "3d-7x5x96",
+                                  "3d-3x9x37"])
+def test_lane_gathers_stay_inside_their_buffers(guarded, gen, case):
+    """The row groups of the lane and 3-D gathers, a last group of fewer
+    rows, the vector path (16-byte aligned buffers) and the scalar one (a
+    148-byte row, placed flush against a guard page and unaligned there),
+    with indices past both ends of the row."""
+    shape, dtype = {"37x128-bf16": ((37, 128), torch.bfloat16),
+                    "9x37-f32": ((9, 37), torch.float32),
+                    "3d-7x5x96": ((7, 5, 96), torch.float32),
+                    "3d-3x9x37": ((3, 9, 37), torch.float32)}[case]
+    x, idx = _lane_inputs(gen, shape, dtype, low=-5, high=shape[-1] + 5)
+    ref = torch.gather(x, x.dim() - 1, idx.long().clamp(0, shape[-1] - 1))
+    lib = _kernel_library()
+    px, pi, po = guarded.put(x), guarded.put(idx), guarded.put(x)
+    if len(shape) == 2:
+        code = 0 if dtype == torch.float32 else 1
+        err = lib.fami_probe_gather_lane(px, pi, po, code, *shape, 0, None)
+    else:
+        err = lib.fami_probe_gather_3d(px, pi, po, *shape, None)
+    assert err == 0
+    guarded.sync()
+    assert torch.equal(guarded.get(po, x), ref)
 
 
 # (N, C, H, W, G): the main path's plane (8-byte gathers, 16-byte stores,

@@ -63,6 +63,9 @@ def test_port_files_found():
                  "engine/argument_parser.py", "run.py", "ops/probes.py",
                  "tools/hopper_watch.py"):
         assert name in rel, name
+    # and the streaming slice's, with the tool that times the probes in turns
+    for name in ("engine/streaming.py", "tools/probe_turns.py"):
+        assert name in rel, name
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -97,7 +100,7 @@ def test_imports_without_triton_or_nvcc(tmp_path):
 
 def test_entry_points_default_to_cuda():
     from fami_pose_torch.demo import parse_args
-    from fami_pose_torch.engine.predictor import PosePredictor
+    from fami_pose_torch.engine.predictor import PosePredictor, serving_model
     from fami_pose_torch.engine.argument_parser import default_parse_args
     from fami_pose_torch.engine.evaluator import Evaluator
     from fami_pose_torch.engine.runner import Runner
@@ -107,7 +110,12 @@ def test_entry_points_default_to_cuda():
     for cls in (PosePredictor, Trainer, Evaluator):
         sig = inspect.signature(cls.__init__)
         assert sig.parameters["device"].default == "cuda", cls
+    # the model the demo's stream serves (and PosePredictor's)
+    sig = inspect.signature(serving_model)
+    assert sig.parameters["device"].default == "cuda"
     assert parse_args(["--cfg", "c", "--frames", "f"]).device == "cuda"
+    assert parse_args(["--cfg", "c", "--frames", "f",
+                       "--streaming"]).device == "cuda"
     # python -m fami_pose_torch.run, and the Runner with or without its
     # command line's namespace
     args = default_parse_args(["--cfg", "c", "--val"])

@@ -119,3 +119,29 @@ def test_probe_failure_is_reported_and_fails_the_tool(capsys):
         del probes.PLAIN[wrong]
     assert ok is False
     assert "unsupported: result differs" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name,shape,dtype,ok", [
+    ("gather_lane", (192, 128), torch.bfloat16, True),   # 48 KB: one block
+    ("gather_lane", (193, 128), torch.bfloat16, False),
+    ("gather_lane", (5, 37), torch.float32, True),       # the scalar path
+    ("gather_3d", (7, 96, 128), torch.float32, True),    # 48 KB a tile
+    ("gather_3d", (1, 97, 128), torch.float32, False),
+    ("gather_3d", (7, 5, 96), torch.float32, True),
+])
+def test_lane_gathers_host_checks(name, shape, dtype, ok):
+    """The CUDA branches' host-side checks, run on CPU tensors: every row
+    group the kernels stage comes from a tile of at most 48 KB, and the
+    indices are int32 of the tile's shape; a batch of 3-D tiles may be
+    any length (the kernel's blocks are tiles x row groups)."""
+    x = torch.zeros(shape, dtype=dtype)
+    idx = torch.zeros(shape, dtype=torch.int32)
+    ndim = len(shape)
+    if ok:
+        got_x, got_idx = probes._check(name, x, idx, ndim, (dtype,))
+        assert got_x.is_contiguous() and got_idx.dtype == torch.int32
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            probes._check(name, x, idx, ndim, (dtype,))
+    with pytest.raises(TypeError, match="int32"):
+        probes._check(name, x, idx.long(), ndim, (dtype,))
