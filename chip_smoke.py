@@ -91,17 +91,45 @@ and as the last line ``{"ok": true, "device": {...}}``:
                ``TPU.DCN_AUTO_WINDOW`` on checkpoints whose offset heads are
                pinned (D = 3 chosen; beyond the cap, the kernel's exact mode).
                Eval-loop samples/s, the loader's share, the decode's ms.
+  10. int8   - the int8 serving path (``TPU.INT8_EVAL``) at full W48:
+               ``Runner.launch(val=True)`` on phase val's fixture and
+               checkpoint with the serving file's levers as options
+               (``TPU.INT8_EVAL``, ``INT8_CALIB_BATCHES 2``,
+               ``DCN_AUTO_WINDOW``; flip-test on; the file's PT18 tree
+               needs a PT18 fixture), once to warm up and once counted:
+               calibration before the window, every quantized conv's
+               scale finite and positive (292 backbone convs and the head's
+               15 chain convs, as the JAX model quantizes them; not
+               ``final_layer``), 8 DCN + 2 warp launches a batch, 307
+               quantize-and-gather + 307 dequant launches a forward,
+               finite AP tables, eval-loop samples/s, a traced int8 eval
+               step's device-busy ms beside the bf16 step's; the card's
+               int8 path against the port's on the CPU (f32, TF32 off, one
+               key frame, the same scales: each int8 conv bit for bit on
+               the same input, the heatmaps within twice the CPU int8
+               path's own move under one-ulp noise at every int8 conv); phase streaming's 8 locked
+               streams on the int8 model against the int8 batch protocol
+               (f32 and bf16), key frames/s and device-busy ms beside bf16
+               streaming's; then every distinct int8 conv geometry of one
+               B=8 forward (hooks): both kernels against their plain
+               versions and the card conv against the float64 plain conv,
+               bit for bit, in f32 and bf16, each timed device-side beside
+               its bound with ``torch._int_mm`` and cuDNN's bf16 conv on
+               the same shapes; and ``fami_pose_torch.tools.int8_numerics``
+               at W48, 384x288.
 
 Any failure raises: the script exits non-zero and prints no last line.
 """
 
 import copy
+import functools
 import itertools
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -904,6 +932,28 @@ def stream_clip(model, crops, span, calls=None, **kw):
     return torch.stack(out[span:])
 
 
+def steady_stream(model, crops, span, steps=20):
+    """A flip-tested stream in its steady state: primed and fed 3 frames,
+    then ``steps`` steps each synchronised before and after (ms), and one
+    traced step (``profile_call``). Returns the predictor, the ms and the
+    trace."""
+    from fami_pose_torch.engine.streaming import StreamingPosePredictor
+
+    n = crops.shape[0]
+    spred = StreamingPosePredictor(model, distance=span + 1, flip_test=True)
+    spred.prime(crops[0])
+    for t in range(3):
+        spred(crops[t])
+    step_ms = []
+    for t in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spred(crops[t % n])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return spred, step_ms, profile_call(lambda: spred(crops[0]))
+
+
 def keypoint_px(hms, center, scale):
     """Decoded keypoints (T, B, J, 2) in image pixels."""
     from fami_pose_torch.ops.heatmap import get_final_preds
@@ -936,7 +986,6 @@ def phase_streaming(pred, batch):
     step and peak memory, beside the batch protocol's on the same crops
     and phase main's."""
     from fami_pose_torch.engine.steps import make_eval_step
-    from fami_pose_torch.engine.streaming import StreamingPosePredictor
 
     frames, boxes = synthetic_clip()
     tracks = [bbox for fi in range(4) for bbox, _ in boxes[fi]]
@@ -1018,18 +1067,7 @@ def phase_streaming(pred, batch):
     )
 
     # steady state: ms a step, synchronised, and one traced step
-    spred = StreamingPosePredictor(model, distance=span + 1, flip_test=True)
-    spred.prime(crops[0])
-    for t in range(3):
-        spred(crops[t])
-    step_ms = []
-    for t in range(20):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        spred(crops[t % n])
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    trace = profile_call(lambda: spred(crops[0]))
+    spred, step_ms, trace = steady_stream(model, crops, span)
     state = spred._state
     state_gb = nbytes(state.feats, state.feats_f, state.bb_hms) / 1e9
     with torch.inference_mode():
@@ -1088,24 +1126,29 @@ def phase_streaming(pred, batch):
         raise AssertionError(f"stream vs batch protocol, bf16: {bf16_err} "
                              f"past the batch protocol's own bf16-vs-f32 "
                              f"gap {bf16_own_gap}")
-    return launches
+    return launches, dict(step_ms_median=med, key_frames_per_s=b / (med / 1e3),
+                          device_busy_ms=trace["device_busy_ms"],
+                          peak_mem_gb=peak_gb)
 
 
 KERNEL_COUNTERS = ("dcn_fwd", "dcn_bwd", "warp_translate", "warp_bwd")
+INT8_COUNTERS = ("int8_quant_im2col", "int8_dequant")
 
 
 def kernel_counters():
-    """The four wrappers that hold a launch count, by kernel name."""
+    """The wrappers that hold a launch count, by kernel name: the four of
+    the float paths, then the int8 conv's two."""
     from fami_pose_torch.ops.deform_conv import (
         deform_conv2d_backward, deform_conv2d_windowed,
     )
+    from fami_pose_torch.ops.int8_conv import dequant, quant_im2col
     from fami_pose_torch.ops.warp import (
         warp_translate, warp_translate_backward,
     )
 
-    return dict(zip(KERNEL_COUNTERS, (
+    return dict(zip(KERNEL_COUNTERS + INT8_COUNTERS, (
         deform_conv2d_windowed, deform_conv2d_backward, warp_translate,
-        warp_translate_backward,
+        warp_translate_backward, quant_im2col, dequant,
     )))
 
 
@@ -1114,8 +1157,9 @@ def reset_launches():
         fn.launches = 0
 
 
-def read_launches():
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+def read_launches(names=KERNEL_COUNTERS):
+    counters = kernel_counters()
+    return {name: counters[name].launches for name in names}
 
 
 class SyntheticPoseDataset:
@@ -1800,8 +1844,9 @@ def check_val_results(results, evaluator, n_samples, in_box=True):
 
 
 def val_pass(root, dirs, n_samples, *opts, calibration_batches=0,
-             in_box=True):
-    """One ``Runner.launch(val=True)`` with the launch counts around it."""
+             in_box=True, int8_launches=0):
+    """One ``Runner.launch(val=True)`` with the launch counts around it
+    (``int8_launches`` of each int8 conv kernel; 0 on the float path)."""
     from fami_pose_torch.engine.runner import Runner
 
     cfg, args = val_cfg(root, dirs, *opts)
@@ -1815,20 +1860,25 @@ def val_pass(root, dirs, n_samples, *opts, calibration_batches=0,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    int8 = read_launches(INT8_COUNTERS)
     ev = runner.evaluator
-    # 8 DCN + 2 warp launches a flip-tested batch; a calibration batch of
-    # the auto-window is one plain forward: 4 + 1
+    # 8 DCN + 2 warp launches a flip-tested batch; a calibration batch (of
+    # the auto-window or of the int8 scales) is one plain forward: 4 + 1
     want = {"dcn_fwd": 8 * batches + 4 * calibration_batches,
             "warp_translate": 2 * batches + calibration_batches,
             "dcn_bwd": 0, "warp_bwd": 0}
     if launches != want:
         raise AssertionError(f"val launches {launches}, expected {want}")
+    if int8 != dict.fromkeys(INT8_COUNTERS, int8_launches):
+        raise AssertionError(f"val int8 launches {int8}, expected "
+                             f"{int8_launches} each")
     path, tables, inside = check_val_results(results, ev, n_samples, in_box)
     t = ev.timings
     report = dict(
         opts=[str(o) for o in opts], checkpoint=os.path.basename(path),
         samples=t["samples"], batches=t["batches"], batch_size=batch,
-        launches=launches, dcn_window=ev.dcn_max_offset or "exact",
+        launches=dict(launches, **int8),
+        dcn_window=ev.dcn_max_offset or "exact",
         ap_final=tables["final"], ap_backbone=tables["backbone"],
         predictions_inside_their_boxes=inside,
         launch_seconds=wall, eval_loop_s=t["loop_s"],
@@ -1839,9 +1889,10 @@ def val_pass(root, dirs, n_samples, *opts, calibration_batches=0,
     return runner, report
 
 
-def phase_val(smi):
-    import tempfile
-
+def phase_val(smi, root):
+    """Phase val in ``root``, a scratch directory: the fixture under
+    ``root/data`` and the seeded checkpoint, then the passes. Returns the
+    main pass's launches and the fixture's directories."""
     from fami_pose_torch.engine.checkpoints import save_checkpoint
     from fami_pose_torch.engine.evaluator import Evaluator
     from fami_pose_torch.engine.runner import Runner
@@ -1853,127 +1904,621 @@ def phase_val(smi):
     from fami_pose_torch.optim import build_optimizer
 
     n_samples = VAL_VIDEOS * VAL_FRAMES * VAL_PEOPLE
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_val_") as root:
-        t0 = time.perf_counter()
-        dirs = write_val_fixture(os.path.join(root, "data"))
-        fixture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dirs = write_val_fixture(os.path.join(root, "data"))
+    fixture_s = time.perf_counter() - t0
 
-        # a seeded, BatchNorm-calibrated W48 checkpoint, written as the
-        # trainer writes its own
-        cfg, args = val_cfg(root, dirs)
-        runner = Runner(cfg, args)
-        model = init_weights(FAMIPose.from_config(cfg), seed=0).cuda().eval()
-        w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
-        gen = torch.Generator().manual_seed(0)
-        frames = torch.randn(2, 3 * (1 + model.num_sup), h, w,
-                             generator=gen).cuda()
+    # a seeded, BatchNorm-calibrated W48 checkpoint, written as the
+    # trainer writes its own
+    cfg, args = val_cfg(root, dirs)
+    runner = Runner(cfg, args)
+    model = init_weights(FAMIPose.from_config(cfg), seed=0).cuda().eval()
+    w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
+    gen = torch.Generator().manual_seed(0)
+    frames = torch.randn(2, 3 * (1 + model.num_sup), h, w,
+                         generator=gen).cuda()
+    with torch.inference_mode():
+        calibrate_batch_norm(model, frames[:, :3], frames[:, 3:])
+    optimizer, scheduler = build_optimizer(cfg, model, steps_per_epoch=1)
+    state = TrainState(model, optimizer, scheduler)
+    save_checkpoint(runner.dirs["checkpoints"], 0, state)
+
+    # checkpoints with every offset head pinned to a constant, for the
+    # auto-window passes (kernel zero, bias the value)
+    pinned = {}
+    for value in (2.6, 9.5):
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        for i in range(1, 5):
+            sd[f"dcn_offset_{i}.conv.weight"].zero_()
+            sd[f"dcn_offset_{i}.conv.bias"].fill_(value)
+        pinned[value] = os.path.join(root, f"pinned_{value}.ckpt")
+        torch.save({"model": sd, "begin_epoch": 0}, pinned[value])
+    del state, optimizer, scheduler
+
+    # the main pass, twice: the first warms up cuDNN and the allocator
+    val_pass(root, dirs, n_samples)
+    torch.cuda.reset_peak_memory_stats()
+    runner, main = val_pass(root, dirs, n_samples)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ev = runner.evaluator
+    log_files = os.listdir(runner.dirs["log"])
+    if not any(f.startswith("validate-") for f in log_files):
+        raise AssertionError(f"no validate log file in {log_files}")
+
+    # GT keypoints fed as predictions through the protocol: Mean 100
+    gt = np.zeros_like(ev.all_preds)
+    for i, item in enumerate(ev.dataset.data):
+        gt[i, :, :2] = item["joints_3d"][:, :2]
+        gt[i, :, 2] = 0.9
+    gt_table, gt_mean = ev.dataset.evaluate(
+        cfg, gt, os.path.join(root, "gt_json"), ev.all_boxes,
+        ev.img_path_map)
+    if abs(gt_mean - 100.0) > 1e-9:
+        raise AssertionError(f"GT as predictions: {dict(gt_table)}")
+
+    # card vs the port on the CPU: f32, TF32 off, one batch of 4 (two
+    # people of one frame, one of each other video)
+    f32_cfg, _ = val_cfg(root, dirs, "TPU.COMPUTE_DTYPE", "float32",
+                         "VAL.BATCH_SIZE_PER_GPU", 4)
+    subset = copy.copy(ev.dataset)
+    per_video = VAL_FRAMES * VAL_PEOPLE  # one video's samples
+    subset.data = [ev.dataset.data[i]
+                   for i in (0, 1, per_video, 2 * per_video)]
+    weights = {k: v.cpu() for k, v in model.state_dict().items()}
+    side = {}
+    for dev in ("cuda", "cpu"):
+        one = Evaluator(f32_cfg, dataset=subset, device=dev,
+                        output_dirs={"results": os.path.join(
+                            root, f"f32_{dev}")})
+        t1 = time.perf_counter()
+        one.eval_checkpoint(weights)
+        side[dev] = (one.all_preds.copy(), one.all_preds_bb.copy(),
+                     time.perf_counter() - t1)
+    px = max(float(np.abs(side["cuda"][i][..., :2]
+                          - side["cpu"][i][..., :2]).max())
+             for i in (0, 1))
+    mv = max(float(np.abs(side["cuda"][i][..., 2]
+                          - side["cpu"][i][..., 2]).max())
+             for i in (0, 1))
+    if not px <= 0.1:
+        raise AssertionError(f"card vs CPU predictions differ by {px} px")
+
+    # DARK decode; then the per-checkpoint window: D = 3 for offsets of
+    # 2.6 px, and past the cap of 8 the exact mode of the kernel
+    # (seeded random weights give heatmaps that are no Gaussians: where
+    # the Hessian is near-singular DARK's Newton step is long, and the
+    # reference does not bound it, so this pass is not held to the boxes:
+    # the share inside them and the share moved by less than a heatmap
+    # pixel from the argmax pass's predictions are reported)
+    dark_runner, dark = val_pass(root, dirs, n_samples,
+                                 "VAL.POST_PROCESS", True, in_box=False)
+    step = np.abs(dark_runner.evaluator.all_preds[..., :2]
+                  - ev.all_preds[..., :2]).max(-1)
+    px_per_hm = ev.all_boxes[:, None, 2] * 200.0 / int(
+        cfg.MODEL.HEATMAP_SIZE[0])
+    dark["moved_under_one_heatmap_px"] = float(
+        (step <= px_per_hm).mean())
+    _, win3 = val_pass(root, dirs, n_samples, "TPU.DCN_AUTO_WINDOW", True,
+                       "VAL.MODEL_FILE", pinned[2.6],
+                       calibration_batches=2)
+    _, exact = val_pass(root, dirs, n_samples, "TPU.DCN_AUTO_WINDOW",
+                        True, "VAL.MODEL_FILE", pinned[9.5],
+                        calibration_batches=2)
+    if (main["dcn_window"], win3["dcn_window"], exact["dcn_window"]) != (
+            4, 3, "exact"):
+        raise AssertionError(
+            f"DCN windows {main['dcn_window']}, {win3['dcn_window']}, "
+            f"{exact['dcn_window']}; expected 4, 3, exact")
+    emit("val", config="configs/posetrack17/fami_pose.yaml",
+         model="FAMIPose HRNet-W48 384x288 bf16 D=4 num_sup=4 flip_test",
+         card=smi, entry="Runner(cfg, args).launch(val=True)",
+         fixture=f"{VAL_VIDEOS} videos x {VAL_FRAMES} frames x "
+         f"{VAL_PEOPLE} people, 640x480 jpeg, seeded",
+         fixture_seconds=fixture_s,
+         weights="seeded init (seed 0), BatchNorm calibrated",
+         main=main, peak_mem_gb=peak_gb,
+         gt_as_predictions_mean=gt_mean,
+         card_vs_cpu=dict(dtype="float32", tf32="off", samples=4,
+                          max_px_diff=px, tol_px=0.1,
+                          max_maxval_diff=mv, cuda_s=side["cuda"][2],
+                          cpu_s=side["cpu"][2]),
+         dark=dark, auto_window_3=win3, auto_window_exact=exact)
+    return main["launches"], dirs
+
+
+INT8_OPTS = ("TPU.INT8_EVAL", True, "TPU.INT8_CALIB_BATCHES", 2,
+             "TPU.DCN_AUTO_WINDOW", True)
+# the int8 convs of one W48 FAMIPose forward: the backbone's 292 (all but
+# final_layer) and the 15 of the head's three residual chains, which share
+# the backbone's mode in the JAX model
+INT8_BACKBONE_CONVS, INT8_CONVS = 292, 307
+INT8_REPLACES = ("none: XLA's s8 conv_general_dilated "
+                 "(fami_pose_tpu/models/quant.py:102-111)")
+INT8_TIMING = ("ms: 20 launches in one CUDA graph, fastest of 3 replays; "
+               "plain_ms: 3 calls made one by one")
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core operations a second
+INT8_NOISE_FACTOR = 2.0  # card vs CPU: this many times the CPU's own
+# int8 move under one-ulp noise at every int8 conv's input
+INT8_NOISE_SEEDS = (2, 3, 4)
+
+
+def conv_geometries(model, kf, sup):
+    """Every distinct geometry of the int8 convs in one eval forward of
+    ``model`` on (kf, sup): {(C_in, C_out, H, W, kernel, stride, frames):
+    {"name", "module", "x", "count"}}, ``x`` the input of the first conv
+    of that geometry, captured by a forward pre-hook."""
+    from fami_pose_torch.models.quant import quantized_convs
+
+    seen = {}
+
+    def pre(mod, args):
+        x = args[0]
+        key = (x.shape[1], mod.out_channels, x.shape[2], x.shape[3],
+               mod.kernel_size[0], mod.stride[0], x.shape[0])
+        if key in seen:
+            seen[key]["count"] += 1
+        else:
+            seen[key] = dict(name=mod.quant_name, module=mod,
+                             x=x.detach().clone(), count=1)
+
+    hooks = [m.register_forward_pre_hook(pre)
+             for m in quantized_convs(model).values()]
+    try:
         with torch.inference_mode():
-            calibrate_batch_norm(model, frames[:, :3], frames[:, 3:])
-        optimizer, scheduler = build_optimizer(cfg, model, steps_per_epoch=1)
-        state = TrainState(model, optimizer, scheduler)
-        save_checkpoint(runner.dirs["checkpoints"], 0, state)
+            model(kf, sup)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
 
-        # checkpoints with every offset head pinned to a constant, for the
-        # auto-window passes (kernel zero, bias the value)
-        pinned = {}
-        for value in (2.6, 9.5):
-            sd = {k: v.clone() for k, v in model.state_dict().items()}
-            for i in range(1, 5):
-                sd[f"dcn_offset_{i}.conv.weight"].zero_()
-                sd[f"dcn_offset_{i}.conv.bias"].fill_(value)
-            pinned[value] = os.path.join(root, f"pinned_{value}.ckpt")
-            torch.save({"model": sd, "begin_epoch": 0}, pinned[value])
-        del state, optimizer, scheduler
 
-        # the main pass, twice: the first warms up cuDNN and the allocator
-        val_pass(root, dirs, n_samples)
-        torch.cuda.reset_peak_memory_stats()
-        runner, main = val_pass(root, dirs, n_samples)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        ev = runner.evaluator
-        log_files = os.listdir(runner.dirs["log"])
-        if not any(f.startswith("validate-") for f in log_files):
-            raise AssertionError(f"no validate log file in {log_files}")
+def int8_geometry(key, g):
+    """The int8 conv at one geometry. Kernel A (``quant_im2col``) and kernel
+    B (``dequant``, with a bias in f32) against their plain versions, and
+    the card conv against the float64 plain conv, bit for bit, in f32 and
+    bf16, each kernel call synchronised before its plain version runs. Then
+    in bf16, the serving type, device times of A, ``_int_mm``, B, the whole
+    conv and cuDNN's bf16 conv on the same shapes, beside their bounds, and
+    the plain versions' host-paced times."""
+    import torch.nn.functional as F
 
-        # GT keypoints fed as predictions through the protocol: Mean 100
-        gt = np.zeros_like(ev.all_preds)
-        for i, item in enumerate(ev.dataset.data):
-            gt[i, :, :2] = item["joints_3d"][:, :2]
-            gt[i, :, 2] = 0.9
-        gt_table, gt_mean = ev.dataset.evaluate(
-            cfg, gt, os.path.join(root, "gt_json"), ev.all_boxes,
-            ev.img_path_map)
-        if abs(gt_mean - 100.0) > 1e-9:
-            raise AssertionError(f"GT as predictions: {dict(gt_table)}")
+    from fami_pose_torch.ops.int8_conv import (
+        dequant, dequant_plain, int8_conv2d, int8_conv2d_plain, quant_im2col,
+        quant_im2col_plain,
+    )
 
-        # card vs the port on the CPU: f32, TF32 off, one batch of 4 (two
-        # people of one frame, one of each other video)
-        f32_cfg, _ = val_cfg(root, dirs, "TPU.COMPUTE_DTYPE", "float32",
-                             "VAL.BATCH_SIZE_PER_GPU", 4)
-        subset = copy.copy(ev.dataset)
-        per_video = VAL_FRAMES * VAL_PEOPLE  # one video's samples
-        subset.data = [ev.dataset.data[i]
-                       for i in (0, 1, per_video, 2 * per_video)]
-        weights = {k: v.cpu() for k, v in model.state_dict().items()}
-        side = {}
-        for dev in ("cuda", "cpu"):
-            one = Evaluator(f32_cfg, dataset=subset, device=dev,
-                            output_dirs={"results": os.path.join(
-                                root, f"f32_{dev}")})
-            t1 = time.perf_counter()
-            one.eval_checkpoint(weights)
-            side[dev] = (one.all_preds.copy(), one.all_preds_bb.copy(),
-                         time.perf_counter() - t1)
-        px = max(float(np.abs(side["cuda"][i][..., :2]
-                              - side["cpu"][i][..., :2]).max())
-                 for i in (0, 1))
-        mv = max(float(np.abs(side["cuda"][i][..., 2]
-                              - side["cpu"][i][..., 2]).max())
-                 for i in (0, 1))
-        if not px <= 0.1:
-            raise AssertionError(f"card vs CPU predictions differ by {px} px")
+    mod, name = g["module"], g["name"]
+    geo = dict(kernel_size=mod.kernel_size, stride=mod.stride,
+               padding=mod.padding, dilation=mod.dilation)
+    act, wq, ws = mod.act_scale, mod.weight_q, mod.weight_scale
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bias = torch.randn(wq.shape[0], generator=gen, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = g["x"].to(dtype)
+        tag = f"{name} {str(dtype)[6:]}"
+        a = run_kernel(f"int8_quant_im2col {tag}",
+                       lambda: quant_im2col(x, act, **geo))
+        if not torch.equal(a, quant_im2col_plain(x, act, **geo)):
+            raise AssertionError(f"int8_quant_im2col {tag}: differs from "
+                                 "its plain version")
+        whole = run_kernel(f"int8 conv {tag}", lambda: int8_conv2d(
+            x, wq, ws, act, None, name=name, **geo))
+        if not torch.equal(whole, int8_conv2d_plain(x, wq, ws, act, None,
+                                                    **geo)):
+            raise AssertionError(f"int8 conv {tag}: differs from the "
+                                 "float64 plain conv")
+        b, n, ho, wo = whole.shape
+        acc = torch._int_mm(a, wq.t())
+        bb = bias if dtype == torch.float32 else None
+        y = run_kernel(f"int8_dequant {tag}", lambda: dequant(
+            acc, ws, act, bb, b, ho, wo, dtype))
+        if not torch.equal(y, dequant_plain(acc, ws, act, bb, b, ho, wo,
+                                            dtype)):
+            raise AssertionError(f"int8_dequant {tag}: differs from its "
+                                 "plain version")
 
-        # DARK decode; then the per-checkpoint window: D = 3 for offsets of
-        # 2.6 px, and past the cap of 8 the exact mode of the kernel
-        # (seeded random weights give heatmaps that are no Gaussians: where
-        # the Hessian is near-singular DARK's Newton step is long, and the
-        # reference does not bound it, so this pass is not held to the boxes:
-        # the share inside them and the share moved by less than a heatmap
-        # pixel from the argmax pass's predictions are reported)
-        dark_runner, dark = val_pass(root, dirs, n_samples,
-                                     "VAL.POST_PROCESS", True, in_box=False)
-        step = np.abs(dark_runner.evaluator.all_preds[..., :2]
-                      - ev.all_preds[..., :2]).max(-1)
-        px_per_hm = ev.all_boxes[:, None, 2] * 200.0 / int(
-            cfg.MODEL.HEATMAP_SIZE[0])
-        dark["moved_under_one_heatmap_px"] = float(
-            (step <= px_per_hm).mean())
-        _, win3 = val_pass(root, dirs, n_samples, "TPU.DCN_AUTO_WINDOW", True,
-                           "VAL.MODEL_FILE", pinned[2.6],
-                           calibration_batches=2)
-        _, exact = val_pass(root, dirs, n_samples, "TPU.DCN_AUTO_WINDOW",
-                            True, "VAL.MODEL_FILE", pinned[9.5],
-                            calibration_batches=2)
-        if (main["dcn_window"], win3["dcn_window"], exact["dcn_window"]) != (
-                4, 3, "exact"):
-            raise AssertionError(
-                f"DCN windows {main['dcn_window']}, {win3['dcn_window']}, "
-                f"{exact['dcn_window']}; expected 4, 3, exact")
-        emit("val", config="configs/posetrack17/fami_pose.yaml",
-             model="FAMIPose HRNet-W48 384x288 bf16 D=4 num_sup=4 flip_test",
-             card=smi, entry="Runner(cfg, args).launch(val=True)",
-             fixture=f"{VAL_VIDEOS} videos x {VAL_FRAMES} frames x "
-             f"{VAL_PEOPLE} people, 640x480 jpeg, seeded",
-             fixture_seconds=fixture_s,
-             weights="seeded init (seed 0), BatchNorm calibrated",
-             main=main, peak_mem_gb=peak_gb,
-             gt_as_predictions_mean=gt_mean,
-             card_vs_cpu=dict(dtype="float32", tf32="off", samples=4,
-                              max_px_diff=px, tol_px=0.1,
-                              max_maxval_diff=mv, cuda_s=side["cuda"][2],
-                              cpu_s=side["cpu"][2]),
-             dark=dark, auto_window_3=win3, auto_window_exact=exact)
-    return main["launches"]
+    # bf16 (x, a, acc, whole are the bf16 pass's)
+    wt, w16 = wq.t(), mod.weight.detach().to(torch.bfloat16)
+    dev = dict(launches=20, replays=3)
+    ms = dict(
+        quant_im2col=device_ms(lambda: quant_im2col(x, act, **geo), **dev),
+        int_mm=device_ms(lambda: torch._int_mm(a, wt), **dev),
+        dequant=device_ms(lambda: dequant(acc, ws, act, None, b, ho, wo,
+                                          torch.bfloat16), **dev),
+        int8_conv=device_ms(lambda: int8_conv2d(x, wq, ws, act, None,
+                                                **geo), **dev),
+        cudnn_bf16_conv=device_ms(lambda: F.conv2d(
+            x, w16, None, mod.stride, mod.padding, mod.dilation), **dev))
+    plain_ms = dict(
+        quant_im2col=time_ms(lambda: quant_im2col_plain(x, act, **geo),
+                             iters=3, warmup=1),
+        dequant=time_ms(lambda: dequant_plain(acc, ws, act, None, b, ho, wo,
+                                              torch.bfloat16),
+                        iters=3, warmup=1))
+    m_rows, kp = a.shape
+    k = x.shape[1] * mod.kernel_size[0] * mod.kernel_size[1]
+    mm_ops = 2 * m_rows * kp * n
+    bounds = dict(
+        quant_im2col=bound_ms(nbytes(x, act, a), 0, torch.bfloat16),
+        int_mm=max((nbytes(a, wq, acc) / H100_BYTES_PER_S * 1e3,
+                    "bytes"), (mm_ops / H100_INT8_OPS * 1e3, "operations")),
+        dequant=bound_ms(nbytes(acc, ws, act, whole), 0, torch.bfloat16),
+        # the int8 conv's least work: x in, y out, 2*M*K*N int8 operations
+        int8_conv=max((nbytes(x, wq, whole) / H100_BYTES_PER_S * 1e3,
+                       "bytes"),
+                      (2 * m_rows * k * n / H100_INT8_OPS * 1e3,
+                       "operations")),
+        cudnn_bf16_conv=bound_ms(nbytes(x, w16, whole), 2 * m_rows * k * n,
+                                 torch.bfloat16))
+    return dict(
+        conv=name, c_in=key[0], c_out=key[1], hw=[key[2], key[3]],
+        kernel=key[4], stride=key[5], frames=key[6], rows=m_rows, k=k, kp=kp,
+        convs_per_forward=g["count"], bitwise_equal=True, ms=ms,
+        plain_ms=plain_ms, bound_ms={kk: v[0] for kk, v in bounds.items()},
+        bound_by={kk: v[1] for kk, v in bounds.items()})
+
+
+def int8_kernel_rows(geometries):
+    """The two kernels' rows of the kernel table: times, bounds and plain
+    times summed over the int8 convs of one forward (each geometry times
+    the number of its convs), the library yardsticks (``_int_mm`` and
+    cuDNN's bf16 conv) likewise, and the largest geometry's own numbers."""
+    def total(part, field):
+        return sum(r["convs_per_forward"] * r[field][part]
+                   for r in geometries)
+
+    biggest = max(geometries, key=lambda r: r["rows"] * r["kp"])
+    rows = {}
+    for kernel, part in (("int8_quant_im2col", "quant_im2col"),
+                         ("int8_dequant", "dequant")):
+        t, bnd = total(part, "ms"), total(part, "bound_ms")
+        rows[kernel] = dict(
+            shape=(f"all {INT8_CONVS} int8 convs of one B=8 eval forward "
+                   f"(40 frames of 384x288; {len(geometries)} geometries)"),
+            max_abs_err=0.0, bitwise_equal=True, ms=t,
+            plain_ms=total(part, "plain_ms"), bound_ms=bnd, bound_by="bytes",
+            bound_share=bnd / t, library_ms=None,
+            library="none: no one PyTorch call computes it; beside it, "
+            "per forward: torch._int_mm (the product between the two "
+            "kernels) and cuDNN's bf16 conv2d on the same shapes",
+            int_mm_ms=total("int_mm", "ms"),
+            int8_conv_ms=total("int8_conv", "ms"),
+            cudnn_bf16_conv_ms=total("cudnn_bf16_conv", "ms"),
+            timing=INT8_TIMING + "; sums over the forward's convs",
+            largest_geometry=dict(
+                conv=biggest["conv"], rows=biggest["rows"], kp=biggest["kp"],
+                ms=biggest["ms"][part], bound_ms=biggest["bound_ms"][part],
+                int_mm_ms=biggest["ms"]["int_mm"],
+                cudnn_bf16_conv_ms=biggest["ms"]["cudnn_bf16_conv"]))
+    return rows
+
+
+def int8_serving(root, dirs):
+    """The serving file's levers through ``Runner.launch(val=True)`` at full
+    W48: int8 calibration before the DCN window (the evaluator's two steps
+    recorded in order), the launch counts of the counted pass, every
+    quantized conv's scale finite and positive and no other conv's set."""
+    from fami_pose_torch.engine.evaluator import Evaluator
+    from fami_pose_torch.models.layers import Conv2d
+    from fami_pose_torch.models.quant import quantized_convs
+
+    n_samples = VAL_VIDEOS * VAL_FRAMES * VAL_PEOPLE
+    cfg, _ = val_cfg(root, dirs, *INT8_OPTS)
+    batches = math.ceil(n_samples / int(cfg.VAL.BATCH_SIZE_PER_GPU))
+    n_cal = int(cfg.TPU.INT8_CALIB_BATCHES)
+    order = []
+    steps = ("_maybe_calibrate_int8", "_maybe_auto_window")
+    originals = {name: getattr(Evaluator, name) for name in steps}
+
+    def recorded(name):
+        def run(self):
+            order.append(name)
+            return originals[name](self)
+        return run
+
+    for name in steps:
+        setattr(Evaluator, name, recorded(name))
+    try:
+        # the calibration forwards (float) and the window's (int8) are
+        # plain forwards: 4 DCN + 1 warp each; the int8 convs run in the
+        # window's forwards and in both forwards of each flip-tested batch
+        kw = dict(calibration_batches=2 * n_cal,
+                  int8_launches=INT8_CONVS * (2 * batches + n_cal))
+        val_pass(root, dirs, n_samples, *INT8_OPTS, **kw)  # warm-up
+        order.clear()
+        runner, report = val_pass(root, dirs, n_samples, *INT8_OPTS, **kw)
+    finally:
+        for name in steps:
+            setattr(Evaluator, name, originals[name])
+    if order != list(steps):
+        raise AssertionError(f"evaluator steps {order}: the int8 scales "
+                             f"must be calibrated before the DCN window")
+    ev = runner.evaluator
+    convs = quantized_convs(ev.model)
+    scales = torch.stack([c.act_scale for c in convs.values()])
+    hrnet = [n for n in convs if n.startswith("hrnet.")]
+    others = [n for n, m in ev.model.named_modules()
+              if isinstance(m, Conv2d) and n not in convs
+              and m.act_scale is not None]
+    if (len(convs) != INT8_CONVS or len(hrnet) != INT8_BACKBONE_CONVS
+            or "hrnet.final_layer" in convs or others
+            or not bool(torch.isfinite(scales).all() & (scales > 0).all())):
+        raise AssertionError(
+            f"int8 scales: {len(convs)} quantized convs ({len(hrnet)} in "
+            f"the backbone), others with a scale {others[:5]}, scales in "
+            f"[{float(scales.min())}, {float(scales.max())}]")
+    report["int8_scales"] = dict(
+        convs=len(convs), backbone=len(hrnet),
+        head_chains=len(convs) - len(hrnet), min=float(scales.min()),
+        max=float(scales.max()), evaluator_steps=order)
+    return runner, report
+
+
+def int8_eval_step_traces(ev):
+    """One flip-tested eval step of the int8 evaluator's model and of the
+    same weights with a bf16 backbone, on the same batch: ms a step and
+    the device-busy ms of a traced step."""
+    from fami_pose_torch.engine.steps import make_eval_step
+    from fami_pose_torch.models.fami_pose import FAMIPose
+
+    kf, sup = ev._prepare(next(iter(ev.loader)))
+    bf16 = FAMIPose.from_config(ev.cfg).cuda().eval()  # train phase: float
+    bf16.load_state_dict(ev.model.state_dict())
+    for i in range(1, 5):
+        getattr(bf16, f"dcn_{i}").max_offset = ev.dcn_max_offset
+    out = {}
+    for tag, step in (("int8", ev.eval_step),
+                      ("bf16", make_eval_step(bf16, flip_test=True))):
+        ms = time_ms(lambda: step(kf, sup), iters=5, warmup=2)
+        trace = profile_call(lambda: step(kf, sup))
+        out[tag] = dict(eval_step_ms=ms, device_busy_ms=trace["device_busy_ms"],
+                        device_busy_share=trace["device_busy_share"],
+                        top_self_device_ms=trace["top_self_device_ms"])
+    out["batch"] = int(kf.shape[0])
+    return out
+
+
+def int8_card_vs_cpu(model, kf, sup):
+    """f32 with TF32 off, one key frame, the same scales: the card's int8
+    path against the port's on the CPU. Two checks:
+
+      * conv by conv, exact: during the CPU's forward each of the 307 int8
+        convs is also run on the card on the CPU's input; every output must
+        equal the CPU's bit for bit;
+      * end to end, both heatmaps: the int8 path is not continuous. A float
+        ulp of a conv's input (cuDNN's BatchNorm and the CPU's round
+        differently) can move a value across a rounding boundary of the
+        quantizer, a whole step of 1/127 of the tensor's scale, and the
+        seeded model amplifies every such step through its depth. So the
+        tolerance is the CPU's own int8 path under that change:
+        INT8_NOISE_FACTOR times the most its heatmaps move when the input
+        of every int8 conv is moved by at most one float32 ulp (x * (1 + u
+        * 2^-23), u in {-1, 0, 1} at random, from each of INT8_NOISE_SEEDS).
+        The gap between the CPU's int8 and float paths is printed beside
+        it."""
+    from fami_pose_torch.models.quant import QUANT_OFF, quantized_convs
+
+    m32 = copy.deepcopy(model).float()
+    m32.compute_dtype = torch.float32
+    cpu = copy.deepcopy(m32).to("cpu")
+    kf1, sup1 = kf[:1].float().cpu(), sup[:1].float().cpu()
+    card_convs = quantized_convs(m32)
+    cpu_convs = quantized_convs(cpu)
+
+    def run(m, dev="cpu", hook=None, pre=False):
+        hooks = [(c.register_forward_pre_hook if pre
+                  else c.register_forward_hook)(functools.partial(hook, n))
+                 for n, c in cpu_convs.items()] if hook else []
+        try:
+            with torch.inference_mode():
+                return [t.float().cpu() for t in m(kf1.to(dev),
+                                                   sup1.to(dev))]
+        finally:
+            for h in hooks:
+                h.remove()
+
+    t0 = time.perf_counter()
+    card = run(m32, "cuda")
+    card_s = time.perf_counter() - t0
+    differing = []
+
+    def same_conv_on_card(name, mod, args, out):
+        with torch.inference_mode():
+            got = card_convs[name](args[0].cuda()).cpu()
+        if not torch.equal(got, out):
+            differing.append(name)
+
+    t0 = time.perf_counter()
+    ref = run(cpu, hook=same_conv_on_card)
+    cpu_s = time.perf_counter() - t0
+    if differing:
+        raise AssertionError(f"int8 convs whose card output differs from "
+                             f"the CPU's on the same input: {differing[:5]} "
+                             f"({len(differing)} of {len(cpu_convs)})")
+    moves = []
+    for seed in INT8_NOISE_SEEDS:
+        gen = torch.Generator().manual_seed(seed)
+
+        def ulp_noise(name, mod, args):
+            u = torch.randint(-1, 2, args[0].shape, generator=gen)
+            return (args[0] * (1 + u.to(args[0].dtype) * 2.0 ** -23),)
+
+        noisy = run(cpu, hook=ulp_noise, pre=True)
+        moves.append([max_err(a, r) for a, r in zip(noisy, ref)])
+    for conv in cpu_convs.values():
+        conv.quant = QUANT_OFF
+    floats = run(cpu)
+    report, bad = {}, []
+    for i, head in enumerate(("final", "backbone")):
+        err = max_err(card[i], ref[i])
+        tol = INT8_NOISE_FACTOR * max(m[i] for m in moves)
+        report[head] = dict(
+            max_abs_diff=err, tol=tol,
+            cpu_moves_under_ulp_noise=[m[i] for m in moves],
+            cpu_int8_vs_float=max_err(ref[i], floats[i]),
+            heatmap_absmax=float(ref[i].abs().max()))
+        if not (math.isfinite(err) and err <= tol):
+            bad.append(head)
+    report.update(
+        dtype="float32", tf32="off", key_frames=1,
+        convs_equal_on_the_same_input=len(cpu_convs),
+        noise_seeds=list(INT8_NOISE_SEEDS),
+        tol_rule=f"{INT8_NOISE_FACTOR} x the CPU's largest move with every "
+        "int8 conv's input moved by at most one float32 ulp",
+        cuda_s=card_s, cpu_s=cpu_s)
+    if bad:
+        raise AssertionError(f"int8 card vs CPU past the tolerance for "
+                             f"{bad}: {report}")
+    return report
+
+
+def int8_streaming(stream_bf16):
+    """Phase streaming's 8 locked streams on the int8 model (the serving
+    config's seeded weights, int8 backbone calibrated on two unflipped
+    batches of 8 key frames' windows), flip-test paired: every key frame
+    against the int8 batch protocol in f32 with TF32 off (STREAM_F32_TOL of
+    scale, STREAM_PX_TOL px) and in bf16 (the batch protocol's own
+    bf16-vs-f32 gap); launches a step; ms a step, key frames/s and the
+    device-busy ms of a traced step beside bf16 streaming's. Returns the
+    report, the int8 model and one batch-protocol window (for the kernel
+    checks)."""
+    import types
+
+    from fami_pose_torch.config import get_cfg
+    from fami_pose_torch.engine.predictor import PosePredictor
+    from fami_pose_torch.engine.steps import make_eval_step
+    from fami_pose_torch.models.fami_pose import FAMIPose
+    from fami_pose_torch.models.quant import calibrate
+
+    def serving_cfg(*opts):
+        return get_cfg(types.SimpleNamespace(
+            cfg=os.path.join(ROOT, "configs/posetrack17/fami_pose.yaml"),
+            opts=list(opts), root_dir=ROOT))
+
+    # the predictor (which refuses int8) gives the seeded weights and the
+    # crops; the int8 model takes its weights
+    pred = PosePredictor(serving_cfg(), None, device="cuda", flip_test=True,
+                         batch_size=8, seed=0)
+    q = FAMIPose.from_config(serving_cfg("TPU.INT8_EVAL", True),
+                             phase="validate").cuda().eval()
+    q.load_state_dict(pred.model.state_dict())
+    frames, boxes = synthetic_clip()
+    tracks = [bbox for fi in range(4) for bbox, _ in boxes[fi]]
+    dev_frames = torch.from_numpy(frames).cuda().permute(0, 3, 1, 2)
+    crops, center, scale = locked_crops(pred, dev_frames, tracks)
+    n, b = crops.shape[:2]
+    span = pred.span
+    steps = n + span
+    calibrate(q, [batch_window(crops, t, span) for t in (2, n - 3)])
+
+    stream_clip(q, crops, span, flip_test=True)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    hm_q = stream_clip(q, crops, span, flip_test=True)
+    torch.cuda.synchronize()
+    launches = dict(read_launches(), **read_launches(INT8_COUNTERS))
+    want = dict(dcn_fwd=8 * steps, dcn_bwd=0, warp_translate=2 * steps,
+                warp_bwd=0)
+    # a step: two backbone calls (frames, mirrored frames) and two heads;
+    # priming: the backbone on the first frame and its mirror
+    want.update(dict.fromkeys(INT8_COUNTERS, 2 * INT8_CONVS * steps
+                              + 2 * INT8_BACKBONE_CONVS))
+    if launches != want:
+        raise AssertionError(f"int8 streaming launches {launches}, expected "
+                             f"{want}")
+    step_q = make_eval_step(q, flip_test=True)
+    with torch.inference_mode():
+        ref_q = torch.stack([step_q(*batch_window(crops, t, span))[0]
+                             for t in range(n)])
+    q32 = copy.deepcopy(q).float()
+    q32.compute_dtype = torch.float32
+    hm32 = stream_clip(q32, crops, span, flip_test=True)
+    step32 = make_eval_step(q32, flip_test=True)
+    with torch.inference_mode():
+        ref32 = torch.stack([step32(*batch_window(crops, t, span))[0]
+                             for t in range(n)])
+    del q32, step32
+    f32_err = max_err(hm32, ref32)
+    f32_scale = max(1.0, float(ref32.abs().max()))
+    px_err = float((keypoint_px(hm32, center, scale)
+                    - keypoint_px(ref32, center, scale)).abs().max())
+    bf16_err, bf16_gap = max_err(hm_q, ref_q), max_err(ref_q, ref32)
+    if not (math.isfinite(f32_err) and f32_err <= STREAM_F32_TOL * f32_scale):
+        raise AssertionError(f"int8 stream vs batch protocol, f32: {f32_err}")
+    if not px_err <= STREAM_PX_TOL:
+        raise AssertionError(f"int8 stream keypoints differ by {px_err} px")
+    if not (math.isfinite(bf16_err) and bf16_err <= bf16_gap):
+        raise AssertionError(f"int8 stream vs batch protocol, bf16: "
+                             f"{bf16_err} > {bf16_gap}")
+
+    _, step_ms, trace = steady_stream(q, crops, span)
+    med = float(np.median(step_ms))
+    report = dict(
+        streams=b, frames=n, steps=steps, launches=launches,
+        f32_max_abs_diff=f32_err, f32_tol=STREAM_F32_TOL * f32_scale,
+        f32_keypoints_max_px=px_err, f32_keypoints_px_tol=STREAM_PX_TOL,
+        bf16_max_abs_diff=bf16_err, bf16_tol=bf16_gap,
+        step_ms_median=med, key_frames_per_s=b / (med / 1e3),
+        device_busy_ms=trace["device_busy_ms"],
+        device_busy_share=trace["device_busy_share"],
+        top_self_device_ms=trace["top_self_device_ms"],
+        bf16_streaming=stream_bf16)
+    return report, q, batch_window(crops, n // 2, span)
+
+
+def phase_int8(smi, root, dirs, stream_bf16):
+    """The int8 serving path (``TPU.INT8_EVAL``) at full W48; see the
+    module docstring. Returns the int8 kernels' launches in the counted
+    ``--val`` pass and their rows of the kernel table."""
+    from fami_pose_torch.tools.int8_numerics import report as numerics
+
+    t0 = time.perf_counter()
+    runner, serving = int8_serving(root, dirs)
+    ev = runner.evaluator
+    eval_steps = int8_eval_step_traces(ev)
+    emit("int8-serving", card=smi, serving=serving, eval_step_b32=eval_steps)
+    kf, sup = ev._prepare(next(iter(ev.loader)))
+    card_vs_cpu = int8_card_vs_cpu(ev.model, kf, sup)
+    emit("int8-card-vs-cpu", **card_vs_cpu)
+    del runner, ev, kf, sup
+    torch.cuda.empty_cache()
+    streaming, q, window = int8_streaming(stream_bf16)
+    emit("int8-streaming", **streaming)
+    geos = conv_geometries(q, *window)
+    if sum(g["count"] for g in geos.values()) != INT8_CONVS:
+        raise AssertionError(f"{sum(g['count'] for g in geos.values())} "
+                             f"int8 convs in a forward, {INT8_CONVS} expected")
+    rows = [int8_geometry(key, g) for key, g in sorted(geos.items())]
+    for row in rows:
+        emit("int8-kernels", timing=INT8_TIMING, **row)
+    del geos, q
+    per_forward = {part: sum(r["convs_per_forward"] * r["ms"][part]
+                             for r in rows) for part in rows[0]["ms"]}
+    torch.cuda.empty_cache()
+    emit("int8-numerics", **numerics(batch=16, seed=0,
+                                     image_size=(288, 384), device="cuda"))
+    emit("int8", config="configs/posetrack17/fami_pose.yaml + "
+         + " ".join(str(o) for o in INT8_OPTS),
+         model="FAMIPose HRNet-W48 384x288 bf16 D=4 num_sup=4 flip_test, "
+         "int8 backbone", card=smi,
+         entry="Runner(cfg, args).launch(val=True)",
+         weights="seeded init (seed 0), BatchNorm calibrated",
+         samples_per_s=serving["samples_per_s"],
+         eval_step_device_busy_ms={k: eval_steps[k]["device_busy_ms"]
+                                   for k in ("int8", "bf16")},
+         card_vs_cpu={k: card_vs_cpu[k]["max_abs_diff"]
+                      for k in ("final", "backbone")},
+         streaming_key_frames_per_s=streaming["key_frames_per_s"],
+         geometries=len(rows),
+         int8_convs_per_forward=INT8_CONVS,
+         per_forward_b8_device_ms=per_forward,
+         per_forward_note="device ms of one B=8 eval forward's int8 convs "
+         "(40 frames through the backbone, 8 through the head's chains), "
+         "by part, beside cuDNN's bf16 conv on the same shapes",
+         phase_seconds=time.perf_counter() - t0)
+    return ({name: serving["launches"][name] for name in INT8_COUNTERS},
+            int8_kernel_rows(rows))
 
 
 def main():
@@ -1985,14 +2530,17 @@ def main():
     if any(read_launches()[k] for k in ("dcn_bwd", "warp_bwd")):
         raise AssertionError("the serving path launched a backward kernel")
     phase_card_vs_cpu(pred)
-    streaming = phase_streaming(pred, batch)
+    streaming, stream_bf16 = phase_streaming(pred, batch)
     del pred
     torch.cuda.empty_cache()
     train, model_dcn_bwd = phase_train(smi)
     phase_train_card_vs_cpu()
     torch.cuda.empty_cache()
     probe_launches = phase_probes()
-    val = phase_val(smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_val_") as root:
+        val, dirs = phase_val(smi, root)
+        torch.cuda.empty_cache()
+        int8, int8_rows = phase_int8(smi, root, dirs, stream_bf16)
     csrc = "fami_pose_torch/ops/cuda/csrc/"
     replaces = {
         "dcn_fwd": "fami_pose_tpu/ops/pallas/dcn.py:1063",
@@ -2037,6 +2585,11 @@ def main():
         else:  # dcn_bwd
             kernels.append(dict(common, path="train", launches=train[name],
                                 model_inputs=model_dcn_bwd, **rows[name]))
+    for name in INT8_COUNTERS:
+        kernels.append(dict(
+            name=name, route="cuda", source=csrc + "int8_conv.cu",
+            replaces=INT8_REPLACES, path="val with the serving levers "
+            "(TPU.INT8_EVAL)", launches=int8[name], **int8_rows[name]))
     for name, (_, _, line, _) in PROBES.items():
         kernels.append(dict(
             name=name, route="cuda", source=csrc + "probes.cu",

@@ -23,6 +23,10 @@ Crops are locked at the first annotated frame's boxes, one stream per box
 ``cv2.warpAffine`` and normalised as the model's inputs, and ``DISTANCE -
 1`` extra copies of the last frame are fed so that the tail key frames see
 the clamp-to-last neighbours of the batch protocol.
+
+A config with ``TPU.INT8_EVAL`` is refused with ``NotImplementedError``
+(``engine/predictor.py::serving_model``): int8 needs a calibration pass
+over data, which the demo does not have, as ``tools/demo.py`` has none.
 """
 
 import argparse

@@ -12,10 +12,16 @@ backbone-only heatmaps are scored.
 Heatmaps are (B, J, h, w) throughout the port, the layout the decode reads,
 so nothing is transposed between the eval step and the decode.
 
+``TPU.INT8_EVAL`` builds the model with an int8 backbone
+(``models/quant.py``); each checkpoint is calibrated afresh on the first
+``TPU.INT8_CALIB_BATCHES`` eval batches after it is loaded and before the
+DCN window is chosen (``TPU.DCN_AUTO_WINDOW``), so the window is measured on
+the int8 numerics, the order of the JAX evaluator.
+
 Not ported yet, and refused rather than ignored when a config asks for them:
-``TPU.INT8_EVAL`` (post-training quantization), a device mesh other than one
-device (``TPU.MESH_SHAPE``), and the skeleton / box overlays
-(``DEBUG.VIS_SKELETON``, ``DEBUG.VIS_BBOX``).
+a device mesh other than one device (``TPU.MESH_SHAPE``; with it the JAX
+package's broadcast of the int8 scales from process 0), and the skeleton /
+box overlays (``DEBUG.VIS_SKELETON``, ``DEBUG.VIS_BBOX``).
 """
 
 import logging
@@ -33,6 +39,7 @@ from fami_pose_torch.data.loader import (
     build_eval_loader, prepare_eval_inputs, prepare_eval_inputs_device_crop,
 )
 from fami_pose_torch.models.fami_pose import DeformConv, FAMIPose
+from fami_pose_torch.models.quant import QUANT_INT8, calibrate
 from fami_pose_torch.ops.heatmap import dark_get_final_preds, get_final_preds
 from fami_pose_torch.utils.registry import DATASET_REGISTRY, VAL_PHASE
 
@@ -46,7 +53,6 @@ def check_supported(cfg):
     # -1 ("all available devices") is read as the one device of this process
     mesh = [int(v) for v in (getattr(cfg.TPU, "MESH_SHAPE", None) or [])]
     unported = {
-        "TPU.INT8_EVAL": bool(getattr(cfg.TPU, "INT8_EVAL", False)),
         "TPU.MESH_SHAPE (more than one device)":
             math.prod(max(v, 1) for v in mesh) > 1,
         "DEBUG.VIS_SKELETON": bool(cfg.DEBUG.VIS_SKELETON),
@@ -96,7 +102,8 @@ class Evaluator:
             dataset = DATASET_REGISTRY.get(cfg.DATASET.NAME)(cfg, phase)
         self.dataset = dataset
         self.loader = build_eval_loader(cfg, dataset, phase=phase)
-        self.model = FAMIPose.from_config(cfg).to(self.device).eval()
+        self.model = FAMIPose.from_config(cfg, phase=phase).to(
+            self.device).eval()
         flip_key = "FLIP_VAL" if phase == VAL_PHASE else "FLIP_TEST"
         self._flip_test = bool(getattr(self.sub, flip_key, False)
                                or self.sub.FLIP)
@@ -206,12 +213,35 @@ class Evaluator:
             self._set_dcn_window(d)
 
     @torch.inference_mode()
+    def _maybe_calibrate_int8(self):
+        """TPU.INT8_EVAL: calibrate the activation scales of the loaded
+        checkpoint on the first ``TPU.INT8_CALIB_BATCHES`` eval batches
+        (unflipped forwards, ``TPU.INT8_CALIB_MARGIN``)."""
+        if self.model.backbone_quant != QUANT_INT8:
+            return
+        tpu = self.cfg.TPU
+        n_batches = max(1, int(getattr(tpu, "INT8_CALIB_BATCHES", 2)))
+        margin = float(getattr(tpu, "INT8_CALIB_MARGIN", 1.0))
+        batches = []
+        for raw in self.loader:
+            batches.append(self._prepare(raw))
+            if len(batches) >= n_batches:
+                break
+        self.logger.info(f"int8 PTQ calibration on {len(batches)} eval "
+                         f"batches (margin {margin})")
+        calibrate(self.model, batches, margin=margin)
+
+    @torch.inference_mode()
     def eval_checkpoint(self, variables):
         """Run the full eval loop on a model ``state_dict``; returns
         ``{"final": (name_value, mean), "backbone": (name_value, mean)}``."""
         cfg = self.cfg
+        # loading clears the int8 scales: each checkpoint is calibrated
+        # afresh, and before the window, which is then measured on the int8
+        # numerics
         self.model.load_state_dict(variables)
         self.model.to(self.device).eval()
+        self._maybe_calibrate_int8()
         self._maybe_auto_window()
         n = len(self.dataset)
         num_joints = int(cfg.MODEL.NUM_JOINTS)

@@ -7,6 +7,12 @@ cropped on the device with the box's DARK affine, normalized, run through
 the eval step (with flip-test if asked) and decoded with
 ``get_final_preds``. Requests are batched ``batch_size`` at a time; in eval
 mode every request is independent of the others in its batch.
+
+A config with ``TPU.INT8_EVAL`` is refused: int8 needs a calibration pass
+over data, which the serving entry points do not have (neither has the JAX
+package's demo). ``python -m fami_pose_torch.run --val`` calibrates and
+scores such a config; a model calibrated with ``models.quant.calibrate``
+streams int8 through ``engine/streaming.py``.
 """
 
 import numpy as np
@@ -25,7 +31,15 @@ def serving_model(cfg, state_dict=None, device="cuda", seed=0):
     """The FAMIPose of ``cfg`` in eval mode on ``device``, with the weights
     of ``state_dict``, or, for None, the seeded random weights of
     ``models.bridge.init_weights(seed)`` with BatchNorm statistics
-    calibrated on seeded random frames."""
+    calibrated on seeded random frames. Raises ``NotImplementedError`` for
+    a config with ``TPU.INT8_EVAL`` (module docstring)."""
+    if bool(getattr(cfg.TPU, "INT8_EVAL", False)):
+        raise NotImplementedError(
+            "TPU.INT8_EVAL: the predictor and the demo serve no int8 model "
+            "(int8 needs a calibration pass over data); score the config "
+            "with `python -m fami_pose_torch.run --val`, or calibrate a "
+            "model with models.quant.calibrate and serve it through "
+            "engine.streaming")
     dev = torch.device(device)
     model = FAMIPose.from_config(cfg).to(dev).eval()
     if state_dict is not None:

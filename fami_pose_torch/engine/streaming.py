@@ -42,6 +42,11 @@ Latency: the step fed frame ``t`` emits the heatmap for key frame
 ``t - (distance - 1)`` (the window needs ``distance - 1`` future frames,
 exactly like the offline protocol).
 
+A model calibrated for int8 (``models.quant.calibrate``; ``TPU.INT8_EVAL``)
+streams int8: ``features`` and ``head_eval`` run its int8 convs with the
+scales fixed at calibration, so calibrate first, then prime the stream, as
+the JAX package's ``tools/bench_streaming_flip.py`` does.
+
 The buffers are written in place (one slot a step, ``buf[pos].copy_``), so
 a step mutates the :class:`StreamState` it is given and returns it. Every
 function here runs under ``torch.inference_mode``. The JAX package's

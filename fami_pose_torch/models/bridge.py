@@ -24,6 +24,10 @@ DCN weights (flax's ``variance_scaling(1/3, fan_in, uniform)``), zero
 biases, identity BatchNorm. :func:`calibrate_batch_norm` then sets the
 BatchNorm statistics from one forward, so that random weights give
 unit-scale activations as trained ones do.
+
+:func:`quant_scales_from_flax` carries the JAX package's int8 ``quant``
+collection (``.../<conv>/act_scale`` leaves) over as the port's scales by
+conv name (``models.quant.set_quant_scales``).
 """
 
 import math
@@ -146,6 +150,21 @@ def state_dict_from_flax(variables):
             out[key] = torch.from_numpy(
                 np.ascontiguousarray(value, dtype=np.float32)
             )
+    return out
+
+
+def quant_scales_from_flax(quant):
+    """JAX ``quant`` collection (nested dicts of ``act_scale`` leaves) ->
+    ``{port conv name: float32 scale}``: each conv's flax path, with
+    ``kernel`` as its leaf, named as :func:`state_dict_from_flax` names the
+    kernel, less ``.weight``."""
+    out = OrderedDict()
+    for path, value in _leaves(quant):
+        if path[-1] != "act_scale":
+            raise KeyError(f"unexpected quant leaf {'/'.join(path)}")
+        key = _port_key("/".join(path[:-1] + ("kernel",)))
+        out[key[:-len(".weight")]] = torch.tensor(
+            np.asarray(value, dtype=np.float32))
     return out
 
 

@@ -28,6 +28,13 @@ Parameter names are the reference ``Alignment_V15`` ones (``hrnet.*``,
 ``dcn_i.weight/bias``, ``init_feature_agg_block``, ``agg_final_layer``).
 The offset and mask convs emit the canonical ``[g][k][(dy, dx)]`` /
 ``[g][k]`` channel order, which the DCN reads.
+
+``backbone_quant`` (``models/quant.py``, ``TPU.INT8_EVAL`` in eval phases)
+sets the mode of every backbone conv and of the head's three residual chains
+(``sup_agg_block``, ``combined_feat_layers``, ``init_feature_agg_block``), as
+the JAX model passes its ``backbone_quant`` to them; the offset head, the DCN
+offset and mask convs, ``agg_final_layer`` and ``hrnet.final_layer`` stay in
+float.
 """
 
 import math
@@ -37,9 +44,11 @@ import torch.nn as nn
 
 from fami_pose_torch.ops.deform_conv import deform_conv2d_windowed
 from fami_pose_torch.ops.warp import warp_translate
+from fami_pose_torch.utils.registry import TRAIN_PHASE
 
 from .hrnet import HRNet, W48_EXTRA
 from .layers import ChainOfBasicBlocks, Conv2d, ConvBnAct, Linear
+from .quant import QUANT_INT8, QUANT_OFF
 
 DCN_KERNEL = 3
 DCN_DILATION = 3
@@ -108,7 +117,7 @@ class FAMIPose(nn.Module):
                  feat_channels=48, feat_hw=(96, 72),
                  dcn_offset_groups=DCN_OFFSET_GROUPS, dcn_max_offset=6,
                  warp_max_shift=26, compute_dtype=torch.float32,
-                 warp_impl="matmul"):
+                 warp_impl="matmul", backbone_quant=QUANT_OFF):
         super().__init__()
         c = int(feat_channels)
         g = int(dcn_offset_groups)
@@ -118,7 +127,9 @@ class FAMIPose(nn.Module):
         self.warp_max_shift = int(warp_max_shift)
         self.warp_impl = str(warp_impl)  # where a bf16 warp rounds
         self.compute_dtype = compute_dtype
-        self.hrnet = HRNet(extra, num_joints)
+        self.backbone_quant = str(backbone_quant)
+        q = self.backbone_quant
+        self.hrnet = HRNet(extra, num_joints, quant=q)
         hc = OFFSET_HEAD_CHANNELS
         flat = hc * _head_spatial(feat_hw[0]) * _head_spatial(feat_hw[1])
         self.feat_global_offset_layers = nn.Sequential(
@@ -127,8 +138,8 @@ class FAMIPose(nn.Module):
             nn.Flatten(),
             Linear(flat, 64), Linear(64, 64), Linear(64, 2),
         )
-        self.sup_agg_block = ChainOfBasicBlocks(c * self.num_sup, c, 2)
-        self.combined_feat_layers = ChainOfBasicBlocks(2 * c, c, 1)
+        self.sup_agg_block = ChainOfBasicBlocks(c * self.num_sup, c, 2, q)
+        self.combined_feat_layers = ChainOfBasicBlocks(2 * c, c, 1, q)
         taps = DCN_KERNEL * DCN_KERNEL
         for i in range(1, 5):
             aux = dict(kernel_size=3, padding=DCN_DILATION,
@@ -136,11 +147,13 @@ class FAMIPose(nn.Module):
             setattr(self, f"dcn_offset_{i}", ConvBnAct(c, 2 * taps * g, **aux))
             setattr(self, f"dcn_mask_{i}", ConvBnAct(c, taps * g, **aux))
             setattr(self, f"dcn_{i}", DeformConv(c, c, g, dcn_max_offset))
-        self.init_feature_agg_block = ChainOfBasicBlocks(2 * c, c, 3)
+        self.init_feature_agg_block = ChainOfBasicBlocks(2 * c, c, 3, q)
         self.agg_final_layer = Conv2d(c, num_joints, 3, padding=1, bias=True)
 
     @classmethod
-    def from_config(cls, cfg):
+    def from_config(cls, cfg, phase=TRAIN_PHASE):
+        """The model of ``cfg`` for ``phase``: ``TPU.INT8_EVAL`` gives an
+        int8 backbone in the eval phases only (training stays float)."""
         extra = cfg.MODEL.EXTRA
         extra = extra._to_plain() if hasattr(extra, "_to_plain") else dict(extra)
         if "STAGE2" not in extra:
@@ -163,6 +176,9 @@ class FAMIPose(nn.Module):
             else int(cfg.TPU.WARP_MAX_SHIFT),
             compute_dtype=_compute_dtype(cfg.TPU.COMPUTE_DTYPE),
             warp_impl=warp_impl,
+            backbone_quant=(
+                QUANT_INT8 if bool(getattr(cfg.TPU, "INT8_EVAL", False))
+                and phase != TRAIN_PHASE else QUANT_OFF),
         )
 
     def _dcn_stage(self, idx, feat_in, target):

@@ -11,20 +11,25 @@ conv to NUM_JOINTS heatmaps. Module names are the official PyTorch HRNet's
 
 ``forward`` returns ``(heatmaps, features)`` where ``features[0]`` is the
 1/4-resolution map of width ``STAGE2.NUM_CHANNELS[0]`` (48 for W48).
-Only the int8-free (``quant="off"``) path exists in the port so far.
+``quant`` (``models/quant.py``) sets the mode of every conv of the backbone
+(stem, ``layer1`` with its downsample, transitions, branches, fuse layers;
+292 convs at W48) and not of ``final_layer``, which feeds the decode and the
+MI estimators, as in the JAX package.
 """
 
 import torch.nn as nn
 import torch.nn.functional as F
 
 from .layers import BasicBlock, BatchNorm, Bottleneck, Conv2d, Interpolate, conv3x3
+from .quant import QUANT_OFF
 
 BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
 
 
-def _conv_bn(cin, cout, k, stride, relu):
+def _conv_bn(cin, cout, k, stride, relu, quant=QUANT_OFF):
     mods = [
-        Conv2d(cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=False),
+        Conv2d(cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=False,
+               quant=quant),
         BatchNorm(cout),
     ]
     if relu:
@@ -36,15 +41,16 @@ class HighResolutionModule(nn.Module):
     """Parallel branches + all-to-all sum fusion."""
 
     def __init__(self, num_branches, block, num_blocks, num_channels,
-                 in_channels, multi_scale_output=True):
+                 in_channels, multi_scale_output=True, quant=QUANT_OFF):
         super().__init__()
         blk = BLOCKS[block]
         outs = [c * blk.expansion for c in num_channels]
         branches = []
         for i in range(num_branches):
             layers = [blk(in_channels[i], num_channels[i],
-                          has_downsample=in_channels[i] != outs[i])]
-            layers += [blk(outs[i], num_channels[i])
+                          has_downsample=in_channels[i] != outs[i],
+                          quant=quant)]
+            layers += [blk(outs[i], num_channels[i], quant=quant)
                        for _ in range(1, num_blocks[i])]
             branches.append(nn.Sequential(*layers))
         self.branches = nn.ModuleList(branches)
@@ -57,7 +63,8 @@ class HighResolutionModule(nn.Module):
                 for j in range(num_branches):
                     if j > i:
                         row.append(nn.Sequential(
-                            Conv2d(outs[j], outs[i], 1, bias=False),
+                            Conv2d(outs[j], outs[i], 1, bias=False,
+                                   quant=quant),
                             BatchNorm(outs[i]),
                             Interpolate(2 ** (j - i)),
                         ))
@@ -69,7 +76,7 @@ class HighResolutionModule(nn.Module):
                             last = k == i - j - 1
                             steps.append(_conv_bn(
                                 outs[j], outs[i] if last else outs[j], 3, 2,
-                                relu=not last,
+                                relu=not last, quant=quant,
                             ))
                         row.append(nn.Sequential(*steps))
                 fuse.append(nn.ModuleList(row))
@@ -91,17 +98,18 @@ class HighResolutionModule(nn.Module):
 
 class HRNet(nn.Module):
     """Config-driven HRNet with heatmap head (``extra`` is
-    ``cfg.MODEL.EXTRA`` as a dict)."""
+    ``cfg.MODEL.EXTRA`` as a dict; ``quant`` the backbone convs' mode)."""
 
-    def __init__(self, extra, num_joints=17):
+    def __init__(self, extra, num_joints=17, quant=QUANT_OFF):
         super().__init__()
-        self.conv1 = conv3x3(3, 64, 2)
+        q = quant
+        self.conv1 = conv3x3(3, 64, 2, q)
         self.bn1 = BatchNorm(64)
-        self.conv2 = conv3x3(64, 64, 2)
+        self.conv2 = conv3x3(64, 64, 2, q)
         self.bn2 = BatchNorm(64)
         self.layer1 = nn.Sequential(
-            Bottleneck(64, 64, has_downsample=True),
-            *[Bottleneck(256, 64) for _ in range(3)],
+            Bottleneck(64, 64, has_downsample=True, quant=q),
+            *[Bottleneck(256, 64, quant=q) for _ in range(3)],
         )
         prev = [256]
         stages = ["STAGE2", "STAGE3", "STAGE4"]
@@ -112,12 +120,14 @@ class HRNet(nn.Module):
             n_blocks = [int(b) for b in s["NUM_BLOCKS"]]
             chans = [int(c) for c in s["NUM_CHANNELS"]]
             outs = [c * BLOCKS[block].expansion for c in chans]
-            setattr(self, f"transition{si + 1}", self._transition(prev, outs))
+            setattr(self, f"transition{si + 1}",
+                    self._transition(prev, outs, q))
             mods = []
             for m in range(n_mod):
                 multi = not (name == stages[-1] and m == n_mod - 1)
                 mods.append(HighResolutionModule(
                     n_br, block, n_blocks, chans, outs, multi_scale_output=multi,
+                    quant=q,
                 ))
             setattr(self, f"stage{si + 2}", nn.Sequential(*mods))
             prev = outs
@@ -127,20 +137,21 @@ class HRNet(nn.Module):
         )
 
     @staticmethod
-    def _transition(prev, new):
+    def _transition(prev, new, quant):
         layers = []
         for i, c in enumerate(new):
             if i < len(prev):
                 layers.append(
-                    _conv_bn(prev[i], c, 3, 1, relu=True) if c != prev[i]
-                    else None
+                    _conv_bn(prev[i], c, 3, 1, relu=True, quant=quant)
+                    if c != prev[i] else None
                 )
             else:
                 steps = []
                 for k in range(i + 1 - len(prev)):
                     last = k == i - len(prev)
                     steps.append(_conv_bn(
-                        prev[-1], c if last else prev[-1], 3, 2, relu=True
+                        prev[-1], c if last else prev[-1], 3, 2, relu=True,
+                        quant=quant,
                     ))
                 layers.append(nn.Sequential(*steps))
         return nn.ModuleList(layers)

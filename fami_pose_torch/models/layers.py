@@ -11,11 +11,19 @@ cast their weights to the dtype of their input (bfloat16 on the serving path)
 and add their bias to the rounded output, as flax does, and
 :class:`BatchNorm` normalizes in float32 and casts back: with its running
 statistics in eval mode, with the batch's in training mode.
+
+Every conv of the residual blocks takes a ``quant`` mode (``models/quant.py``;
+``"off"`` by default), which the HRNet backbone and the head's residual
+chains pass down for the int8 serving path (``TPU.INT8_EVAL``).
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from fami_pose_torch.ops.int8_conv import int8_conv2d, quantize_weight
+
+from .quant import QUANT_CALIBRATE, QUANT_INT8, QUANT_MODES, QUANT_OFF
 
 BN_EPS = 1e-5
 
@@ -25,9 +33,64 @@ class Conv2d(nn.Conv2d):
     to the convolution's output in that dtype, as flax's ``nn.Conv`` does:
     a bfloat16 output is rounded, then the bias added and rounded again (a
     bias fused into the convolution, as the CPU's kernels do, rounds once
-    and differs from the JAX package in the last bit)."""
+    and differs from the JAX package in the last bit).
+
+    ``quant`` (``models/quant.py``) selects the int8 serving path: in
+    ``"calibrate"`` the float path runs and ``act_absmax`` keeps the running
+    max of ``|x|`` (float32); in ``"int8"`` the conv is
+    ``ops.int8_conv.int8_conv2d`` with ``act_scale`` and the weights
+    quantized by :meth:`set_act_scale`. There the bias is added in float32
+    before the one rounding to the output's dtype, as ``QuantConv`` does.
+    These four buffers are not part of the ``state_dict``, and loading one
+    clears them."""
+
+    def __init__(self, *args, quant=QUANT_OFF, **kwargs):
+        super().__init__(*args, **kwargs)
+        if quant not in QUANT_MODES:
+            raise ValueError(f"quant {quant!r}, expected one of {QUANT_MODES}")
+        if quant != QUANT_OFF and self.groups != 1:
+            raise ValueError("the int8 path takes no grouped convolution")
+        self.quant = quant
+        self.quant_name = None  # the conv's name in the model, for errors
+        for name in ("act_absmax", "act_scale", "weight_q", "weight_scale"):
+            self.register_buffer(name, None, persistent=False)
+
+    def clear_quant(self):
+        self.act_absmax = self.act_scale = None
+        self.weight_q = self.weight_scale = None
+
+    @torch.no_grad()
+    def set_act_scale(self, scale, name=None):
+        """Set the activation scale and quantize the weights
+        (``ops.int8_conv.quantize_weight``)."""
+        scale = (scale.detach() if torch.is_tensor(scale)
+                 else torch.tensor(scale)).to(torch.float32).reshape(())
+        if not (torch.isfinite(scale) and scale > 0):
+            raise ValueError(f"int8 conv {name}: activation scale {scale}")
+        self.quant_name = name
+        self.act_scale = scale.to(self.weight.device)
+        self.weight_q, self.weight_scale = quantize_weight(self.weight)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self.clear_quant()
 
     def forward(self, x):
+        if self.quant == QUANT_INT8:
+            if self.act_scale is None:
+                raise RuntimeError(
+                    f"int8 conv {self.quant_name or '(unnamed)'} has no "
+                    "activation scale: calibrate the model first "
+                    "(models.quant.calibrate)")
+            bias = None if self.bias is None else self.bias.detach()
+            return int8_conv2d(x, self.weight_q, self.weight_scale,
+                               self.act_scale, bias, self.kernel_size,
+                               self.stride, self.padding, self.dilation,
+                               name=self.quant_name)
+        if self.quant == QUANT_CALIBRATE:
+            amax = x.detach().abs().amax().to(torch.float32)
+            self.act_absmax = (amax if self.act_absmax is None
+                               else torch.maximum(self.act_absmax, amax))
         y = self._conv_forward(x, self.weight.to(x.dtype), None)
         if self.bias is None:
             return y
@@ -87,8 +150,9 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
-def conv3x3(cin, cout, stride=1):
-    return Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
+def conv3x3(cin, cout, stride=1, quant=QUANT_OFF):
+    return Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False,
+                  quant=quant)
 
 
 class ConvBnAct(nn.Module):
@@ -115,9 +179,10 @@ class ConvBnAct(nn.Module):
 class Downsample(nn.Sequential):
     """1x1 (strided) conv + BN shortcut: ``downsample.0`` / ``downsample.1``."""
 
-    def __init__(self, cin, cout, stride=1):
+    def __init__(self, cin, cout, stride=1, quant=QUANT_OFF):
         super().__init__(
-            Conv2d(cin, cout, 1, stride=stride, bias=False), BatchNorm(cout)
+            Conv2d(cin, cout, 1, stride=stride, bias=False, quant=quant),
+            BatchNorm(cout),
         )
 
 
@@ -139,14 +204,15 @@ class BasicBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, cin, cout, stride=1, has_downsample=False):
+    def __init__(self, cin, cout, stride=1, has_downsample=False,
+                 quant=QUANT_OFF):
         super().__init__()
-        self.conv1 = conv3x3(cin, cout, stride)
+        self.conv1 = conv3x3(cin, cout, stride, quant)
         self.bn1 = BatchNorm(cout)
-        self.conv2 = conv3x3(cout, cout, stride)
+        self.conv2 = conv3x3(cout, cout, stride, quant)
         self.bn2 = BatchNorm(cout)
         self.downsample = (
-            Downsample(cin, cout, stride) if has_downsample else None
+            Downsample(cin, cout, stride, quant) if has_downsample else None
         )
 
     def forward(self, x):
@@ -161,17 +227,18 @@ class Bottleneck(nn.Module):
 
     expansion = 4
 
-    def __init__(self, cin, planes, stride=1, has_downsample=False):
+    def __init__(self, cin, planes, stride=1, has_downsample=False,
+                 quant=QUANT_OFF):
         super().__init__()
         cout = planes * self.expansion
-        self.conv1 = Conv2d(cin, planes, 1, bias=False)
+        self.conv1 = Conv2d(cin, planes, 1, bias=False, quant=quant)
         self.bn1 = BatchNorm(planes)
-        self.conv2 = conv3x3(planes, planes, stride)
+        self.conv2 = conv3x3(planes, planes, stride, quant)
         self.bn2 = BatchNorm(planes)
-        self.conv3 = Conv2d(planes, cout, 1, bias=False)
+        self.conv3 = Conv2d(planes, cout, 1, bias=False, quant=quant)
         self.bn3 = BatchNorm(cout)
         self.downsample = (
-            Downsample(cin, cout, stride) if has_downsample else None
+            Downsample(cin, cout, stride, quant) if has_downsample else None
         )
 
     def forward(self, x):
@@ -186,10 +253,11 @@ class ChainOfBasicBlocks(nn.Module):
     """A 1x1-downsampling BasicBlock (cin -> cout) + (num_blocks - 1)
     BasicBlocks, under ``layers.N``."""
 
-    def __init__(self, cin, cout, num_blocks=1):
+    def __init__(self, cin, cout, num_blocks=1, quant=QUANT_OFF):
         super().__init__()
-        blocks = [BasicBlock(cin, cout, has_downsample=True)]
-        blocks += [BasicBlock(cout, cout) for _ in range(1, num_blocks)]
+        blocks = [BasicBlock(cin, cout, has_downsample=True, quant=quant)]
+        blocks += [BasicBlock(cout, cout, quant=quant)
+                   for _ in range(1, num_blocks)]
         self.layers = nn.Sequential(*blocks)
 
     def forward(self, x):

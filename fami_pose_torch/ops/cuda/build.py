@@ -26,7 +26,8 @@ import tempfile
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "_build")
-SOURCES = ("dcn_fwd.cu", "dcn_bwd.cu", "warp.cu", "warp_bwd.cu", "probes.cu")
+SOURCES = ("dcn_fwd.cu", "dcn_bwd.cu", "warp.cu", "warp_bwd.cu", "probes.cu",
+           "int8_conv.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -61,6 +62,11 @@ SIGNATURES = {
     "fami_probe_dynamic_roll": [c_ptr] * 3 + [c_int] * 2 + [c_ptr],
     # stream (an empty kernel: the floor of a launch)
     "fami_empty_launch": [c_ptr],
+    # x, act_scale, out, dtype, B, C, H, W, kh, kw, sh, sw, ph, pw, dh, dw,
+    # Ho, Wo, Kp, stream
+    "fami_int8_quant_im2col": [c_ptr] * 3 + [c_int] * 16 + [c_ptr],
+    # acc, w_scale, act_scale, bias (or null), out, dtype, B, N, P, stream
+    "fami_int8_dequant": [c_ptr] * 5 + [c_int] * 4 + [c_ptr],
 }
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

@@ -992,3 +992,121 @@ def test_probe_kernels_stay_inside_their_buffers(guarded, gen):
             guarded.sync()
             assert torch.equal(guarded.get(po, tile),
                                probes.dynamic_roll_plain(tile, s))
+
+
+# -- the int8 conv: quantize-and-gather, torch._int_mm, dequant ---------------
+#
+# (B, C, H, W, C_out, kernel, stride, padding): the stem's 3 channels (K =
+# 27, padded to 32), a branch 3x3, a strided 3x3 (a fuse chain's), a 1x1 at
+# 256 channels (layer1's), and a ragged 1x1 (rows not a multiple of the
+# kernels' 64, K = 40 not a multiple of 64, C_out = 24 not one of 32)
+INT8_CASES = {"stem": (2, 3, 37, 29, 64, 3, 2, 1),
+              "3x3": (2, 48, 24, 18, 48, 3, 1, 1),
+              "3x3s2": (2, 48, 24, 18, 96, 3, 2, 1),
+              "1x1": (2, 256, 24, 18, 64, 1, 1, 0),
+              "ragged": (3, 40, 7, 5, 24, 1, 1, 0)}
+
+
+def _int8_inputs(gen, case, dtype):
+    from fami_pose_torch.ops.int8_conv import quantize_weight
+
+    b, c, h, w, n, k, s, p = INT8_CASES[case]
+    x = (torch.randn(b, c, h, w, generator=gen, device="cuda") * 1.5).to(dtype)
+    # 0.8 of the absmax: the largest inputs clip
+    act = (x.float().abs().amax() * 0.8 / 127).reshape(())
+    wq, ws = quantize_weight(torch.randn(n, c, k, k, generator=gen,
+                                         device="cuda"))
+    bias = torch.randn(n, generator=gen, device="cuda")
+    return x, act, wq, ws, bias, dict(kernel_size=k, stride=s, padding=p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(INT8_CASES))
+def test_int8_kernels_match_plain(gen, dtype, case):
+    """Kernel A and kernel B (with and without a bias) against their plain
+    versions and the whole card conv against the float64 plain conv: bit
+    for bit; ``_int_mm`` exact against a float64 product."""
+    from fami_pose_torch.ops.int8_conv import (
+        dequant, dequant_plain, int8_conv2d, int8_conv2d_plain, quant_im2col,
+        quant_im2col_plain,
+    )
+
+    x, act, wq, ws, bias, geo = _int8_inputs(gen, case, dtype)
+    before = (quant_im2col.launches, dequant.launches)
+    a = quant_im2col(x, act, **geo)
+    torch.cuda.synchronize()
+    assert torch.equal(a, quant_im2col_plain(x, act, **geo))
+    acc = torch._int_mm(a, wq.t())
+    assert torch.equal(acc.double(), a.double() @ wq.double().t())
+    b, _, h, w = x.shape
+    y = int8_conv2d(x, wq, ws, act, None, **geo)
+    torch.cuda.synchronize()
+    assert torch.equal(y, int8_conv2d_plain(x, wq, ws, act, None, **geo))
+    ho, wo = y.shape[2:]
+    for bb in (None, bias):
+        got = dequant(acc, ws, act, bb, b, ho, wo, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, dequant_plain(acc, ws, act, bb, b, ho, wo,
+                                              dtype))
+    assert (quant_im2col.launches, dequant.launches) == (before[0] + 2,
+                                                         before[1] + 3)
+
+
+def test_int8_kernels_round_half_to_even(gen):
+    """Inputs on the half-way points of the quantizer's grid (and past its
+    ends): the kernel rounds as torch.round does, to even."""
+    from fami_pose_torch.ops.int8_conv import quant_im2col, quant_im2col_plain
+
+    act = torch.tensor(0.5, device="cuda")
+    vals = torch.tensor([0.25, 0.75, 1.25, -0.25, -0.75, -1.25, 63.25, 63.75,
+                         70.0, -70.0], device="cuda")
+    x = vals.repeat(2 * 8 * 4 * 4 // 10 + 1)[:2 * 8 * 4 * 4].reshape(2, 8, 4, 4)
+    a = quant_im2col(x, act, 1)
+    assert torch.equal(a, quant_im2col_plain(x, act, 1))
+    assert set(a.unique().tolist()) <= {0, 2, -2, 126, 127, -127}
+
+
+def test_int8_conv_refuses_what_it_does_not_take(gen):
+    from fami_pose_torch.ops.int8_conv import int8_conv2d, quant_im2col
+
+    x, act, wq, ws, _, geo = _int8_inputs(gen, "3x3", torch.float32)
+    with pytest.raises(ValueError, match="act_scale"):
+        quant_im2col(x, act.cpu(), **geo)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        quant_im2col(x.half(), act, **geo)
+    with pytest.raises(ValueError, match="wq must be int8"):
+        int8_conv2d(x, wq[:, :8], ws, act, None, name="c", **geo)
+    small = x[:1, :, :4, :4]  # 16 rows: _int_mm takes more than 16
+    with pytest.raises(ValueError, match="hrnet.conv9"):
+        int8_conv2d(small, wq, ws, act, None, name="hrnet.conv9", **geo)
+
+
+@pytest.mark.parametrize("case", ["stem", "ragged", "3x3s2"])
+def test_int8_kernels_stay_inside_their_buffers(guarded, gen, case):
+    """Kernel A (border taps, the padded K columns, a last tile of fewer
+    rows and columns) and kernel B (a last tile of fewer rows and
+    channels, with a bias) on guarded buffers; results equal to the
+    wrappers'."""
+    from fami_pose_torch.ops.int8_conv import dequant, quant_im2col
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x, act, wq, ws, bias, geo = _int8_inputs(gen, case, dtype)
+        code = 0 if dtype == torch.float32 else 1
+        b, c, h, w = x.shape
+        k, s, p = geo["kernel_size"], geo["stride"], geo["padding"]
+        ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+        ref_a = quant_im2col(x, act, **geo)
+        lib = _kernel_library()
+        px, pact, pa = guarded.put(x), guarded.put(act), guarded.put(ref_a)
+        assert lib.fami_int8_quant_im2col(
+            px, pact, pa, code, b, c, h, w, k, k, s, s, p, p, 1, 1, ho, wo,
+            ref_a.shape[1], None) == 0
+        guarded.sync()
+        assert torch.equal(guarded.get(pa, ref_a), ref_a)
+        acc = torch._int_mm(ref_a, wq.t())
+        ref_y = dequant(acc, ws, act, bias, b, ho, wo, dtype)
+        pacc, pws, pbias, py = (guarded.put(t) for t in (acc, ws, bias, ref_y))
+        assert lib.fami_int8_dequant(pacc, pws, pact, pbias, py, code, b,
+                                     wq.shape[0], ho * wo, None) == 0
+        guarded.sync()
+        assert torch.equal(guarded.get(py, ref_y), ref_y)

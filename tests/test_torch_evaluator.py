@@ -15,7 +15,10 @@ or a gradient sign is decided by less than that). Under DARK the bound is
 random-weight heatmaps are not Gaussians, and a near-singular Hessian
 multiplies the heatmaps' 1e-4 differences by the step. AP tables are equal.
 The device-crop inputs are held to 5e-3 on the 0..255 scale, the host-crop
-inputs to 1e-6 after normalization. Auto-window picks the same D.
+inputs to 1e-6 after normalization. Auto-window picks the same D. Under
+``TPU.INT8_EVAL`` each checkpoint's scales equal a fresh calibration of that
+checkpoint on the same first batch, bit for bit (the same function on the
+same inputs).
 """
 
 import os
@@ -34,6 +37,9 @@ from fami_pose_tpu.ops.heatmap import (
 )
 from fami_pose_torch.data.loader import IMAGENET_STD
 from fami_pose_torch.engine.evaluator import Evaluator, check_supported
+from fami_pose_torch.models.bridge import state_dict_from_flax
+from fami_pose_torch.models.fami_pose import FAMIPose
+from fami_pose_torch.models.quant import calibrate, quant_scales
 from fami_pose_torch.ops.deform_conv import deform_conv2d_windowed
 from fixtures import make_cfg, make_posetrack_fixture
 from test_auto_window import _pin_offset_heads
@@ -282,7 +288,7 @@ def test_eval_sweeps_every_listed_checkpoint(world, variables):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("TPU.INT8_EVAL", True), ("TPU.MESH_SHAPE", [2, 1]),
+    ("TPU.MESH_SHAPE", [2, 1]),
     ("TPU.MESH_SHAPE", [4]), ("DEBUG.VIS_SKELETON", True),
     ("DEBUG.VIS_BBOX", True)])
 def test_unported_options_are_refused(world, key, value):
@@ -293,6 +299,58 @@ def test_unported_options_are_refused(world, key, value):
         check_supported(cfg)
     with pytest.raises(NotImplementedError, match=key):
         Evaluator(cfg, device="cpu")
+
+
+def test_int8_evaluator_calibrates_each_checkpoint_before_the_window(
+        world, variables, monkeypatch):
+    """TPU.INT8_EVAL with the auto-window: each checkpoint is calibrated
+    after it is loaded and before the window is chosen (the window's
+    forwards run on the int8 model: every scale is set by then), with
+    scales of its own, and scored to finite tables."""
+    cfg = _cfg(world, make_port_cfg, "out_port_int8", INT8_EVAL=True,
+               INT8_CALIB_BATCHES=1, DCN_AUTO_WINDOW=True)
+    ev = Evaluator(cfg, device="cpu")
+    assert ev.model.backbone_quant == "int8"
+    order, seen, windows = [], [], []
+    calib, window = ev._maybe_calibrate_int8, ev._maybe_auto_window
+
+    def spy_calibrate():
+        order.append("calibrate")
+        # the head's int8 chains read the DCN output: the window in force
+        # (the previous checkpoint's, as in the JAX evaluator) counts
+        windows.append(ev.dcn_max_offset)
+        calib()
+        seen.append({k: v.clone() for k, v in quant_scales(ev.model).items()})
+
+    def spy_window():
+        order.append("window")
+        assert all(v is not None for v in quant_scales(ev.model).values())
+        window()
+
+    monkeypatch.setattr(ev, "_maybe_calibrate_int8", spy_calibrate)
+    monkeypatch.setattr(ev, "_maybe_auto_window", spy_window)
+    other = jax.tree_util.tree_map(np.copy, variables)
+    other["params"]["hrnet"]["stem_conv1"]["kernel"] *= np.float32(1.5)
+    states = [variables, other]
+    paths = [save_port_checkpoint(ev.checkpoints_dir, e, v)
+             for e, v in enumerate(states)]
+    ev.from_checkpoint_id = 0
+    results = ev.eval()
+    assert order == ["calibrate", "window"] * 2
+    assert list(results) == paths
+    for tables in results.values():
+        for tag in ("final", "backbone"):
+            assert np.isfinite(tables[tag][1])
+    assert any(not torch.equal(seen[0][k], seen[1][k]) for k in seen[0])
+    first = ev._prepare(next(iter(ev.loader)))
+    for state, scales, d in zip(states, seen, windows):
+        fresh = FAMIPose.from_config(cfg, phase="validate").eval()
+        fresh.load_state_dict(state_dict_from_flax(state))
+        for i in range(1, 5):
+            getattr(fresh, f"dcn_{i}").max_offset = d
+        want = calibrate(fresh, [first])
+        assert list(want) == list(scales)
+        assert all(torch.equal(want[k], scales[k]) for k in want)
 
 
 def test_other_refusals_and_defaults(world):

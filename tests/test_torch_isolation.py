@@ -66,6 +66,11 @@ def test_port_files_found():
     # and the streaming slice's, with the tool that times the probes in turns
     for name in ("engine/streaming.py", "tools/probe_turns.py"):
         assert name in rel, name
+    # and the int8 serving slice's: quantization, the int8 conv's wrappers,
+    # the numerics tool
+    for name in ("models/quant.py", "ops/int8_conv.py",
+                 "tools/int8_numerics.py"):
+        assert name in rel, name
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -146,6 +151,19 @@ def test_cuda_tensor_never_reaches_a_plain_version():
         x = torch.empty(2, 128, device="meta")
         with pytest.raises(ValueError, match="no probe kernel for device"):
             fn(x, x)
+
+
+def test_int8_conv_wrappers_never_fall_back():
+    """The int8 conv's two kernel wrappers and the conv itself take their
+    plain versions only for a CPU tensor, with no fallback on the card."""
+    from fami_pose_torch.ops import int8_conv
+
+    for fn in (int8_conv.quant_im2col, int8_conv.dequant,
+               int8_conv.int8_conv2d):
+        source = inspect.getsource(fn)
+        assert source.count("_plain(") == 1, fn.__name__
+        assert "except" not in source and "try:" not in source, fn.__name__
+        assert 'device.type == "cpu"' in source, fn.__name__
 
 
 def test_cuda_build_needs_nvcc(tmp_path, monkeypatch):

@@ -214,3 +214,26 @@ def test_output_directory_identity_matches_jax(tmp_path, pt18):
     assert get_model_hyperparameter(pcfg) == jax_hyper(jcfg)
     pcfg.MODEL.NAME = "SomethingElse"
     assert get_model_hyperparameter(pcfg) == ""
+
+
+def test_cli_val_with_the_int8_serving_levers(experiment):
+    """``--val`` with the serving file's levers as options (int8 PTQ, the
+    auto-window, flip-test): the checkpoint is calibrated before the window
+    is chosen, and both heatmaps' AP tables are logged."""
+    assert experiment.run.returncode == 0
+    run = subprocess.run(
+        [sys.executable, "-m", "fami_pose_torch.run", "--cfg",
+         experiment.cfg_path, "--val", "--device", "cpu", "TPU.INT8_EVAL",
+         "True", "TPU.INT8_CALIB_BATCHES", "1", "TPU.DCN_AUTO_WINDOW",
+         "True", "VAL.FLIP_VAL", "True"],
+        cwd=experiment.root, env=experiment.env, capture_output=True,
+        text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    log = run.stderr
+    cal = log.index("int8 PTQ calibration on 1 eval batches")
+    assert cal < log.index("DCN auto-window")
+    tables = _ap_tables(log[cal:])
+    assert [t for t, _ in tables] == ["final", "backbone"]
+    for _, table in tables:
+        assert set(table) == KEYS
+        assert all(np.isfinite(v) for v in table.values())

@@ -22,6 +22,11 @@ Tolerances:
     activations grow to ~1e3 on random weights; XLA and torch sum in other
     orders), and 2e-4 + 2e-4 relative for the backbone heatmaps.
   * The streaming demo writes one finite pose per box per frame.
+  * An int8-calibrated model (``models/quant.py``) streams int8: its stream
+    against its own batch protocol within ``_same``'s 1e-5 of scale (the
+    int8 convs sum exactly, the scales are fixed at calibration, and the
+    float convs of the head may sum in another order at another batch
+    size), and away from the float model's stream.
 """
 
 import json
@@ -40,6 +45,7 @@ from fami_pose_torch.engine import streaming
 from fami_pose_torch.engine.steps import make_eval_step
 from fami_pose_torch.models.bridge import state_dict_from_flax
 from fami_pose_torch.models.fami_pose import FAMIPose
+from fami_pose_torch.models.quant import calibrate
 from torch_port_helpers import nchw, nhwc, random_variables
 
 B, H, W = 2, 64, 64
@@ -177,6 +183,30 @@ def test_stream_matches_batch_protocol(model, flip_test):
         ref_hm, ref_bb = step(*_window(frames, t))
         _same(got[t][0], ref_hm.numpy())
         _same(got[t][1], ref_bb.numpy())
+
+
+@pytest.mark.parametrize("flip_test", [False, True])
+def test_int8_stream_matches_the_int8_batch_protocol(model, variables,
+                                                     flip_test):
+    """Calibrate, then stream, as ``tools/bench_streaming_flip.py`` wires
+    the JAX stream: the int8 model's stream against the int8 model's eval
+    step on every key frame of a crop-locked clip."""
+    q = FAMIPose(extra=TINY_EXTRA, num_joints=17, num_sup=NUM_SUP,
+                 feat_channels=8, feat_hw=(16, 16), dcn_offset_groups=4,
+                 dcn_max_offset=2, warp_max_shift=26, backbone_quant="int8")
+    q.load_state_dict(state_dict_from_flax(variables))
+    q.eval()
+    frames = _nchw_frames(_frames(1, 5))
+    calibrate(q, [_window(frames, 2)])
+    got = _stream(q, frames, flip_test=flip_test)
+    step = make_eval_step(q, flip_test=flip_test)
+    for t in range(5):
+        ref_hm, ref_bb = step(*_window(frames, t))
+        _same(got[t][0], ref_hm.numpy())
+        _same(got[t][1], ref_bb.numpy())
+    # the int8 backbone ran: the float model's stream differs
+    float_hm = _stream(model, frames, flip_test=flip_test)[2][1]
+    assert np.abs(float_hm - got[2][1]).max() > 1e-3 * np.abs(float_hm).max()
 
 
 def test_stream_matches_the_jax_stream(model, variables):
