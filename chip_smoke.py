@@ -101,7 +101,7 @@ and as the last line ``{"ok": true, "device": {...}}``:
                scale finite and positive (292 backbone convs and the head's
                15 chain convs, as the JAX model quantizes them; not
                ``final_layer``), 8 DCN + 2 warp launches a batch, 307
-               quantize-and-gather + 307 dequant launches a forward,
+               quantize-pass + 307 implicit-GEMM launches a forward,
                finite AP tables, eval-loop samples/s, a traced int8 eval
                step's device-busy ms beside the bf16 step's; the card's
                int8 path against the port's on the CPU (f32, TF32 off, one
@@ -114,9 +114,12 @@ and as the last line ``{"ok": true, "device": {...}}``:
                B=8 forward (hooks): both kernels against their plain
                versions and the card conv against the float64 plain conv,
                bit for bit, in f32 and bf16, each timed device-side beside
-               its bound with ``torch._int_mm`` and cuDNN's bf16 conv on
-               the same shapes; and ``fami_pose_torch.tools.int8_numerics``
-               at W48, 384x288.
+               its bound, with ``torch._int_mm`` on the conv's im2col
+               matrix and cuDNN's bf16 conv on the same shapes, summed over
+               the forward; and ``fami_pose_torch.tools.int8_numerics`` at
+               W48, 384x288. The build phase counts the implicit GEMM's
+               ``IGMMA`` instructions and reads its registers and spills
+               from ``-Xptxas -v``.
 
 Any failure raises: the script exits non-zero and prints no last line.
 """
@@ -287,39 +290,83 @@ def phase_device():
 
 
 def hgmma_counts(sass):
-    """``HGMMA`` (wgmma) instructions of each bf16 DCN kernel instance in
-    ``cuobjdump -sass`` output: {"dcn_fwd" or "dcn_bwd": {instance: n}}."""
+    """``HGMMA`` (bf16 wgmma) instructions of each bf16 DCN kernel instance
+    and ``IGMMA`` (s8 wgmma) of each implicit-GEMM instance in ``cuobjdump
+    -sass`` output: {"dcn_fwd" / "dcn_bwd" / "int8_implicit_gemm":
+    {instance: n}}."""
     import re
 
-    counts, row = {}, None
+    counts, row, op = {}, None, None
     for line in sass.splitlines():
         if "Function : " in line:
+            row = None
             m = re.search(r"(dcn_(?:fwd|bwd))_bf16_kernelILi(\d+)ELi(\d+)E",
                           line)
-            row = m and counts.setdefault(m.group(1), {})
-            key = m and f"{m.group(1)}_bf16_kernel<{m.group(2)}, {m.group(3)}>"
+            g = re.search(r"igemm_kernelI(13__nv_bfloat16|f)Li(\d+)E", line)
+            if m:
+                row, op = counts.setdefault(m.group(1), {}), "HGMMA"
+                key = f"{m.group(1)}_bf16_kernel<{m.group(2)}, {m.group(3)}>"
+            elif g:
+                row, op = counts.setdefault("int8_implicit_gemm", {}), "IGMMA"
+                dt = "float" if g.group(1) == "f" else "bf16"
+                key = f"igemm_kernel<{dt}, {g.group(2)}>"
             if row is not None:
                 row[key] = 0
-        elif row is not None and "HGMMA" in line:
+        elif row is not None and op in line:
             row[key] += 1
     return counts
 
 
+def ptxas_usage(log):
+    """Registers and spill bytes of each int8 conv kernel instance, from
+    ``-Xptxas -v`` output: {"igemm_kernel<bf16, 48>" ...: [registers,
+    spill stores, spill loads]}."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            g = re.search(r"(igemm_kernel|quant_nhwc_kernel)I(13__nv_bfloat16"
+                          r"|f)(?:Li(\d+)E)?", m.group(1))
+            name = g and (f"{g.group(1)}<"
+                          f"{'float' if g.group(2) == 'f' else 'bf16'}"
+                          + (f", {g.group(3)}>" if g.group(3) else ">"))
+            if name:
+                out[name] = [None, None, None]
+        elif name:
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                           line)
+            rg = re.search(r"Used (\d+) registers", line)
+            if sp:
+                out[name][1:] = [int(sp.group(1)), int(sp.group(2))]
+            if rg:
+                out[name][0] = int(rg.group(1))
+    return out
+
+
 def phase_build():
-    """Builds the kernels; returns the bf16 DCN instances' HGMMA counts."""
+    """Builds the kernels; returns the wgmma kernels' HGMMA / IGMMA
+    counts."""
     from fami_pose_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    so = build.build(verbose=True)
+    logs = []
+    so = build.build(verbose=True, out_logs=logs)
     build.load_library()
     seconds = time.perf_counter() - t0
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     hgmma = hgmma_counts(subprocess.run(
         [tool, "-sass", so], capture_output=True, text=True, check=True,
         timeout=300).stdout)
+    if not all(hgmma.get("int8_implicit_gemm", {}).values()) or \
+            not hgmma.get("int8_implicit_gemm"):
+        raise AssertionError(f"implicit GEMM without IGMMA: {hgmma}")
+    usage = ptxas_usage("\n".join(logs))
     emit("build", seconds=round(seconds, 3),
          library=os.path.relpath(so, ROOT), sources=list(build.SOURCES),
-         hgmma=hgmma)
+         hgmma=hgmma, int8_registers_spill_stores_spill_loads=usage or
+         "not rebuilt in this process (the library was cached)")
     return hgmma
 
 
@@ -1132,7 +1179,7 @@ def phase_streaming(pred, batch):
 
 
 KERNEL_COUNTERS = ("dcn_fwd", "dcn_bwd", "warp_translate", "warp_bwd")
-INT8_COUNTERS = ("int8_quant_im2col", "int8_dequant")
+INT8_COUNTERS = ("int8_quant_nhwc", "int8_implicit_gemm")
 
 
 def kernel_counters():
@@ -1141,14 +1188,14 @@ def kernel_counters():
     from fami_pose_torch.ops.deform_conv import (
         deform_conv2d_backward, deform_conv2d_windowed,
     )
-    from fami_pose_torch.ops.int8_conv import dequant, quant_im2col
+    from fami_pose_torch.ops.int8_conv import implicit_gemm, quant_nhwc
     from fami_pose_torch.ops.warp import (
         warp_translate, warp_translate_backward,
     )
 
     return dict(zip(KERNEL_COUNTERS + INT8_COUNTERS, (
         deform_conv2d_windowed, deform_conv2d_backward, warp_translate,
-        warp_translate_backward, quant_im2col, dequant,
+        warp_translate_backward, quant_nhwc, implicit_gemm,
     )))
 
 
@@ -2073,87 +2120,108 @@ def conv_geometries(model, kf, sup):
     return seen
 
 
+def im2col_s8(x, act_scale, mod):
+    """The conv's int8 im2col matrix (B * Ho * Wo, K padded to a multiple of
+    8) and its weight (N, K padded), in (c, ky, kx) order: the operands of
+    ``torch._int_mm``, timed beside the kernels as a yardstick."""
+    import torch.nn.functional as F
+
+    from fami_pose_torch.ops.int8_conv import quantize_plain
+
+    cols = F.unfold(quantize_plain(x, act_scale), mod.kernel_size,
+                    dilation=mod.dilation, padding=mod.padding,
+                    stride=mod.stride)
+    k = cols.shape[1]
+    kp = -(-k // 8) * 8
+    a = F.pad(cols.transpose(1, 2).reshape(-1, k), (0, kp - k))
+    return a.to(torch.int8), F.pad(mod.weight_q, (0, kp - k))
+
+
 def int8_geometry(key, g):
-    """The int8 conv at one geometry. Kernel A (``quant_im2col``) and kernel
-    B (``dequant``, with a bias in f32) against their plain versions, and
-    the card conv against the float64 plain conv, bit for bit, in f32 and
-    bf16, each kernel call synchronised before its plain version runs. Then
-    in bf16, the serving type, device times of A, ``_int_mm``, B, the whole
-    conv and cuDNN's bf16 conv on the same shapes, beside their bounds, and
-    the plain versions' host-paced times."""
+    """The int8 conv at one geometry. The quantize pass and the implicit
+    GEMM (with a bias in f32) against their plain versions, and the card
+    conv against the float64 plain conv, bit for bit, in f32 and bf16, each
+    kernel call synchronised before its plain version runs. Then in bf16,
+    the serving type, device times of the two kernels, the whole conv,
+    ``torch._int_mm`` on the conv's im2col matrix and cuDNN's bf16 conv on
+    the same shapes, beside their bounds, and the plain versions'
+    host-paced times."""
     import torch.nn.functional as F
 
     from fami_pose_torch.ops.int8_conv import (
-        dequant, dequant_plain, int8_conv2d, int8_conv2d_plain, quant_im2col,
-        quant_im2col_plain,
+        implicit_gemm, implicit_gemm_plain, int8_conv2d, int8_conv2d_plain,
+        quant_nhwc, quant_nhwc_plain,
     )
 
     mod, name = g["module"], g["name"]
     geo = dict(kernel_size=mod.kernel_size, stride=mod.stride,
                padding=mod.padding, dilation=mod.dilation)
     act, wq, ws = mod.act_scale, mod.weight_q, mod.weight_scale
+    wp = mod.weight_packed
     gen = torch.Generator(device="cuda").manual_seed(1)
     bias = torch.randn(wq.shape[0], generator=gen, device="cuda")
     for dtype in (torch.float32, torch.bfloat16):
         x = g["x"].to(dtype)
         tag = f"{name} {str(dtype)[6:]}"
-        a = run_kernel(f"int8_quant_im2col {tag}",
-                       lambda: quant_im2col(x, act, **geo))
-        if not torch.equal(a, quant_im2col_plain(x, act, **geo)):
-            raise AssertionError(f"int8_quant_im2col {tag}: differs from "
+        xq = run_kernel(f"int8_quant_nhwc {tag}", lambda: quant_nhwc(x, act))
+        if not torch.equal(xq, quant_nhwc_plain(x, act)):
+            raise AssertionError(f"int8_quant_nhwc {tag}: differs from its "
+                                 "plain version")
+        bb = bias if dtype == torch.float32 else None
+        y = run_kernel(f"int8_implicit_gemm {tag}", lambda: implicit_gemm(
+            xq, wp, ws, act, bb, out_dtype=dtype, **geo))
+        if not torch.equal(y, implicit_gemm_plain(xq, wp, ws, act, bb,
+                                                  out_dtype=dtype, **geo)):
+            raise AssertionError(f"int8_implicit_gemm {tag}: differs from "
                                  "its plain version")
         whole = run_kernel(f"int8 conv {tag}", lambda: int8_conv2d(
-            x, wq, ws, act, None, name=name, **geo))
+            x, wq, ws, act, None, name=name, w_packed=wp, **geo))
         if not torch.equal(whole, int8_conv2d_plain(x, wq, ws, act, None,
                                                     **geo)):
             raise AssertionError(f"int8 conv {tag}: differs from the "
                                  "float64 plain conv")
-        b, n, ho, wo = whole.shape
-        acc = torch._int_mm(a, wq.t())
-        bb = bias if dtype == torch.float32 else None
-        y = run_kernel(f"int8_dequant {tag}", lambda: dequant(
-            acc, ws, act, bb, b, ho, wo, dtype))
-        if not torch.equal(y, dequant_plain(acc, ws, act, bb, b, ho, wo,
-                                            dtype)):
-            raise AssertionError(f"int8_dequant {tag}: differs from its "
-                                 "plain version")
 
-    # bf16 (x, a, acc, whole are the bf16 pass's)
-    wt, w16 = wq.t(), mod.weight.detach().to(torch.bfloat16)
+    # bf16 (x, xq, whole are the bf16 pass's)
+    w16 = mod.weight.detach().to(torch.bfloat16)
+    a, wq8 = im2col_s8(x, act, mod)
+    wt = wq8.t()
     dev = dict(launches=20, replays=3)
     ms = dict(
-        quant_im2col=device_ms(lambda: quant_im2col(x, act, **geo), **dev),
+        quant_nhwc=device_ms(lambda: quant_nhwc(x, act), **dev),
+        implicit_gemm=device_ms(lambda: implicit_gemm(
+            xq, wp, ws, act, None, out_dtype=torch.bfloat16, **geo), **dev),
+        int8_conv=device_ms(lambda: int8_conv2d(
+            x, wq, ws, act, None, w_packed=wp, **geo), **dev),
         int_mm=device_ms(lambda: torch._int_mm(a, wt), **dev),
-        dequant=device_ms(lambda: dequant(acc, ws, act, None, b, ho, wo,
-                                          torch.bfloat16), **dev),
-        int8_conv=device_ms(lambda: int8_conv2d(x, wq, ws, act, None,
-                                                **geo), **dev),
         cudnn_bf16_conv=device_ms(lambda: F.conv2d(
             x, w16, None, mod.stride, mod.padding, mod.dilation), **dev))
     plain_ms = dict(
-        quant_im2col=time_ms(lambda: quant_im2col_plain(x, act, **geo),
-                             iters=3, warmup=1),
-        dequant=time_ms(lambda: dequant_plain(acc, ws, act, None, b, ho, wo,
-                                              torch.bfloat16),
-                        iters=3, warmup=1))
-    m_rows, kp = a.shape
-    k = x.shape[1] * mod.kernel_size[0] * mod.kernel_size[1]
-    mm_ops = 2 * m_rows * kp * n
+        quant_nhwc=time_ms(lambda: quant_nhwc_plain(x, act), iters=3,
+                           warmup=1),
+        implicit_gemm=time_ms(lambda: implicit_gemm_plain(
+            xq, wp, ws, act, None, out_dtype=torch.bfloat16, **geo),
+            iters=3, warmup=1))
+    m_rows, n = a.shape[0], wq.shape[0]
+    k = wq.shape[1]  # C * kh * kw: the products the conv needs
+    ops = 2 * m_rows * k * n
+
+    def s8_bound(n_bytes, n_ops):
+        t = (n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_INT8_OPS * 1e3)
+        return (t[0], "bytes") if t[0] >= t[1] else (t[1], "operations")
+
+    acc_bytes = m_rows * n * 4  # _int_mm's int32 sums
     bounds = dict(
-        quant_im2col=bound_ms(nbytes(x, act, a), 0, torch.bfloat16),
-        int_mm=max((nbytes(a, wq, acc) / H100_BYTES_PER_S * 1e3,
-                    "bytes"), (mm_ops / H100_INT8_OPS * 1e3, "operations")),
-        dequant=bound_ms(nbytes(acc, ws, act, whole), 0, torch.bfloat16),
-        # the int8 conv's least work: x in, y out, 2*M*K*N int8 operations
-        int8_conv=max((nbytes(x, wq, whole) / H100_BYTES_PER_S * 1e3,
-                       "bytes"),
-                      (2 * m_rows * k * n / H100_INT8_OPS * 1e3,
-                       "operations")),
-        cudnn_bf16_conv=bound_ms(nbytes(x, w16, whole), 2 * m_rows * k * n,
-                                 torch.bfloat16))
+        quant_nhwc=bound_ms(nbytes(x, act, xq), 0, torch.bfloat16),
+        implicit_gemm=s8_bound(nbytes(xq, wp, ws, act, whole), ops),
+        # the int8 conv's least work: x in, y out, the products
+        int8_conv=s8_bound(nbytes(x, wq, ws, act, whole), ops),
+        int_mm=s8_bound(nbytes(a, wq8) + acc_bytes, 2 * m_rows * a.shape[1]
+                        * n),
+        cudnn_bf16_conv=bound_ms(nbytes(x, w16, whole), ops, torch.bfloat16))
     return dict(
         conv=name, c_in=key[0], c_out=key[1], hw=[key[2], key[3]],
-        kernel=key[4], stride=key[5], frames=key[6], rows=m_rows, k=k, kp=kp,
+        kernel=key[4], stride=key[5], frames=key[6], rows=m_rows, k=k,
+        kp=wp.shape[1], np=wp.shape[0], cp=xq.shape[3],
         convs_per_forward=g["count"], bitwise_equal=True, ms=ms,
         plain_ms=plain_ms, bound_ms={kk: v[0] for kk, v in bounds.items()},
         bound_by={kk: v[1] for kk, v in bounds.items()})
@@ -2162,33 +2230,47 @@ def int8_geometry(key, g):
 def int8_kernel_rows(geometries):
     """The two kernels' rows of the kernel table: times, bounds and plain
     times summed over the int8 convs of one forward (each geometry times
-    the number of its convs), the library yardsticks (``_int_mm`` and
-    cuDNN's bf16 conv) likewise, and the largest geometry's own numbers."""
+    the number of its convs), the whole conv's time and bound likewise, the
+    yardsticks (``_int_mm`` on the im2col matrix and cuDNN's bf16 conv) and
+    the largest geometry's own numbers."""
     def total(part, field):
         return sum(r["convs_per_forward"] * r[field][part]
                    for r in geometries)
 
-    biggest = max(geometries, key=lambda r: r["rows"] * r["kp"])
+    def by(part):
+        t = {}
+        for r in geometries:
+            t[r["bound_by"][part]] = (t.get(r["bound_by"][part], 0.0)
+                                      + r["convs_per_forward"]
+                                      * r["bound_ms"][part])
+        return max(t, key=t.get)
+
+    biggest = max(geometries, key=lambda r: r["rows"] * r["k"] * r["c_out"])
+    whole = dict(ms=total("int8_conv", "ms"),
+                 bound_ms=total("int8_conv", "bound_ms"))
     rows = {}
-    for kernel, part in (("int8_quant_im2col", "quant_im2col"),
-                         ("int8_dequant", "dequant")):
+    for kernel, part in (("int8_quant_nhwc", "quant_nhwc"),
+                         ("int8_implicit_gemm", "implicit_gemm")):
         t, bnd = total(part, "ms"), total(part, "bound_ms")
         rows[kernel] = dict(
             shape=(f"all {INT8_CONVS} int8 convs of one B=8 eval forward "
                    f"(40 frames of 384x288; {len(geometries)} geometries)"),
             max_abs_err=0.0, bitwise_equal=True, ms=t,
-            plain_ms=total(part, "plain_ms"), bound_ms=bnd, bound_by="bytes",
+            plain_ms=total(part, "plain_ms"), bound_ms=bnd, bound_by=by(part),
             bound_share=bnd / t, library_ms=None,
             library="none: no one PyTorch call computes it; beside it, "
-            "per forward: torch._int_mm (the product between the two "
-            "kernels) and cuDNN's bf16 conv2d on the same shapes",
+            "per forward: torch._int_mm on the convs' im2col matrices and "
+            "cuDNN's bf16 conv2d on the same shapes",
             int_mm_ms=total("int_mm", "ms"),
-            int8_conv_ms=total("int8_conv", "ms"),
             cudnn_bf16_conv_ms=total("cudnn_bf16_conv", "ms"),
+            int8_conv_ms=whole["ms"], int8_conv_bound_ms=whole["bound_ms"],
+            int8_conv_bound_share=whole["bound_ms"] / whole["ms"],
             timing=INT8_TIMING + "; sums over the forward's convs",
             largest_geometry=dict(
-                conv=biggest["conv"], rows=biggest["rows"], kp=biggest["kp"],
+                conv=biggest["conv"], rows=biggest["rows"], k=biggest["k"],
                 ms=biggest["ms"][part], bound_ms=biggest["bound_ms"][part],
+                int8_conv_ms=biggest["ms"]["int8_conv"],
+                int8_conv_bound_ms=biggest["bound_ms"]["int8_conv"],
                 int_mm_ms=biggest["ms"]["int_mm"],
                 cudnn_bf16_conv_ms=biggest["ms"]["cudnn_bf16_conv"]))
     return rows
@@ -2495,6 +2577,9 @@ def phase_int8(smi, root, dirs, stream_bf16):
     del geos, q
     per_forward = {part: sum(r["convs_per_forward"] * r["ms"][part]
                              for r in rows) for part in rows[0]["ms"]}
+    per_forward_bound = {part: sum(r["convs_per_forward"]
+                                   * r["bound_ms"][part] for r in rows)
+                         for part in rows[0]["bound_ms"]}
     torch.cuda.empty_cache()
     emit("int8-numerics", **numerics(batch=16, seed=0,
                                      image_size=(288, 384), device="cuda"))
@@ -2513,6 +2598,7 @@ def phase_int8(smi, root, dirs, stream_bf16):
          geometries=len(rows),
          int8_convs_per_forward=INT8_CONVS,
          per_forward_b8_device_ms=per_forward,
+         per_forward_b8_bound_ms=per_forward_bound,
          per_forward_note="device ms of one B=8 eval forward's int8 convs "
          "(40 frames through the backbone, 8 through the head's chains), "
          "by part, beside cuDNN's bf16 conv on the same shapes",

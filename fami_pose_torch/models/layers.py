@@ -21,7 +21,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fami_pose_torch.ops.int8_conv import int8_conv2d, quantize_weight
+from fami_pose_torch.ops.int8_conv import (
+    int8_conv2d, pack_weight, quantize_weight,
+)
 
 from .quant import QUANT_CALIBRATE, QUANT_INT8, QUANT_MODES, QUANT_OFF
 
@@ -39,10 +41,14 @@ class Conv2d(nn.Conv2d):
     ``"calibrate"`` the float path runs and ``act_absmax`` keeps the running
     max of ``|x|`` (float32); in ``"int8"`` the conv is
     ``ops.int8_conv.int8_conv2d`` with ``act_scale`` and the weights
-    quantized by :meth:`set_act_scale`. There the bias is added in float32
-    before the one rounding to the output's dtype, as ``QuantConv`` does.
-    These four buffers are not part of the ``state_dict``, and loading one
-    clears them."""
+    quantized (and packed for the card's implicit GEMM) by
+    :meth:`set_act_scale`. There the bias is added in float32 before the one
+    rounding to the output's dtype, as ``QuantConv`` does. These five
+    buffers are not part of the ``state_dict``, and loading one clears
+    them. ``weight_q`` (N, C * kh * kw) is ``QuantConv``'s kq: the CPU
+    branch computes with it, and the card route checks the packed copy
+    against its shape. So both int8 copies stay, one byte a weight each, a
+    quarter of the float32 weights' bytes."""
 
     def __init__(self, *args, quant=QUANT_OFF, **kwargs):
         super().__init__(*args, **kwargs)
@@ -52,17 +58,19 @@ class Conv2d(nn.Conv2d):
             raise ValueError("the int8 path takes no grouped convolution")
         self.quant = quant
         self.quant_name = None  # the conv's name in the model, for errors
-        for name in ("act_absmax", "act_scale", "weight_q", "weight_scale"):
+        for name in ("act_absmax", "act_scale", "weight_q", "weight_scale",
+                     "weight_packed"):
             self.register_buffer(name, None, persistent=False)
 
     def clear_quant(self):
         self.act_absmax = self.act_scale = None
-        self.weight_q = self.weight_scale = None
+        self.weight_q = self.weight_scale = self.weight_packed = None
 
     @torch.no_grad()
     def set_act_scale(self, scale, name=None):
         """Set the activation scale and quantize the weights
-        (``ops.int8_conv.quantize_weight``)."""
+        (``ops.int8_conv.quantize_weight``), then pack them once for the
+        card's implicit GEMM (``ops.int8_conv.pack_weight``)."""
         scale = (scale.detach() if torch.is_tensor(scale)
                  else torch.tensor(scale)).to(torch.float32).reshape(())
         if not (torch.isfinite(scale) and scale > 0):
@@ -70,6 +78,8 @@ class Conv2d(nn.Conv2d):
         self.quant_name = name
         self.act_scale = scale.to(self.weight.device)
         self.weight_q, self.weight_scale = quantize_weight(self.weight)
+        self.weight_packed = pack_weight(self.weight_q, self.in_channels,
+                                         self.kernel_size)
 
     def _load_from_state_dict(self, *args, **kwargs):
         super()._load_from_state_dict(*args, **kwargs)
@@ -86,7 +96,8 @@ class Conv2d(nn.Conv2d):
             return int8_conv2d(x, self.weight_q, self.weight_scale,
                                self.act_scale, bias, self.kernel_size,
                                self.stride, self.padding, self.dilation,
-                               name=self.quant_name)
+                               name=self.quant_name,
+                               w_packed=self.weight_packed)
         if self.quant == QUANT_CALIBRATE:
             amax = x.detach().abs().amax().to(torch.float32)
             self.act_absmax = (amax if self.act_absmax is None

@@ -62,11 +62,11 @@ SIGNATURES = {
     "fami_probe_dynamic_roll": [c_ptr] * 3 + [c_int] * 2 + [c_ptr],
     # stream (an empty kernel: the floor of a launch)
     "fami_empty_launch": [c_ptr],
-    # x, act_scale, out, dtype, B, C, H, W, kh, kw, sh, sw, ph, pw, dh, dw,
-    # Ho, Wo, Kp, stream
-    "fami_int8_quant_im2col": [c_ptr] * 3 + [c_int] * 16 + [c_ptr],
-    # acc, w_scale, act_scale, bias (or null), out, dtype, B, N, P, stream
-    "fami_int8_dequant": [c_ptr] * 5 + [c_int] * 4 + [c_ptr],
+    # x, act_scale, out, dtype, B, C, H, W, Cp, stream
+    "fami_int8_quant_nhwc": [c_ptr] * 3 + [c_int] * 6 + [c_ptr],
+    # xq, wp, w_scale, act_scale, bias (or null), out, dtype, B, H, W, Cp,
+    # kh, kw, sh, sw, ph, pw, dh, dw, Ho, Wo, N, Np, Kp, stream
+    "fami_int8_implicit_gemm": [c_ptr] * 6 + [c_int] * 18 + [c_ptr],
 }
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
@@ -94,10 +94,12 @@ def _source_hash():
     return h.hexdigest()[:16]
 
 
-def build(verbose=False):
+def build(verbose=False, out_logs=None):
     """Compile the sources (in parallel) and link them; returns the path of
     the shared library. Raises ``RuntimeError`` with nvcc's output on
-    failure."""
+    failure. ``verbose`` adds ``-Xptxas -v`` and prints nvcc's output;
+    ``out_logs``, a list, receives it (one string a source) when the
+    library is built here."""
     so_path = os.path.join(BUILD_DIR, f"libfami_kernels_{_source_hash()}.so")
     if os.path.exists(so_path):
         return so_path
@@ -136,6 +138,8 @@ def build(verbose=False):
         os.replace(tmp_so, so_path)
         if verbose:
             print("\n".join(logs), flush=True)
+        if out_logs is not None:
+            out_logs.extend(logs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return so_path

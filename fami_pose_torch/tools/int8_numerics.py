@@ -24,8 +24,7 @@ any rounding, so the decoded columns mean less than on a trained checkpoint
 (none is in the repository).
 
 Runs on ``--device`` (default ``cuda``, where the int8 convs are the
-hand-written kernels and ``torch._int_mm``; ``cpu`` runs their plain
-versions). TF32 is turned off, so f32 is f32 on the card.
+hand-written kernels; ``cpu`` runs their plain versions). TF32 is turned off, so f32 is f32 on the card.
 """
 
 import argparse

@@ -154,11 +154,12 @@ def test_cuda_tensor_never_reaches_a_plain_version():
 
 
 def test_int8_conv_wrappers_never_fall_back():
-    """The int8 conv's two kernel wrappers and the conv itself take their
-    plain versions only for a CPU tensor, with no fallback on the card."""
+    """The int8 conv's two kernel wrappers (the quantize pass and the
+    implicit GEMM) and the conv itself take their plain versions only for a
+    CPU tensor, with no fallback on the card."""
     from fami_pose_torch.ops import int8_conv
 
-    for fn in (int8_conv.quant_im2col, int8_conv.dequant,
+    for fn in (int8_conv.quant_nhwc, int8_conv.implicit_gemm,
                int8_conv.int8_conv2d):
         source = inspect.getsource(fn)
         assert source.count("_plain(") == 1, fn.__name__

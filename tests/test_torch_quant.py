@@ -7,8 +7,10 @@ Tolerances, each with its reason:
     on the same x, W and scale: bit for bit. Both quantize with one f32
     multiply by the f32 reciprocal and round half to even, sum exactly in
     integers and dequant in the same f32 order.
-  * the card route's decomposition (the int8 im2col matrix, an integer
-    product, the dequant) against the plain conv: bit for bit.
+  * the card route's plain versions (the int8 channels-last copy, the
+    packed weight, the implicit GEMM with its dequant) against the plain
+    conv and against ``QuantConv``: bit for bit (integer sums are exact in
+    any order, so K in (ky, kx, c) order changes no bit).
   * ``quant_scales_from_stats``: bit for bit, margins 1, 2 and 1.3, absmax 0.
   * the calibrated scales of a whole model: relative 1e-5 (the absmaxes
     come from float activations that XLA and torch's CPU kernels sum in
@@ -60,6 +62,14 @@ DTYPES = {"f32": (jnp.float32, torch.float32),
 # the stem's C_in = 3 (K = 27, padded to 32 on the card)
 CONVS = {"3x3s1": (8, 16, 3, 1), "3x3s2": (8, 16, 3, 2), "1x1": (16, 8, 1, 1),
          "cin3": (3, 16, 3, 2)}
+# (C_in, C_out, kernel, stride, dilation) of the card route's decomposition:
+# the branch 3x3, a strided 3x3, a 1x1, the stem (C_in 3 -> Cp 16), a ragged
+# 1x1 (C_in 40 -> Cp 48, N 24 -> Np 32; 2 * 11 * 9 = 198 rows, not a
+# multiple of the kernel's 64), N 384 and dilation 3
+ROUTE_CASES = {"3x3s1": (8, 16, 3, 1, 1), "3x3s2": (8, 16, 3, 2, 1),
+               "1x1": (16, 8, 1, 1, 1), "stem": (3, 64, 3, 2, 1),
+               "ragged": (40, 24, 1, 1, 1), "n384": (16, 384, 3, 1, 1),
+               "dilated": (8, 16, 3, 1, 3)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -71,7 +81,10 @@ def _few_threads():
 
 
 def _conv_case(name, seed=0):
-    cin, cout, k, s = CONVS[name]
+    return _random_conv(*CONVS[name], seed=seed)
+
+
+def _random_conv(cin, cout, k, s, seed=0):
     rs = np.random.RandomState(seed)
     x = (rs.randn(2, 11, 9, cin) * 1.7).astype(np.float32)
     w = (rs.randn(k, k, cin, cout) / np.sqrt(k * k * cin)).astype(np.float32)
@@ -82,12 +95,11 @@ def _conv_case(name, seed=0):
     return x, w, b, scale, k, s
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
-@pytest.mark.parametrize("case", list(CONVS))
-def test_int8_conv_matches_quant_conv_bitwise(case, bias, dtype):
+def _quant_conv_ref(case, bias, dtype):
+    """JAX ``QuantConv`` in mode int8 on case ``case``: (numpy f32 output,
+    the case's inputs)."""
     x, w, b, scale, k, s = _conv_case(case)
-    jdt, tdt = DTYPES[dtype]
+    jdt = DTYPES[dtype][0]
     p = (k - 1) // 2
     qc = QuantConv(w.shape[-1], (k, k), strides=(s, s),
                    padding=((p, p), (p, p)), use_bias=bias, dtype=jdt,
@@ -95,6 +107,16 @@ def test_int8_conv_matches_quant_conv_bitwise(case, bias, dtype):
     params = {"kernel": w, **({"bias": b} if bias else {})}
     ref = qc.apply({"params": params, "quant": {"act_scale": scale}},
                    jnp.asarray(x).astype(jdt))
+    return np.asarray(ref, np.float32), (x, w, b, scale, k, s)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("case", list(CONVS))
+def test_int8_conv_matches_quant_conv_bitwise(case, bias, dtype):
+    ref, (x, w, b, scale, k, s) = _quant_conv_ref(case, bias, dtype)
+    tdt = DTYPES[dtype][1]
+    p = (k - 1) // 2
     conv = Conv2d(w.shape[2], w.shape[3], k, stride=s, padding=p, bias=bias,
                   quant="int8")
     with torch.no_grad():
@@ -105,7 +127,24 @@ def test_int8_conv_matches_quant_conv_bitwise(case, bias, dtype):
     with torch.no_grad():
         got = conv(nchw(x).to(tdt))
     assert got.dtype == tdt
-    np.testing.assert_array_equal(nhwc(got), np.asarray(ref, np.float32))
+    np.testing.assert_array_equal(nhwc(got), ref)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(CONVS))
+def test_card_route_plain_versions_match_quant_conv_bitwise(case, dtype):
+    """quant_nhwc_plain, pack_weight and implicit_gemm_plain (with a bias)
+    on JAX's inputs give QuantConv's bits."""
+    ref, (x, w, b, scale, k, s) = _quant_conv_ref(case, True, dtype)
+    wq, w_scale = int8_conv.quantize_weight(
+        torch.from_numpy(w.transpose(3, 2, 0, 1)))
+    act = torch.tensor(scale)
+    xq = int8_conv.quant_nhwc_plain(nchw(x).to(DTYPES[dtype][1]), act)
+    got = int8_conv.implicit_gemm_plain(
+        xq, int8_conv.pack_weight(wq, x.shape[-1], k), w_scale, act,
+        torch.from_numpy(b), k, s, (k - 1) // 2,
+        out_dtype=DTYPES[dtype][1])
+    np.testing.assert_array_equal(nhwc(got), ref)
 
 
 def test_quantizer_rounds_half_to_even_and_clips():
@@ -121,30 +160,73 @@ def test_quantizer_rounds_half_to_even_and_clips():
         got.numpy(), [0, 2, 2, 0, -2, -2, 126, 127, 127, -127, 0])
 
 
-@pytest.mark.parametrize("case,dilation", [("3x3s1", 1), ("3x3s2", 1),
-                                           ("1x1", 1), ("cin3", 1),
-                                           ("3x3s1", 3)])
-def test_card_route_decomposition_is_the_plain_conv(case, dilation):
-    """quant_im2col (Kp a multiple of 8, the padded columns zero), an exact
-    integer product with the (N, Kp) weight matrix, then the dequant, give
-    the plain conv's bits: the column order of the matrix is the weight's."""
-    x, w, b, scale, k, s = _conv_case(case, seed=1)
-    weight = torch.from_numpy(w.transpose(3, 2, 0, 1))
-    wq, w_scale = int8_conv.quantize_weight(weight)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_card_route_decomposition_is_the_plain_conv(case, bias, dtype):
+    """quant_nhwc_plain (Cp a multiple of 16, the padded channels zero), the
+    packed weight, the plain implicit GEMM and its dequant give the plain
+    conv's bits: K in (ky, kx, c) order sums the same integers."""
+    cin, cout, k, s, d = ROUTE_CASES[case]
+    x, w, b, scale, _, _ = _random_conv(cin, cout, k, s, seed=1)
+    tdt = DTYPES[dtype][1]
+    wq, w_scale = int8_conv.quantize_weight(
+        torch.from_numpy(w.transpose(3, 2, 0, 1)))
     act = torch.tensor(scale)
-    xt, bias = nchw(x).to(torch.bfloat16), torch.from_numpy(b)
-    pad = dilation * (k - 1) // 2
-    kw = dict(kernel_size=k, stride=s, padding=pad, dilation=dilation)
-    a = int8_conv.quant_im2col(xt, act, **kw)
-    k_real = x.shape[-1] * k * k
-    assert a.dtype == torch.int8 and a.shape[1] == -(-k_real // 8) * 8
-    assert not a[:, k_real:].any()
-    acc = (a.long() @ wq.long().t()).to(torch.int32)
-    ref = int8_conv.int8_conv2d(xt, wq, w_scale, act, bias, **kw)
-    b_, _, ho, wo = ref.shape
-    got = int8_conv.dequant(acc, w_scale, act, bias, b_, ho, wo,
-                            torch.bfloat16)
+    xt = nchw(x).to(tdt)
+    bias_t = torch.from_numpy(b) if bias else None
+    kw = dict(kernel_size=k, stride=s, padding=d * (k - 1) // 2, dilation=d)
+    xq = int8_conv.quant_nhwc_plain(xt, act)
+    cp = xq.shape[3]
+    assert xq.dtype == torch.int8 and cp % 16 == 0 and 0 <= cp - cin < 16
+    assert not xq[..., cin:].any()
+    assert torch.equal(xq[..., :cin].permute(0, 3, 1, 2).float(),
+                       int8_conv.quantize_plain(xt, act))
+    got = int8_conv.implicit_gemm_plain(
+        xq, int8_conv.pack_weight(wq, cin, k), w_scale, act, bias_t,
+        out_dtype=tdt, **kw)
+    ref = int8_conv.int8_conv2d_plain(xt, wq, w_scale, act, bias_t, **kw)
+    assert got.dtype == tdt and got.shape == ref.shape
     assert torch.equal(got, ref)
+
+
+# (C_in, C_out, kernel): the stem, the ragged 1x1 (N 24 -> 32), the 12x9
+# branch's 384, layer1's 256, and 300 (-> 304)
+PACK_CASES = [(3, 64, 3), (40, 24, 1), (48, 384, 3), (64, 256, 1),
+              (16, 300, 3)]
+
+
+@pytest.mark.parametrize("c,n,k", PACK_CASES)
+def test_packed_weight_layout(c, n, k):
+    """(Np, Kp) int8, K-major: each tap's Cp channels in (ky, kx, c) order,
+    K zero-padded to a multiple of 32 (one s8 wgmma step), N to a multiple
+    of 16; the padding zero."""
+    rs = np.random.RandomState(3)
+    wq, _ = int8_conv.quantize_weight(
+        torch.from_numpy(rs.randn(n, c, k, k).astype(np.float32)))
+    wp = int8_conv.pack_weight(wq, c, k)
+    cp = -(-c // 16) * 16
+    assert wp.dtype == torch.int8 and wp.is_contiguous()
+    assert wp.shape == (-(-n // 16) * 16, -(-k * k * cp // 32) * 32)
+    assert wp.shape == int8_conv.packed_shape(n, c, k)
+    body = wp[:n, :k * k * cp].reshape(n, k, k, cp)
+    assert torch.equal(body[..., :c],
+                       wq.reshape(n, c, k, k).permute(0, 2, 3, 1))
+    assert not body[..., c:].any()
+    assert not wp[:n, k * k * cp:].any() and not wp[n:].any()
+
+
+def test_packed_weight_is_a_buffer_outside_the_state_dict():
+    conv = Conv2d(40, 24, 3, padding=1, bias=True, quant="int8")
+    keys = list(conv.state_dict())
+    assert conv.weight_packed is None
+    conv.set_act_scale(0.05, "c")
+    assert torch.equal(conv.weight_packed,
+                       int8_conv.pack_weight(conv.weight_q, 40, 3))
+    assert "weight_packed" in dict(conv.named_buffers())
+    assert list(conv.state_dict()) == keys
+    conv.load_state_dict(conv.state_dict())
+    assert conv.weight_packed is None and conv.weight_q is None
 
 
 def test_quantize_weight_matches_quant_conv():
@@ -402,28 +484,43 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     x = torch.randn(2, 3, 9, 7)
     act = torch.tensor(0.02)
     wq, ws = int8_conv.quantize_weight(torch.randn(8, 3, 3, 3))
-    before = (int8_conv.quant_im2col.launches, int8_conv.dequant.launches)
-    a = int8_conv.quant_im2col(x, act, 3, 1, 1)
-    assert torch.equal(a, int8_conv.quant_im2col_plain(x, act, 3, 1, 1))
-    acc = torch.zeros(a.shape[0], 8, dtype=torch.int32)
-    assert torch.equal(int8_conv.dequant(acc, ws, act, None, 2, 9, 7,
-                                         torch.float32),
-                       torch.zeros(2, 8, 9, 7))
-    assert (int8_conv.quant_im2col.launches,
-            int8_conv.dequant.launches) == before  # no kernel ran
+    wp = int8_conv.pack_weight(wq, 3, 3)
+    counters = (int8_conv.quant_nhwc, int8_conv.implicit_gemm)
+    before = [fn.launches for fn in counters]
+    xq = int8_conv.quant_nhwc(x, act)
+    assert torch.equal(xq, int8_conv.quant_nhwc_plain(x, act))
+    y = int8_conv.implicit_gemm(xq, wp, ws, act, None, 3, 1, 1)
+    assert torch.equal(y, int8_conv.implicit_gemm_plain(xq, wp, ws, act, None,
+                                                        3, 1, 1))
+    assert [fn.launches for fn in counters] == before  # no kernel ran
     meta = torch.empty(2, 3, 9, 7, device="meta")
     with pytest.raises(ValueError, match="no int8 conv kernel"):
-        int8_conv.quant_im2col(meta, act, 3)
+        int8_conv.quant_nhwc(meta, act)
     with pytest.raises(ValueError, match="no int8 conv kernel"):
-        int8_conv.dequant(acc.to("meta"), ws, act, None, 2, 9, 7,
-                          torch.float32)
+        int8_conv.implicit_gemm(xq.to("meta"), wp, ws, act, None, 3, 1, 1)
     with pytest.raises(ValueError, match="no int8 conv kernel"):
         int8_conv.int8_conv2d(meta, wq, ws, act, None, 3, padding=1)
 
 
-@pytest.mark.parametrize("m,k,n", [(16, 32, 64), (32, 27, 64), (32, 32, 60)])
-def test_int_mm_conditions_name_the_conv(m, k, n):
-    with pytest.raises(ValueError, match="hrnet.conv1"):
-        int8_conv.check_int_mm(m, k, n, "hrnet.conv1")
-    int8_conv.check_int_mm(17, 32, 64, "hrnet.conv1")
+def _wide_weight(c):
+    """A 3x3 weight with C inputs, quantized and packed."""
+    wq, _ = int8_conv.quantize_weight(torch.randn(32, c, 3, 3))
+    return wq, int8_conv.pack_weight(wq, c, 3)
 
+
+@pytest.mark.parametrize("fault", ["wq", "w_packed", "no_w_packed", "pixels",
+                                   "k"])
+def test_int8_conv_conditions_name_the_conv(fault):
+    """What the card route refuses (checked before any launch) raises a
+    ValueError that names the conv."""
+    wq, _ = int8_conv.quantize_weight(torch.randn(64, 3, 3, 3))
+    wp = int8_conv.pack_weight(wq, 3, 3)
+    shape, geo = (2, 3, 37, 29), (3, 2, 1, 1)
+    int8_conv.check_conv(shape, wq, wp, *geo, "hrnet.conv1")
+    bad = {"wq": (shape, wq[:, :26], wp),
+           "w_packed": (shape, wq, wp[:, :144]),
+           "no_w_packed": (shape, wq, None),
+           "pixels": ((2 ** 16, 3, 2 ** 8, 2 ** 8), wq, wp),
+           "k": ((2, 512, 37, 29), *_wide_weight(512))}[fault]
+    with pytest.raises(ValueError, match="hrnet.conv1"):
+        int8_conv.check_conv(*bad, *geo, "hrnet.conv1")
