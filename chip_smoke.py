@@ -73,6 +73,24 @@ and as the last line ``{"ok": true, "device": {...}}``:
                forward and backward on the card against the port on the CPU
                (the head per tensor, the whole model as one vector), and the
                backbone's gradients in float64 per tensor.
+  7b. train-levers - ``Trainer.train`` at full width, B=8, with every
+               train-time lever on (``MODEL.PRETRAINED`` from a reference
+               backbone ``.pth`` the script writes from seeded, calibrated
+               weights, ``TPU.REMAT_BACKBONE``, ``TPU.BF16_GRADS``,
+               ``TPU.DEVICE_CROP`` on raw windows of the val fixture's train
+               split, ``TPU.PROFILE_DIR`` over 2 steps,
+               ``TPU.ASYNC_CHECKPOINT``): the loaded backbone bit for bit,
+               4 launches of each train kernel a step, finite loss terms and
+               gradients, a trace with kernels, ``metrics.jsonl``, the async
+               checkpoint (also one saved while a step runs) and resume;
+               then each lever alone against none (step and prepare ms,
+               device-busy ms of a traced step, peak memory, the largest
+               batch of a remat step by arithmetic); at 256x192, B=2, remat
+               against none on the card (f32) and the ``BF16_GRADS`` step on
+               the card against the CPU (``tests/test_torch_train_levers.py``'s
+               rule); and ``fami_pose_torch.tools.validate_real_checkpoint``
+               on the val fixture with a full reference ``epoch_20_state.pth``,
+               in the exact DCN mode and at ``--dcn-bound 4``.
 
   8. probes  - ``fami_pose_torch.tools.hopper_watch``'s ``main()`` as the
                tool runs: every probe ``SUPPORTED``, exit code 0.
@@ -1261,10 +1279,11 @@ GRAD_GROUPS = {
 }
 
 
-def check_gradients(model):
-    """Every parameter's gradient finite; the DCN weights, the offset and
-    mask convs, the offset head and the backbone's stem with non-zero norm.
-    Returns the norms of the named groups."""
+def check_gradients(model, nonzero=tuple(GRAD_GROUPS)):
+    """Every parameter's gradient finite; those of the ``nonzero`` groups
+    (by default all: the DCN weights, the offset and mask convs, the offset
+    head and the backbone's stem) with non-zero norm. Returns the norms of
+    the named groups."""
     grads = {n: p.grad for n, p in model.named_parameters()}
     missing = [n for n, g in grads.items() if g is None]
     if missing:
@@ -1277,7 +1296,7 @@ def check_gradients(model):
     for group, names in GRAD_GROUPS.items():
         for n in names:
             norms[n] = float(grads[n].float().norm())
-            if not norms[n] > 0.0:
+            if group in nonzero and not norms[n] > 0.0:
                 raise AssertionError(f"zero gradient for {n} ({group})")
     return norms
 
@@ -1728,6 +1747,495 @@ def phase_train_card_vs_cpu():
          cuda_s=out["cuda"]["seconds"], cpu_s=out["cpu"]["seconds"])
 
 
+# -- phase train-levers ---------------------------------------------------------
+
+# of the val fixture's 36 frames, the first 16 are the train split: 32
+# people, 4 steps of 8
+LEVERS_TRAIN_IMAGES = 16
+LEVERS_STEPS = 4
+LEVERS_TIMED_STEPS = 5
+# the bf16-gradient step, card against CPU, per gradient tensor, each
+# side's own gap taken to the CPU's f32 step. tests/test_torch_train_levers
+# .py holds the port against JAX, both on the CPU's convolution library, to
+# a median |port - JAX| / max(own gaps) <= 1 and a 90th percentile <= 1.25
+# (their roundings are correlated). cuDNN and the CPU library round
+# independently, and two independent deviations of sizes a >= b put that
+# ratio at sqrt(1 + (b / a)^2), between 1 and sqrt(2) (measured on the
+# card: median 1.22, 90th percentile 1.28). So the card is held to that
+# bound in its 90th percentile, and to own gaps of one size: the median of
+# own(card) / own(CPU) within [1/2, 2]
+BF16_CROSS_P90 = math.sqrt(2.0)
+BF16_OWN_RATIO = (0.5, 2.0)
+
+
+def levers_cfg(root, dirs, *opts):
+    """The full-width config on the fixture's train split, B=8, one epoch of
+    ``LEVERS_STEPS`` steps."""
+    json_dir, img_dir, _ = dirs
+    return train_cfg(os.path.join(root, "out"), "DATASET.JSON_DIR", json_dir,
+                     "DATASET.IMG_DIR", img_dir, "DATASET.TEST_IMG_DIR",
+                     img_dir, "TRAIN.BATCH_SIZE_PER_GPU", 8,
+                     "TRAIN.END_EPOCH", 1, "PRINT_FREQ", 1, "WORKERS", 4,
+                     *opts)
+
+
+def write_reference_files(model, root):
+    """The model's weights as the reference saves them: a backbone-only
+    ``pose_hrnet_w48.pth`` (bare HRNet names under ``module.``, in a
+    ``state_dict`` wrapper) and a full ``Alignment_V15`` ``epoch_20_state.pth``
+    (``{begin_epoch, state_dict, optimizer}``), both with BatchNorm
+    ``num_batches_tracked`` counters. Returns the two paths and the
+    weights on the CPU."""
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+    def with_counters(items):
+        out = {}
+        for k, v in items:
+            out[k] = v
+            if k.endswith("running_var"):
+                out[k[:-len("running_var")] + "num_batches_tracked"] = \
+                    torch.tensor(1000)
+        return out
+
+    backbone = with_counters((k[len("hrnet."):], v) for k, v in sd.items()
+                             if k.startswith("hrnet."))
+    bb_path = os.path.join(root, "pose_hrnet_w48.pth")
+    torch.save({"state_dict": {"module." + k: v
+                               for k, v in backbone.items()}}, bb_path)
+    full_path = os.path.join(root, "epoch_20_state.pth")
+    torch.save({"begin_epoch": 20,
+                "state_dict": {"module." + k: v for k, v in
+                               with_counters(sd.items()).items()},
+                "optimizer": {"state": {}, "param_groups": []}}, full_path)
+    return bb_path, full_path, sd
+
+
+def lever_steps(trainer, raws, remat, bf16_grads, steps):
+    """``steps`` train steps of ``trainer``'s state with the levers set:
+    prepare (host crops, or the device crop of raw windows) and step, each
+    timed from synchronisation to synchronisation, after one warm-up; then
+    the peak memory of one more step above what the state holds, and one
+    traced step. Returns the readings."""
+    from fami_pose_torch.engine.steps import make_train_step
+
+    cfg = trainer.cfg
+    trainer.model.hrnet.remat = remat
+    step = make_train_step(
+        mse_weight=float(cfg.LOSS.HEATMAP_MSE.WEIGHT),
+        mi_alpha=float(getattr(cfg.LOSS, "MI_ALPHA", 0.5)),
+        mi_beta=float(getattr(cfg.LOSS, "MI_BETA", 0.1)),
+        bf16_grads=bf16_grads)
+    state = trainer.state
+    step(state, trainer.prepare(raws[0]))
+    prepare_ms, step_ms = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = trainer.prepare(raws[i % len(raws)])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        prepare_ms.append((t1 - t0) * 1e3)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    state.optimizer.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    traced = profile_call(lambda: step(state, trainer.prepare(raws[0])))
+    grads = {n: p.grad for n, p in trainer.model.named_parameters()}
+    offset_grads = {n: float(grads[n].float().norm())
+                    for n in GRAD_GROUPS["offset convs"]}
+    trainer.model.hrnet.remat = False
+    return dict(
+        step_ms_median=float(np.median(step_ms)), step_ms_min=min(step_ms),
+        step_ms_max=max(step_ms),
+        prepare_ms_median=float(np.median(prepare_ms)),
+        prepare_ms_min=min(prepare_ms), prepare_ms_max=max(prepare_ms),
+        traced_step=dict(device_busy_ms=traced["device_busy_ms"],
+                         traced_ms=traced["traced_ms"],
+                         device_busy_share=traced["device_busy_share"],
+                         top_self_device_ms=traced["top_self_device_ms"]),
+        held_gb=held / 1e9, peak_gb=peak / 1e9,
+        step_peak_above_held_gb=(peak - held) / 1e9,
+        offset_conv_grad_norms=offset_grads)
+
+
+def one_lever_step(base, model_cfg, host_batch, device, remat=False,
+                   bf16_grads=False):
+    """One Adam step (``make_train_step``) of a copy of ``base`` on
+    ``device``; returns its loss terms, gradients and running statistics
+    on the CPU."""
+    from fami_pose_torch.engine.steps import make_train_step
+    from fami_pose_torch.engine.train_state import TrainState
+    from fami_pose_torch.models.fami_pose import FAMIPose
+    from fami_pose_torch.optim import build_optimizer
+
+    model = FAMIPose.from_config(model_cfg)
+    model.load_state_dict(base.state_dict())
+    model.hrnet.remat = remat
+    model.to(device).train()
+    opt, sched = build_optimizer(model_cfg, model, steps_per_epoch=5)
+    batch = {k: v.to(device) for k, v in host_batch.items()}
+    _, metrics = make_train_step(bf16_grads=bf16_grads)(
+        TrainState(model, opt, sched), batch)
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    stats = {k: v.detach().cpu() for k, v in model.state_dict().items()
+             if "running_" in k}
+    return {k: float(v) for k, v in metrics.items()}, grads, stats
+
+
+def levers_card_vs_cpu():
+    """Remat against no remat on the card (f32, TF32 off), and the
+    ``BF16_GRADS`` step on the card against the port on the CPU, at full
+    W48 width, 256x192, B=2, seeded weights."""
+    from fami_pose_torch.data.loader import prepare_train_batch
+    from fami_pose_torch.models.bridge import init_weights
+    from fami_pose_torch.models.fami_pose import FAMIPose
+
+    opts = ("MODEL.IMAGE_SIZE", "[192, 256]", "MODEL.HEATMAP_SIZE", "[48, 64]")
+    cfg32 = train_cfg("", *opts, "TPU.COMPUTE_DTYPE", "float32")
+    cfg16 = train_cfg("", *opts, "TPU.COMPUTE_DTYPE", "bfloat16")
+    image_size = tuple(int(v) for v in cfg32.MODEL.IMAGE_SIZE)
+    heatmap_size = tuple(int(v) for v in cfg32.MODEL.HEATMAP_SIZE)
+    num_sup = 2 * (int(cfg32.DISTANCE) - 1)
+    data = SyntheticPoseDataset(2, image_size, num_sup, seed=1)
+    base = init_weights(FAMIPose.from_config(cfg32), seed=0)
+    host_batch = prepare_train_batch(
+        np.stack([data[i]["kf"] for i in range(2)]),
+        np.stack([data[i]["sup"] for i in range(2)]),
+        data.joints, data.vis, int(cfg32.MODEL.SIGMA), image_size,
+        heatmap_size, device="cpu")
+
+    # remat on the card: the running statistics come from the first pass,
+    # bit for bit; the gradients within the card's own run-to-run spread
+    # (the DCN backward's dx is summed with atomics)
+    _, g_a, s_a = one_lever_step(base, cfg32, host_batch, "cuda")
+    _, g_b, _ = one_lever_step(base, cfg32, host_batch, "cuda")
+    reset_launches()
+    _, g_r, s_r = one_lever_step(base, cfg32, host_batch, "cuda", remat=True)
+    torch.cuda.synchronize()
+    remat_launches = read_launches()
+    spread = grad_errors(g_b, g_a)[1]
+    remat_l2 = grad_errors(g_r, g_a)[1]
+    stats_differ = [k for k in s_a if not torch.equal(s_a[k], s_r[k])]
+    remat_tol = max(4 * spread, 1e-6)
+    remat = dict(grad_rel_l2_vs_plain=remat_l2,
+                 plain_run_to_run_grad_rel_l2=spread,
+                 tol=f"max(4 x the run-to-run spread, 1e-6) = {remat_tol}",
+                 running_stats_bitwise_equal=not stats_differ,
+                 launches=remat_launches)
+    if stats_differ or not remat_l2 <= remat_tol \
+            or any(c != 4 for c in remat_launches.values()):
+        raise AssertionError(f"remat on the card: {remat}, running "
+                             f"statistics differ at {stats_differ[:5]}")
+
+    # BF16_GRADS: card and CPU, each against the CPU's f32 step
+    t0 = time.perf_counter()
+    t32, g32, s32 = one_lever_step(base, cfg32, host_batch, "cpu")
+    t_cpu, g_cpu, s_cpu = one_lever_step(base, cfg16, host_batch, "cpu",
+                                         bf16_grads=True)
+    cpu_s = time.perf_counter() - t0
+    t_card, g_card, s_card = one_lever_step(base, cfg16, host_batch, "cuda",
+                                            bf16_grads=True)
+    not_bf16 = [n for g in (g_card, g_cpu) for n, t in g.items()
+                if not torch.equal(t, t.bfloat16().float())]
+    bad = [n for n, t in g_card.items() if not bool(torch.isfinite(t).all())]
+    terms = {}
+    for k in t32:
+        if not k.startswith("loss"):
+            continue
+        cross = abs(t_card[k] - t_cpu[k])
+        own = max(abs(t_card[k] - t32[k]), abs(t_cpu[k] - t32[k]))
+        terms[k] = dict(card=t_card[k], cpu=t_cpu[k], cpu_f32=t32[k],
+                        cross=cross, own=own)
+        limit = 5e-4 if k.startswith("loss_mi") else 1.5 * own
+        if not cross <= limit:
+            raise AssertionError(f"BF16_GRADS loss term {k}: {terms[k]}")
+    floor = 2e-5 * max(float(g.abs().max()) for g in g32.values())
+    cross, own_ratio = [], []
+    for n, f in g32.items():
+        if float(f.abs().max()) <= floor:
+            continue
+        own_card = float((g_card[n] - f).norm())
+        own_cpu = float((g_cpu[n] - f).norm())
+        if own_card > 0 and own_cpu > 0:
+            cross.append(float((g_card[n] - g_cpu[n]).norm())
+                         / max(own_card, own_cpu))
+            own_ratio.append(own_card / own_cpu)
+    quantiles = (0.1, 0.5, 0.9, 1.0)
+    stat_ratios = []
+    for k, f in s32.items():
+        own = max(float((s_card[k] - f).abs().max()),
+                  float((s_cpu[k] - f).abs().max()))
+        if own > 0:
+            stat_ratios.append(float((s_card[k] - s_cpu[k]).abs().max())
+                               / own)
+    bf16 = dict(
+        rule="per gradient tensor with each side's own gap to the CPU's f32 "
+        "step: |card - cpu| / max(own gaps) 90th percentile <= sqrt(2) "
+        "(two independent roundings), own(card) / own(cpu) median within "
+        f"{list(BF16_OWN_RATIO)}; running statistics in max-abs: median "
+        "<= 1; MSE terms within 1.5x the larger own gap, MI terms within "
+        "5e-4; every gradient a bf16 value",
+        tensors=len(cross), of=len(g32),
+        cross_over_own_quantiles=dict(zip(
+            quantiles, (float(np.quantile(cross, q)) for q in quantiles))),
+        own_card_over_own_cpu_quantiles=dict(zip(
+            quantiles, (float(np.quantile(own_ratio, q)) for q in quantiles))),
+        stats_ratio_median=float(np.median(stat_ratios)),
+        stats_ratio_max=max(stat_ratios), loss_terms=terms, cpu_s=cpu_s)
+    own_median = float(np.median(own_ratio))
+    if (not_bf16 or bad or len(cross) < 0.9 * len(g32)
+            or not float(np.quantile(cross, 0.9)) <= BF16_CROSS_P90
+            or not BF16_OWN_RATIO[0] <= own_median <= BF16_OWN_RATIO[1]
+            or not bf16["stats_ratio_median"] <= 1.0):
+        raise AssertionError(f"BF16_GRADS card vs CPU: {bf16}; not bf16 "
+                             f"values {not_bf16[:5]}, non-finite {bad[:5]}")
+    return dict(model="FAMIPose HRNet-W48 256x192 D=4 num_sup=4, B=2",
+                remat_f32=remat, bf16_grads=bf16)
+
+
+def validate_tool_pass(root, dirs, full_path, n_samples, *extra):
+    """``fami_pose_torch.tools.validate_real_checkpoint``'s ``main()`` on the
+    val fixture with the full reference file: its printout, launch counts
+    and AP table."""
+    import contextlib
+    import io
+
+    from fami_pose_torch.tools import validate_real_checkpoint
+
+    json_dir, img_dir, annot_dir = dirs
+    argv = ["--checkpoint", full_path, "--cfg",
+            os.path.join(ROOT, "configs/posetrack17/fami_pose.yaml"),
+            "--root-dir", ROOT, *extra,
+            "OUTPUT_DIR", os.path.join(root, "validate_out"),
+            "DATASET.JSON_DIR", json_dir, "DATASET.IMG_DIR", img_dir,
+            "DATASET.TEST_IMG_DIR", img_dir, "VAL.ANNOT_DIR", annot_dir,
+            "VAL.USE_GT_BBOX", "True", "WORKERS", "4"]
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results = validate_real_checkpoint.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    text = out.getvalue()
+    name_value, mean = results["final"]
+    batches = math.ceil(n_samples / 32)
+    if (f"loaded full checkpoint {full_path} (0 unmapped torch keys)"
+            not in text or tuple(name_value) != AP_KEYS
+            or not all(math.isfinite(v) for v in name_value.values())
+            or launches != {"dcn_fwd": 8 * batches, "dcn_bwd": 0,
+                            "warp_translate": 2 * batches, "warp_bwd": 0}):
+        raise AssertionError(f"validate_real_checkpoint: launches "
+                             f"{launches}, output:\n{text}")
+    window = [ln for ln in text.splitlines() if ln.startswith("DCN window")]
+    return dict(argv_extra=list(extra), window=window[0], launches=launches,
+                ap_final=dict(name_value), seconds=seconds,
+                delta=[ln.strip() for ln in text.splitlines()
+                       if "delta" in ln])
+
+
+def phase_train_levers(smi):
+    """Phase train-levers: ``Trainer.train`` with every train-time lever on,
+    then the levers one at a time, the card against itself and the CPU, and
+    ``validate_real_checkpoint`` on a reference file."""
+    from fami_pose_torch.data.loader import build_train_loader
+    from fami_pose_torch.data.posetrack import PoseTrackDataset
+    from fami_pose_torch.engine import checkpoints
+    from fami_pose_torch.engine.trainer import Trainer
+    from fami_pose_torch.models.bridge import (
+        calibrate_batch_norm, init_weights,
+    )
+    from fami_pose_torch.models.fami_pose import FAMIPose
+    from fami_pose_torch.utils.registry import TRAIN_PHASE
+
+    t_phase = time.perf_counter()
+    n_samples = VAL_VIDEOS * VAL_FRAMES * VAL_PEOPLE
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_levers_") as root:
+        dirs = write_val_fixture(os.path.join(root, "data"),
+                                 train_images=LEVERS_TRAIN_IMAGES)
+        # seeded, BatchNorm-calibrated W48 weights in the reference's files
+        cfg = levers_cfg(root, dirs)
+        model = init_weights(FAMIPose.from_config(cfg), seed=0).cuda().eval()
+        w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
+        frames = torch.randn(2, 3 * (1 + model.num_sup), h, w,
+                             generator=torch.Generator().manual_seed(0)).cuda()
+        with torch.inference_mode():
+            calibrate_batch_norm(model, frames[:, :3], frames[:, 3:])
+        bb_path, full_path, file_sd = write_reference_files(model, root)
+        del model, frames
+
+        prof_dir = os.path.join(root, "profile")
+        levers = ("MODEL.PRETRAINED", bb_path, "TPU.REMAT_BACKBONE", True,
+                  "TPU.BF16_GRADS", True, "TPU.DEVICE_CROP", True,
+                  "TPU.PROFILE_DIR", prof_dir, "TPU.PROFILE_STEPS", 2,
+                  "TPU.ASYNC_CHECKPOINT", True)
+        cfg = levers_cfg(root, dirs, *levers)
+        trainer = Trainer(cfg, device="cuda")
+        if trainer.begin_epoch != 0 or trainer.steps_per_epoch != LEVERS_STEPS:
+            raise AssertionError(
+                f"fresh trainer of {LEVERS_STEPS} steps expected, got "
+                f"{trainer.steps_per_epoch} from epoch {trainer.begin_epoch}")
+        loaded = trainer.model.state_dict()
+        differ = [k for k, v in file_sd.items() if k.startswith("hrnet.")
+                  and not torch.equal(loaded[k].cpu(), v)]
+        if differ:
+            raise AssertionError(f"MODEL.PRETRAINED: {differ[:5]} differ "
+                                 f"from the file")
+        loaded_note = (f"{sum(k.startswith('hrnet.') for k in file_sd)} "
+                       f"hrnet.* tensors equal the file's bit for bit")
+
+        # the main path: one epoch through Trainer.train, every lever on
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = trainer.train()
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches = read_launches()
+        if any(c != 4 * LEVERS_STEPS for c in launches.values()):
+            raise AssertionError(f"train-levers launches {launches}, "
+                                 f"expected 4 a step")
+        # the seeded head's offset and mask convs get gradients of ~1e-18
+        # (phase train) that may round to zero; they are read, not required
+        norms = check_gradients(trainer.model, nonzero=(
+            "dcn weights", "offset head", "backbone stem"))
+        if not all(p.dtype == torch.float32 for p in trainer.model.parameters()):
+            raise AssertionError("BF16_GRADS changed a master parameter's "
+                                 "dtype")
+        traces = os.listdir(prof_dir)
+        if len(traces) != 1:
+            raise AssertionError(f"profile directory holds {traces}")
+        trace_path = os.path.join(prof_dir, traces[0])
+        with open(trace_path, "rb") as f:
+            trace_bytes = f.read()
+        if b'"cat": "kernel"' not in trace_bytes:
+            raise AssertionError(f"{trace_path}: no kernel in the trace")
+        with open(os.path.join(trainer.log_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        steps_logged = sorted(r["step"] for r in records
+                              if r["tag"] == "train_loss")
+        bad = [r for r in records if not math.isfinite(r["value"])]
+        if (steps_logged != list(range(1, LEVERS_STEPS + 1)) or bad
+                or not any(r["tag"] == "train_acc_avg" for r in records)):
+            raise AssertionError(f"metrics.jsonl: steps {steps_logged}, "
+                                 f"non-finite {bad[:3]}")
+        last = {r["tag"][len("train_"):]: r["value"] for r in records
+                if r["step"] == LEVERS_STEPS and r["tag"] != "train_acc_avg"}
+
+        # the async checkpoint Trainer.train wrote, and one written while
+        # the next step updates the state in place
+        ckpt = checkpoints.get_latest_checkpoint(trainer.checkpoints_dir)
+        saved = checkpoints.load_variables(ckpt)
+        now = state.model.state_dict()
+        if any(not torch.equal(saved[k], now[k].cpu()) for k in now):
+            raise AssertionError(f"{ckpt} differs from the state at its save")
+        raws = list(trainer.loader)
+        at_save = {k: v.detach().cpu().clone() for k, v in now.items()}
+        race_dir = os.path.join(root, "async")
+        race = checkpoints.save_checkpoint(race_dir, 7, state,
+                                           async_save=True)
+        trainer.train_step(state, trainer.prepare(raws[0]))
+        checkpoints.wait_for_pending_saves()
+        saved = checkpoints.load_variables(race)
+        if any(not torch.equal(saved[k], at_save[k]) for k in at_save):
+            raise AssertionError("the async save holds a later state")
+        resumed = Trainer(cfg, device="cuda")
+        if resumed.begin_epoch != 1 or resumed.state.step != LEVERS_STEPS:
+            raise AssertionError(f"resume: epoch {resumed.begin_epoch}, "
+                                 f"step {resumed.state.step}")
+        theirs = resumed.model.state_dict()
+        saved = checkpoints.load_variables(ckpt)
+        if any(not torch.equal(theirs[k].cpu(), saved[k]) for k in saved):
+            raise AssertionError("resume did not restore the checkpoint")
+        del resumed, theirs, saved
+        torch.cuda.empty_cache()
+
+        # the levers one at a time against none: host crops from the same
+        # split for the variants without the device crop
+        host_cfg = levers_cfg(root, dirs)
+        host_raws = list(build_train_loader(
+            host_cfg, PoseTrackDataset(host_cfg, TRAIN_PHASE)))
+        variants = {
+            "none": (False, False, False),
+            "REMAT_BACKBONE": (True, False, False),
+            "BF16_GRADS": (False, True, False),
+            "DEVICE_CROP": (False, False, True),
+            "all": (True, True, True),
+        }
+        readings = {}
+        for name, (remat, bf16_grads, crop) in variants.items():
+            readings[name] = lever_steps(
+                trainer, raws if crop else host_raws, remat, bf16_grads,
+                LEVERS_TIMED_STEPS)
+            emit("train-levers-step", lever=name, card=smi, batch_size=8,
+                 **readings[name])
+        total = torch.cuda.get_device_properties(0).total_memory
+        held = readings["REMAT_BACKBONE"]["held_gb"] * 1e9
+        per_sample = readings["REMAT_BACKBONE"]["step_peak_above_held_gb"] \
+            * 1e9 / 8
+        per_sample_plain = readings["none"]["step_peak_above_held_gb"] \
+            * 1e9 / 8
+        memory = dict(
+            card_total_gb=total / 1e9,
+            peak_gb_b8={k: readings[k]["peak_gb"]
+                        for k in ("none", "REMAT_BACKBONE")},
+            per_sample_gb={"none": per_sample_plain / 1e9,
+                           "REMAT_BACKBONE": per_sample / 1e9},
+            largest_batch_remat=int((total - held) // per_sample),
+            largest_batch_none=int((total - held) // per_sample_plain),
+            note="largest batch = (card memory - what the state holds) / "
+            "the step's peak per sample at B=8: arithmetic on the measured "
+            "peak, not probed")
+        del trainer, state, raws, host_raws
+        torch.cuda.empty_cache()
+
+        versus = levers_card_vs_cpu()
+        torch.cuda.empty_cache()
+
+        exact = validate_tool_pass(root, dirs, full_path, n_samples)
+        ref_scores = os.path.join(root, "exact_ap.json")
+        with open(ref_scores, "w") as f:
+            json.dump(exact["ap_final"], f)
+        bounded = validate_tool_pass(root, dirs, full_path, n_samples,
+                                     "--dcn-bound", "4",
+                                     "--reference-scores", ref_scores)
+        if exact["window"] != "DCN window: exact" \
+                or bounded["window"] != "DCN window: 4":
+            raise AssertionError(f"windows {exact['window']!r}, "
+                                 f"{bounded['window']!r}")
+    emit("train-levers", config="configs/posetrack17/fami_pose.yaml",
+         model="FAMIPose HRNet-W48 384x288 bf16 D=4 num_sup=4, train mode",
+         card=smi, batch_size=8, levers=[str(v) for v in levers[::2]],
+         dataset=f"the val fixture's first {LEVERS_TRAIN_IMAGES} frames as "
+         f"its train split ({8 * LEVERS_STEPS} people), raw 768x768 windows",
+         weights="seeded init (seed 0), BatchNorm calibrated, written as "
+         "a reference backbone .pth and a full epoch_20_state.pth",
+         pretrained=loaded_note, epoch_steps=LEVERS_STEPS,
+         epoch_seconds=epoch_s, launches=launches, launches_per_step=4,
+         last_step_terms=last, grad_norms=norms,
+         trace=dict(file=os.path.basename(trace_path),
+                    bytes=len(trace_bytes), steps=2),
+         metrics_records=len(records),
+         async_checkpoint="the epoch's async checkpoint equals the state; "
+         "one saved while the next step ran equals the state at its save; "
+         "resume gave epoch 1, step 4, the checkpoint's parameters",
+         readings={k: {x: v[x] for x in ("step_ms_median", "step_ms_min",
+                                         "step_ms_max", "prepare_ms_median")}
+                   | {"device_busy_ms": v["traced_step"]["device_busy_ms"]}
+                   for k, v in readings.items()},
+         memory=memory, card_vs_cpu=versus,
+         validate_real_checkpoint=dict(exact=exact, dcn_bound_4=bounded),
+         phase_seconds=time.perf_counter() - t_phase)
+    return launches, exact["launches"], bounded["launches"]
+
+
 def phase_probes():
     """The capability tool as it runs from the command line."""
     from fami_pose_torch.ops import probes
@@ -1764,12 +2272,15 @@ VAL_VIDEOS, VAL_FRAMES, VAL_PEOPLE = 3, 12, 2
 AP_KEYS = ("Head", "Shoulder", "Elbow", "Wrist", "Hip", "Knee", "Ankle", "Mean")
 
 
-def write_val_fixture(root, seed=0, w=640, h=480):
+def write_val_fixture(root, seed=0, w=640, h=480, train_images=0):
     """A seeded synthetic PoseTrack17-style dataset under ``root``: jpeg
     frames ``images/video_000v/0000000f.jpg`` (8 digits from 1), the COCO
     json ``json/posetrack_val.json`` with 17 visible keypoints and a box per
     person, and GT annolists ``annolists/video_000v.json`` in the 15-joint
-    order. Returns (json_dir, img_dir, annot_dir)."""
+    order. With ``train_images`` the first that many frames and their people
+    are also the train split, ``json/posetrack_train.json``, which the
+    dataset's train phase reads (as raw windows under ``TPU.DEVICE_CROP``).
+    Returns (json_dir, img_dir, annot_dir)."""
     import cv2
 
     from fami_pose_torch.data.keypoints import coco2posetrack_ord_infer
@@ -1828,6 +2339,13 @@ def write_val_fixture(root, seed=0, w=640, h=480):
     with open(os.path.join(json_dir, "posetrack_val.json"), "w") as fh:
         json.dump(dict(images=images, annotations=annotations,
                        categories=[dict(id=1, name="person")]), fh)
+    if train_images:
+        train = images[:train_images]
+        ids = {im["id"] for im in train}
+        with open(os.path.join(json_dir, "posetrack_train.json"), "w") as fh:
+            json.dump(dict(images=train, annotations=[
+                a for a in annotations if a["image_id"] in ids],
+                categories=[dict(id=1, name="person")]), fh)
     return json_dir, img_dir, annot_dir
 
 
@@ -2622,6 +3140,8 @@ def main():
     train, model_dcn_bwd = phase_train(smi)
     phase_train_card_vs_cpu()
     torch.cuda.empty_cache()
+    levers, validate_exact, validate_d4 = phase_train_levers(smi)
+    torch.cuda.empty_cache()
     probe_launches = phase_probes()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_val_") as root:
         val, dirs = phase_val(smi, root)
@@ -2637,40 +3157,62 @@ def main():
     sources = {"dcn_fwd": "dcn_fwd.cu", "dcn_bwd": "dcn_bwd.cu",
                "warp_translate": "warp.cu", "warp_bwd": "warp_bwd.cu"}
     # one row per kernel and shape: the forward kernels have a row for each
-    # path whose calls differ in size (serving and train at B=8, val at
-    # B=32); `launches` is the count of that row's path
+    # path whose calls differ in size (serving, train and train-levers at
+    # B=8, val and validate_real_checkpoint at B=32); `launches` is the
+    # count of that row's paths, each also given alone
+    validate = {k: validate_exact[k] + validate_d4[k] for k in validate_exact}
     kernels = []
     for name in KERNEL_COUNTERS:
         common = dict(name=name, route="cuda", source=csrc + sources[name],
                       replaces=replaces[name])
         if name == "warp_translate":
-            kernels.append(dict(common, path="val", launches=val[name],
-                                **rows[name, 128]))
+            kernels.append(dict(
+                common, path="val and validate_real_checkpoint",
+                launches=val[name] + validate[name],
+                launches_val=val[name],
+                launches_validate_real_checkpoint=validate[name],
+                **rows[name, 128]))
             kernels.append(dict(
                 common, path="serving and streaming",
                 launches=serving[name] + streaming[name],
                 launches_serving=serving[name],
                 launches_streaming=streaming[name], **rows[name, 32]))
-            kernels.append(dict(common, path="train", launches=train[name],
-                                **rows[name, 8]))
-        elif name == "dcn_fwd":
-            kernels.append(dict(common, path="val", launches=val[name],
-                                **rows[name, 32]))
             kernels.append(dict(
-                common, path="serving, streaming and train",
-                launches=serving[name] + streaming[name] + train[name],
+                common, path="train and train-levers",
+                launches=train[name] + levers[name],
+                launches_train=train[name],
+                launches_train_levers=levers[name], **rows[name, 8]))
+        elif name == "dcn_fwd":
+            kernels.append(dict(
+                common, path="val and validate_real_checkpoint",
+                launches=val[name] + validate[name], launches_val=val[name],
+                launches_validate_real_checkpoint=validate[name],
+                **rows[name, 32]))
+            kernels.append(dict(
+                common, path="serving, streaming, train and train-levers",
+                launches=(serving[name] + streaming[name] + train[name]
+                          + levers[name]),
                 launches_serving=serving[name],
                 launches_streaming=streaming[name], launches_train=train[name],
+                launches_train_levers=levers[name],
                 model_inputs=model_dcn, **rows[name]))
         elif name == "warp_bwd":
-            kernels.append(dict(common, path="train", launches=train[name],
-                                **rows[name, 8, "bfloat16"]))
+            kernels.append(dict(
+                common, path="train and train-levers",
+                launches=train[name] + levers[name],
+                launches_train=train[name],
+                launches_train_levers=levers[name],
+                **rows[name, 8, "bfloat16"]))
             kernels.append(dict(common, path="none: the shape of 32 images, "
                                 "timed for comparison", launches=0,
                                 **rows[name, 32, "bfloat16"]))
         else:  # dcn_bwd
-            kernels.append(dict(common, path="train", launches=train[name],
-                                model_inputs=model_dcn_bwd, **rows[name]))
+            kernels.append(dict(
+                common, path="train and train-levers",
+                launches=train[name] + levers[name],
+                launches_train=train[name],
+                launches_train_levers=levers[name],
+                model_inputs=model_dcn_bwd, **rows[name]))
     for name in INT8_COUNTERS:
         kernels.append(dict(
             name=name, route="cuda", source=csrc + "int8_conv.cu",

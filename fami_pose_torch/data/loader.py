@@ -10,7 +10,9 @@ and no ``cv2`` is needed on that path.
 
 Training: host threads run ``dataset[i]`` and stack uint8 crops
 (:func:`collate`, :class:`DataLoader`); normalization and Gaussian target
-stamping run on the device, once per batch (:func:`prepare_train_batch`).
+stamping run on the device, once per batch (:func:`prepare_train_batch`);
+with raw person windows (``TPU.DEVICE_CROP``) the augmented crop runs on
+the device too (:func:`prepare_train_batch_device_crop`).
 The loader is single-process: every batch is loaded whole by this process.
 """
 
@@ -100,6 +102,62 @@ def prepare_train_batch(kf_u8, sup_u8, joints, joints_vis, sigma, image_size,
     )
     return {"kf": normalize(kf), "sup": normalize(sup), "target": target,
             "target_weight": weight[..., 0]}
+
+
+def prepare_train_batch_device_crop(kf_raw, sup_raw, crop_center, scale,
+                                    rotation, joints, joints_vis, sigma,
+                                    image_size, heatmap_size, device=None):
+    """The train batch of raw person windows (``TPU.DEVICE_CROP``): the
+    augmented crop (scale, rotation, the window's own centre) runs on the
+    device (``ops.warp.crop_and_warp``, the reference's per-sample
+    ``cv2.warpAffine``), then normalization and heatmap targets as in
+    :func:`prepare_train_batch`.
+
+    Args:
+      kf_raw: (B, Hc, Wc, 3) uint8 windows as the datasets give them (arrays
+        or tensors); sup_raw: (B, Hc, Wc, 3N).
+      crop_center, scale: (B, 2) in window pixels and boxes of 200 px;
+        rotation: (B,) degrees.
+      joints: (B, J, 2) crop pixels; joints_vis: (B, J).
+      image_size, heatmap_size: (w, h).
+
+    Returns the dict of :func:`prepare_train_batch` on ``device`` (default:
+    where ``kf_raw`` lies), the inputs in channels-last memory order as
+    :func:`prepare_train_batch`'s permuted uint8 batch is: convolution
+    libraries keep an input's memory order through the network, and on the
+    card cuDNN's NCHW kernels made a B=8 W48 train step ~35% longer in
+    device time than its channels-last ones.
+    """
+    def on_device(a, dtype=None):
+        t = torch.as_tensor(a)
+        return t.to(device=device if device is not None else t.device,
+                    dtype=dtype, non_blocking=True)
+
+    kf, sup = prepare_eval_inputs_device_crop(
+        on_device(kf_raw).permute(0, 3, 1, 2),
+        on_device(sup_raw).permute(0, 3, 1, 2),
+        on_device(crop_center, torch.float32), on_device(scale, torch.float32),
+        on_device(rotation, torch.float32), image_size,
+    )
+    target, weight = generate_heatmaps(
+        on_device(joints, torch.float32), on_device(joints_vis, torch.float32),
+        sigma, image_size, heatmap_size,
+    )
+    return {"kf": kf.contiguous(memory_format=torch.channels_last),
+            "sup": sup.contiguous(memory_format=torch.channels_last),
+            "target": target, "target_weight": weight[..., 0]}
+
+
+def reverse_transforms(batch_imgs):
+    """Normalized float images (N, 3k, H, W), arrays or tensors -> uint8
+    pixels of the same layout (the reference's ``reverse_transforms``,
+    ``datasets/transforms/build.py:31-40``)."""
+    x = torch.as_tensor(batch_imgs).detach().to("cpu", torch.float32).numpy()
+    c = x.shape[1] // 3
+    mean = np.tile(IMAGENET_MEAN, c).reshape(1, -1, 1, 1)
+    std = np.tile(IMAGENET_STD, c).reshape(1, -1, 1, 1)
+    x = (x * std + mean) * 255.0
+    return np.clip(x, 0, 255).astype(np.uint8)
 
 
 def collate(samples):

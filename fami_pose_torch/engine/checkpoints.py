@@ -5,15 +5,40 @@ a checkpoints directory, the latest found by the index in the name, payload
 ``torch.save`` (to a temporary name, then renamed). ``resume`` returns the
 epoch to continue with, ``begin_epoch + 1``. The JAX package writes the same
 file names as flax msgpack; loading one here raises a ``ValueError`` that
-names the weight bridge (``models/bridge.py::state_dict_from_flax``)."""
+names the weight bridge (``models/bridge.py::state_dict_from_flax``).
 
+``save_checkpoint(..., async_save=True)`` (``TPU.ASYNC_CHECKPOINT``) writes
+the file on a background thread. The port's parameters and Adam moments are
+updated in place by the next step, so the payload is first copied to host
+memory on the calling thread, before ``save_checkpoint`` returns; only the
+write goes to the thread. Pending writes are joined by
+:func:`wait_for_pending_saves` and at interpreter exit."""
+
+import atexit
 import os
 import os.path as osp
 import re
+import threading
 
 import torch
 
 CKPT_PATTERN = re.compile(r"epoch_(\d+)_state\.ckpt$")
+
+# async writer threads not yet joined; joined at exit so that the last
+# epoch's checkpoint is not lost to interpreter teardown
+_PENDING_SAVES = []
+_PENDING_LOCK = threading.Lock()
+
+
+def wait_for_pending_saves():
+    """Block until every async :func:`save_checkpoint` write has finished."""
+    with _PENDING_LOCK:
+        pending, _PENDING_SAVES[:] = _PENDING_SAVES[:], []
+    for t in pending:
+        t.join()
+
+
+atexit.register(wait_for_pending_saves)
 
 
 def checkpoint_path(directory, epoch):
@@ -41,15 +66,38 @@ def get_all_checkpoints(directory, min_epoch=0):
     return [p for e, p in list_checkpoints(directory) if e >= min_epoch]
 
 
-def save_checkpoint(directory, epoch, state):
+def _to_host(obj):
+    """A copy of a payload with every tensor copied to host memory."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return type(obj)((k, _to_host(v)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def save_checkpoint(directory, epoch, state, async_save=False):
     """Write ``state`` (a ``TrainState``) as the checkpoint of ``epoch``;
-    returns its path."""
+    returns its path. With ``async_save`` the host copy of the payload is
+    taken here and the write runs on a thread (:func:`wait_for_pending_saves`
+    joins it)."""
     path = checkpoint_path(directory, epoch)
     os.makedirs(directory, exist_ok=True)
-    payload = dict(state.state_dict(), begin_epoch=int(epoch))
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    payload = _to_host(dict(state.state_dict(), begin_epoch=int(epoch)))
+
+    def write():
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+
+    if async_save:
+        t = threading.Thread(target=write, daemon=True)
+        with _PENDING_LOCK:
+            _PENDING_SAVES.append(t)
+        t.start()
+    else:
+        write()
     return path
 
 

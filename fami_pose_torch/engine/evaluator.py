@@ -18,6 +18,10 @@ so nothing is transposed between the eval step and the decode.
 DCN window is chosen (``TPU.DCN_AUTO_WINDOW``), so the window is measured on
 the int8 numerics, the order of the JAX evaluator.
 
+The model comes from ``MODEL_REGISTRY`` (``models/build.py``) and the eval
+step from the core function of ``cfg.CORE_FUNCTION``
+(``engine/core_functions.py``).
+
 Not ported yet, and refused rather than ignored when a config asks for them:
 a device mesh other than one device (``TPU.MESH_SHAPE``; with it the JAX
 package's broadcast of the int8 scales from process 0), and the skeleton /
@@ -25,7 +29,6 @@ box overlays (``DEBUG.VIS_SKELETON``, ``DEBUG.VIS_BBOX``).
 """
 
 import logging
-import math
 import os.path as osp
 import time
 from collections import OrderedDict
@@ -38,23 +41,21 @@ import fami_pose_torch.data.posetrack  # noqa: F401
 from fami_pose_torch.data.loader import (
     build_eval_loader, prepare_eval_inputs, prepare_eval_inputs_device_crop,
 )
-from fami_pose_torch.models.fami_pose import DeformConv, FAMIPose
+from fami_pose_torch.models.build import build_model
+from fami_pose_torch.models.fami_pose import DeformConv
 from fami_pose_torch.models.quant import QUANT_INT8, calibrate
 from fami_pose_torch.ops.heatmap import dark_get_final_preds, get_final_preds
 from fami_pose_torch.utils.registry import DATASET_REGISTRY, VAL_PHASE
 
 from . import checkpoints
-from .steps import make_eval_step
-from .trainer import check_model
+from .core_functions import build_core_function
+from .trainer import check_model, mesh_devices
 
 
 def check_supported(cfg):
     """Raise for a config that turns on what the port's evaluator lacks."""
-    # -1 ("all available devices") is read as the one device of this process
-    mesh = [int(v) for v in (getattr(cfg.TPU, "MESH_SHAPE", None) or [])]
     unported = {
-        "TPU.MESH_SHAPE (more than one device)":
-            math.prod(max(v, 1) for v in mesh) > 1,
+        "TPU.MESH_SHAPE (more than one device)": mesh_devices(cfg) > 1,
         "DEBUG.VIS_SKELETON": bool(cfg.DEBUG.VIS_SKELETON),
         "DEBUG.VIS_BBOX": bool(cfg.DEBUG.VIS_BBOX),
     }
@@ -102,14 +103,14 @@ class Evaluator:
             dataset = DATASET_REGISTRY.get(cfg.DATASET.NAME)(cfg, phase)
         self.dataset = dataset
         self.loader = build_eval_loader(cfg, dataset, phase=phase)
-        self.model = FAMIPose.from_config(cfg, phase=phase).to(
-            self.device).eval()
+        self.model = build_model(cfg, phase).to(self.device).eval()
         flip_key = "FLIP_VAL" if phase == VAL_PHASE else "FLIP_TEST"
         self._flip_test = bool(getattr(self.sub, flip_key, False)
                                or self.sub.FLIP)
         self._flip_pairs = getattr(dataset, "flip_pairs", None)
-        self.eval_step = make_eval_step(
-            self.model, flip_test=self._flip_test, flip_pairs=self._flip_pairs
+        self.core_function = build_core_function(cfg)
+        self.eval_step = self.core_function.build_eval_step(
+            self.model, flip_pairs=self._flip_pairs, flip_test=self._flip_test
         )
         # seconds of the last eval loop, by part (the loader's wait, the
         # forward with its input preparation, the decode)

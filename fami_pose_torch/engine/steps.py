@@ -5,6 +5,8 @@ and returns its metrics as device tensors: nothing in it waits for the
 device, so the caller fetches them only when it prints. The eval step is
 the forward, plus flip-test averaging behind ``flip_test``."""
 
+import contextlib
+
 import torch
 
 from fami_pose_torch.data.keypoints import COCO_FLIP_PAIRS
@@ -48,23 +50,86 @@ def heatmap_pck_accuracy(pred, target, thr=0.5):
     return acc, n_counted
 
 
-def make_train_step(mse_weight=1.0, mi_alpha=0.5, mi_beta=0.1):
+@contextlib.contextmanager
+def params_cast(model, dtype):
+    """Swap each floating parameter of ``model`` for a leaf copy of it in
+    ``dtype`` for the duration of the block, and yield ``{id(parameter):
+    copy}``: a forward and backward inside the block differentiate with
+    respect to the copies, and a rematerialized module's second pass, run
+    during the backward, sees them too. The parameters themselves are put
+    back on exit, with their dtype, values and optimizer state untouched.
+
+    A copy is put in its module's instance ``__dict__``, where attribute
+    lookup finds it before ``nn.Module.__getattr__`` would look in
+    ``_parameters`` (from which the parameter is taken out meanwhile): a
+    dictionary operation a parameter, not ``nn.Module.__setattr__``'s
+    checks."""
+    swapped = []
+    copies = {}
+    try:
+        for module in model.modules():
+            params = module._parameters
+            for name, p in list(params.items()):
+                if p is None or not p.is_floating_point():
+                    continue
+                if id(p) not in copies:
+                    copies[id(p)] = (p.detach().to(dtype)
+                                     .requires_grad_(p.requires_grad))
+                del params[name]
+                module.__dict__[name] = copies[id(p)]
+                swapped.append((module, name, p))
+        yield copies
+    finally:
+        for module, name, p in reversed(swapped):
+            del module.__dict__[name]
+            module._parameters[name] = p
+
+
+def make_train_step(mse_weight=1.0, mi_alpha=0.5, mi_beta=0.1,
+                    bf16_grads=False):
     """Returns ``step_fn(state, batch) -> (state, metrics)``: ``state`` is a
     ``TrainState`` (updated in place) whose model is in training mode
     (``model.train()``), ``batch`` a dict with ``kf``
     (B, 3, H, W), ``sup`` (B, 3N, H, W), ``target`` (B, J, h, w) and
     ``target_weight`` (B, J) on the model's device. ``metrics`` holds the
-    loss terms and the PCK accuracies as detached device tensors."""
+    loss terms and the PCK accuracies as detached device tensors.
 
-    def step(state, batch):
-        model = state.model
+    ``bf16_grads`` (``TPU.BF16_GRADS``), when the model computes in
+    bfloat16: the forward and backward differentiate with respect to a
+    bfloat16 copy of every floating parameter (:func:`params_cast`), so the
+    gradients are formed and summed in bfloat16, as the JAX step
+    differentiates with respect to a bfloat16 cast of its parameters. Each
+    gradient is then cast to its float32 master parameter's dtype, and Adam
+    updates the masters in float32. The convs and the DCN already compute
+    with their weights cast to bfloat16, so their forward is unchanged;
+    BatchNorm and any float32 use see the bfloat16-rounded values, as in
+    flax."""
+
+    def loss_and_metrics(model, batch):
         final, sup_hms, kf_bb, mi = model(batch["kf"], batch["sup"], train=True)
         total, aux = fami_total_loss(
             final, sup_hms, mi, batch["target"], batch["target_weight"],
             mse_weight=mse_weight, mi_alpha=mi_alpha, mi_beta=mi_beta,
         )
+        return total, (aux, final, sup_hms, kf_bb)
+
+    def step(state, batch):
+        model = state.model
         state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        low = bf16_grads and getattr(model, "compute_dtype",
+                                     torch.float32) == torch.bfloat16
+        if low:
+            with params_cast(model, torch.bfloat16) as copies:
+                total, (aux, final, sup_hms, kf_bb) = loss_and_metrics(
+                    model, batch)
+                total.backward()
+            for p in model.parameters():
+                g = copies[id(p)].grad if id(p) in copies else None
+                p.grad = None if g is None else g.to(p.dtype)
+        else:
+            total, (aux, final, sup_hms, kf_bb) = loss_and_metrics(
+                model, batch)
+            total.backward()
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1

@@ -1,19 +1,27 @@
 """Trainer: the epoch loop (``fami_pose_tpu/engine/trainer.py``).
 
-Builds loader, model, optimizer and train step from a config, resumes from
-the latest checkpoint when ``TRAIN.AUTO_RESUME`` is set, runs epochs with the
-metrics fetched from the device only every ``PRINT_FREQ`` steps, steps the
-per-step LR schedule, and saves per-epoch checkpoints.
+Builds loader, model (``models/build.py``), optimizer and train step (the
+core function of ``cfg.CORE_FUNCTION``, ``engine/core_functions.py``) from a
+config, overlays ``MODEL.PRETRAINED`` backbone weights after
+``MODEL.INIT_WEIGHTS`` (``models/pretrained.py``), resumes from the latest
+checkpoint when ``TRAIN.AUTO_RESUME`` is set, runs epochs with the metrics
+fetched from the device only every ``PRINT_FREQ`` steps (and written to
+``metrics.jsonl``, ``engine/metrics_writer.py``), steps the per-step LR
+schedule, and saves per-epoch checkpoints, on a thread with
+``TPU.ASYNC_CHECKPOINT``.
 
-Not ported yet, and refused rather than ignored when a config asks for them:
-loading ``MODEL.PRETRAINED`` backbone weights, the profiler hook
-(``TPU.PROFILE_DIR``), ``TPU.BF16_GRADS``, ``TPU.REMAT_BACKBONE``,
-``TPU.DEVICE_CROP`` for training, and core functions other than the
-FAMI-Pose one. There is no metric writer and no device mesh: one process,
-one device.
+The train-time levers of the JAX trainer: ``TPU.REMAT_BACKBONE`` (the
+model's), ``TPU.BF16_GRADS`` (the train step's), ``TPU.DEVICE_CROP`` (raw
+person windows cropped on the device, :meth:`Trainer.prepare`) and
+``TPU.PROFILE_DIR`` (a ``torch.profiler`` trace of the first
+``TPU.PROFILE_STEPS`` steps of epoch 0).
+
+Not ported yet, and refused rather than ignored: a device mesh of more than
+one device (``TPU.MESH_SHAPE``). One process, one device.
 """
 
 import logging
+import math
 import os.path as osp
 import time
 
@@ -21,46 +29,55 @@ import torch
 
 import fami_pose_torch.data.jhmdb  # noqa: F401  (dataset registration)
 import fami_pose_torch.data.posetrack  # noqa: F401
-from fami_pose_torch.data.loader import build_train_loader, prepare_train_batch
+from fami_pose_torch.data.loader import (
+    build_train_loader, prepare_train_batch, prepare_train_batch_device_crop,
+)
 from fami_pose_torch.models.bridge import init_weights
-from fami_pose_torch.models.fami_pose import FAMIPose, init_weights_reference
+from fami_pose_torch.models.build import build_model
+from fami_pose_torch.models.fami_pose import init_weights_reference
+from fami_pose_torch.models.pretrained import (
+    load_torch_state_dict, merge_into_variables, remap_hrnet_backbone_for_fami,
+)
 from fami_pose_torch.optim import build_optimizer
 from fami_pose_torch.utils.meters import AverageMeter
-from fami_pose_torch.utils.registry import DATASET_REGISTRY, TRAIN_PHASE
+from fami_pose_torch.utils.profiling import trace
+from fami_pose_torch.utils.registry import (
+    CORE_FUNCTION_REGISTRY, DATASET_REGISTRY, MODEL_REGISTRY, TRAIN_PHASE,
+)
 
 from . import checkpoints
-from .steps import make_train_step
+from .core_functions import build_core_function
+from .metrics_writer import MetricWriter
 from .train_state import TrainState
 
-CORE_FUNCTIONS = ("", "FAMIPoseFunction", "AlignmentMIFunction_Term6_V1")
+
+def mesh_devices(cfg):
+    """The number of devices ``TPU.MESH_SHAPE`` asks for; -1 ("all
+    available devices") is read as the one device of this process."""
+    mesh = [int(v) for v in (getattr(cfg.TPU, "MESH_SHAPE", None) or [])]
+    return math.prod(max(v, 1) for v in mesh)
 
 
 def check_model(cfg):
-    """Raise for a core function or a model the port does not have."""
-    if str(cfg.CORE_FUNCTION or "") not in CORE_FUNCTIONS:
+    """Raise ``KeyError`` for a core function or a model that is not
+    registered, with the JAX package's messages."""
+    name = cfg.CORE_FUNCTION or "FAMIPoseFunction"
+    if name not in CORE_FUNCTION_REGISTRY:
         raise KeyError(
-            f"Unknown core function {cfg.CORE_FUNCTION!r}; available: "
-            f"{sorted(n for n in CORE_FUNCTIONS if n)}"
+            f"Unknown core function {name!r}; available: "
+            f"{sorted(CORE_FUNCTION_REGISTRY.keys())}"
         )
-    if str(cfg.MODEL.NAME) not in ("FAMIPose", "Alignment_V15"):
-        raise KeyError(f"Unknown model {cfg.MODEL.NAME!r}")
+    if cfg.MODEL.NAME not in MODEL_REGISTRY:
+        raise KeyError(f"Unknown model {cfg.MODEL.NAME!r}; available: "
+                       f"{sorted(MODEL_REGISTRY.keys())}")
 
 
 def check_supported(cfg):
     """Raise for a config that turns on what the port's trainer lacks."""
-    tpu = cfg.TPU
-    unported = {
-        "TPU.BF16_GRADS": bool(getattr(tpu, "BF16_GRADS", False)),
-        "TPU.REMAT_BACKBONE": bool(getattr(tpu, "REMAT_BACKBONE", False)),
-        "TPU.DEVICE_CROP": bool(getattr(tpu, "DEVICE_CROP", False)),
-        "TPU.PROFILE_DIR": bool(str(getattr(tpu, "PROFILE_DIR", "") or "")),
-        "MODEL.PRETRAINED (the file exists)": bool(
-            cfg.MODEL.PRETRAINED and osp.isfile(cfg.MODEL.PRETRAINED)),
-    }
-    on = [name for name, flag in unported.items() if flag]
-    if on:
+    if mesh_devices(cfg) > 1:
         raise NotImplementedError(
-            f"not ported to fami_pose_torch's trainer yet: {', '.join(on)}"
+            "not ported to fami_pose_torch's trainer yet: TPU.MESH_SHAPE "
+            "(more than one device)"
         )
     check_model(cfg)
 
@@ -92,15 +109,18 @@ class Trainer:
             "checkpoints", osp.join(cfg.OUTPUT_DIR or ".", "checkpoints")
         )
         self.log_dir = dirs.get("log", osp.join(cfg.OUTPUT_DIR or ".", "log"))
+        self.writer = MetricWriter(self.log_dir)
 
         self.dataset = dataset
         self.loader = build_train_loader(cfg, dataset)
         self.steps_per_epoch = max(1, len(self.loader))
 
-        model = FAMIPose.from_config(cfg)
+        model = build_model(cfg, TRAIN_PHASE)
         init_weights(model, int(cfg.SEED))
         if bool(cfg.MODEL.INIT_WEIGHTS):
             init_weights_reference(model, int(cfg.SEED) + 1)
+        if cfg.MODEL.PRETRAINED and osp.isfile(cfg.MODEL.PRETRAINED):
+            self._load_pretrained(model, cfg.MODEL.PRETRAINED)
         model.to(self.device).train()
         optimizer, scheduler = build_optimizer(
             cfg, model, steps_per_epoch=self.steps_per_epoch
@@ -119,32 +139,43 @@ class Trainer:
                     f"resumed from {latest} at epoch {self.begin_epoch}"
                 )
 
-        self.train_step = make_train_step(
-            mse_weight=float(cfg.LOSS.HEATMAP_MSE.WEIGHT),
-            mi_alpha=float(getattr(cfg.LOSS, "MI_ALPHA", 0.5)),
-            mi_beta=float(getattr(cfg.LOSS, "MI_BETA", 0.1)),
-        )
+        self.core_function = build_core_function(cfg)
+        self.train_step = self.core_function.build_train_step(model)
         self.global_step = int(self.state.step)
+
+    def _load_pretrained(self, model, path):
+        """A reference HRNet ``.pth`` -> the backbone's parameters and
+        statistics (remap + overlay, ``models/pretrained.py``)."""
+        mapped, unmapped = remap_hrnet_backbone_for_fami(
+            load_torch_state_dict(path))
+        model.load_state_dict(
+            merge_into_variables(model.state_dict(), mapped))
+        self.logger.info(
+            f"loaded pretrained backbone from {path} "
+            f"({len(unmapped)} unmapped keys)"
+        )
 
     @property
     def model(self):
         return self.state.model
 
     def prepare(self, raw):
-        """A collated host batch -> the train step's batch on the device."""
+        """A collated host batch -> the train step's batch on the device:
+        host crops, or raw person windows (``TPU.DEVICE_CROP``: the batch
+        carries ``crop_center``) cropped on the device."""
         cfg = self.cfg
-        if "crop_center" in raw:
-            raise NotImplementedError(
-                "the batch carries 'crop_center' (TPU.DEVICE_CROP): the "
-                "device crop for training is not ported yet"
-            )
-        return prepare_train_batch(
-            raw["kf"], raw["sup"], raw["joints"], raw["joints_vis"],
+        kw = dict(
             sigma=int(cfg.MODEL.SIGMA),
             image_size=tuple(int(v) for v in cfg.MODEL.IMAGE_SIZE),
             heatmap_size=tuple(int(v) for v in cfg.MODEL.HEATMAP_SIZE),
             device=self.device,
         )
+        if "crop_center" in raw:
+            return prepare_train_batch_device_crop(
+                raw["kf"], raw["sup"], raw["crop_center"], raw["scale"],
+                raw["rotation"], raw["joints"], raw["joints_vis"], **kw)
+        return prepare_train_batch(
+            raw["kf"], raw["sup"], raw["joints"], raw["joints_vis"], **kw)
 
     @staticmethod
     def _tables(meters):
@@ -157,13 +188,22 @@ class Trainer:
 
     def train_epoch(self, epoch):
         """One pass over the loader; returns the epoch's meters (updated at
-        the steps that print)."""
+        the steps that print). Epoch 0's first ``TPU.PROFILE_STEPS`` steps
+        are traced when ``TPU.PROFILE_DIR`` is set."""
         meters = {}
         batch_time = AverageMeter()
         data_time = AverageMeter()
         self.model.train()
+        profile_dir = str(getattr(self.cfg.TPU, "PROFILE_DIR", "") or "")
+        profile_steps = int(getattr(self.cfg.TPU, "PROFILE_STEPS", 0) or 0)
+        profiler = trace(profile_dir) if (profile_dir and epoch == 0) else None
+        if profiler is not None:
+            profiler.__enter__()
         end = time.time()
         for it, raw in enumerate(self.loader):
+            if profiler is not None and it == profile_steps:
+                profiler.__exit__(None, None, None)
+                profiler = None
             data_time.update(time.time() - end)
             batch = self.prepare(raw)
             self.state, metrics = self.train_step(self.state, batch)
@@ -174,7 +214,9 @@ class Trainer:
             if it % int(self.cfg.PRINT_FREQ) == 0:
                 # the only place the loop waits for the device
                 for k, v in metrics.items():
-                    meters.setdefault(k, AverageMeter()).update(float(v))
+                    v = float(v)
+                    meters.setdefault(k, AverageMeter()).update(v)
+                    self.writer.add_scalar(f"train_{k}", v, self.global_step)
                 samples = raw["kf"].shape[0] / max(batch_time.val, 1e-9)
                 self.logger.info(
                     f"Epoch [{epoch}][{it}/{self.steps_per_epoch}] "
@@ -183,18 +225,28 @@ class Trainer:
                     f"lr {self.state.optimizer.param_groups[0]['lr']:.3g}\n"
                     + self._tables(meters)
                 )
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
         return meters
 
     def train(self):
         """Epochs ``begin_epoch .. end_epoch - 1`` with a checkpoint every
-        ``TRAIN.SAVE_MODEL_PER_EPOCH`` epochs and after the last; returns
-        the train state."""
+        ``TRAIN.SAVE_MODEL_PER_EPOCH`` epochs and after the last (written on
+        a thread with ``TPU.ASYNC_CHECKPOINT``, all joined before this
+        returns); returns the train state."""
         save_every = max(1, int(self.cfg.TRAIN.SAVE_MODEL_PER_EPOCH))
+        async_save = bool(getattr(self.cfg.TPU, "ASYNC_CHECKPOINT", False))
         for epoch in range(self.begin_epoch, self.end_epoch):
-            self.train_epoch(epoch)
+            meters = self.train_epoch(epoch)
+            if meters.get("acc"):
+                self.writer.add_scalar("train_acc_avg", meters["acc"].avg,
+                                       epoch)
             if (epoch % save_every == 0) or epoch == self.end_epoch - 1:
                 path = checkpoints.save_checkpoint(
-                    self.checkpoints_dir, epoch, self.state
+                    self.checkpoints_dir, epoch, self.state,
+                    async_save=async_save,
                 )
                 self.logger.info(f"saved checkpoint {path}")
+        checkpoints.wait_for_pending_saves()
+        self.writer.flush()
         return self.state

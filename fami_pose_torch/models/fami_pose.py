@@ -35,6 +35,11 @@ sets the mode of every backbone conv and of the head's three residual chains
 the JAX model passes its ``backbone_quant`` to them; the offset head, the DCN
 offset and mask convs, ``agg_final_layer`` and ``hrnet.final_layer`` stay in
 float.
+
+``remat_backbone`` (``TPU.REMAT_BACKBONE``) rematerializes the backbone's
+stage modules in training (``models/hrnet.py``). The model is registered in
+``MODEL_REGISTRY`` as ``FAMIPose`` and ``Alignment_V15``
+(``models/build.py``).
 """
 
 import math
@@ -44,7 +49,7 @@ import torch.nn as nn
 
 from fami_pose_torch.ops.deform_conv import deform_conv2d_windowed
 from fami_pose_torch.ops.warp import warp_translate
-from fami_pose_torch.utils.registry import TRAIN_PHASE
+from fami_pose_torch.utils.registry import MODEL_REGISTRY, TRAIN_PHASE
 
 from .hrnet import HRNet, W48_EXTRA
 from .layers import ChainOfBasicBlocks, Conv2d, ConvBnAct, Linear
@@ -117,7 +122,8 @@ class FAMIPose(nn.Module):
                  feat_channels=48, feat_hw=(96, 72),
                  dcn_offset_groups=DCN_OFFSET_GROUPS, dcn_max_offset=6,
                  warp_max_shift=26, compute_dtype=torch.float32,
-                 warp_impl="matmul", backbone_quant=QUANT_OFF):
+                 warp_impl="matmul", backbone_quant=QUANT_OFF,
+                 remat_backbone=False):
         super().__init__()
         c = int(feat_channels)
         g = int(dcn_offset_groups)
@@ -129,7 +135,7 @@ class FAMIPose(nn.Module):
         self.compute_dtype = compute_dtype
         self.backbone_quant = str(backbone_quant)
         q = self.backbone_quant
-        self.hrnet = HRNet(extra, num_joints, quant=q)
+        self.hrnet = HRNet(extra, num_joints, quant=q, remat=remat_backbone)
         hc = OFFSET_HEAD_CHANNELS
         flat = hc * _head_spatial(feat_hw[0]) * _head_spatial(feat_hw[1])
         self.feat_global_offset_layers = nn.Sequential(
@@ -179,6 +185,7 @@ class FAMIPose(nn.Module):
             backbone_quant=(
                 QUANT_INT8 if bool(getattr(cfg.TPU, "INT8_EVAL", False))
                 and phase != TRAIN_PHASE else QUANT_OFF),
+            remat_backbone=bool(getattr(cfg.TPU, "REMAT_BACKBONE", False)),
         )
 
     def _dcn_stage(self, idx, feat_in, target):
@@ -352,3 +359,7 @@ def init_weights_reference(model, seed=0, std=0.001):
             else:
                 p.copy_(torch.randn(p.shape, generator=gen) * std)
     return model
+
+
+MODEL_REGISTRY.register(FAMIPose, name="FAMIPose")
+MODEL_REGISTRY.register(FAMIPose, name="Alignment_V15")

@@ -15,12 +15,26 @@ conv to NUM_JOINTS heatmaps. Module names are the official PyTorch HRNet's
 (stem, ``layer1`` with its downsample, transitions, branches, fuse layers;
 292 convs at W48) and not of ``final_layer``, which feeds the decode and the
 MI estimators, as in the JAX package.
+
+``remat`` (``TPU.REMAT_BACKBONE``) rematerializes each
+``HighResolutionModule`` in the backward pass, as the JAX package wraps
+them in ``nn.remat``: a training forward keeps only each module's inputs
+(``torch.utils.checkpoint``, non-reentrant) and runs the module again when
+its gradient is needed, under ``layers.recomputing`` so that BatchNorm moves
+its running statistics once, from the first pass.
 """
 
+import contextlib
+
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from .layers import BasicBlock, BatchNorm, Bottleneck, Conv2d, Interpolate, conv3x3
+from .layers import (
+    BasicBlock, BatchNorm, Bottleneck, Conv2d, Interpolate, conv3x3,
+    recomputing,
+)
 from .quant import QUANT_OFF
 
 BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
@@ -96,12 +110,20 @@ class HighResolutionModule(nn.Module):
         return fused
 
 
+def _remat_contexts():
+    """The first pass runs as it is; the recomputation under
+    ``recomputing``."""
+    return contextlib.nullcontext(), recomputing()
+
+
 class HRNet(nn.Module):
     """Config-driven HRNet with heatmap head (``extra`` is
-    ``cfg.MODEL.EXTRA`` as a dict; ``quant`` the backbone convs' mode)."""
+    ``cfg.MODEL.EXTRA`` as a dict; ``quant`` the backbone convs' mode;
+    ``remat`` rematerializes the stages' modules in training)."""
 
-    def __init__(self, extra, num_joints=17, quant=QUANT_OFF):
+    def __init__(self, extra, num_joints=17, quant=QUANT_OFF, remat=False):
         super().__init__()
+        self.remat = bool(remat)
         q = quant
         self.conv1 = conv3x3(3, 64, 2, q)
         self.bn1 = BatchNorm(64)
@@ -168,8 +190,14 @@ class HRNet(nn.Module):
                 for i, layer in enumerate(trans)
             ]
             for module in getattr(self, f"stage{t + 1}"):
-                xs = module(xs)
+                xs = self._run_module(module, xs)
         return self.final_layer(xs[0]), xs
+
+    def _run_module(self, module, xs):
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return module(xs)
+        return checkpoint(lambda *branches: module(list(branches)), *xs,
+                          use_reentrant=False, context_fn=_remat_contexts)
 
 
 # Standard W48 EXTRA tree (``configs/base_posetrack17.yaml``).

@@ -17,6 +17,9 @@ Every conv of the residual blocks takes a ``quant`` mode (``models/quant.py``;
 chains pass down for the int8 serving path (``TPU.INT8_EVAL``).
 """
 
+import contextlib
+import threading
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -119,6 +122,23 @@ class Linear(nn.Linear):
 
 BN_MOMENTUM = 0.1  # update fraction (flax: retain fraction 0.9)
 
+# per thread, > 0 while a rematerialized module recomputes its forward
+# (BatchNorm then leaves its running statistics alone); the recomputation
+# runs in the thread that runs the backward
+_REMAT = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The context of a checkpointed module's second forward
+    (``torch.utils.checkpoint``'s ``context_fn``): BatchNorm does not move
+    its running statistics again."""
+    _REMAT.depth = getattr(_REMAT, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _REMAT.depth -= 1
+
 
 class BatchNorm(nn.Module):
     """BatchNorm2d (eps 1e-5) over the channel axis, in float32 arithmetic
@@ -132,6 +152,17 @@ class BatchNorm(nn.Module):
     one): the fused op writes the batch statistics into scratch buffers
     (momentum 1), and the unbiased variance it reports is scaled back by
     (n - 1) / n before the update.
+
+    The scale and bias are cast to the arithmetic's type where they are
+    used: a bfloat16 copy of them (``TPU.BF16_GRADS``, ``engine/steps.py``)
+    is widened exactly, as flax's ``nn.BatchNorm`` widens bfloat16
+    parameters, and its gradient comes back in bfloat16.
+
+    The running statistics move once a training forward. Under
+    :func:`recomputing` (the second pass of a rematerialized module,
+    ``TPU.REMAT_BACKBONE``) the forward normalizes with the batch's
+    statistics as before and leaves the running ones as they are: in flax
+    they are an output of the function, which recomputation never writes.
     """
 
     def __init__(self, num_features):
@@ -143,18 +174,21 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        weight = self.weight.to(x32.dtype)
+        bias = self.bias.to(x32.dtype)
         if not self.training:
             y = F.batch_norm(
-                x32, self.running_mean, self.running_var, self.weight,
-                self.bias, False, 0.0, BN_EPS,
+                x32, self.running_mean, self.running_var, weight, bias,
+                False, 0.0, BN_EPS,
             )
             return y.to(x.dtype)
         count = x.numel() // x.shape[1]
         # zeros, not empty: the op computes 0 * old + 1 * batch
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x32, mean, var, self.weight, self.bias, True, 1.0,
-                         BN_EPS)
+        y = F.batch_norm(x32, mean, var, weight, bias, True, 1.0, BN_EPS)
+        if getattr(_REMAT, "depth", 0):
+            return y.to(x.dtype)
         with torch.no_grad():
             self.running_mean.lerp_(mean, BN_MOMENTUM)
             self.running_var.lerp_(var * ((count - 1) / count), BN_MOMENTUM)

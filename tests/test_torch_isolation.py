@@ -71,6 +71,12 @@ def test_port_files_found():
     for name in ("models/quant.py", "ops/int8_conv.py",
                  "tools/int8_numerics.py"):
         assert name in rel, name
+    # and the slice of reference weights and train-time levers
+    for name in ("models/pretrained.py", "models/build.py",
+                 "engine/core_functions.py", "engine/metrics_writer.py",
+                 "utils/profiling.py", "tools/convert_model.py",
+                 "tools/validate_real_checkpoint.py"):
+        assert name in rel, name
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -110,7 +116,7 @@ def test_entry_points_default_to_cuda():
     from fami_pose_torch.engine.evaluator import Evaluator
     from fami_pose_torch.engine.runner import Runner
     from fami_pose_torch.engine.trainer import Trainer
-    from fami_pose_torch.tools import hopper_watch
+    from fami_pose_torch.tools import hopper_watch, validate_real_checkpoint
 
     for cls in (PosePredictor, Trainer, Evaluator):
         sig = inspect.signature(cls.__init__)
@@ -132,6 +138,9 @@ def test_entry_points_default_to_cuda():
         assert runner.device == "cuda"
     # python -m fami_pose_torch.tools.hopper_watch
     source = inspect.getsource(hopper_watch.main)
+    assert '"--device", default="cuda"' in source
+    # python -m fami_pose_torch.tools.validate_real_checkpoint
+    source = inspect.getsource(validate_real_checkpoint.main)
     assert '"--device", default="cuda"' in source
 
 

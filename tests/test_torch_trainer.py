@@ -174,10 +174,13 @@ def test_seeded_init_is_reproducible(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("TPU.BF16_GRADS", True), ("TPU.REMAT_BACKBONE", True),
-    ("TPU.DEVICE_CROP", True), ("TPU.PROFILE_DIR", "/some/dir"),
+    ("TPU.MESH_SHAPE", [2, 1]), ("TPU.MESH_SHAPE", [1, 4]),
+    ("TPU.MESH_SHAPE", [8]), ("TPU.MESH_SHAPE", [2, 2]),
 ])
 def test_unported_options_are_refused(tmp_path, key, value):
+    """What the port's trainer still lacks, a mesh of more than one device,
+    is refused; the train-time levers it has run
+    (``tests/test_torch_train_levers.py``)."""
     cfg = _cfg(str(tmp_path), 1)
     section, name = key.split(".")
     setattr(getattr(cfg, section), name, value)
@@ -193,12 +196,15 @@ def test_other_refusals(tmp_path):
     cfg.DATASET.NAME = "NoSuchDataset"
     with pytest.raises(KeyError, match="DATASET registry"):
         Trainer(cfg, device="cpu")
+    # MODEL.PRETRAINED is loaded when the file exists: one that
+    # torch.load(weights_only=True) cannot read is refused by name
     cfg = _cfg(str(tmp_path), 1)
     pretrained = tmp_path / "hrnet.pth"
     pretrained.write_bytes(b"x")
     cfg.MODEL.PRETRAINED = str(pretrained)
-    with pytest.raises(NotImplementedError, match="PRETRAINED"):
-        check_supported(cfg)
+    check_supported(cfg)
+    with pytest.raises(ValueError, match="hrnet.pth"):
+        Trainer(cfg, dataset=_dataset(n=4), device="cpu")
     cfg = _cfg(str(tmp_path), 1)
     cfg.CORE_FUNCTION = "SomethingElse"
     with pytest.raises(KeyError, match="core function"):
@@ -207,15 +213,20 @@ def test_other_refusals(tmp_path):
     cfg.MODEL.NAME = "PoseWarper"
     with pytest.raises(KeyError, match="Unknown model"):
         check_supported(cfg)
-    # raw person windows (TPU.DEVICE_CROP samples) collate for the
-    # evaluator, and the trainer's batch preparation refuses them
-    sample = dict(_dataset(n=1)[0], crop_center=np.zeros(2))
+    # raw person windows (TPU.DEVICE_CROP samples) collate, and the
+    # trainer's batch preparation crops them on the device: a window that
+    # is the crop itself, centred, at scale 1, gives the host batch back
+    sample = dict(_dataset(n=1)[0], crop_center=np.full(2, 31.5, np.float32),
+                  scale=np.full(2, 64 / 200, np.float32))
     raw = collate([sample] * 4)
     assert raw["crop_center"].shape == (4, 2)
     trainer = Trainer(_cfg(str(tmp_path), 1), dataset=_dataset(n=4),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="crop_center"):
-        trainer.prepare(raw)
+    got = trainer.prepare(raw)
+    want = trainer.prepare({k: v for k, v in raw.items()
+                            if k != "crop_center"})
+    for k in ("kf", "sup", "target", "target_weight"):
+        torch.testing.assert_close(got[k], want[k], atol=1e-5, rtol=0)
 
 
 def test_checkpoint_directory_contract_matches_jax(tmp_path):
