@@ -81,14 +81,21 @@ and as the last line ``{"ok": true, "device": {...}}``:
                split, ``TPU.PROFILE_DIR`` over 2 steps,
                ``TPU.ASYNC_CHECKPOINT``): the loaded backbone bit for bit,
                4 launches of each train kernel a step, finite loss terms and
-               gradients, a trace with kernels, ``metrics.jsonl``, the async
-               checkpoint (also one saved while a step runs) and resume;
-               then each lever alone against none (step and prepare ms,
-               device-busy ms of a traced step, peak memory, the largest
-               batch of a remat step by arithmetic); at 256x192, B=2, remat
-               against none on the card (f32) and the ``BF16_GRADS`` step on
-               the card against the CPU (``tests/test_torch_train_levers.py``'s
-               rule); and ``fami_pose_torch.tools.validate_real_checkpoint``
+               non-zero gradients (norms in float64) of the DCNs, their
+               offset and mask convs, the offset head and the stem, a trace
+               with kernels, ``metrics.jsonl``, the async checkpoint (also
+               one saved while a step runs) and resume; each offset conv's
+               gradient explained with ``BF16_GRADS`` off and on (live
+               offsets, d_offset, float32 and float64 norms); then each
+               lever alone against none (step and prepare ms, device-busy ms
+               of a traced step, peak memory, the largest batch of a remat
+               step by arithmetic), ``BF16_GRADS`` against none in turns and
+               its casts alone; at 256x192, B=2, remat against none on the
+               card (f32) and, on tame weights at one block a stage branch,
+               the ``BF16_GRADS`` step on the card against the CPU by
+               ``bf16_rule`` (the rule ``tests/test_torch_train_levers.py``
+               holds the port to against JAX), with planted faults; and
+               ``fami_pose_torch.tools.validate_real_checkpoint``
                on the val fixture with a full reference ``epoch_20_state.pth``,
                in the exact DCN mode and at ``--dcn-bound 4``.
 
@@ -1279,11 +1286,11 @@ GRAD_GROUPS = {
 }
 
 
-def check_gradients(model, nonzero=tuple(GRAD_GROUPS)):
-    """Every parameter's gradient finite; those of the ``nonzero`` groups
-    (by default all: the DCN weights, the offset and mask convs, the offset
-    head and the backbone's stem) with non-zero norm. Returns the norms of
-    the named groups."""
+def check_gradients(model, exempt=()):
+    """Every parameter's gradient finite; those of the named groups (the
+    DCN weights, the offset and mask convs, the offset head and the
+    backbone's stem), but the ``exempt`` names, with non-zero norm. Returns
+    the norms of the named groups."""
     grads = {n: p.grad for n, p in model.named_parameters()}
     missing = [n for n, g in grads.items() if g is None]
     if missing:
@@ -1295,8 +1302,9 @@ def check_gradients(model, nonzero=tuple(GRAD_GROUPS)):
     norms = {}
     for group, names in GRAD_GROUPS.items():
         for n in names:
-            norms[n] = float(grads[n].float().norm())
-            if group in nonzero and not norms[n] > 0.0:
+            # float64: a float32 norm squares entries under ~1e-19 to 0
+            norms[n] = float(grads[n].double().norm())
+            if n not in exempt and not norms[n] > 0.0:
                 raise AssertionError(f"zero gradient for {n} ({group})")
     return norms
 
@@ -1754,18 +1762,114 @@ def phase_train_card_vs_cpu():
 LEVERS_TRAIN_IMAGES = 16
 LEVERS_STEPS = 4
 LEVERS_TIMED_STEPS = 5
-# the bf16-gradient step, card against CPU, per gradient tensor, each
-# side's own gap taken to the CPU's f32 step. tests/test_torch_train_levers
-# .py holds the port against JAX, both on the CPU's convolution library, to
-# a median |port - JAX| / max(own gaps) <= 1 and a 90th percentile <= 1.25
-# (their roundings are correlated). cuDNN and the CPU library round
-# independently, and two independent deviations of sizes a >= b put that
-# ratio at sqrt(1 + (b / a)^2), between 1 and sqrt(2) (measured on the
-# card: median 1.22, 90th percentile 1.28). So the card is held to that
-# bound in its 90th percentile, and to own gaps of one size: the median of
-# own(card) / own(CPU) within [1/2, 2]
-BF16_CROSS_P90 = math.sqrt(2.0)
-BF16_OWN_RATIO = (0.5, 2.0)
+# the rule for a bf16 gradient tensor against a reference's
+# (tests/test_torch_train_levers.py holds the port against JAX with it, and
+# phase train-levers the card against the port on the CPU): a tensor is held
+# where the reference's own gap to the f32 step is at most BF16_TAME of the
+# f32 gradient (L2), and there |got - ref| <= BF16_CROSS |ref - f32| +
+# BF16_SCALE |f32|; the same bound holds the loss terms, and the running
+# statistics in max-abs with the f32 step's move for scale. The step runs on
+# tame weights (tame_weights), where a bf16 step is not chaotic; BF16_HELD
+# must be held, and a fault planted in any of them must break the rule there
+BF16_TAME = 0.2
+BF16_CROSS = 3.0
+BF16_SCALE = 2.0 ** -6
+BF16_HELD = ("dcn_1.weight", "dcn_offset_1.conv.weight",
+             "dcn_mask_1.conv.weight", "feat_global_offset_layers.8.weight",
+             "hrnet.conv1.weight")
+
+
+def bf16_rule(got, ref, f32):
+    """The per-tensor rule of ``got``'s bf16 gradients against ``ref``'s:
+    the tensors held (``ref``'s own gap to ``f32`` at most ``BF16_TAME`` of
+    the f32 gradient, in L2), those of them that break ``|got - ref| <=
+    BF16_CROSS |ref - f32| + BF16_SCALE |f32|``, and each held tensor's
+    ``|got - ref|`` over that bound."""
+    held, broken, ratios = [], [], {}
+    for n, f in f32.items():
+        f = f.double()
+        size = float(f.norm())
+        own = float((ref[n].double() - f).norm())
+        if size == 0 or own > BF16_TAME * size:
+            continue
+        held.append(n)
+        ratios[n] = float((got[n].double() - ref[n].double()).norm()) / (
+            BF16_CROSS * own + BF16_SCALE * size)
+        if ratios[n] > 1.0:
+            broken.append(n)
+    return held, broken, ratios
+
+
+def planted_faults(got, ref, f32):
+    """``bf16_rule`` on ``got`` with one held ``BF16_HELD`` tensor
+    doubled, zeroed or sign-flipped at a time: the ratio each fault reaches,
+    and the faults that did not break the rule there alone."""
+    reached, missed = {}, []
+    held = bf16_rule(got, ref, f32)[0]
+    for name in (n for n in BF16_HELD if n in held):
+        for fault in (2.0, 0.0, -1.0):
+            planted = dict(got, **{name: fault * got[name]})
+            _, broken, ratios = bf16_rule(planted, ref, f32)
+            reached[f"{name} x {fault}"] = ratios.get(name)
+            if broken != [name]:
+                missed.append((name, fault, broken[:3]))
+    return reached, missed
+
+
+def residual_closers(model):
+    """The BatchNorms whose output is added to a shortcut before a ReLU:
+    each residual block's last (a bottleneck's ``bn3``, a basic block's
+    ``bn2``) and the last of each HRNet fuse path."""
+    from fami_pose_torch.models.layers import BatchNorm
+
+    names, last = set(), {}
+    for name, module in model.named_modules():
+        if not isinstance(module, BatchNorm):
+            continue
+        if "fuse_layers." in name:
+            head, tail = name.split("fuse_layers.")
+            steps = tail.split(".")
+            path = head + ".".join(steps[:2])
+            step = int(steps[2]) if len(steps) == 4 else -1
+            if step >= last.get(path, (-2, None))[0]:
+                last[path] = (step, name)
+        elif name.endswith(".bn3") or (name.endswith(".bn2")
+                                       and ".layer1." not in name
+                                       and name != "hrnet.bn2"):
+            names.add(name)
+    return names | {name for _, name in last.values()}
+
+
+@torch.no_grad()
+def tame_weights(model, seed=0):
+    """Seeded weights (``init_weights``) on which a bf16 step is not
+    chaotic (``tests/test_torch_train_levers.py::tame_variables`` is the
+    CPU test's): every BatchNorm's scale 0.1 and shift 0.4 (each +-10%), so
+    every ReLU after one passes (4 standard deviations above 0); the
+    residual closers' (``residual_closers``) scale 0.05 and shift 0, so a
+    shortcut's mean does not pile up block after block (a conv's weight
+    gradient over an input whose mean is many times its spread cancels, and
+    cuDNN's bf16 one then strays from f32 several times as far as the CPU
+    library's); and every conv and linear kernel outside the backbone, or
+    of its final layer, at half size (the DCNs' own as they are)."""
+    from fami_pose_torch.models.bridge import init_weights
+    from fami_pose_torch.models.layers import BatchNorm
+
+    init_weights(model, seed)
+    closers = residual_closers(model)
+    gen = torch.Generator().manual_seed(int(seed) + 3)
+    for name, module in model.named_modules():
+        if isinstance(module, BatchNorm):
+            closer = name in closers
+            for p, centre in ((module.weight, 0.05 if closer else 0.1),
+                              (module.bias, 0.0 if closer else 0.4)):
+                p.copy_(centre * (1 + 0.1 * torch.randn(p.shape,
+                                                        generator=gen)))
+        elif isinstance(module, (torch.nn.Conv2d, torch.nn.Linear)) and (
+                not name.startswith("hrnet.")
+                or name.startswith("hrnet.final_layer")):
+            module.weight.mul_(0.5)
+    return model
 
 
 def levers_cfg(root, dirs, *opts):
@@ -1810,21 +1914,173 @@ def write_reference_files(model, root):
     return bb_path, full_path, sd
 
 
+def offset_shares(offset, max_offset):
+    """The shares of ``offset``'s entries whose derivative the DCN backward
+    sets to zero, outside ``[-D, D]`` (clamped) or at an integer inside,
+    and of the rest (live)."""
+    o = offset.detach().float()
+    outside = (o.abs() > float(max_offset) if max_offset
+               else torch.zeros_like(o, dtype=torch.bool))
+    integer = ~outside & (o == o.round())
+    n = o.numel()
+    return dict(outside=float(outside.sum()) / n,
+                integer=float(integer.sum()) / n,
+                live=float((~outside & ~integer).sum()) / n)
+
+
+def watch_offsets(model):
+    """Forward hooks on the four DCNs that keep each one's offsets of the
+    last forward; returns ``(last, handles)``."""
+    last = {}
+
+    def keep(i):
+        def hook(mod, args, out):
+            last[i] = (args[1].detach(), mod.max_offset)
+        return hook
+
+    handles = [getattr(model, f"dcn_{i}").register_forward_hook(keep(i))
+               for i in range(1, 5)]
+    return last, handles
+
+
+def offset_gradient_cause(trainer, batch):
+    """At the trainer's weights and one batch, a train step of a copy of
+    the state with ``BF16_GRADS`` off and then on: for each DCN the shares
+    of its offsets outside the window, at an integer and live, the share of
+    non-zero entries of the gradient reaching them (``dcn_bwd``'s d_offset),
+    and the offset conv's weight-gradient norm. Raises where offsets are
+    live and the gradient reaching them is non-zero, but the conv's is
+    zero."""
+    from fami_pose_torch.engine.core_functions import build_core_function
+    from fami_pose_torch.engine.train_state import TrainState
+    from fami_pose_torch.models.fami_pose import FAMIPose
+    from fami_pose_torch.optim import build_optimizer
+
+    out = {}
+    for bf16_grads in (False, True):
+        cfg = trainer.cfg.clone()
+        cfg.TPU.BF16_GRADS = bf16_grads
+        model = FAMIPose.from_config(cfg)
+        model.load_state_dict(trainer.model.state_dict())
+        model.to("cuda").train()
+        seen = {}
+
+        def watch(i):
+            def hook(mod, args, _):
+                seen[i] = offset_shares(args[1], mod.max_offset)
+                args[1].register_hook(lambda g: seen[i].update(
+                    d_offset_nonzero=float((g != 0).float().mean())))
+            return hook
+
+        handles = [getattr(model, f"dcn_{i}").register_forward_hook(watch(i))
+                   for i in range(1, 5)]
+        opt, sched = build_optimizer(cfg, model, steps_per_epoch=5)
+        build_core_function(cfg).build_train_step(model)(
+            TrainState(model, opt, sched), batch)
+        for h in handles:
+            h.remove()
+        for i in range(1, 5):
+            grad = getattr(model, f"dcn_offset_{i}").conv.weight.grad
+            # a float32 norm squares entries under ~1e-19 to 0, a float64
+            # one does not
+            seen[i].update(
+                offset_conv_grad_norm_f32=float(grad.float().norm()),
+                offset_conv_grad_norm=float(grad.double().norm()),
+                offset_conv_grad_max=float(grad.abs().max()))
+            if (seen[i]["live"] > 0 and seen[i]["d_offset_nonzero"] > 0
+                    and not seen[i]["offset_conv_grad_norm"] > 0):
+                raise AssertionError(f"dcn_offset_{i}: live offsets and a "
+                                     f"non-zero d_offset, zero weight "
+                                     f"gradient ({seen[i]})")
+        out["on" if bf16_grads else "off"] = {
+            f"dcn_{i}": seen[i] for i in range(1, 5)}
+        del model, opt
+    return out
+
+
+def bf16_cast_ms(model, reps=10):
+    """Host ms, synchronised, of ``BF16_GRADS``'s casts alone at the
+    model's parameters: ``params_cast``'s entry and exit (the copies cast
+    at once, and the swap), the gradients cast back (``set_grads``, with
+    bf16 stand-ins of the right shapes), and the same two casts made one
+    parameter at a time (the lever's first version), for comparison."""
+    from fami_pose_torch.engine.steps import (
+        cast_copies, params_cast, set_grads,
+    )
+
+    params = [p for p in model.parameters() if p.is_floating_point()]
+    stand_ins = cast_copies(params, torch.bfloat16)
+
+    def per_parameter():
+        grads = [p.detach().to(torch.bfloat16).requires_grad_()
+                 for p in params]
+        for p, g in zip(params, grads):
+            p.grad = g.detach().to(p.dtype)
+
+    def swap():
+        with params_cast(model, torch.bfloat16):
+            pass
+
+    times = {}
+    for name, fn in (("params_cast", swap),
+                     ("set_grads", lambda: set_grads(params, stand_ins)),
+                     ("per_parameter_both_ways", per_parameter)):
+        fn()
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times[name] = dict(median=float(np.median(ms)), min=min(ms),
+                           max=max(ms))
+    for p in params:
+        p.grad = None
+    return dict(parameters=len(params), reps=reps, **times)
+
+
+def lever_turns(trainer, raws, rounds=3, steps=3):
+    """Host ms of a synchronised train step without a lever and with
+    ``BF16_GRADS`` alone, in turns (none, bf16, bf16, none, each
+    ``steps`` steps after one warm-up, ``rounds`` times)."""
+    from fami_pose_torch.engine.core_functions import build_core_function
+
+    step = {}
+    for on in (False, True):
+        cfg = trainer.cfg.clone()
+        cfg.TPU.BF16_GRADS = on
+        step[on] = build_core_function(cfg).build_train_step(trainer.model)
+    trainer.model.hrnet.remat = False
+    state = trainer.state
+    batch = trainer.prepare(raws[0])
+    ms = {False: [], True: []}
+    for _ in range(rounds):
+        for on in (False, True, True, False):
+            step[on](state, batch)
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step[on](state, batch)
+                torch.cuda.synchronize()
+                ms[on].append((time.perf_counter() - t0) * 1e3)
+    return {("BF16_GRADS" if on else "none"): dict(
+        median=float(np.median(v)), min=min(v), max=max(v), steps=len(v))
+        for on, v in ms.items()}
+
+
 def lever_steps(trainer, raws, remat, bf16_grads, steps):
     """``steps`` train steps of ``trainer``'s state with the levers set:
     prepare (host crops, or the device crop of raw windows) and step, each
     timed from synchronisation to synchronisation, after one warm-up; then
     the peak memory of one more step above what the state holds, and one
     traced step. Returns the readings."""
-    from fami_pose_torch.engine.steps import make_train_step
+    from fami_pose_torch.engine.core_functions import build_core_function
 
-    cfg = trainer.cfg
+    cfg = trainer.cfg.clone()
+    cfg.TPU.BF16_GRADS = bf16_grads
     trainer.model.hrnet.remat = remat
-    step = make_train_step(
-        mse_weight=float(cfg.LOSS.HEATMAP_MSE.WEIGHT),
-        mi_alpha=float(getattr(cfg.LOSS, "MI_ALPHA", 0.5)),
-        mi_beta=float(getattr(cfg.LOSS, "MI_BETA", 0.1)),
-        bf16_grads=bf16_grads)
+    step = build_core_function(cfg).build_train_step(trainer.model)
     state = trainer.state
     step(state, trainer.prepare(raws[0]))
     prepare_ms, step_ms = [], []
@@ -1846,9 +2102,6 @@ def lever_steps(trainer, raws, remat, bf16_grads, steps):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     traced = profile_call(lambda: step(state, trainer.prepare(raws[0])))
-    grads = {n: p.grad for n, p in trainer.model.named_parameters()}
-    offset_grads = {n: float(grads[n].float().norm())
-                    for n in GRAD_GROUPS["offset convs"]}
     trainer.model.hrnet.remat = False
     return dict(
         step_ms_median=float(np.median(step_ms)), step_ms_min=min(step_ms),
@@ -1860,8 +2113,7 @@ def lever_steps(trainer, raws, remat, bf16_grads, steps):
                          device_busy_share=traced["device_busy_share"],
                          top_self_device_ms=traced["top_self_device_ms"]),
         held_gb=held / 1e9, peak_gb=peak / 1e9,
-        step_peak_above_held_gb=(peak - held) / 1e9,
-        offset_conv_grad_norms=offset_grads)
+        step_peak_above_held_gb=(peak - held) / 1e9)
 
 
 def one_lever_step(base, model_cfg, host_batch, device, remat=False,
@@ -1890,10 +2142,10 @@ def one_lever_step(base, model_cfg, host_batch, device, remat=False,
 
 def levers_card_vs_cpu():
     """Remat against no remat on the card (f32, TF32 off), and the
-    ``BF16_GRADS`` step on the card against the port on the CPU, at full
-    W48 width, 256x192, B=2, seeded weights."""
+    ``BF16_GRADS`` step on the card against the port on the CPU by
+    ``bf16_rule`` (at one module of one block a stage branch), at full W48
+    width, 256x192, B=2, on tame seeded weights (``tame_weights``)."""
     from fami_pose_torch.data.loader import prepare_train_batch
-    from fami_pose_torch.models.bridge import init_weights
     from fami_pose_torch.models.fami_pose import FAMIPose
 
     opts = ("MODEL.IMAGE_SIZE", "[192, 256]", "MODEL.HEATMAP_SIZE", "[48, 64]")
@@ -1903,7 +2155,7 @@ def levers_card_vs_cpu():
     heatmap_size = tuple(int(v) for v in cfg32.MODEL.HEATMAP_SIZE)
     num_sup = 2 * (int(cfg32.DISTANCE) - 1)
     data = SyntheticPoseDataset(2, image_size, num_sup, seed=1)
-    base = init_weights(FAMIPose.from_config(cfg32), seed=0)
+    base = tame_weights(FAMIPose.from_config(cfg32), seed=0)
     host_batch = prepare_train_batch(
         np.stack([data[i]["kf"] for i in range(2)]),
         np.stack([data[i]["sup"] for i in range(2)]),
@@ -1933,7 +2185,17 @@ def levers_card_vs_cpu():
         raise AssertionError(f"remat on the card: {remat}, running "
                              f"statistics differ at {stats_differ[:5]}")
 
-    # BF16_GRADS: card and CPU, each against the CPU's f32 step
+    # BF16_GRADS: the card against the CPU, by the CPU's own gap to its
+    # f32 step. At full depth the bf16 step stayed chaotic on tame weights
+    # (a first reading: the CPU's own gap above BF16_TAME at every DCN
+    # weight, offset and mask conv), so this step cuts the depth to one
+    # module of one block a branch, at full W48 width
+    for cfg in (cfg32, cfg16):
+        for stage in ("STAGE2", "STAGE3", "STAGE4"):
+            extra = cfg.MODEL.EXTRA[stage]
+            extra.NUM_MODULES = 1
+            extra.NUM_BLOCKS = [1] * len(extra.NUM_BLOCKS)
+    base = tame_weights(FAMIPose.from_config(cfg32), seed=0)
     t0 = time.perf_counter()
     t32, g32, s32 = one_lever_step(base, cfg32, host_batch, "cpu")
     t_cpu, g_cpu, s_cpu = one_lever_step(base, cfg16, host_batch, "cpu",
@@ -1948,54 +2210,58 @@ def levers_card_vs_cpu():
     for k in t32:
         if not k.startswith("loss"):
             continue
-        cross = abs(t_card[k] - t_cpu[k])
-        own = max(abs(t_card[k] - t32[k]), abs(t_cpu[k] - t32[k]))
+        bound = BF16_CROSS * abs(t_cpu[k] - t32[k]) + BF16_SCALE * abs(t32[k])
         terms[k] = dict(card=t_card[k], cpu=t_cpu[k], cpu_f32=t32[k],
-                        cross=cross, own=own)
-        limit = 5e-4 if k.startswith("loss_mi") else 1.5 * own
-        if not cross <= limit:
-            raise AssertionError(f"BF16_GRADS loss term {k}: {terms[k]}")
-    floor = 2e-5 * max(float(g.abs().max()) for g in g32.values())
-    cross, own_ratio = [], []
-    for n, f in g32.items():
-        if float(f.abs().max()) <= floor:
-            continue
-        own_card = float((g_card[n] - f).norm())
-        own_cpu = float((g_cpu[n] - f).norm())
-        if own_card > 0 and own_cpu > 0:
-            cross.append(float((g_card[n] - g_cpu[n]).norm())
-                         / max(own_card, own_cpu))
-            own_ratio.append(own_card / own_cpu)
-    quantiles = (0.1, 0.5, 0.9, 1.0)
-    stat_ratios = []
+                        ratio=abs(t_card[k] - t_cpu[k]) / bound)
+    before = base.state_dict()
+    stats = {}
     for k, f in s32.items():
-        own = max(float((s_card[k] - f).abs().max()),
-                  float((s_cpu[k] - f).abs().max()))
-        if own > 0:
-            stat_ratios.append(float((s_card[k] - s_cpu[k]).abs().max())
-                               / own)
+        bound = (BF16_CROSS * float((s_cpu[k] - f).abs().max())
+                 + BF16_SCALE * float((f - before[k]).abs().max()))
+        cross = float((s_card[k] - s_cpu[k]).abs().max())
+        stats[k] = cross / bound if bound > 0 else (0.0 if cross == 0
+                                                    else math.inf)
+    held, broken, ratios = bf16_rule(g_card, g_cpu, g32)
+    faults, missed = planted_faults(g_card, g_cpu, g32)
+    dcn = [n for n in g32 if n.startswith("dcn") and n.endswith("weight")]
+    unheld = sorted(set(dcn) - set(held))
+    quantiles = (0.5, 0.9, 1.0)
     bf16 = dict(
-        rule="per gradient tensor with each side's own gap to the CPU's f32 "
-        "step: |card - cpu| / max(own gaps) 90th percentile <= sqrt(2) "
-        "(two independent roundings), own(card) / own(cpu) median within "
-        f"{list(BF16_OWN_RATIO)}; running statistics in max-abs: median "
-        "<= 1; MSE terms within 1.5x the larger own gap, MI terms within "
-        "5e-4; every gradient a bf16 value",
-        tensors=len(cross), of=len(g32),
-        cross_over_own_quantiles=dict(zip(
-            quantiles, (float(np.quantile(cross, q)) for q in quantiles))),
-        own_card_over_own_cpu_quantiles=dict(zip(
-            quantiles, (float(np.quantile(own_ratio, q)) for q in quantiles))),
-        stats_ratio_median=float(np.median(stat_ratios)),
-        stats_ratio_max=max(stat_ratios), loss_terms=terms, cpu_s=cpu_s)
-    own_median = float(np.median(own_ratio))
-    if (not_bf16 or bad or len(cross) < 0.9 * len(g32)
-            or not float(np.quantile(cross, 0.9)) <= BF16_CROSS_P90
-            or not BF16_OWN_RATIO[0] <= own_median <= BF16_OWN_RATIO[1]
-            or not bf16["stats_ratio_median"] <= 1.0):
-        raise AssertionError(f"BF16_GRADS card vs CPU: {bf16}; not bf16 "
-                             f"values {not_bf16[:5]}, non-finite {bad[:5]}")
-    return dict(model="FAMIPose HRNet-W48 256x192 D=4 num_sup=4, B=2",
+        rule=f"per gradient tensor held (the CPU's own gap to its f32 step "
+        f"at most {BF16_TAME} of the f32 gradient, L2): |card - cpu| <= "
+        f"{BF16_CROSS} |cpu - cpu_f32| + 2^-6 |cpu_f32|; the same for every "
+        "loss term, and for running statistics in max-abs with the f32 "
+        "step's move for scale; every gradient a bf16 value; every DCN "
+        "weight, offset and mask conv held; a fault planted in one of the "
+        "named tensors held breaks the rule there alone",
+        held=len(held), of=len(g32), broken=broken,
+        named_held=[n for n in BF16_HELD if n in held],
+        dcn_ratios={n: ratios.get(n) for n in dcn},
+        worst_tensors={n: dict(
+            ratio=ratios[n],
+            **{k: float((g[n].double() - r[n].double()).norm())
+               / float(g32[n].double().norm())
+               for k, g, r in (("own_cpu", g_cpu, g32),
+                               ("own_card", g_card, g32),
+                               ("cross", g_card, g_cpu))})
+            for n in sorted(ratios, key=ratios.get)[-3:]},
+        ratio_quantiles=dict(zip(quantiles, (
+            float(np.quantile(list(ratios.values()), q)) for q in quantiles))),
+        worst=max(ratios, key=ratios.get),
+        loss_term_ratio_max=max(t["ratio"] for t in terms.values()),
+        stats_ratio_max=max(stats.values()), loss_terms=terms,
+        planted_fault_ratio_min=min(faults.values(), default=None),
+        cpu_s=cpu_s)
+    if (not_bf16 or bad or broken or missed or unheld
+            or len(held) < 0.6 * len(g32)
+            or bf16["loss_term_ratio_max"] > 1.0
+            or bf16["stats_ratio_max"] > 1.0):
+        raise AssertionError(
+            f"BF16_GRADS card vs CPU: {bf16}; not bf16 values "
+            f"{not_bf16[:5]}, non-finite {bad[:5]}, not held {unheld}, "
+            f"faults missed {missed}")
+    return dict(model="FAMIPose HRNet-W48 256x192 D=4 num_sup=4, B=2; "
+                "BF16_GRADS at one module of one block a stage branch",
                 remat_f32=remat, bf16_grads=bf16)
 
 
@@ -2092,6 +2358,7 @@ def phase_train_levers(smi):
                        f"hrnet.* tensors equal the file's bit for bit")
 
         # the main path: one epoch through Trainer.train, every lever on
+        last_offsets, watching = watch_offsets(trainer.model)
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2099,13 +2366,20 @@ def phase_train_levers(smi):
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t0
         launches = read_launches()
+        for h in watching:
+            h.remove()
         if any(c != 4 * LEVERS_STEPS for c in launches.values()):
             raise AssertionError(f"train-levers launches {launches}, "
                                  f"expected 4 a step")
-        # the seeded head's offset and mask convs get gradients of ~1e-18
-        # (phase train) that may round to zero; they are read, not required
-        norms = check_gradients(trainer.model, nonzero=(
-            "dcn weights", "offset head", "backbone stem"))
+        # an offset conv's gradient is zero when no offset of its DCN is
+        # live in the step (all outside the window or at an integer, where
+        # the DCN backward's d_offset is zero): required only where some are
+        offsets = {f"dcn_{i}": offset_shares(*last_offsets[i])
+                   for i in range(1, 5)}
+        exempt = [f"dcn_offset_{i}.conv.weight" for i in range(1, 5)
+                  if offsets[f"dcn_{i}"]["live"] == 0]
+        del last_offsets
+        norms = check_gradients(trainer.model, exempt=exempt)
         if not all(p.dtype == torch.float32 for p in trainer.model.parameters()):
             raise AssertionError("BF16_GRADS changed a master parameter's "
                                  "dtype")
@@ -2137,6 +2411,8 @@ def phase_train_levers(smi):
         if any(not torch.equal(saved[k], now[k].cpu()) for k in now):
             raise AssertionError(f"{ckpt} differs from the state at its save")
         raws = list(trainer.loader)
+        cause = offset_gradient_cause(trainer, trainer.prepare(raws[0]))
+        torch.cuda.empty_cache()
         at_save = {k: v.detach().cpu().clone() for k, v in now.items()}
         race_dir = os.path.join(root, "async")
         race = checkpoints.save_checkpoint(race_dir, 7, state,
@@ -2176,6 +2452,8 @@ def phase_train_levers(smi):
                 LEVERS_TIMED_STEPS)
             emit("train-levers-step", lever=name, card=smi, batch_size=8,
                  **readings[name])
+        casts = bf16_cast_ms(trainer.model)
+        turns = lever_turns(trainer, host_raws)
         total = torch.cuda.get_device_properties(0).total_memory
         held = readings["REMAT_BACKBONE"]["held_gb"] * 1e9
         per_sample = readings["REMAT_BACKBONE"]["step_peak_above_held_gb"] \
@@ -2220,6 +2498,9 @@ def phase_train_levers(smi):
          pretrained=loaded_note, epoch_steps=LEVERS_STEPS,
          epoch_seconds=epoch_s, launches=launches, launches_per_step=4,
          last_step_terms=last, grad_norms=norms,
+         offsets_last_step=offsets, offset_convs_exempt=exempt,
+         offset_gradient_cause=cause, bf16_casts=casts,
+         bf16_grads_in_turns=turns,
          trace=dict(file=os.path.basename(trace_path),
                     bytes=len(trace_bytes), steps=2),
          metrics_records=len(records),

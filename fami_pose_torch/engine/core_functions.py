@@ -17,7 +17,7 @@ from .steps import make_eval_step, make_train_step
 
 
 class BaseCoreFunction:
-    def __init__(self, cfg, **kwargs):
+    def __init__(self, cfg):
         self.cfg = cfg
 
     def build_train_step(self, model):
@@ -48,8 +48,8 @@ class AlignmentMIFunction(BaseCoreFunction):
                               flip_pairs=flip_pairs)
 
 
-def build_core_function(cfg, **kwargs):
-    """The core function of ``cfg.CORE_FUNCTION`` (empty: the FAMI-Pose
+def core_function_class(cfg):
+    """The registered class of ``cfg.CORE_FUNCTION`` (empty: the FAMI-Pose
     one); a name not registered raises ``KeyError``."""
     name = cfg.CORE_FUNCTION or "FAMIPoseFunction"
     if name not in CORE_FUNCTION_REGISTRY:
@@ -57,4 +57,9 @@ def build_core_function(cfg, **kwargs):
             f"Unknown core function {name!r}; available: "
             f"{sorted(CORE_FUNCTION_REGISTRY.keys())}"
         )
-    return CORE_FUNCTION_REGISTRY.get(name)(cfg, **kwargs)
+    return CORE_FUNCTION_REGISTRY.get(name)
+
+
+def build_core_function(cfg):
+    """The core function of ``cfg.CORE_FUNCTION`` (:func:`core_function_class`)."""
+    return core_function_class(cfg)(cfg)

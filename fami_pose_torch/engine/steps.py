@@ -50,32 +50,54 @@ def heatmap_pck_accuracy(pred, target, thr=0.5):
     return acc, n_counted
 
 
+def cast_copies(params, dtype):
+    """Leaf copies of ``params`` in ``dtype``, each with its parameter's
+    ``requires_grad``: views of one concatenation cast at once."""
+    flat = torch.cat([p.detach().reshape(-1) for p in params]).to(dtype)
+    return [v.view(p.shape).requires_grad_(p.requires_grad)
+            for p, v in zip(params, flat.split([p.numel() for p in params]))]
+
+
+def set_grads(params, grads):
+    """Each parameter's ``.grad`` set to its gradient in ``grads`` cast to
+    its dtype (None for None): one concatenation cast at once, of which the
+    ``.grad`` tensors are views."""
+    have = [(p, g) for p, g in zip(params, grads) if g is not None]
+    if have:
+        flat = torch.cat([g.reshape(-1) for _, g in have]).to(
+            have[0][0].dtype)
+        for (p, _), g in zip(have, flat.split([p.numel() for p, _ in have])):
+            p.grad = g.view(p.shape).to(p.dtype)
+    for p, g in zip(params, grads):
+        if g is None:
+            p.grad = None
+
+
 @contextlib.contextmanager
 def params_cast(model, dtype):
     """Swap each floating parameter of ``model`` for a leaf copy of it in
-    ``dtype`` for the duration of the block, and yield ``{id(parameter):
-    copy}``: a forward and backward inside the block differentiate with
-    respect to the copies, and a rematerialized module's second pass, run
-    during the backward, sees them too. The parameters themselves are put
-    back on exit, with their dtype, values and optimizer state untouched.
+    ``dtype`` (:func:`cast_copies`) for the duration of the block, and
+    yield ``{id(parameter): copy}``: a forward and backward inside the block
+    differentiate with respect to the copies, and a rematerialized module's
+    second pass, run during the backward, sees them too. On leaving the
+    block the parameters are put back, with their dtype, values and
+    optimizer state untouched, and the copies' gradients become theirs
+    (:func:`set_grads`).
 
     A copy is put in its module's instance ``__dict__``, where attribute
     lookup finds it before ``nn.Module.__getattr__`` would look in
     ``_parameters`` (from which the parameter is taken out meanwhile): a
     dictionary operation a parameter, not ``nn.Module.__setattr__``'s
     checks."""
+    params = [p for p in model.parameters() if p.is_floating_point()]
+    copies = dict(zip(map(id, params), cast_copies(params, dtype)))
     swapped = []
-    copies = {}
     try:
         for module in model.modules():
-            params = module._parameters
-            for name, p in list(params.items()):
-                if p is None or not p.is_floating_point():
+            for name, p in list(module._parameters.items()):
+                if p is None or id(p) not in copies:
                     continue
-                if id(p) not in copies:
-                    copies[id(p)] = (p.detach().to(dtype)
-                                     .requires_grad_(p.requires_grad))
-                del params[name]
+                del module._parameters[name]
                 module.__dict__[name] = copies[id(p)]
                 swapped.append((module, name, p))
         yield copies
@@ -83,6 +105,7 @@ def params_cast(model, dtype):
         for module, name, p in reversed(swapped):
             del module.__dict__[name]
             module._parameters[name] = p
+    set_grads(params, [copies[id(p)].grad for p in params])
 
 
 def make_train_step(mse_weight=1.0, mi_alpha=0.5, mi_beta=0.1,
@@ -119,13 +142,10 @@ def make_train_step(mse_weight=1.0, mi_alpha=0.5, mi_beta=0.1,
         low = bf16_grads and getattr(model, "compute_dtype",
                                      torch.float32) == torch.bfloat16
         if low:
-            with params_cast(model, torch.bfloat16) as copies:
+            with params_cast(model, torch.bfloat16):
                 total, (aux, final, sup_hms, kf_bb) = loss_and_metrics(
                     model, batch)
                 total.backward()
-            for p in model.parameters():
-                g = copies[id(p)].grad if id(p) in copies else None
-                p.grad = None if g is None else g.to(p.dtype)
         else:
             total, (aux, final, sup_hms, kf_bb) = loss_and_metrics(
                 model, batch)

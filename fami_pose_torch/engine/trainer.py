@@ -33,7 +33,7 @@ from fami_pose_torch.data.loader import (
     build_train_loader, prepare_train_batch, prepare_train_batch_device_crop,
 )
 from fami_pose_torch.models.bridge import init_weights
-from fami_pose_torch.models.build import build_model
+from fami_pose_torch.models.build import build_model, model_class
 from fami_pose_torch.models.fami_pose import init_weights_reference
 from fami_pose_torch.models.pretrained import (
     load_torch_state_dict, merge_into_variables, remap_hrnet_backbone_for_fami,
@@ -41,12 +41,10 @@ from fami_pose_torch.models.pretrained import (
 from fami_pose_torch.optim import build_optimizer
 from fami_pose_torch.utils.meters import AverageMeter
 from fami_pose_torch.utils.profiling import trace
-from fami_pose_torch.utils.registry import (
-    CORE_FUNCTION_REGISTRY, DATASET_REGISTRY, MODEL_REGISTRY, TRAIN_PHASE,
-)
+from fami_pose_torch.utils.registry import DATASET_REGISTRY, TRAIN_PHASE
 
 from . import checkpoints
-from .core_functions import build_core_function
+from .core_functions import build_core_function, core_function_class
 from .metrics_writer import MetricWriter
 from .train_state import TrainState
 
@@ -60,16 +58,9 @@ def mesh_devices(cfg):
 
 def check_model(cfg):
     """Raise ``KeyError`` for a core function or a model that is not
-    registered, with the JAX package's messages."""
-    name = cfg.CORE_FUNCTION or "FAMIPoseFunction"
-    if name not in CORE_FUNCTION_REGISTRY:
-        raise KeyError(
-            f"Unknown core function {name!r}; available: "
-            f"{sorted(CORE_FUNCTION_REGISTRY.keys())}"
-        )
-    if cfg.MODEL.NAME not in MODEL_REGISTRY:
-        raise KeyError(f"Unknown model {cfg.MODEL.NAME!r}; available: "
-                       f"{sorted(MODEL_REGISTRY.keys())}")
+    registered (the builders' own lookups and messages)."""
+    core_function_class(cfg)
+    model_class(cfg)
 
 
 def check_supported(cfg):

@@ -20,26 +20,41 @@ Tolerances, by check:
   each stage module runs twice and the statistics move once; against JAX's
   rematerialized model (``nn.remat``, its XLA DCN), the gradient and
   statistics bounds of ``tests/test_torch_train_step.py``.
-* ``BF16_GRADS``: one Adam step against JAX's ``make_train_step(...,
-  bf16_grads=True)`` on the flagship YAML at the tiny topology (bf16, the
-  Pallas DCN) at 128x128 (``BF16_SIZE`` says why not 64x64), compiled
-  with ``xla_allow_excess_precision`` off. A bf16
-  step of this seeded model is chaotic: rounding its BatchNorm scales to
-  bf16 alone moves single gradient tensors by up to 10x their size, and
-  the port's and JAX's supporting-frame MSE by 2.3% and 0.07% of the f32
-  one (measured here), so each reading is bounded by each package's own gap
-  to the port's float32 step, as ``tests/test_torch_bf16_parity.py`` bounds
-  the bf16 forward: every gradient tensor within 2x the larger own gap in
-  relative L2 and the median ratio at most 1 (measured max 1.52, median
-  0.54); running statistics likewise in max-abs (measured max 1.37, median
-  0.32); MSE loss terms within 1.5x the larger own gap (measured 1.0x), MI
-  terms within 5e-4 (measured 1.1e-4). What bf16 gradients are is held
-  exactly: every gradient of both packages is a bf16 value, and the port's
-  float32 step's are not. New parameters: the port's follow Adam's first
-  step on its own gradient to 1e-6 (where g^2 is a normal float32), and
-  JAX's within 2 lr everywhere and within 1e-2 lr where the two gradients
-  exceed 1e-5 and agree in sign, which must hold for at least 60% of all
-  entries (measured 80%).
+* ``BF16_GRADS``, the mechanism, exactly: ``params_cast`` to float32 puts
+  the plain backward's gradients on the parameters bit for bit, and the
+  lever's gradients are those of the same model with bfloat16 parameters,
+  bit for bit, with and without remat.
+* ``BF16_GRADS`` against JAX: one Adam step against JAX's
+  ``make_train_step(..., bf16_grads=True)`` on the flagship YAML at the
+  tiny topology (bf16, the Pallas DCN) at 128x128 (``BF16_SIZE`` says why
+  not 64x64), compiled with ``xla_allow_excess_precision`` off. A bf16 step
+  of the seeded weights is chaotic in both packages: a train step
+  normalizes with the batch's statistics (so calibrating the running ones
+  changes nothing), and BatchNorm followed by ReLU grows a rounding from
+  layer to layer (the bf16 forward's gap to f32 goes from 0.4% after the
+  stem to 11% at the backbone's output): the median tensor of JAX's bf16
+  gradients lies 78 times its f32 size from the f32 gradient, the port's
+  1.3 times (with the head at the reference init, 1.4 and 1.5), so a
+  bound scaled by either gap passes any fault. The step therefore runs on
+  tame weights (:func:`tame_variables`): each BatchNorm's scale 0.1 and
+  shift 1, so every ReLU after one passes, and the head's kernels at half
+  size; there JAX's own gap is at most 0.2 of the f32 gradient in 166 of
+  255 tensors, every DCN weight, offset and mask conv, the offset head's
+  last layer and the stem among them (measured here). Those tensors are
+  held, per tensor in L2, to ``|port - JAX| <= 3 |JAX - f32| + 2^-6 |f32|``
+  (``chip_smoke.bf16_rule``, by which phase ``train-levers`` also holds the
+  card's step against the CPU's: JAX's own gap alone, plus a fixed bf16
+  scale; norms in float64, as float32 squares entries under ~1e-19 to
+  zero; measured at most 0.64 of
+  the bound, median 0.25), and a fault planted in one of five of them
+  (doubled, zeroed, sign flipped) breaks the rule there and nowhere else
+  (measured at least 2.2 times the bound). The same bound holds every loss
+  term (at most 0.14 of it) and every running statistic in max-abs, with
+  the f32 step's move for scale (at most 0.16). Every gradient of both
+  packages is a bf16 value, and the f32 step's are not. New parameters:
+  the port's follow Adam's first step on its own gradient to 1e-6 (where
+  g^2 is a normal float32), and in each held tensor at least half of JAX's
+  moves are the port's to 1e-2 lr (measured at least 75%, median 99%).
 """
 
 import json
@@ -54,7 +69,9 @@ import optax
 import pytest
 import torch
 
-from chip_smoke import SyntheticPoseDataset
+from chip_smoke import (
+    BF16_CROSS, BF16_HELD, BF16_SCALE, SyntheticPoseDataset, bf16_rule,
+)
 from fami_pose_tpu.config import get_cfg as jax_get_cfg
 from fami_pose_tpu.data import loader as jax_loader
 from fami_pose_tpu.data.posetrack import PoseTrackDataset as JaxPoseTrack
@@ -85,8 +102,9 @@ from fami_pose_torch.engine.core_functions import (
 )
 from fami_pose_torch.engine.evaluator import check_supported as ev_check
 from fami_pose_torch.engine.metrics_writer import MetricWriter
-from fami_pose_torch.engine.steps import make_train_step
+from fami_pose_torch.engine.steps import make_train_step, params_cast
 from fami_pose_torch.engine.train_state import TrainState
+from fami_pose_torch.losses import fami_total_loss
 from fami_pose_torch.engine.trainer import Trainer, check_supported
 from fami_pose_torch.models.bridge import state_dict_from_flax
 from fami_pose_torch.models.build import build_model
@@ -307,6 +325,31 @@ def test_remat_step_matches_jax_remat(variables, raw_batch, jax_remat):
 # conv on a 1x1 map comes back as garbage (NaN, or up to 1e38) from run to
 # run; at 128x128 it takes 2x2
 BF16_SIZE = 128
+def tame_variables(variables):
+    """``variables`` with every BatchNorm's scale set to 0.1 and its shift
+    to 1 (each +-10%, seeded), so that each ReLU after a BatchNorm passes
+    its input, and every kernel outside the backbone but the four DCNs'
+    own at half its size (module docstring)."""
+    rs = np.random.RandomState(3)
+
+    def walk(tree, path):
+        out = {}
+        for k, v in tree.items():
+            if hasattr(v, "items"):
+                out[k] = walk(v, path + (k,))
+            elif path[-1:] == ("bn",) and k in ("scale", "bias"):
+                centre = 0.1 if k == "scale" else 1.0
+                out[k] = (centre * (1 + 0.1 * rs.randn(*v.shape))
+                          ).astype(np.float32)
+            elif (k == "kernel" and path[0] != "hrnet"
+                  and not (len(path) == 1 and path[0].startswith("dcn_"))):
+                out[k] = (np.asarray(v) * 0.5).astype(np.float32)
+            else:
+                out[k] = v
+        return out
+
+    return {"params": walk(variables["params"], ()),
+            "batch_stats": variables["batch_stats"]}
 
 
 def _yaml_cfgs(dtype):
@@ -324,11 +367,40 @@ def _yaml_cfgs(dtype):
     return port, ref
 
 
-def _port_bf16_step(variables, batch, dtype, bf16_grads):
+@pytest.fixture(scope="module")
+def bf16_inputs():
+    """Tame seeded weights at ``BF16_SIZE`` and a raw batch of 2."""
+    size = BF16_SIZE
+    init = JaxFAMIPose(**JAX_KW)
+    variables = tame_variables(random_variables(
+        lambda k: init.init(k, jnp.zeros((1, size, size, 3)),
+                            jnp.zeros((1, size, size, 12)), train=False),
+        seed=7))
+    rs = np.random.RandomState(5)
+    raw_batch = (
+        rs.randint(0, 256, size=(2, size, size, 3)).astype(np.uint8),
+        rs.randint(0, 256, size=(2, size, size, 12)).astype(np.uint8),
+        (rs.rand(2, 17, 2) * size).astype(np.float32),
+        (rs.rand(2, 17) > 0.2).astype(np.float32))
+    return variables, raw_batch
+
+
+def _bf16_batch(raw_batch):
+    hm = BF16_SIZE // 4
+    return prepare_train_batch(*raw_batch, 2, (BF16_SIZE, BF16_SIZE),
+                               (hm, hm))
+
+
+def _port_model(variables, dtype, remat=False):
     cfg, _ = _yaml_cfgs(dtype)
+    cfg.TPU.REMAT_BACKBONE = remat
     m = FAMIPose.from_config(cfg)
     m.load_state_dict(state_dict_from_flax(variables))
-    m.train()
+    return cfg, m.train()
+
+
+def _port_bf16_step(variables, batch, dtype, bf16_grads, remat=False):
+    cfg, m = _port_model(variables, dtype, remat)
     before = {k: v.clone() for k, v in m.state_dict().items()}
     opt, sched = build_optimizer(cfg, m, steps_per_epoch=5)
     _, metrics = make_train_step(bf16_grads=bf16_grads)(
@@ -340,23 +412,60 @@ def _port_bf16_step(variables, batch, dtype, bf16_grads):
                 lr=float(cfg.TRAIN.LR))
 
 
+def _loss(model, batch):
+    final, sup_hms, _, mi = model(batch["kf"], batch["sup"], train=True)
+    return fami_total_loss(final, sup_hms, mi, batch["target"],
+                           batch["target_weight"], mi_alpha=0.5,
+                           mi_beta=0.1)[0]
+
+
+def test_params_cast_to_float32_gives_the_plain_gradients(bf16_inputs):
+    """``params_cast`` to the parameters' own dtype: the gradients it puts
+    on the parameters are the plain backward's, bit for bit, and the
+    parameters are the same objects, values and dtype afterwards."""
+    variables, raw_batch = bf16_inputs
+    batch = _bf16_batch(raw_batch)
+    _, plain = _port_model(variables, "float32")
+    _loss(plain, batch).backward()
+    _, m = _port_model(variables, "float32")
+    params = dict(m.named_parameters())
+    values = {n: p.detach().clone() for n, p in params.items()}
+    with params_cast(m, torch.float32) as copies:
+        assert all(getattr(m.get_submodule(n.rpartition(".")[0]),
+                           n.rpartition(".")[2]) is copies[id(p)]
+                   for n, p in params.items())
+        _loss(m, batch).backward()
+    assert dict(m.named_parameters()) == params
+    for n, p in m.named_parameters():
+        assert p.dtype == torch.float32 and torch.equal(p, values[n]), n
+        assert torch.equal(p.grad, dict(plain.named_parameters())[n].grad), n
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_bf16_grads_are_the_gradients_of_a_bf16_model(bf16_inputs, remat):
+    """The lever's gradients are those of the same model whose floating
+    parameters are bfloat16 tensors (a second way to differentiate with
+    respect to a bf16 cast), cast to float32: bit for bit, with and without
+    remat (its second pass runs inside the backward)."""
+    variables, raw_batch = bf16_inputs
+    batch = _bf16_batch(raw_batch)
+    lever = _port_bf16_step(variables, batch, "bfloat16", True, remat)
+    _, m = _port_model(variables, "bfloat16", remat)
+    for p in m.parameters():
+        p.data = p.data.to(torch.bfloat16)
+    _loss(m, batch).backward()
+    for n, p in m.named_parameters():
+        assert p.grad.dtype == torch.bfloat16, n
+        assert torch.equal(lever["grads"][n], p.grad.float()), n
+
+
 @pytest.fixture(scope="module")
-def bf16_world():
+def bf16_world(bf16_inputs):
     """JAX's bf16_grads Adam step (its gradients kept by a transformation
     that records them beside Adam's state), and the port's bf16_grads and
-    f32 steps from the same weights and batch."""
+    f32 steps from the same tame weights and batch."""
+    variables, raw_batch = bf16_inputs
     size, hm = BF16_SIZE, BF16_SIZE // 4
-    init = JaxFAMIPose(**JAX_KW)
-    variables = random_variables(
-        lambda k: init.init(k, jnp.zeros((1, size, size, 3)),
-                            jnp.zeros((1, size, size, 12)), train=False),
-        seed=7)
-    rs = np.random.RandomState(5)
-    raw_batch = (
-        rs.randint(0, 256, size=(2, size, size, 3)).astype(np.uint8),
-        rs.randint(0, 256, size=(2, size, size, 12)).astype(np.uint8),
-        (rs.rand(2, 17, 2) * size).astype(np.float32),
-        (rs.rand(2, 17) > 0.2).astype(np.float32))
     _, jcfg = _yaml_cfgs("bfloat16")
     model = JaxFAMIPose.from_config(jcfg)
     assert model.dtype == jnp.bfloat16 and model.use_pallas_dcn
@@ -383,14 +492,10 @@ def bf16_world():
             "params": jax.tree.map(np.asarray, new.params),
             "batch_stats": jax.tree.map(np.asarray, new.batch_stats)}),
         aux={k: float(v) for k, v in metrics.items()})
-    batch = prepare_train_batch(*raw_batch, 2, (size, size), (hm, hm))
+    batch = _bf16_batch(raw_batch)
     return dict(jax=jax_side,
                 port=_port_bf16_step(variables, batch, "bfloat16", True),
                 f32=_port_bf16_step(variables, batch, "float32", False))
-
-
-def _dist(a, b, scale):
-    return float((a - b).norm() / scale.norm())
 
 
 def test_bf16_grads_are_bf16_values(bf16_world):
@@ -409,65 +514,57 @@ def test_bf16_grads_loss_terms_match_jax(bf16_world, term):
     got = bf16_world["port"]["aux"][term]
     ref = bf16_world["jax"]["aux"][term]
     f32 = bf16_world["f32"]["aux"][term]
-    cross = abs(got - ref)
-    if term in MSE_TERMS:
-        assert cross <= 1.5 * max(abs(ref - f32), abs(got - f32))
-    else:  # a bound on size only, as in tests/test_torch_bf16_parity.py
-        assert cross <= 5e-4
+    assert abs(got - ref) <= BF16_CROSS * abs(ref - f32) \
+        + BF16_SCALE * abs(f32)
 
 
 def test_bf16_grads_gradients_match_jax(bf16_world):
     got, ref = bf16_world["port"]["grads"], bf16_world["jax"]["grads"]
     f32 = bf16_world["f32"]["grads"]
     assert set(got) == set(ref) == set(f32)
-    floor = 2e-5 * max(float(g.abs().max()) for g in f32.values())
-    ratios = {}
-    for n in f32:
-        if float(f32[n].abs().max()) <= floor:
-            continue  # rounding noise in f32 already (see train step test)
-        # distances in units of the f32 gradient's norm
-        own = max(_dist(got[n], f32[n], f32[n]), _dist(ref[n], f32[n], f32[n]))
-        if own == 0:  # both packages give the f32 gradient's bits
-            assert torch.equal(got[n], ref[n]), n
-            continue
-        ratios[n] = _dist(got[n], ref[n], f32[n]) / own
-    assert len(ratios) >= 0.95 * len(f32)
-    worst = max(ratios, key=ratios.get)
-    assert ratios[worst] <= 2.0, (worst, ratios[worst])
-    assert float(np.median(list(ratios.values()))) <= 1.0
+    held, broken, ratios = bf16_rule(got, ref, f32)
+    assert not broken, {n: ratios[n] for n in broken}
+    assert len(held) >= 0.6 * len(f32), len(held)
+    dcn = [n for n in f32 if n.startswith("dcn") and n.endswith("weight")]
+    assert len(dcn) == 12 and set(dcn + list(BF16_HELD)) <= set(held)
+
+
+@pytest.mark.parametrize("fault", [2.0, 0.0, -1.0],
+                         ids=["doubled", "zeroed", "sign"])
+@pytest.mark.parametrize("name", BF16_HELD)
+def test_bf16_rule_catches_a_planted_fault(bf16_world, name, fault):
+    """One gradient tensor of the port doubled, zeroed or of the wrong
+    sign breaks the rule there, and nowhere else."""
+    got = dict(bf16_world["port"]["grads"])
+    got[name] = fault * got[name]
+    _, broken, _ = bf16_rule(got, bf16_world["jax"]["grads"],
+                             bf16_world["f32"]["grads"])
+    assert broken == [name]
 
 
 def test_bf16_grads_parameters_and_statistics_match_jax(bf16_world):
     port, jx, f32 = bf16_world["port"], bf16_world["jax"], bf16_world["f32"]
     lr = port["lr"]
-    ratios = []
-    sure_entries = 0
+    held, _, _ = bf16_rule(port["grads"], jx["grads"], f32["grads"])
     for key, ref in jx["state"].items():
         got = port["state"][key]
+        before = port["before"][key]
         if "running_" in key:
-            own = max(float((got - f32["state"][key]).abs().max()),
-                      float((ref - f32["state"][key]).abs().max()))
+            own = float((ref - f32["state"][key]).abs().max())
+            moved = float((f32["state"][key] - before).abs().max())
             cross = float((got - ref).abs().max())
-            assert cross <= 2.0 * own, (key, cross, own)
-            ratios.append(cross / own)
+            assert cross <= BF16_CROSS * own + BF16_SCALE * moved, key
             continue
-        g, g_ref = port["grads"][key], jx["grads"][key]
+        g = port["grads"][key]
         # Adam's first step, lr * g / (|g| + eps), where g^2 is a normal
         # float32 number; below that v underflows and the step is < lr
-        closed_form = port["before"][key] - lr * g / (g.abs() + 1e-8)
+        closed_form = before - lr * g / (g.abs() + 1e-8)
         normal = g.abs() > 1e-15
         assert bool(((got - closed_form).abs()[normal] <= 1e-6).all()), key
-        assert bool(((got - port["before"][key]).abs() <= lr + 1e-6).all())
-        diff = (got - ref).abs()
-        assert bool((diff <= 2 * lr + 1e-6).all()), key
-        sure = ((g.abs() > 1e-5) & (g_ref.abs() > 1e-5)
-                & (torch.sign(g) == torch.sign(g_ref)))
-        assert bool((diff[sure] <= 1e-2 * lr + 1e-6).all()), key
-        sure_entries += int(sure.sum())
-    assert float(np.median(ratios)) <= 1.0
-    entries = sum(v.numel() for k, v in jx["state"].items()
-                  if "running_" not in k)
-    assert sure_entries >= 0.6 * entries, (sure_entries, entries)
+        if key in held:  # at least half of JAX's moves, to 1e-2 lr
+            moved = (ref - before).abs() > 0
+            close = (got - ref).abs()[moved] <= 1e-2 * lr
+            assert float(close.float().mean()) >= 0.5, key
 
 
 # -- profiler, metric writer, async checkpoints ----------------------------------
