@@ -145,6 +145,33 @@ and as the last line ``{"ok": true, "device": {...}}``:
                W48, 384x288. The build phase counts the implicit GEMM's
                ``IGMMA`` instructions and reads its registers and spills
                from ``-Xptxas -v``.
+  11. distributed - the data-parallel path (``parallel/mesh.py``) in
+               processes of their own (``python3 chip_smoke.py
+               --distributed-worker ...``): (a) one rank over NCCL:
+               ``Trainer`` of ``TPU.MESH_SHAPE [-1, 1]`` at W48, 384x288,
+               bf16, B=8, three steps, against the plain trainer on the
+               same seed and batches (no collective; the first step's
+               metrics bit for bit; the state bit for bit when the plain
+               trainer repeats itself bit for bit, else within
+               ``DIST_STATE_RTOL`` of the 3 steps' move: the DCN backward
+               sums dx with atomics),
+               and each collective helper once on CUDA tensors; two NCCL
+               ranks on the one card, whose answer is recorded (NCCL
+               refuses two ranks on one GPU); (b) two ranks on the one card
+               over gloo: ``Trainer.train`` at W48, global B=8, one epoch of
+               3 steps, both ranks' states bit for bit equal, the
+               checkpoint written by rank 0 only and auto-resumed on both
+               bit for bit; one f32 step (TF32 off, one block a branch,
+               256x192, global B=4) against one process's within
+               ``DIST_GRAD_L2_LIMIT`` / ``DIST_LOSS_RTOL``; ``--val`` on
+               phase val's fixture and checkpoint in f32 and with the int8
+               serving levers (rank 0 scores, rank 1 returns ``{}``, the
+               same predictions, int8 scales and window on both ranks; the
+               f32 keypoints within ``DIST_PX_TOL`` of one process's); 8
+               streams, 4 a rank, gathered, against one process's stream
+               (f32, ``STREAM_F32_TOL``). Each rank's step ms, the gradient
+               bucket's bytes and all-reduce ms and the collectives a step,
+               labelled as gloo through one card, not a multi-GPU reading.
 
 Any failure raises: the script exits non-zero and prints no last line.
 """
@@ -3406,6 +3433,650 @@ def phase_int8(smi, root, dirs, stream_bf16):
             int8_kernel_rows(rows))
 
 
+# -- phase distributed: the data-parallel path on the one card ----------------------
+
+DIST_SAMPLES = 24  # 3 steps of a global batch of 8
+DIST_STREAMS, DIST_STREAM_FRAMES = 8, 6
+DIST_TIMEOUT_S = 600
+# the two-rank f32 step against one process's, as one vector of gradients
+# and per loss term, relative; the one process's run-to-run spread (the DCN
+# backward's atomics) is printed beside it
+DIST_GRAD_L2_LIMIT = 1e-4
+DIST_LOSS_RTOL = 1e-5
+DIST_PX_TOL = 1e-3  # decoded keypoints, f32 val: two ranks against one
+# one rank over NCCL against the plain trainer: the states' distance after 3
+# steps over the distance the 3 steps moved the state (each as one vector)
+DIST_STATE_RTOL = 1e-9
+DIST_NOTE = ("gloo through one card: two processes share one H100 and every "
+             "collective goes through host memory; not a multi-GPU reading")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(task, world, work_dir, timeout=DIST_TIMEOUT_S):
+    """Start ``world`` ranks of ``python3 chip_smoke.py --distributed-worker
+    <task> <rank> <world> <port> <work_dir>`` on the card, wait for all of
+    them (killing every rank on a timeout), and return their results
+    (``torch.save``'d by each rank) and outputs; a rank that fails
+    raises with its output."""
+    port = str(free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--distributed-worker",
+         task, str(rank), str(world), port, work_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT) for rank in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"distributed {task} rank {rank} exited "
+                                 f"{p.returncode}:\n{out[-6000:]}")
+    return [torch.load(os.path.join(work_dir, f"{task}_rank{r}.pt"),
+                       weights_only=False) for r in range(world)], outs
+
+
+def tensor_leaves(obj, prefix=""):
+    """``{path: tensor}`` of every tensor in a nested state."""
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    out = {}
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            out.update(tensor_leaves(v, f"{prefix}/{k}"))
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            out.update(tensor_leaves(v, f"{prefix}/{i}"))
+    return out
+
+
+def state_digests(state):
+    """sha256 of every tensor of a train state, by path (equal digests:
+    equal bits)."""
+    import hashlib
+
+    return {k: hashlib.sha256(v.detach().cpu().reshape(-1).view(torch.uint8)
+                              .numpy().tobytes()).hexdigest()
+            for k, v in tensor_leaves(state.state_dict()).items()}
+
+
+def state_distance(a, b):
+    """L2 distance of two host states as one float64 vector, and the number
+    of tensors that differ."""
+    la, lb = tensor_leaves(a), tensor_leaves(b)
+    if list(la) != list(lb):
+        raise AssertionError("states of different structure")
+    sq, differ = 0.0, 0
+    for k in la:
+        if not torch.equal(la[k], lb[k]):
+            differ += 1
+            if la[k].is_floating_point():
+                sq += float(((la[k].double() - lb[k].double()) ** 2).sum())
+    return math.sqrt(sq), differ, len(la)
+
+
+class CollectiveCount:
+    """Count the calls of the ``torch.distributed`` collectives the port
+    uses, while the block runs."""
+
+    NAMES = ("all_reduce", "all_gather", "broadcast", "barrier")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self._orig = {n: getattr(dist, n) for n in self.NAMES}
+
+        def counting(name):
+            def call(*args, **kwargs):
+                self.calls[name] += 1
+                return self._orig[name](*args, **kwargs)
+            return call
+
+        for n in self.NAMES:
+            setattr(dist, n, counting(n))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for n, fn in self._orig.items():
+            setattr(dist, n, fn)
+
+
+def join_group(backend, ctx):
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{ctx['port']}",
+        rank=ctx["rank"], world_size=ctx["world"])
+
+
+def dist_train_cfg(out_dir, *opts):
+    return train_cfg(out_dir, "TPU.MESH_SHAPE", "[-1, 1]", "WORKERS", 2,
+                     "PRINT_FREQ", 1, *opts)
+
+
+def three_steps(cfg, dataset):
+    """``Trainer`` on the card, three ``train_step`` calls on the first
+    three batches of its loader; returns the state on the CPU before and
+    after them, the first step's metrics and the trainer's mesh."""
+    from fami_pose_torch.engine.checkpoints import _to_host
+    from fami_pose_torch.engine.trainer import Trainer
+
+    trainer = Trainer(cfg, dataset=dataset, device="cuda")
+    before = _to_host(trainer.state.state_dict())
+    raws = list(itertools.islice(iter(trainer.loader), 3))
+    first = None
+    for raw in raws:
+        trainer.state, metrics = trainer.train_step(trainer.state,
+                                                    trainer.prepare(raw))
+        if first is None:
+            first = {k: float(v) for k, v in metrics.items()}
+    torch.cuda.synchronize()
+    out = before, _to_host(trainer.state.state_dict()), first, trainer.mesh
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def collective_helpers_on_card(ctx):
+    """Each collective helper of ``parallel/mesh.py`` once on CUDA tensors,
+    its result checked against what ``ctx["world"]`` ranks must give."""
+    from fami_pose_torch.parallel import mesh as pm
+
+    n, r = ctx["world"], ctx["rank"]
+    dev = torch.device("cuda")
+    got = {}
+    x = torch.arange(6.0, device=dev) * (r + 1)
+    got["all_reduce_mean_"] = torch.equal(
+        pm.all_reduce_mean_(x.clone()),
+        torch.arange(6.0, device=dev) * sum(range(1, n + 1)) / n)
+    rows = pm.all_gather_rows(torch.full((2, 3), float(r), device=dev))
+    got["all_gather_rows"] = torch.equal(rows, torch.arange(
+        float(n), device=dev).repeat_interleave(2)[:, None].expand(-1, 3))
+    got["broadcast_"] = torch.equal(
+        pm.broadcast_(torch.full((4,), float(r + 7), device=dev)),
+        torch.full((4,), 7.0, device=dev))
+    a, b = pm.broadcast_tensors([torch.full((3,), r + 1.0, device=dev),
+                                 torch.tensor(float(r), device=dev)])
+    got["broadcast_tensors"] = (torch.equal(a, torch.ones(3, device=dev))
+                                and float(b) == 0.0)
+    v = torch.tensor([1.0 + r, 2.0], device=dev, requires_grad=True)
+    (pm.all_reduce_sum(v) * torch.tensor([1.0, 3.0], device=dev)).sum() \
+        .backward()
+    got["all_reduce_sum"] = torch.equal(
+        v.grad, torch.tensor([float(n), 3.0 * n], device=dev))
+    torch.cuda.synchronize()
+    if not all(got.values()):
+        raise AssertionError(f"collective helpers on the card: {got}")
+    return got
+
+
+def dist_nccl_one_rank(ctx):
+    """(a) One rank over NCCL: the plain trainer twice (no process group),
+    then the trainer of ``MESH_SHAPE [-1, 1]`` in a group of one: W48,
+    384x288, bf16, B=8, three steps on the same seed and batches."""
+    cfg = dist_train_cfg(os.path.join(ctx["dir"], "nccl_one"),
+                         "TRAIN.BATCH_SIZE_PER_GPU", 8)
+    image_size = tuple(int(v) for v in cfg.MODEL.IMAGE_SIZE)
+    data = SyntheticPoseDataset(DIST_SAMPLES, image_size,
+                                2 * (int(cfg.DISTANCE) - 1))
+    init, plain, plain_first, plain_mesh = three_steps(cfg, data)
+    _, again, _, _ = three_steps(cfg, data)
+    torch.cuda.set_device(0)
+    join_group("nccl", ctx)
+    with CollectiveCount() as calls:
+        reset_launches()
+        _, meshed, meshed_first, mesh = three_steps(cfg, data)
+        launches = read_launches()
+    helpers = collective_helpers_on_card(ctx)
+    moved, _, n = state_distance(plain["model"], init["model"])
+    spread, spread_differ, _ = state_distance(again, plain)
+    dist_m, differ, _ = state_distance(meshed, plain)
+    dist_again, differ_again, _ = state_distance(meshed, again)
+    if min(differ, differ_again) == 0:
+        rule = "bit for bit one of the two plain runs"
+        ok = True
+    else:
+        rule = (f"within {DIST_STATE_RTOL} of the three steps' move, as one "
+                f"vector (the DCN backward sums dx with atomics, so the "
+                f"plain trainer need not repeat itself bit for bit)")
+        ok = min(dist_m, dist_again) <= DIST_STATE_RTOL * moved
+    report = dict(
+        mesh=dict(mesh.shape), plain_mesh=dict(plain_mesh.shape),
+        collectives_in_three_steps=calls.calls, launches=launches,
+        first_step_metrics_bitwise=meshed_first == plain_first,
+        model_tensors=n, three_steps_move_l2=moved,
+        differ_from_plain=[differ, differ_again],
+        l2_from_plain=[dist_m, dist_again],
+        plain_run_to_run_differ=spread_differ, plain_run_to_run_l2=spread,
+        rule=rule, helpers_checked=helpers)
+    if (not ok or any(calls.calls.values()) or mesh.data != 1
+            or meshed_first != plain_first
+            or any(launches[k] != 12 for k in KERNEL_COUNTERS)):
+        raise AssertionError(f"one rank over NCCL: {report}")
+    return report
+
+
+def dist_nccl_two_ranks(ctx):
+    """Two NCCL ranks on the one card: the all-reduce NCCL refuses."""
+    torch.cuda.set_device(0)
+    join_group("nccl", ctx)
+    x = torch.ones(4, device="cuda")
+    try:
+        import torch.distributed as dist
+
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        return {"refused": False, "result": x.tolist()}
+    except Exception as e:  # recorded: what NCCL says to two ranks on one GPU
+        return {"refused": True, "error": type(e).__name__,
+                "message": str(e)[-600:]}
+
+
+def dist_two_ranks(ctx):
+    """(b) Two ranks on the one card over gloo; see ``phase_distributed``."""
+    import torch.distributed as dist
+
+    from fami_pose_torch.engine import checkpoints
+    from fami_pose_torch.engine.runner import Runner
+    from fami_pose_torch.engine.trainer import Trainer
+    from fami_pose_torch.models.quant import quant_scales
+    from fami_pose_torch.parallel import mesh as pm
+
+    torch.cuda.set_device(0)
+    join_group("gloo", ctx)
+    rank = ctx["rank"]
+    out = {"rank": rank}
+
+    # the train path: Trainer.train at W48, global B=8, one epoch of 3
+    # steps, the checkpoint rank 0 writes, auto-resume on both ranks
+    train_dir = os.path.join(ctx["dir"], "train")
+    cfg = dist_train_cfg(train_dir, "TRAIN.BATCH_SIZE_PER_GPU", 4,
+                         "TRAIN.END_EPOCH", 1)
+    image_size = tuple(int(v) for v in cfg.MODEL.IMAGE_SIZE)
+    data = SyntheticPoseDataset(DIST_SAMPLES, image_size,
+                                2 * (int(cfg.DISTANCE) - 1))
+    saves = []
+    save = checkpoints.torch.save
+
+    def counting_save(obj, path, *a, **k):
+        saves.append(os.path.basename(path))
+        return save(obj, path, *a, **k)
+
+    checkpoints.torch.save = counting_save
+    try:
+        trainer = Trainer(cfg, dataset=data, device="cuda")
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        out["train_launches"] = read_launches()
+    finally:
+        checkpoints.torch.save = save
+    out["saves"] = saves
+    out["steps"] = trainer.state.step
+    out["digests"] = state_digests(trainer.state)
+    resumed = Trainer(cfg, dataset=data, device="cuda")
+    out["resumed_epoch"] = resumed.begin_epoch
+    out["resume_bitwise"] = state_digests(resumed.state) == out["digests"]
+    out["checkpoints"] = sorted(os.listdir(trainer.checkpoints_dir))
+    del resumed
+
+    # readings: step ms (synchronised, 3 steps on one batch), the
+    # collectives of one step, the gradient bucket and its all-reduce
+    raw = next(iter(trainer.loader))
+    batch = trainer.prepare(raw)
+    step_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        trainer.state, _ = trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    with CollectiveCount() as calls:
+        trainer.state, _ = trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+    numel = sum(p.numel() for p in trainer.model.parameters()
+                if p.grad is not None)
+    bucket = torch.zeros(numel, device="cuda")
+    pm.all_reduce_mean_(bucket)
+    torch.cuda.synchronize()
+    reduce_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pm.all_reduce_mean_(bucket)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    out["readings"] = dict(
+        train_epoch_s=train_s, step_ms=step_ms,
+        collectives_a_step=calls.calls,
+        bucket_bytes=numel * 4, bucket_all_reduce_ms=reduce_ms)
+    del trainer, batch, bucket
+    torch.cuda.empty_cache()
+
+    # one f32 step (TF32 off) at one block a branch, 256x192, on this
+    # rank's half of a global batch of 4: the gradients after the average
+    from fami_pose_torch.engine.steps import make_train_step
+    from fami_pose_torch.engine.train_state import TrainState
+    from fami_pose_torch.optim import build_optimizer
+
+    cfg32, host = cut_depth_step_inputs()
+    model = cut_depth_model(cfg32).cuda().train()
+    opt, sched = build_optimizer(cfg32, model, steps_per_epoch=5)
+    rows = slice(2 * rank, 2 * rank + 2)
+    reset_launches()
+    _, metrics = make_train_step(mesh=pm.build_mesh([-1, 1]))(
+        TrainState(model, opt, sched),
+        {k: v[rows].cuda() for k, v in host.items()})
+    torch.cuda.synchronize()
+    out["f32_launches"] = read_launches()
+    out["f32_grads"] = {n: p.grad.detach().cpu()
+                        for n, p in model.named_parameters()}
+    out["f32_metrics"] = {k: float(v) for k, v in metrics.items()}
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # --val on phase val's fixture and checkpoint: f32 (TF32 off), then
+    # with the int8 serving levers
+    root, dirs = ctx["root"], ctx["dirs"]
+    for name, opts in (("val_f32", ("TPU.COMPUTE_DTYPE", "float32")),
+                       ("val_int8", INT8_OPTS)):
+        cfg, args = val_cfg(root, dirs, "TPU.MESH_SHAPE", "[-1, 1]", *opts)
+        runner = Runner(cfg, args)
+        reset_launches()
+        results = runner.launch(val=True)
+        torch.cuda.synchronize()
+        ev = runner.evaluator
+        scales = {k: float(v) for k, v in quant_scales(ev.model).items()
+                  if v is not None}
+        out[name] = dict(
+            results={p: {t: dict(v[0]) for t, v in r.items()}
+                     for p, r in results["val"].items()},
+            launches=dict(read_launches(), **read_launches(INT8_COUNTERS)),
+            window=ev.dcn_max_offset, scales=scales,
+            all_preds=ev.all_preds.copy(), all_preds_bb=ev.all_preds_bb.copy(),
+            samples=ev.timings["samples"])
+        del runner, ev
+        torch.cuda.empty_cache()
+
+    # 8 streams, 4 a rank, f32 (TF32 off), on phase val's checkpoint
+    from fami_pose_torch.engine.streaming import StreamingPosePredictor
+
+    model = dist_stream_model(root, dirs)
+    frames = dist_stream_frames()
+    pred = StreamingPosePredictor(model, distance=model.num_sup // 2 + 1,
+                                  flip_test=True,
+                                  mesh=pm.build_mesh([-1, 1]))
+    reset_launches()
+    pred.prime(frames[0])
+    outs = [pred(f) for f in frames[1:]]
+    torch.cuda.synchronize()
+    out["stream_launches"] = read_launches()
+    out["stream_local_streams"] = int(pred._state.feats.shape[1])
+    out["stream"] = [tuple(t.cpu() for t in o) for o in outs]
+    dist.barrier()
+    return out
+
+
+def cut_depth_model(cfg32):
+    """The depth-cut W48 model of the two-rank f32 step: tame seeded
+    weights (``tame_weights``)."""
+    from fami_pose_torch.models.fami_pose import FAMIPose
+
+    return tame_weights(FAMIPose.from_config(cfg32), seed=0)
+
+
+def cut_depth_step_inputs():
+    """The f32 config at one module of one block a stage branch, 256x192,
+    full W48 width, and a seeded host batch of 4."""
+    from fami_pose_torch.data.loader import prepare_train_batch
+
+    cfg32 = train_cfg("", "MODEL.IMAGE_SIZE", "[192, 256]",
+                      "MODEL.HEATMAP_SIZE", "[48, 64]",
+                      "TPU.COMPUTE_DTYPE", "float32")
+    for stage in ("STAGE2", "STAGE3", "STAGE4"):
+        extra = cfg32.MODEL.EXTRA[stage]
+        extra.NUM_MODULES = 1
+        extra.NUM_BLOCKS = [1] * len(extra.NUM_BLOCKS)
+    image_size = tuple(int(v) for v in cfg32.MODEL.IMAGE_SIZE)
+    heatmap_size = tuple(int(v) for v in cfg32.MODEL.HEATMAP_SIZE)
+    data = SyntheticPoseDataset(4, image_size, 2 * (int(cfg32.DISTANCE) - 1),
+                                seed=2)
+    host = prepare_train_batch(
+        np.stack([data[i]["kf"] for i in range(4)]),
+        np.stack([data[i]["sup"] for i in range(4)]),
+        data.joints, data.vis, int(cfg32.MODEL.SIGMA), image_size,
+        heatmap_size, device="cpu")
+    return cfg32, host
+
+
+def dist_stream_model(root, dirs):
+    """Phase val's checkpoint in an f32 eval model on the card."""
+    from fami_pose_torch.engine import checkpoints
+    from fami_pose_torch.engine.runner import Runner
+    from fami_pose_torch.models.fami_pose import FAMIPose
+
+    cfg, args = val_cfg(root, dirs, "TPU.COMPUTE_DTYPE", "float32")
+    path = checkpoints.get_latest_checkpoint(
+        Runner(cfg, args).dirs["checkpoints"])
+    model = FAMIPose.from_config(cfg, phase="validate")
+    model.load_state_dict(checkpoints.load_variables(path))
+    return model.cuda().eval()
+
+
+def dist_stream_frames():
+    """Seeded normalised frames of the streams: (T, 8, 3, 384, 288)."""
+    gen = torch.Generator().manual_seed(3)
+    return torch.randn(DIST_STREAM_FRAMES, DIST_STREAMS, 3, 384, 288,
+                       generator=gen).cuda()
+
+
+DIST_TASKS = {"nccl_one_rank": dist_nccl_one_rank,
+              "nccl_two_ranks": dist_nccl_two_ranks,
+              "two_ranks": dist_two_ranks}
+
+
+def distributed_worker(task, rank, world, port, work_dir):
+    """A rank of phase distributed (``run_ranks``): TF32 off as in the
+    parent, the task, its result saved for the parent."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(os.path.join(work_dir, "context.json")) as f:
+        ctx = dict(json.load(f), rank=int(rank), world=int(world),
+                   port=int(port), dir=work_dir)
+    result = DIST_TASKS[task](ctx)
+    torch.save(result, os.path.join(work_dir, f"{task}_rank{rank}.pt"))
+    if task == "nccl_two_ranks":
+        # NCCL's communicator is in its error state: no teardown
+        sys.stdout.flush()
+        os._exit(0)
+    dist.destroy_process_group()
+
+
+def phase_distributed(smi, root, dirs):
+    """The data-parallel path (``parallel/mesh.py``) on the one card; see
+    the module docstring. Returns the launches of its train and val paths,
+    summed over the ranks."""
+    from fami_pose_torch.engine.streaming import StreamingPosePredictor
+
+    t0 = time.perf_counter()
+    work = os.path.join(root, "distributed")
+    os.makedirs(work)
+    with open(os.path.join(work, "context.json"), "w") as f:
+        json.dump({"root": root, "dirs": list(dirs)}, f)
+
+    # (a) one rank over NCCL, in a process of its own
+    (one,), _ = run_ranks("nccl_one_rank", 1, work)
+    emit("distributed-one-rank", card=smi, **one)
+    # two NCCL ranks on the one card: what NCCL answers is recorded
+    try:
+        refusal, _ = run_ranks("nccl_two_ranks", 2, work, timeout=120)
+    except subprocess.TimeoutExpired:
+        refusal = "no answer within 120 s; both ranks killed"
+    emit("distributed-nccl-two-ranks-one-card", card=smi, ranks=refusal)
+
+    # the one-process references of (b), computed here; the f32 step twice
+    # for its run-to-run spread
+    cfg32, host = cut_depth_step_inputs()
+    ref = [one_lever_step(cut_depth_model(cfg32), cfg32, host, "cuda")
+           for _ in range(2)]
+    ref_metrics, ref_grads, _ = ref[0]
+    f32_runner, _ = val_pass(root, dirs, VAL_VIDEOS * VAL_FRAMES * VAL_PEOPLE,
+                             "TPU.COMPUTE_DTYPE", "float32")
+    ref_preds = (f32_runner.evaluator.all_preds.copy(),
+                 f32_runner.evaluator.all_preds_bb.copy())
+    del f32_runner
+    model = dist_stream_model(root, dirs)
+    frames = dist_stream_frames()
+    pred = StreamingPosePredictor(model, distance=model.num_sup // 2 + 1,
+                                  flip_test=True)
+    pred.prime(frames[0])
+    ref_stream = [tuple(t.cpu() for t in pred(f)) for f in frames[1:]]
+    del model, frames, pred
+    torch.cuda.empty_cache()
+
+    # (b) two ranks over gloo
+    t1 = time.perf_counter()
+    (r0, r1), _ = run_ranks("two_ranks", 2, work)
+    ranks_s = time.perf_counter() - t1
+    failures = []
+
+    def need(ok, what):
+        if not ok:
+            failures.append(what)
+
+    need(r0["digests"] == r1["digests"], "train states differ across ranks")
+    need(r0["saves"] == ["epoch_0_state.ckpt.tmp"] and r1["saves"] == [],
+         f"checkpoint writes {r0['saves']} / {r1['saves']}")
+    need(r0["checkpoints"] == ["epoch_0_state.ckpt"], "checkpoint files")
+    need(all(r["resume_bitwise"] and r["resumed_epoch"] == 1
+             for r in (r0, r1)), "auto-resume not bit for bit")
+    need(r0["steps"] == 3, f"{r0['steps']} steps")
+    for r in (r0, r1):
+        need(all(r["train_launches"][k] == 12 for k in KERNEL_COUNTERS),
+             f"train launches {r['train_launches']}")
+    # the f32 step against one process's
+    grads = r0["f32_grads"]
+    need(all(torch.equal(grads[n], r1["f32_grads"][n]) for n in grads),
+         "f32 gradients differ across ranks")
+
+    def rel_l2(a, b):
+        num = math.sqrt(sum(float(((a[n].double() - b[n].double()) ** 2)
+                                  .sum()) for n in b))
+        den = math.sqrt(sum(float((b[n].double() ** 2).sum()) for n in b))
+        return num / den
+
+    f32_l2 = rel_l2(grads, ref_grads)
+    spread = rel_l2(ref[1][1], ref_grads)
+    loss_rel = {k: abs(r0["f32_metrics"][k] - v) / max(abs(v), 1e-12)
+                for k, v in ref_metrics.items() if k.startswith("loss")}
+    need(f32_l2 <= DIST_GRAD_L2_LIMIT, f"f32 gradient rel L2 {f32_l2}")
+    need(max(loss_rel.values()) <= DIST_LOSS_RTOL, f"loss terms {loss_rel}")
+    # --val: rank 0 scores, rank 1 returns {}; the same predictions on both
+    val = {}
+    for name in ("val_f32", "val_int8"):
+        a, b = r0[name], r1[name]
+        ((path, tables),) = a["results"].items()
+        need(set(tables) == {"final", "backbone"}, f"{name} rank 0 tables")
+        need(b["results"] == {path: {}}, f"{name} rank 1 returned "
+             f"{b['results']}")
+        need(a["samples"] == b["samples"] == VAL_VIDEOS * VAL_FRAMES
+             * VAL_PEOPLE, f"{name} samples")
+        need(all(np.array_equal(a[k], b[k])
+                 for k in ("all_preds", "all_preds_bb")),
+             f"{name} predictions differ across ranks")
+        need(a["scales"] == b["scales"] and a["window"] == b["window"],
+             f"{name} scales or window differ across ranks")
+        val[name] = dict(mean_ap={t: tables[t]["Mean"] for t in tables},
+                         window=a["window"] or "exact",
+                         scales=len(a["scales"]),
+                         launches_rank0=a["launches"],
+                         launches_rank1=b["launches"])
+    need(len(r0["val_int8"]["scales"]) == INT8_CONVS, "int8 scales")
+    for r in (r0, r1):
+        need(all(r["val_int8"]["launches"][k] > 0 for k in INT8_COUNTERS),
+             "no int8 launch")
+    px = max(float(np.abs(r0["val_f32"][k][..., :2] - ref[..., :2]).max())
+             for k, ref in zip(("all_preds", "all_preds_bb"), ref_preds))
+    score = max(float(np.abs(r0["val_f32"][k][..., 2] - ref[..., 2]).max())
+                for k, ref in zip(("all_preds", "all_preds_bb"), ref_preds))
+    need(px <= DIST_PX_TOL, f"f32 val keypoints {px} px from one process's")
+    val["val_f32"].update(px_vs_one_process=px,
+                          score_vs_one_process=score)
+    # streams: 4 a rank, gathered, against one process's 8
+    need(r0["stream_local_streams"] == r1["stream_local_streams"] == 4,
+         "local streams")
+    stream_err, stream_scale = 0.0, 0.0
+    for o0, o1, ref in zip(r0["stream"], r1["stream"], ref_stream):
+        for a, b, c in zip(o0, o1, ref):
+            need(torch.equal(a, b) and a.shape == c.shape,
+                 "stream outputs differ across ranks")
+            stream_err = max(stream_err, float((a - c).abs().max()))
+            stream_scale = max(stream_scale, float(c.abs().max()))
+    need(stream_err <= STREAM_F32_TOL * stream_scale,
+         f"streams {stream_err} from one process's (scale {stream_scale})")
+    readings = {f"rank{r['rank']}": r["readings"] for r in (r0, r1)}
+    report = dict(
+        card=smi, note=DIST_NOTE,
+        model="FAMIPose HRNet-W48 384x288 bf16 D=4 num_sup=4",
+        train=dict(global_batch=8, per_rank=4, steps=r0["steps"],
+                   launches_rank0=r0["train_launches"],
+                   launches_rank1=r1["train_launches"],
+                   states_bitwise_equal=r0["digests"] == r1["digests"],
+                   checkpoint_writes=dict(rank0=r0["saves"],
+                                          rank1=r1["saves"]),
+                   resume_bitwise=[r0["resume_bitwise"],
+                                   r1["resume_bitwise"]]),
+        f32_step=dict(
+            model="W48 at one module of one block a stage branch, 256x192, "
+            "tame seeded weights, global batch 4 (2 a rank), TF32 off",
+            grad_rel_l2_vs_one_process=f32_l2,
+            one_process_run_to_run_rel_l2=spread,
+            limit=DIST_GRAD_L2_LIMIT, loss_rel_vs_one_process=loss_rel,
+            loss_rtol=DIST_LOSS_RTOL),
+        val=val,
+        streams=dict(streams=DIST_STREAMS, per_rank=4,
+                     frames=DIST_STREAM_FRAMES, max_abs_vs_one_process=
+                     stream_err, scale=stream_scale,
+                     tol=f"STREAM_F32_TOL x scale = "
+                     f"{STREAM_F32_TOL * stream_scale}",
+                     launches_rank0=r0["stream_launches"]),
+        readings=readings, two_ranks_s=ranks_s,
+        phase_seconds=time.perf_counter() - t0)
+    emit("distributed", **report)
+    if failures:
+        raise AssertionError(f"phase distributed: {failures}")
+    launches = {k: sum(r[p][k] for r in (r0, r1)
+                       for p in ("train_launches", "f32_launches",
+                                 "stream_launches"))
+                + sum(r[v]["launches"][k] for r in (r0, r1)
+                      for v in ("val_f32", "val_int8"))
+                for k in KERNEL_COUNTERS}
+    launches.update({k: sum(r["val_int8"]["launches"][k] for r in (r0, r1))
+                     for k in INT8_COUNTERS})
+    for k in KERNEL_COUNTERS:
+        launches[k] += one["launches"][k]
+    return launches
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
@@ -3428,6 +4099,8 @@ def main():
         val, dirs = phase_val(smi, root)
         torch.cuda.empty_cache()
         int8, int8_rows = phase_int8(smi, root, dirs, stream_bf16)
+        torch.cuda.empty_cache()
+        distributed = phase_distributed(smi, root, dirs)
     csrc = "fami_pose_torch/ops/cuda/csrc/"
     replaces = {
         "dcn_fwd": "fami_pose_tpu/ops/pallas/dcn.py:1063",
@@ -3459,10 +4132,11 @@ def main():
                 launches_serving=serving[name],
                 launches_streaming=streaming[name], **rows[name, 32]))
             kernels.append(dict(
-                common, path="train and train-levers",
-                launches=train[name] + levers[name],
+                common, path="train, train-levers and distributed",
+                launches=train[name] + levers[name] + distributed[name],
                 launches_train=train[name],
-                launches_train_levers=levers[name], **rows[name, 8]))
+                launches_train_levers=levers[name],
+                launches_distributed=distributed[name], **rows[name, 8]))
         elif name == "dcn_fwd":
             kernels.append(dict(
                 common, path="val and validate_real_checkpoint",
@@ -3470,35 +4144,41 @@ def main():
                 launches_validate_real_checkpoint=validate[name],
                 **rows[name, 32]))
             kernels.append(dict(
-                common, path="serving, streaming, train and train-levers",
+                common, path="serving, streaming, train, train-levers and "
+                "distributed",
                 launches=(serving[name] + streaming[name] + train[name]
-                          + levers[name]),
+                          + levers[name] + distributed[name]),
                 launches_serving=serving[name],
                 launches_streaming=streaming[name], launches_train=train[name],
                 launches_train_levers=levers[name],
+                launches_distributed=distributed[name],
                 model_inputs=model_dcn, **rows[name]))
         elif name == "warp_bwd":
             kernels.append(dict(
-                common, path="train and train-levers",
-                launches=train[name] + levers[name],
+                common, path="train, train-levers and distributed",
+                launches=train[name] + levers[name] + distributed[name],
                 launches_train=train[name],
                 launches_train_levers=levers[name],
+                launches_distributed=distributed[name],
                 **rows[name, 8, "bfloat16"]))
             kernels.append(dict(common, path="none: the shape of 32 images, "
                                 "timed for comparison", launches=0,
                                 **rows[name, 32, "bfloat16"]))
         else:  # dcn_bwd
             kernels.append(dict(
-                common, path="train and train-levers",
-                launches=train[name] + levers[name],
+                common, path="train, train-levers and distributed",
+                launches=train[name] + levers[name] + distributed[name],
                 launches_train=train[name],
                 launches_train_levers=levers[name],
+                launches_distributed=distributed[name],
                 model_inputs=model_dcn_bwd, **rows[name]))
     for name in INT8_COUNTERS:
         kernels.append(dict(
             name=name, route="cuda", source=csrc + "int8_conv.cu",
             replaces=INT8_REPLACES, path="val with the serving levers "
-            "(TPU.INT8_EVAL)", launches=int8[name], **int8_rows[name]))
+            "(TPU.INT8_EVAL), one process and two ranks",
+            launches=int8[name] + distributed[name],
+            launches_distributed=distributed[name], **int8_rows[name]))
     for name, (_, _, line, _) in PROBES.items():
         kernels.append(dict(
             name=name, route="cuda", source=csrc + "probes.cu",
@@ -3513,4 +4193,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--distributed-worker"]:
+        distributed_worker(*sys.argv[2:])
+    else:
+        main()

@@ -13,7 +13,10 @@ Training: host threads run ``dataset[i]`` and stack uint8 crops
 stamping run on the device, once per batch (:func:`prepare_train_batch`);
 with raw person windows (``TPU.DEVICE_CROP``) the augmented crop runs on
 the device too (:func:`prepare_train_batch_device_crop`).
-The loader is single-process: every batch is loaded whole by this process.
+
+Over several processes (``parallel/mesh.py``) every rank computes the same
+global order of each epoch and loads only its contiguous slice of every
+global batch (:class:`DataLoader`).
 """
 
 import itertools
@@ -24,6 +27,8 @@ import numpy as np
 import torch
 
 from fami_pose_torch.ops.heatmap import generate_heatmaps
+from fami_pose_torch.parallel.mesh import process_count as _process_count
+from fami_pose_torch.parallel.mesh import process_index as _process_index
 from fami_pose_torch.ops.warp import crop_and_warp
 
 from .video_dataset import IMAGENET_MEAN, IMAGENET_STD
@@ -181,10 +186,22 @@ class DataLoader:
     by repeating its last sample and ``batch["valid"]`` counts the real rows.
     The order of epoch e is ``RandomState(seed + e)``'s shuffle, as in the
     JAX package's loader.
+
+    ``batch_size`` is the global batch. Over ``process_count`` processes
+    (default: the ranks of the process group) every process computes the
+    same global order and loads only its contiguous slice of each batch,
+    rows ``[p * local, (p + 1) * local)`` for process ``p``
+    (``local_batch_size`` rows); ``valid`` still counts the global batch's
+    real rows, and when the dataset has an index (``data``, as the
+    PoseTrack and JHMDB datasets do) each batch carries ``global_meta``
+    (``center``, ``scale``, ``score`` and ``image_path`` of every global
+    row, read from the index without image IO) for the eval loop. A global
+    batch that the processes cannot split evenly raises ``ValueError``.
     """
 
     def __init__(self, dataset, batch_size, shuffle=False, num_workers=4,
-                 drop_last=False, seed=0, prefetch=2):
+                 drop_last=False, seed=0, prefetch=2, process_index=None,
+                 process_count=None):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
@@ -193,6 +210,15 @@ class DataLoader:
         self.seed = seed
         self.prefetch = prefetch
         self.epoch = 0
+        self.process_count = (_process_count() if process_count is None
+                              else int(process_count))
+        self.process_index = (_process_index() if process_index is None
+                              else int(process_index))
+        if self.batch_size % self.process_count:
+            raise ValueError(
+                f"global batch {self.batch_size} not divisible by "
+                f"{self.process_count} processes")
+        self.local_batch_size = self.batch_size // self.process_count
 
     def __len__(self):
         n = len(self.dataset)
@@ -218,8 +244,24 @@ class DataLoader:
         return batches
 
     def _load_batch(self, idx, valid):
-        batch = collate([self.dataset[int(i)] for i in idx])
+        lo, n = self.process_index * self.local_batch_size, \
+            self.local_batch_size
+        batch = collate([self.dataset[int(i)] for i in idx[lo:lo + n]])
         batch["valid"] = valid
+        db = getattr(self.dataset, "data", None)
+        if self.process_count == 1 or db is None:
+            return batch
+        # eval applies no augmentation, so the index's center, scale and
+        # score are the samples' own
+        batch["global_meta"] = {
+            "center": np.stack([db[int(i)]["center"] for i in idx]).astype(
+                np.float32),
+            "scale": np.stack([db[int(i)]["scale"] for i in idx]).astype(
+                np.float32),
+            "score": np.asarray([db[int(i)].get("score", 1.0) for i in idx],
+                                np.float32),
+            "image_path": [db[int(i)]["image"] for i in idx],
+        }
         return batch
 
     def __iter__(self):
@@ -245,12 +287,15 @@ class DataLoader:
         self.epoch += 1
 
 
-def build_train_loader(cfg, dataset, **kwargs):
-    """The training loader of a config: ``TRAIN.BATCH_SIZE_PER_GPU`` samples
-    a batch (one device), shuffled, last partial batch dropped."""
+def build_train_loader(cfg, dataset, num_devices=None, **kwargs):
+    """The training loader of a config: a global batch of
+    ``TRAIN.BATCH_SIZE_PER_GPU`` samples a device of the data axis
+    (``num_devices``, default: the process group's ranks), shuffled, last
+    partial batch dropped."""
+    n_dev = _process_count() if num_devices is None else int(num_devices)
     return DataLoader(
         dataset,
-        batch_size=int(cfg.TRAIN.BATCH_SIZE_PER_GPU),
+        batch_size=int(cfg.TRAIN.BATCH_SIZE_PER_GPU) * n_dev,
         shuffle=bool(cfg.TRAIN.SHUFFLE),
         num_workers=int(cfg.WORKERS),
         drop_last=True,
@@ -259,14 +304,18 @@ def build_train_loader(cfg, dataset, **kwargs):
     )
 
 
-def build_eval_loader(cfg, dataset, phase="validate", **kwargs):
-    """The eval loader of a config: ``VAL`` / ``TEST.BATCH_SIZE_PER_GPU``
-    samples a batch (one device), in dataset order, the last batch padded
-    (``batch["valid"]`` counts its real rows)."""
+def build_eval_loader(cfg, dataset, phase="validate", num_devices=None,
+                      **kwargs):
+    """The eval loader of a config: a global batch of ``VAL`` /
+    ``TEST.BATCH_SIZE_PER_GPU`` samples a device of the data axis
+    (``num_devices``, default: the process group's ranks), in dataset
+    order, the last batch padded (``batch["valid"]`` counts its real
+    rows)."""
     sub = cfg.VAL if phase == "validate" else cfg.TEST
+    n_dev = _process_count() if num_devices is None else int(num_devices)
     return DataLoader(
         dataset,
-        batch_size=int(sub.BATCH_SIZE_PER_GPU),
+        batch_size=int(sub.BATCH_SIZE_PER_GPU) * n_dev,
         shuffle=False,
         num_workers=int(cfg.WORKERS),
         drop_last=False,

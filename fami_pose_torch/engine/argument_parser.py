@@ -22,7 +22,9 @@ def default_parse_args(argv=None):
     )
     parser.add_argument(
         "--device", default="cuda",
-        help="where the model and the batches live (cuda, or cpu)",
+        help="where the model and the batches live (cuda, or cpu); under "
+             "torch.distributed.run, cuda is cuda:LOCAL_RANK and the ranks "
+             "join over NCCL (gloo with cpu)",
     )
     parser.add_argument(
         "opts", nargs=argparse.REMAINDER, default=None,

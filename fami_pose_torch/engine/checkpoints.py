@@ -12,7 +12,12 @@ the file on a background thread. The port's parameters and Adam moments are
 updated in place by the next step, so the payload is first copied to host
 memory on the calling thread, before ``save_checkpoint`` returns; only the
 write goes to the thread. Pending writes are joined by
-:func:`wait_for_pending_saves` and at interpreter exit."""
+:func:`wait_for_pending_saves` and at interpreter exit.
+
+Over several processes only rank 0 writes (every rank holds the same
+state); ``save_checkpoint`` returns the path on every rank, and the trainer
+joins the pending writes and passes a barrier before any rank reads the
+file (``engine/trainer.py``)."""
 
 import atexit
 import os
@@ -21,6 +26,8 @@ import re
 import threading
 
 import torch
+
+from fami_pose_torch.parallel.mesh import process_index
 
 CKPT_PATTERN = re.compile(r"epoch_(\d+)_state\.ckpt$")
 
@@ -81,8 +88,11 @@ def save_checkpoint(directory, epoch, state, async_save=False):
     """Write ``state`` (a ``TrainState``) as the checkpoint of ``epoch``;
     returns its path. With ``async_save`` the host copy of the payload is
     taken here and the write runs on a thread (:func:`wait_for_pending_saves`
-    joins it)."""
+    joins it). Only rank 0 of a process group writes; every rank gets the
+    path."""
     path = checkpoint_path(directory, epoch)
+    if process_index() != 0:
+        return path
     os.makedirs(directory, exist_ok=True)
     payload = _to_host(dict(state.state_dict(), begin_epoch=int(epoch)))
 

@@ -20,10 +20,11 @@ class BaseCoreFunction:
     def __init__(self, cfg):
         self.cfg = cfg
 
-    def build_train_step(self, model):
+    def build_train_step(self, model, mesh=None):
         raise NotImplementedError
 
-    def build_eval_step(self, model, flip_pairs=None, flip_test=False):
+    def build_eval_step(self, model, flip_pairs=None, flip_test=False,
+                        mesh=None):
         raise NotImplementedError
 
 
@@ -33,19 +34,22 @@ class AlignmentMIFunction(BaseCoreFunction):
     """Heatmap MSE + per-supporting-frame MSE + 6-term MI training;
     flip-test eval."""
 
-    def build_train_step(self, model):
-        """The train step of ``model``; ``TPU.BF16_GRADS`` takes effect when
-        the model computes in bfloat16."""
+    def build_train_step(self, model, mesh=None):
+        """The train step of ``model`` over ``mesh`` (``parallel/mesh.py``;
+        None: one device); ``TPU.BF16_GRADS`` takes effect when the model
+        computes in bfloat16."""
         return make_train_step(
             mse_weight=float(self.cfg.LOSS.HEATMAP_MSE.WEIGHT),
             mi_alpha=float(getattr(self.cfg.LOSS, "MI_ALPHA", 0.5)),
             mi_beta=float(getattr(self.cfg.LOSS, "MI_BETA", 0.1)),
             bf16_grads=bool(getattr(self.cfg.TPU, "BF16_GRADS", False)),
+            mesh=mesh,
         )
 
-    def build_eval_step(self, model, flip_pairs=None, flip_test=False):
+    def build_eval_step(self, model, flip_pairs=None, flip_test=False,
+                        mesh=None):
         return make_eval_step(model, flip_test=flip_test,
-                              flip_pairs=flip_pairs)
+                              flip_pairs=flip_pairs, mesh=mesh)
 
 
 def core_function_class(cfg):

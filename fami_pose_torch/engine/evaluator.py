@@ -1,5 +1,5 @@
 """Evaluator: checkpoint sweep + eval loop + protocol scoring
-(``fami_pose_tpu/engine/evaluator.py``, single process, one device).
+(``fami_pose_tpu/engine/evaluator.py``).
 
 Enumerate checkpoints (explicit ``MODEL_FILE``, every checkpoint >= an id, or
 the latest), run the eval step over the padded eval loader, decode the
@@ -22,10 +22,18 @@ The model comes from ``MODEL_REGISTRY`` (``models/build.py``) and the eval
 step from the core function of ``cfg.CORE_FUNCTION``
 (``engine/core_functions.py``).
 
-Not ported yet, and refused rather than ignored when a config asks for them:
-a device mesh other than one device (``TPU.MESH_SHAPE``; with it the JAX
-package's broadcast of the int8 scales from process 0), and the skeleton /
-box overlays (``DEBUG.VIS_SKELETON``, ``DEBUG.VIS_BBOX``).
+``TPU.MESH_SHAPE`` lays the data axis over the ranks of the process group
+(``parallel/mesh.py``): each rank loads its slice of every global batch,
+runs the eval step and the decode on it, and the decoded predictions are
+gathered by rows, so that every rank holds the global predictions. Each
+rank calibrates and measures the DCN window on its own slice; rank 0's
+int8 scales and window are broadcast to every rank, so every rank runs the
+same model. Only rank 0 scores (``dataset.evaluate``); the others return
+``{}`` for each checkpoint.
+
+Not ported yet, and refused rather than ignored when a config asks for
+them: the skeleton / box overlays (``DEBUG.VIS_SKELETON``,
+``DEBUG.VIS_BBOX``).
 """
 
 import logging
@@ -43,19 +51,23 @@ from fami_pose_torch.data.loader import (
 )
 from fami_pose_torch.models.build import build_model
 from fami_pose_torch.models.fami_pose import DeformConv
-from fami_pose_torch.models.quant import QUANT_INT8, calibrate
+from fami_pose_torch.models.quant import (
+    QUANT_INT8, calibrate, set_quant_scales,
+)
 from fami_pose_torch.ops.heatmap import dark_get_final_preds, get_final_preds
+from fami_pose_torch.parallel.mesh import all_gather_rows, broadcast_tensors
 from fami_pose_torch.utils.registry import DATASET_REGISTRY, VAL_PHASE
 
 from . import checkpoints
 from .core_functions import build_core_function
-from .trainer import check_model, mesh_devices
+from .trainer import check_model, config_mesh
 
 
 def check_supported(cfg):
-    """Raise for a config that turns on what the port's evaluator lacks."""
+    """Raise for a config that turns on what the port's evaluator lacks, or
+    a mesh the process group cannot hold (``trainer.config_mesh``)."""
+    config_mesh(cfg)
     unported = {
-        "TPU.MESH_SHAPE (more than one device)": mesh_devices(cfg) > 1,
         "DEBUG.VIS_SKELETON": bool(cfg.DEBUG.VIS_SKELETON),
         "DEBUG.VIS_BBOX": bool(cfg.DEBUG.VIS_BBOX),
     }
@@ -78,12 +90,14 @@ class Evaluator:
       dataset: an eval dataset; None builds ``DATASET.NAME``'s class from the
         registry for ``phase``.
       from_checkpoint_id: >= 0 evaluates every checkpoint from that epoch on.
-      device: where the model, the batches and the decode live.
+      device: where the model, the batches and the decode live (this
+        rank's device).
     """
 
     def __init__(self, cfg, phase=VAL_PHASE, output_dirs=None, dataset=None,
                  from_checkpoint_id=-1, device="cuda"):
         check_supported(cfg)
+        self.mesh = config_mesh(cfg)
         self.cfg = cfg
         self.phase = phase
         self.device = torch.device(device)
@@ -102,7 +116,13 @@ class Evaluator:
         if dataset is None:
             dataset = DATASET_REGISTRY.get(cfg.DATASET.NAME)(cfg, phase)
         self.dataset = dataset
-        self.loader = build_eval_loader(cfg, dataset, phase=phase)
+        if self.mesh.data > 1 and getattr(dataset, "data", None) is None:
+            raise ValueError(
+                "an eval dataset over several ranks needs an index (`data`: "
+                "center, scale, score and image of every sample) for the "
+                "global rows of each batch")
+        self.loader = build_eval_loader(cfg, dataset, phase=phase,
+                                        num_devices=self.mesh.data)
         self.model = build_model(cfg, phase).to(self.device).eval()
         flip_key = "FLIP_VAL" if phase == VAL_PHASE else "FLIP_TEST"
         self._flip_test = bool(getattr(self.sub, flip_key, False)
@@ -110,7 +130,8 @@ class Evaluator:
         self._flip_pairs = getattr(dataset, "flip_pairs", None)
         self.core_function = build_core_function(cfg)
         self.eval_step = self.core_function.build_eval_step(
-            self.model, flip_pairs=self._flip_pairs, flip_test=self._flip_test
+            self.model, flip_pairs=self._flip_pairs, flip_test=self._flip_test,
+            mesh=self.mesh,
         )
         # seconds of the last eval loop, by part (the loader's wait, the
         # forward with its input preparation, the decode)
@@ -172,6 +193,9 @@ class Evaluator:
         eval batches and pick the smallest integer D whose exceeded fraction
         is <= ``TPU.DCN_AUTO_WINDOW_EPS`` (0 = strict cover). Distributions
         hotter than ``TPU.DCN_AUTO_WINDOW_MAX`` get the exact mode.
+
+        Over several ranks each measures its own slices, and rank 0's choice
+        is broadcast, so that every rank runs the same model.
         """
         tpu = self.cfg.TPU
         if not bool(getattr(tpu, "DCN_AUTO_WINDOW", False)):
@@ -203,6 +227,10 @@ class Evaluator:
             if float((allo > cand).to(torch.float32).mean()) <= eps:
                 d = cand
                 break
+        if self.mesh.data > 1:
+            (d0,) = broadcast_tensors(
+                [torch.tensor([-1.0 if d is None else d], device=self.device)])
+            d = None if int(d0) < 0 else int(d0)
         p99 = float(np.percentile(allo.cpu().numpy(), 99))
         self.logger.info(
             f"DCN auto-window: |offset| max={float(allo.max()):.3f} "
@@ -217,7 +245,9 @@ class Evaluator:
     def _maybe_calibrate_int8(self):
         """TPU.INT8_EVAL: calibrate the activation scales of the loaded
         checkpoint on the first ``TPU.INT8_CALIB_BATCHES`` eval batches
-        (unflipped forwards, ``TPU.INT8_CALIB_MARGIN``)."""
+        (unflipped forwards, ``TPU.INT8_CALIB_MARGIN``). Over several ranks
+        each calibrates on its own slices, and rank 0's scales are
+        broadcast to every rank in one float32 bucket."""
         if self.model.backbone_quant != QUANT_INT8:
             return
         tpu = self.cfg.TPU
@@ -230,12 +260,19 @@ class Evaluator:
                 break
         self.logger.info(f"int8 PTQ calibration on {len(batches)} eval "
                          f"batches (margin {margin})")
-        calibrate(self.model, batches, margin=margin)
+        scales = calibrate(self.model, batches, margin=margin)
+        if self.mesh.data > 1:
+            names = list(scales)
+            set_quant_scales(self.model, dict(zip(names, broadcast_tensors(
+                [scales[k] for k in names]))))
+            self.logger.info(f"int8 PTQ scales broadcast from rank 0 to "
+                             f"{self.mesh.data} ranks")
 
     @torch.inference_mode()
     def eval_checkpoint(self, variables):
         """Run the full eval loop on a model ``state_dict``; returns
-        ``{"final": (name_value, mean), "backbone": (name_value, mean)}``."""
+        ``{"final": (name_value, mean), "backbone": (name_value, mean)}`` on
+        rank 0 and ``{}`` on the other ranks of a mesh."""
         cfg = self.cfg
         # loading clears the int8 scales: each checkpoint is calibrated
         # afresh, and before the window, which is then measured on the int8
@@ -266,13 +303,30 @@ class Evaluator:
             kf, sup = self._prepare(raw)
             final_hm, bb_hm = self.eval_step(kf, sup)
             t_forward = clock()
-            center = raw["center"][:valid]
-            scale = raw["scale"][:valid]
-            score = raw["score"][:valid]
-            image_paths = raw["image_path"]
-
-            preds, maxvals = self._decode(final_hm[:valid], center, scale)
-            preds_bb, maxvals_bb = self._decode(bb_hm[:valid], center, scale)
+            if "global_meta" in raw:
+                # this rank's rows of the global batch: decode them all (a
+                # slice may be all padding), then gather every rank's
+                preds, maxvals = self._decode(final_hm, raw["center"],
+                                              raw["scale"])
+                preds_bb, maxvals_bb = self._decode(bb_hm, raw["center"],
+                                                    raw["scale"])
+                rows = all_gather_rows(torch.cat(
+                    [preds, maxvals, preds_bb, maxvals_bb], dim=-1))[:valid]
+                preds, maxvals, preds_bb, maxvals_bb = rows.split(
+                    [2, 1, 2, 1], dim=-1)
+                meta = raw["global_meta"]
+                center = meta["center"][:valid]
+                scale = meta["scale"][:valid]
+                score = meta["score"][:valid]
+                image_paths = meta["image_path"]
+            else:
+                center = raw["center"][:valid]
+                scale = raw["scale"][:valid]
+                score = raw["score"][:valid]
+                image_paths = raw["image_path"]
+                preds, maxvals = self._decode(final_hm[:valid], center, scale)
+                preds_bb, maxvals_bb = self._decode(bb_hm[:valid], center,
+                                                    scale)
             rows = slice(idx, idx + valid)
             all_preds[rows, :, :2] = preds.cpu().numpy()
             all_preds[rows, :, 2:3] = maxvals.cpu().numpy()
@@ -297,6 +351,10 @@ class Evaluator:
         )
         self.all_preds, self.all_preds_bb = all_preds, all_preds_bb
         self.all_boxes, self.img_path_map = all_boxes, img_path_map
+        if self.mesh.rank != 0:
+            # every rank holds the global predictions; scoring writes files
+            # and runs the protocol once, on rank 0
+            return {}
 
         results = {}
         for tag, preds in (("final", all_preds), ("backbone", all_preds_bb)):

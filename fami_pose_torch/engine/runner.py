@@ -5,7 +5,8 @@ The output directory is derived from the config's content
 (``OUTPUT_DIR/EXPERIMENT_NAME/<dataset-tag>/<model-hyperparameter-string>``),
 the checkpoint, log and result subdirectories are created, and the requested
 phases (train -> val -> test) run in order, each with its own timestamped
-log file. ``args.device`` (default ``"cuda"``) says where they run.
+log file. ``args.device`` (default ``"cuda"``) says where they run; in a
+process a launcher started, ``"cuda"`` is this rank's ``cuda:LOCAL_RANK``.
 """
 
 import logging
@@ -14,6 +15,9 @@ import os.path as osp
 import time
 
 from fami_pose_torch.models import get_model_hyperparameter
+from fami_pose_torch.parallel.mesh import (
+    local_device, process_count, process_index,
+)
 from fami_pose_torch.utils.registry import TEST_PHASE, VAL_PHASE
 
 
@@ -28,7 +32,7 @@ class Runner:
     def __init__(self, cfg, args=None):
         self.cfg = cfg
         self.args = args
-        self.device = getattr(args, "device", None) or "cuda"
+        self.device = local_device(getattr(args, "device", None) or "cuda")
         self.logger = logging.getLogger(__name__)
         # the evaluator of the last val or test phase: its flat predictions
         # (``all_preds``, ``all_boxes``) and its loop's ``timings``
@@ -53,10 +57,12 @@ class Runner:
             os.makedirs(d, exist_ok=True)
 
     def _phase_log_file(self, phase):
-        """Attach a per-phase timestamped log file to the root logger."""
-        path = osp.join(
-            self.dirs["log"], f"{phase}-{time.strftime('%Y%m%d_%H%M%S')}.log"
-        )
+        """Attach a per-phase timestamped log file to the root logger (one a
+        rank over several processes)."""
+        name = f"{phase}-{time.strftime('%Y%m%d_%H%M%S')}"
+        if process_count() > 1:
+            name += f"-rank{process_index()}"
+        path = osp.join(self.dirs["log"], name + ".log")
         handler = logging.FileHandler(path)
         handler.setFormatter(
             logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s")

@@ -3,7 +3,14 @@
 The train step does forward, loss, backward, optimizer and scheduler step
 and returns its metrics as device tensors: nothing in it waits for the
 device, so the caller fetches them only when it prints. The eval step is
-the forward, plus flip-test averaging behind ``flip_test``."""
+the forward, plus flip-test averaging behind ``flip_test``.
+
+Over a mesh whose data axis is larger than 1 (``parallel/mesh.py``) each
+rank runs the train step on its slice of the global batch: BatchNorm
+normalizes with the global batch's statistics, the gradients are averaged
+across ranks before the optimizer, and the metrics are the global batch's.
+The eval step runs the forward on the rank's slice; the evaluator gathers
+the decoded predictions."""
 
 import contextlib
 
@@ -11,20 +18,15 @@ import torch
 
 from fami_pose_torch.data.keypoints import COCO_FLIP_PAIRS
 from fami_pose_torch.losses import fami_total_loss
+from fami_pose_torch.models.layers import sync_batch_norm
 from fami_pose_torch.ops.pose import flip_back
+from fami_pose_torch.parallel.mesh import all_reduce_mean_
 
 
-def heatmap_pck_accuracy(pred, target, thr=0.5):
-    """Train-time PCK from the heatmaps' argmax, with the reference's
-    semantics: a (sample, joint) pair is valid iff BOTH argmax coordinates
-    of the target exceed 1 (an all-zero target decodes to (0, 0) and fails);
-    x distances are normalized by h/10 and y distances by w/10 (the
-    reference's axis swap); per-joint accuracies are taken over the valid
-    pairs and averaged, unweighted, over the joints that have one.
-
-    pred/target: (B, J, H, W). Returns ``(avg_acc, counted_joints)`` as
-    tensors on their device.
-    """
+def pck_counts(pred, target, thr=0.5):
+    """Per joint, the (sample, joint) pairs that are valid and those that
+    are correct under :func:`heatmap_pck_accuracy`'s rule: two (J,) int64
+    tensors, which sum over the slices of a batch."""
     b, j, h, w = pred.shape
 
     def argmax_xy(hm):
@@ -38,16 +40,34 @@ def heatmap_pck_accuracy(pred, target, thr=0.5):
     d = torch.sqrt(((px - tx) / (h / 10.0)) ** 2 + ((py - ty) / (w / 10.0)) ** 2)
     valid = (tx > 1) & (ty > 1)
     correct = (d < thr) & valid
-    cnt_j = valid.sum(dim=0)
-    acc_j = correct.sum(dim=0) / cnt_j.clamp(min=1)
+    return correct.sum(dim=0), valid.sum(dim=0)
+
+
+def pck_from_counts(correct_j, cnt_j):
+    """``(avg_acc, counted_joints)`` from :func:`pck_counts`' sums."""
+    acc_j = correct_j / cnt_j.clamp(min=1)
     has = cnt_j > 0
     n_counted = has.sum()
     acc = torch.where(
         n_counted > 0,
         (acc_j * has).sum() / n_counted.clamp(min=1),
-        torch.zeros((), device=pred.device),
+        torch.zeros((), device=correct_j.device),
     )
     return acc, n_counted
+
+
+def heatmap_pck_accuracy(pred, target, thr=0.5):
+    """Train-time PCK from the heatmaps' argmax, with the reference's
+    semantics: a (sample, joint) pair is valid iff BOTH argmax coordinates
+    of the target exceed 1 (an all-zero target decodes to (0, 0) and fails);
+    x distances are normalized by h/10 and y distances by w/10 (the
+    reference's axis swap); per-joint accuracies are taken over the valid
+    pairs and averaged, unweighted, over the joints that have one.
+
+    pred/target: (B, J, H, W). Returns ``(avg_acc, counted_joints)`` as
+    tensors on their device.
+    """
+    return pck_from_counts(*pck_counts(pred, target, thr))
 
 
 def cast_copies(params, dtype):
@@ -108,8 +128,18 @@ def params_cast(model, dtype):
     set_grads(params, [copies[id(p)].grad for p in params])
 
 
+def average_gradients(params):
+    """Average the gradients of ``params`` across the ranks in one flat
+    bucket (one all-reduce), in place; parameters without a gradient (the
+    same on every rank) are left out."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = all_reduce_mean_(torch.cat([g.reshape(-1) for g in grads]))
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
+
+
 def make_train_step(mse_weight=1.0, mi_alpha=0.5, mi_beta=0.1,
-                    bf16_grads=False):
+                    bf16_grads=False, mesh=None):
     """Returns ``step_fn(state, batch) -> (state, metrics)``: ``state`` is a
     ``TrainState`` (updated in place) whose model is in training mode
     (``model.train()``), ``batch`` a dict with ``kf``
@@ -126,7 +156,20 @@ def make_train_step(mse_weight=1.0, mi_alpha=0.5, mi_beta=0.1,
     updates the masters in float32. The convs and the DCN already compute
     with their weights cast to bfloat16, so their forward is unchanged;
     BatchNorm and any float32 use see the bfloat16-rounded values, as in
-    flax."""
+    flax.
+
+    ``mesh`` (``parallel.mesh.build_mesh``) with a data axis larger than 1:
+    ``batch`` is this rank's slice of the global batch (equal on every
+    rank). The model's BatchNorms take the global batch's statistics
+    (``models.layers.sync_batch_norm``, applied at the first call); after
+    the backward the gradients are averaged across ranks in one flat
+    bucket (:func:`average_gradients`), before the optimizer. Each rank's
+    loss is the mean over its equal slice, so that average is the gradient
+    of the global batch's loss. The loss terms are averaged across ranks
+    and the PCK accuracies computed from the global batch's counts, in one
+    more all-reduce."""
+    sync = mesh is not None and mesh.data > 1
+    synced = []
 
     def loss_and_metrics(model, batch):
         final, sup_hms, kf_bb, mi = model(batch["kf"], batch["sup"], train=True)
@@ -138,6 +181,9 @@ def make_train_step(mse_weight=1.0, mi_alpha=0.5, mi_beta=0.1,
 
     def step(state, batch):
         model = state.model
+        if sync and not any(m is model for m in synced):
+            sync_batch_norm(model, mesh)
+            synced.append(model)
         state.optimizer.zero_grad(set_to_none=True)
         low = bf16_grads and getattr(model, "compute_dtype",
                                      torch.float32) == torch.bfloat16
@@ -150,27 +196,53 @@ def make_train_step(mse_weight=1.0, mi_alpha=0.5, mi_beta=0.1,
             total, (aux, final, sup_hms, kf_bb) = loss_and_metrics(
                 model, batch)
             total.backward()
+        if sync:
+            # under bf16_grads each rank's gradient was formed in bfloat16
+            # and widened to float32 on leaving params_cast: the sum across
+            # ranks is taken and rounded in float32
+            average_gradients(list(model.parameters()))
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
         with torch.no_grad():
-            metrics = {k: v.detach() for k, v in aux.items()}
-            metrics["acc"], _ = heatmap_pck_accuracy(final, batch["target"])
-            metrics["acc_kf_backbone"], _ = heatmap_pck_accuracy(
-                kf_bb, batch["target"])
-            for i, hm in enumerate(sup_hms):
-                metrics[f"acc_sup{i + 1}"], _ = heatmap_pck_accuracy(
-                    hm, batch["target"])
+            heads = {"acc": final, "acc_kf_backbone": kf_bb}
+            heads.update((f"acc_sup{i + 1}", hm)
+                         for i, hm in enumerate(sup_hms))
+            if not sync:
+                metrics = {k: v.detach() for k, v in aux.items()}
+                for k, hm in heads.items():
+                    metrics[k], _ = heatmap_pck_accuracy(hm, batch["target"])
+                return state, metrics
+            # one all-reduce: the loss terms averaged, the PCK counts
+            # scaled by the number of ranks so that their average is their
+            # sum (integers, exact in float32)
+            counts = [torch.stack(pck_counts(hm, batch["target"]))
+                      for hm in heads.values()]
+            flat = all_reduce_mean_(torch.cat(
+                [torch.stack([v.detach().to(torch.float32)
+                              for v in aux.values()])]
+                + [c.reshape(-1).to(torch.float32) * mesh.data
+                   for c in counts]))
+            metrics = dict(zip(aux, flat[:len(aux)]))
+            for k, c in zip(heads, flat[len(aux):].split(
+                    [c.numel() for c in counts])):
+                metrics[k], _ = pck_from_counts(*c.view(2, -1))
         return state, metrics
 
     return step
 
 
-def make_eval_step(model, flip_test=False, flip_pairs=None):
+def make_eval_step(model, flip_test=False, flip_pairs=None, mesh=None):
     """Returns ``eval_fn(kf, sup) -> (final_hm, kf_bb_hm)``: NCHW inputs,
     float32 (B, J, h, w) heatmaps. With ``flip_test`` a second forward runs
     on the mirrored inputs, is flipped back (left/right joints swapped) and
-    averaged into ``final_hm``, as the JAX eval step does."""
+    averaged into ``final_hm``, as the JAX eval step does.
+
+    Over a ``mesh`` the inputs are this rank's slice of the global batch
+    and the heatmaps are the slice's: an eval-mode forward is per sample,
+    so the step issues no collective, and the evaluator gathers the
+    decoded predictions (``engine/evaluator.py``)."""
+    del mesh  # the forward is the same on every slice
     pairs = flip_pairs if flip_pairs is not None else COCO_FLIP_PAIRS
 
     @torch.inference_mode()

@@ -49,9 +49,17 @@ the JAX package's ``tools/bench_streaming_flip.py`` does.
 
 The buffers are written in place (one slot a step, ``buf[pos].copy_``), so
 a step mutates the :class:`StreamState` it is given and returns it. Every
-function here runs under ``torch.inference_mode``. The JAX package's
-``stream_shardings`` and ``mesh=`` (streams sharded over devices) wait for
-the port's multi-GPU support.
+function here runs under ``torch.inference_mode``.
+
+Over a mesh whose data axis is larger than 1 (``mesh=``,
+``parallel/mesh.py``), the streams are served data-parallel, as the JAX
+package's ``stream_shardings`` shard them: the functions take the global
+frames ``(B, ...)``, each rank keeps and serves its contiguous ``B / n``
+streams with no collective inside the step, and the step's outputs are
+gathered by rows, so that every rank returns the global ``(B, J, h, w)``
+heatmaps. A rank's :class:`StreamState` holds its own streams only;
+:meth:`StreamingPosePredictor.maybe_reprime` takes the global boxes and
+history and re-primes the moved streams among the rank's own.
 """
 
 import dataclasses
@@ -62,6 +70,7 @@ import torch
 
 from fami_pose_torch.data.keypoints import COCO_FLIP_PAIRS
 from fami_pose_torch.ops.pose import flip_back
+from fami_pose_torch.parallel.mesh import all_gather_rows, local_rows
 
 
 @dataclasses.dataclass
@@ -95,10 +104,12 @@ def _mirror(frames):
 
 @torch.inference_mode()
 def init_state(model, first_frames, distance: int,
-               flip_test: bool = False) -> StreamState:
+               flip_test: bool = False, mesh=None) -> StreamState:
     """Prime the rolling buffer by replicating the first frames' features
     (``(B, 3, H, W)``) into every slot (the clamp-to-first boundary; see the
-    module docstring)."""
+    module docstring). Over ``mesh``, this rank's streams of the global
+    frames."""
+    first_frames = local_rows(first_frames, mesh)
     w = 2 * distance - 1
     bb_hm, feat = model.features(first_frames)
 
@@ -113,7 +124,8 @@ def init_state(model, first_frames, distance: int,
 
 @torch.inference_mode()
 def init_state_from_history(model, history, distance: int,
-                            flip_test: bool = False) -> StreamState:
+                            flip_test: bool = False,
+                            mesh=None) -> StreamState:
     """Prime the rolling buffer from real frame history: the re-prime path a
     deployed tracker takes when a stream's crop box moves materially (the
     crop-locked condition breaks and features cached under the old crop are
@@ -126,7 +138,9 @@ def init_state_from_history(model, history, distance: int,
     stream fed those frames from scratch would hold (eval-mode BatchNorm is
     per sample, so folding ``T`` into the batch of one backbone call
     computes the same features), so later emissions match a never re-primed
-    stream as soon as the clamped slots leave the window."""
+    stream as soon as the clamped slots leave the window. Over ``mesh``,
+    this rank's streams (columns) of the global history."""
+    history = local_rows(history.transpose(0, 1), mesh).transpose(0, 1)
     w = 2 * distance - 1
     t_n, b = int(history.shape[0]), int(history.shape[1])
     if not 1 <= t_n <= w:
@@ -194,7 +208,8 @@ def merge_stream_states(old: StreamState, new: StreamState,
 
 
 def make_step(model, distance: int, flip_test: bool = False,
-              flip_pairs=COCO_FLIP_PAIRS, flip_batched: bool = False):
+              flip_pairs=COCO_FLIP_PAIRS, flip_batched: bool = False,
+              mesh=None):
     """Build the streaming step.
 
     ``step(state, frames) -> (state, (final_hm, kf_bb_hm))``: ``frames`` is
@@ -210,8 +225,13 @@ def make_step(model, distance: int, flip_test: bool = False,
     (one backbone call of ``2B`` frames and one head call of a ``2B``
     fold): the same function under eval-mode BatchNorm, fewer launches, up
     to the library convolutions' sum order at another batch size.
+
+    Over ``mesh`` with a data axis larger than 1, ``frames`` are the global
+    ``(B, 3, H, W)``, ``state`` holds this rank's streams, and the outputs
+    are every rank's, gathered by rows: the global ``(B, J, h, w)``.
     """
     lat = distance - 1
+    gather = mesh is not None and mesh.data > 1
     w = 2 * distance - 1
     # fold order relative to the key slot: [0, -lat..-1, +1..+lat]
     rel = [i - lat for i in window_order(distance)]
@@ -224,6 +244,13 @@ def make_step(model, distance: int, flip_test: bool = False,
 
     @torch.inference_mode()
     def step(state: StreamState, frames):
+        if gather:
+            state, (final, kf_bb) = local_step(state, local_rows(frames, mesh))
+            both = all_gather_rows(torch.cat([final, kf_bb], dim=1))
+            return state, tuple(both.split(final.shape[1], dim=1))
+        return local_step(state, frames)
+
+    def local_step(state: StreamState, frames):
         pos = state.pos
         key_slot = (pos - lat) % w
         b = frames.shape[0]
@@ -274,7 +301,8 @@ class StreamingPosePredictor:
     (the other streams' buffers stay bit for bit as they were)."""
 
     def __init__(self, model, distance: int = 3, flip_test: bool = False,
-                 flip_batched: bool = False, reprime_iou: float = 0.0):
+                 flip_batched: bool = False, reprime_iou: float = 0.0,
+                 mesh=None):
         if model.training:
             raise ValueError("StreamingPosePredictor serves a model in eval "
                              "mode: call .eval() first")
@@ -282,15 +310,16 @@ class StreamingPosePredictor:
         self.flip_test = flip_test
         self.reprime_iou = float(reprime_iou)  # 0 disables the trigger
         self._model = model
+        self.mesh = mesh
         self._step = make_step(model, distance, flip_test=flip_test,
-                               flip_batched=flip_batched)
+                               flip_batched=flip_batched, mesh=mesh)
         self._state = None
         self._locked_center = None
         self._locked_scale = None
 
     def prime(self, first_frames, centers=None, scales=None):
         self._state = init_state(self._model, first_frames, self.distance,
-                                 flip_test=self.flip_test)
+                                 flip_test=self.flip_test, mesh=self.mesh)
         self._lock_boxes(centers, scales)
 
     def prime_from_history(self, history, centers=None, scales=None):
@@ -298,7 +327,8 @@ class StreamingPosePredictor:
         frames (oldest first, ``(T, B, 3, H, W)``), e.g. re-cropped under
         moved boxes; see :func:`init_state_from_history`."""
         self._state = init_state_from_history(
-            self._model, history, self.distance, flip_test=self.flip_test)
+            self._model, history, self.distance, flip_test=self.flip_test,
+            mesh=self.mesh)
         self._lock_boxes(centers, scales)
 
     def _lock_boxes(self, centers, scales):
@@ -333,13 +363,20 @@ class StreamingPosePredictor:
         protocol crops every window frame under the key frame's box;
         re-priming under the newest box pins each emission ``distance - 1``
         frames behind its crop, an offset that grows with the re-prime
-        rate."""
+        rate.
+
+        Over a mesh the boxes, the history and the returned mask are the
+        global ones; each rank re-primes the moved streams among its own
+        columns."""
         mask = self.boxes_moved(centers, scales)
-        if mask.any():
+        local = local_rows(mask, self.mesh)
+        if local.any():
             new = init_state_from_history(self._model, history,
                                           self.distance,
-                                          flip_test=self.flip_test)
-            self._state = merge_stream_states(self._state, new, mask)
+                                          flip_test=self.flip_test,
+                                          mesh=self.mesh)
+            self._state = merge_stream_states(self._state, new, local)
+        if mask.any():  # the locked boxes are the global ones on every rank
             self._locked_center[mask] = np.asarray(centers, np.float32)[mask]
             self._locked_scale[mask] = np.asarray(scales, np.float32)[mask]
         return mask

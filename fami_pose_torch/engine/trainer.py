@@ -16,12 +16,16 @@ person windows cropped on the device, :meth:`Trainer.prepare`) and
 ``TPU.PROFILE_DIR`` (a ``torch.profiler`` trace of the first
 ``TPU.PROFILE_STEPS`` steps of epoch 0).
 
-Not ported yet, and refused rather than ignored: a device mesh of more than
-one device (``TPU.MESH_SHAPE``). One process, one device.
+``TPU.MESH_SHAPE`` lays the data axis over the ranks of the process group
+(``parallel/mesh.py``; one process a GPU, as ``python -m
+torch.distributed.run`` starts them): the global batch is
+``TRAIN.BATCH_SIZE_PER_GPU`` times the data axis, each rank loads and steps
+its slice, BatchNorm statistics and gradients are global, and only rank 0
+writes checkpoints and ``metrics.jsonl``. Every rank builds the same seeded
+initial weights, as every JAX process does; nothing broadcasts them.
 """
 
 import logging
-import math
 import os.path as osp
 import time
 
@@ -39,6 +43,7 @@ from fami_pose_torch.models.pretrained import (
     load_torch_state_dict, merge_into_variables, remap_hrnet_backbone_for_fami,
 )
 from fami_pose_torch.optim import build_optimizer
+from fami_pose_torch.parallel.mesh import barrier, build_mesh
 from fami_pose_torch.utils.meters import AverageMeter
 from fami_pose_torch.utils.profiling import trace
 from fami_pose_torch.utils.registry import DATASET_REGISTRY, TRAIN_PHASE
@@ -49,11 +54,12 @@ from .metrics_writer import MetricWriter
 from .train_state import TrainState
 
 
-def mesh_devices(cfg):
-    """The number of devices ``TPU.MESH_SHAPE`` asks for; -1 ("all
-    available devices") is read as the one device of this process."""
-    mesh = [int(v) for v in (getattr(cfg.TPU, "MESH_SHAPE", None) or [])]
-    return math.prod(max(v, 1) for v in mesh)
+def config_mesh(cfg):
+    """The mesh of ``TPU.MESH_SHAPE`` over the process group's ranks
+    (``parallel.mesh.build_mesh``: a data axis needing more ranks than
+    there are raises ``ValueError``, a ``model`` axis larger than 1
+    ``NotImplementedError``)."""
+    return build_mesh(list(getattr(cfg.TPU, "MESH_SHAPE", None) or [-1]))
 
 
 def check_model(cfg):
@@ -64,12 +70,10 @@ def check_model(cfg):
 
 
 def check_supported(cfg):
-    """Raise for a config that turns on what the port's trainer lacks."""
-    if mesh_devices(cfg) > 1:
-        raise NotImplementedError(
-            "not ported to fami_pose_torch's trainer yet: TPU.MESH_SHAPE "
-            "(more than one device)"
-        )
+    """Raise for a config the port's trainer cannot run: a mesh the process
+    group cannot hold (:func:`config_mesh`), or an unregistered core
+    function or model."""
+    config_mesh(cfg)
     check_model(cfg)
 
 
@@ -85,11 +89,12 @@ class Trainer:
         ``sup`` (H, W, 3N), ``joints`` (J, 2), ``joints_vis`` (J,), ...);
         None builds ``DATASET.NAME``'s class from the registry for the train
         phase.
-      device: where the model and the batches live.
+      device: where the model and the batches live (this rank's device).
     """
 
     def __init__(self, cfg, output_dirs=None, dataset=None, device="cuda"):
         check_supported(cfg)
+        self.mesh = config_mesh(cfg)
         if dataset is None:
             dataset = DATASET_REGISTRY.get(cfg.DATASET.NAME)(cfg, TRAIN_PHASE)
         self.cfg = cfg
@@ -100,10 +105,12 @@ class Trainer:
             "checkpoints", osp.join(cfg.OUTPUT_DIR or ".", "checkpoints")
         )
         self.log_dir = dirs.get("log", osp.join(cfg.OUTPUT_DIR or ".", "log"))
-        self.writer = MetricWriter(self.log_dir)
+        self.writer = MetricWriter(self.log_dir) if self.mesh.rank == 0 \
+            else None
 
         self.dataset = dataset
-        self.loader = build_train_loader(cfg, dataset)
+        self.loader = build_train_loader(cfg, dataset,
+                                         num_devices=self.mesh.data)
         self.steps_per_epoch = max(1, len(self.loader))
 
         model = build_model(cfg, TRAIN_PHASE)
@@ -131,7 +138,8 @@ class Trainer:
                 )
 
         self.core_function = build_core_function(cfg)
-        self.train_step = self.core_function.build_train_step(model)
+        self.train_step = self.core_function.build_train_step(
+            model, mesh=self.mesh)
         self.global_step = int(self.state.step)
 
     def _load_pretrained(self, model, path):
@@ -203,12 +211,17 @@ class Trainer:
             end = time.time()
 
             if it % int(self.cfg.PRINT_FREQ) == 0:
-                # the only place the loop waits for the device
+                # the only place the loop waits for the device; the metrics
+                # are already global (the step's all-reduce runs every step
+                # on every rank), so this issues no collective
                 for k, v in metrics.items():
                     v = float(v)
                     meters.setdefault(k, AverageMeter()).update(v)
-                    self.writer.add_scalar(f"train_{k}", v, self.global_step)
-                samples = raw["kf"].shape[0] / max(batch_time.val, 1e-9)
+                    if self.writer is not None:
+                        self.writer.add_scalar(f"train_{k}", v,
+                                               self.global_step)
+                samples = (raw["kf"].shape[0] * self.mesh.data
+                           / max(batch_time.val, 1e-9))
                 self.logger.info(
                     f"Epoch [{epoch}][{it}/{self.steps_per_epoch}] "
                     f"time {batch_time.val:.3f}s data {data_time.val:.3f}s "
@@ -222,14 +235,15 @@ class Trainer:
 
     def train(self):
         """Epochs ``begin_epoch .. end_epoch - 1`` with a checkpoint every
-        ``TRAIN.SAVE_MODEL_PER_EPOCH`` epochs and after the last (written on
-        a thread with ``TPU.ASYNC_CHECKPOINT``, all joined before this
-        returns); returns the train state."""
+        ``TRAIN.SAVE_MODEL_PER_EPOCH`` epochs and after the last (written by
+        rank 0, on a thread with ``TPU.ASYNC_CHECKPOINT``, all joined, then
+        a barrier of every rank, before this returns, so that no rank reads
+        a file still being written); returns the train state."""
         save_every = max(1, int(self.cfg.TRAIN.SAVE_MODEL_PER_EPOCH))
         async_save = bool(getattr(self.cfg.TPU, "ASYNC_CHECKPOINT", False))
         for epoch in range(self.begin_epoch, self.end_epoch):
             meters = self.train_epoch(epoch)
-            if meters.get("acc"):
+            if meters.get("acc") and self.writer is not None:
                 self.writer.add_scalar("train_acc_avg", meters["acc"].avg,
                                        epoch)
             if (epoch % save_every == 0) or epoch == self.end_epoch - 1:
@@ -239,5 +253,7 @@ class Trainer:
                 )
                 self.logger.info(f"saved checkpoint {path}")
         checkpoints.wait_for_pending_saves()
-        self.writer.flush()
+        barrier(self.mesh)
+        if self.writer is not None:
+            self.writer.flush()
         return self.state

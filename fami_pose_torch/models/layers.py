@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from fami_pose_torch.ops.int8_conv import (
     int8_conv2d, pack_weight, quantize_weight,
 )
+from fami_pose_torch.parallel.mesh import all_reduce_sum
 
 from .quant import QUANT_CALIBRATE, QUANT_INT8, QUANT_MODES, QUANT_OFF
 
@@ -163,6 +164,16 @@ class BatchNorm(nn.Module):
     ``TPU.REMAT_BACKBONE``) the forward normalizes with the batch's
     statistics as before and leaves the running ones as they are: in flax
     they are an output of the function, which recomputation never writes.
+
+    Over a mesh whose data axis is larger than 1 (``mesh``, set by
+    :func:`sync_batch_norm`), a training forward normalizes with the
+    statistics of the global batch, as the JAX package's BatchNorm over a
+    sharded batch does: one all-reduce of (sum x, sum x^2, count) a layer,
+    then flax's fast variance ``E[x^2] - E[x]^2`` clipped at 0, in float32.
+    The gradient passes back through that all-reduce
+    (``parallel.mesh.all_reduce_sum``), and a recomputed forward under
+    :func:`recomputing` issues it again (every rank recomputes in the same
+    order).
     """
 
     def __init__(self, num_features):
@@ -171,6 +182,22 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.mesh = None
+
+    def _global_batch_norm(self, x32, weight, bias):
+        """Normalize with the statistics of the batch over every rank;
+        returns the output and the statistics (mean, biased variance)."""
+        c = x32.shape[1]
+        dims = [d for d in range(x32.dim()) if d != 1]
+        count = x32.new_full((1,), x32.numel() // c)
+        sums = all_reduce_sum(torch.cat(
+            [x32.sum(dims), (x32 * x32).sum(dims), count]))
+        mean = sums[:c] / sums[-1]
+        var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
+        shape = [1, c] + [1] * (x32.dim() - 2)
+        mul = torch.rsqrt(var + BN_EPS) * weight
+        y = (x32 - mean.view(shape)) * mul.view(shape) + bias.view(shape)
+        return y, mean.detach(), var.detach()
 
     def forward(self, x):
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
@@ -181,6 +208,13 @@ class BatchNorm(nn.Module):
                 x32, self.running_mean, self.running_var, weight, bias,
                 False, 0.0, BN_EPS,
             )
+            return y.to(x.dtype)
+        if self.mesh is not None:
+            y, mean, var = self._global_batch_norm(x32, weight, bias)
+            if not getattr(_REMAT, "depth", 0):
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean, BN_MOMENTUM)
+                    self.running_var.lerp_(var, BN_MOMENTUM)
             return y.to(x.dtype)
         count = x.numel() // x.shape[1]
         # zeros, not empty: the op computes 0 * old + 1 * batch
@@ -193,6 +227,18 @@ class BatchNorm(nn.Module):
             self.running_mean.lerp_(mean, BN_MOMENTUM)
             self.running_var.lerp_(var * ((count - 1) / count), BN_MOMENTUM)
         return y.to(x.dtype)
+
+
+def sync_batch_norm(model, mesh):
+    """Make every :class:`BatchNorm` of ``model`` normalize a training
+    batch with the global batch's statistics over ``mesh`` when its data
+    axis is larger than 1; with a data axis of 1 (or no mesh) they keep the
+    local path, with no collective. Returns ``model``."""
+    sync = mesh if mesh is not None and mesh.data > 1 else None
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.mesh = sync
+    return model
 
 
 def conv3x3(cin, cout, stride=1, quant=QUANT_OFF):

@@ -227,15 +227,16 @@ def _deform_conv_cuda(x, offset, mask, weight, padding, dilation, groups,
     # the kernel's copy of x in (N, G, H, W, C/G) order, which it gathers from
     x_grouped = torch.empty_like(x)
     lib = load_library()
-    err = lib.fami_dcn_fwd(
-        x.data_ptr(), x_grouped.data_ptr(), offset.data_ptr(),
-        None if mask is None else mask.data_ptr(), weight.data_ptr(),
-        out.data_ptr(), DTYPE_CODES[dtype], n, c, h, w, c_out, ho, wo, kh, kw,
-        padding, dilation, groups,
-        float(max_offset) if max_offset is not None else 0.0,
-        stream_ptr(x),
-    )
-    check(lib, err, "fami_dcn_fwd")
+    with torch.cuda.device(x.device):  # launches go to the current one
+        err = lib.fami_dcn_fwd(
+            x.data_ptr(), x_grouped.data_ptr(), offset.data_ptr(),
+            None if mask is None else mask.data_ptr(), weight.data_ptr(),
+            out.data_ptr(), DTYPE_CODES[dtype], n, c, h, w, c_out, ho, wo, kh,
+            kw, padding, dilation, groups,
+            float(max_offset) if max_offset is not None else 0.0,
+            stream_ptr(x),
+        )
+        check(lib, err, "fami_dcn_fwd")
     deform_conv2d_windowed.launches += 1
     return out
 
@@ -414,17 +415,18 @@ def _deform_conv_backward_cuda(x, offset, mask, weight, gout, padding,
     dw_part = torch.empty(slots * tap_groups * c_out * 3 * c,
                           dtype=torch.float32, device=x.device)
     lib = load_library()
-    err = lib.fami_dcn_bwd(
-        x.data_ptr(), x_grouped.data_ptr(), offset.data_ptr(),
-        None if mask is None else mask.data_ptr(), weight.data_ptr(),
-        gout.data_ptr(), dx.data_ptr(), doffset.data_ptr(),
-        None if dmask is None else dmask.data_ptr(), dweight.data_ptr(),
-        dx_acc.data_ptr(), dw_part.data_ptr(), slots, DTYPE_CODES[dtype], n,
-        c, h, w, c_out, ho, wo, kh, kw, padding, dilation, groups,
-        float(max_offset) if max_offset is not None else 0.0,
-        stream_ptr(x),
-    )
-    check(lib, err, "fami_dcn_bwd")
+    with torch.cuda.device(x.device):  # launches go to the current one
+        err = lib.fami_dcn_bwd(
+            x.data_ptr(), x_grouped.data_ptr(), offset.data_ptr(),
+            None if mask is None else mask.data_ptr(), weight.data_ptr(),
+            gout.data_ptr(), dx.data_ptr(), doffset.data_ptr(),
+            None if dmask is None else dmask.data_ptr(), dweight.data_ptr(),
+            dx_acc.data_ptr(), dw_part.data_ptr(), slots, DTYPE_CODES[dtype],
+            n, c, h, w, c_out, ho, wo, kh, kw, padding, dilation, groups,
+            float(max_offset) if max_offset is not None else 0.0,
+            stream_ptr(x),
+        )
+        check(lib, err, "fami_dcn_bwd")
     deform_conv2d_backward.launches += 1
     return dx, doffset, dmask, dweight
 

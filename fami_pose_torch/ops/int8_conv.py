@@ -189,10 +189,11 @@ def _quant_nhwc_cuda(x, act_scale):
     b, c, h, w = x.shape
     out = torch.empty(b, h, w, padded_c(c), dtype=torch.int8, device=x.device)
     lib = load_library()
-    err = lib.fami_int8_quant_nhwc(x.data_ptr(), act_scale.data_ptr(),
-                                   out.data_ptr(), code, b, c, h, w,
-                                   out.shape[3], stream_ptr(x))
-    check(lib, err, "fami_int8_quant_nhwc")
+    with torch.cuda.device(x.device):  # launches go to the current one
+        err = lib.fami_int8_quant_nhwc(x.data_ptr(), act_scale.data_ptr(),
+                                       out.data_ptr(), code, b, c, h, w,
+                                       out.shape[3], stream_ptr(x))
+        check(lib, err, "fami_int8_quant_nhwc")
     quant_nhwc.launches += 1
     return out
 
@@ -245,11 +246,13 @@ def _implicit_gemm_cuda(xq, wp, w_scale, act_scale, bias, kernel_size, stride,
     ho, wo = _out_hw((h, w), ks, st, pad, dil)
     out = torch.empty(b, n, ho, wo, dtype=out_dtype, device=xq.device)
     lib = load_library()
-    err = lib.fami_int8_implicit_gemm(
-        xq.data_ptr(), wp.data_ptr(), w_scale.data_ptr(), act_scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), code, b, h,
-        w, cp, *ks, *st, *pad, *dil, ho, wo, n, *wp.shape, stream_ptr(xq))
-    check(lib, err, "fami_int8_implicit_gemm")
+    with torch.cuda.device(xq.device):  # launches go to the current one
+        err = lib.fami_int8_implicit_gemm(
+            xq.data_ptr(), wp.data_ptr(), w_scale.data_ptr(),
+            act_scale.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), code, b, h, w, cp, *ks, *st, *pad, *dil, ho, wo,
+            n, *wp.shape, stream_ptr(xq))
+        check(lib, err, "fami_int8_implicit_gemm")
     implicit_gemm.launches += 1
     return out
 

@@ -75,11 +75,12 @@ def _check(name, x, other, ndim, dtypes, other_shape=None):
     return x.contiguous(), other.contiguous()
 
 
-def _launch(fn, entry, *args):
+def _launch(fn, entry, *args, device):
     from .cuda.build import check, load_library
 
     lib = load_library()
-    check(lib, getattr(lib, entry)(*args), entry)
+    with torch.cuda.device(device):  # launches go to the current one
+        check(lib, getattr(lib, entry)(*args), entry)
     fn.launches += 1
 
 
@@ -104,7 +105,8 @@ def gather_lane(x, idx, variant="smem"):
     _launch(gather_lane, "fami_probe_gather_lane", x.data_ptr(),
             idx.data_ptr(), out.data_ptr(),
             DTYPE_CODES[str(x.dtype).replace("torch.", "")], x.shape[0],
-            x.shape[1], int(variant == "shfl"), stream_ptr(x))
+            x.shape[1], int(variant == "shfl"), stream_ptr(x),
+            device=x.device)
     if variant == "shfl":  # the shuffle kernel's own share of the count
         gather_lane.shfl_launches += 1
     return out
@@ -122,7 +124,7 @@ def gather_3d(x, idx):
     x, idx = _check("gather_3d", x, idx, 3, (torch.float32,))
     out = torch.empty_like(x)
     _launch(gather_3d, "fami_probe_gather_3d", x.data_ptr(), idx.data_ptr(),
-            out.data_ptr(), *x.shape, stream_ptr(x))
+            out.data_ptr(), *x.shape, stream_ptr(x), device=x.device)
     return out
 
 
@@ -138,7 +140,8 @@ def gather_rows(x, idx):
     x, idx = _check("gather_rows", x, idx, 2, (torch.float32,))
     out = torch.empty_like(x)
     _launch(gather_rows, "fami_probe_gather_rows", x.data_ptr(),
-            idx.data_ptr(), out.data_ptr(), *x.shape, stream_ptr(x))
+            idx.data_ptr(), out.data_ptr(), *x.shape, stream_ptr(x),
+            device=x.device)
     return out
 
 
@@ -156,7 +159,8 @@ def dynamic_roll(x, shift):
                       other_shape=(1,))
     out = torch.empty_like(x)
     _launch(dynamic_roll, "fami_probe_dynamic_roll", x.data_ptr(),
-            shift.data_ptr(), out.data_ptr(), *x.shape, stream_ptr(x))
+            shift.data_ptr(), out.data_ptr(), *x.shape, stream_ptr(x),
+            device=x.device)
     return out
 
 

@@ -166,12 +166,13 @@ def _warp_translate_cuda(images, offsets, max_shift, impl):
     out = torch.empty_like(images)
     lib = load_library()
     n, c, h, w = images.shape
-    err = lib.fami_warp_translate(
-        images.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-        code, blend, n, c, h, w, float(max_shift),
-        stream_ptr(images),
-    )
-    check(lib, err, "fami_warp_translate")
+    with torch.cuda.device(images.device):  # launches go to the current one
+        err = lib.fami_warp_translate(
+            images.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+            code, blend, n, c, h, w, float(max_shift),
+            stream_ptr(images),
+        )
+        check(lib, err, "fami_warp_translate")
     warp_translate.launches += 1
     return out
 
@@ -197,12 +198,13 @@ def _warp_translate_backward_cuda(images, offsets, gout, max_shift):
         raise ValueError(f"warp_bwd takes no shape {tuple(images.shape)}")
     partials = torch.empty(2 * n * blocks, dtype=torch.float32,
                            device=images.device)
-    err = lib.fami_warp_translate_bwd(
-        images.data_ptr(), offs.data_ptr(), gout.data_ptr(),
-        d_images.data_ptr(), d_offsets.data_ptr(), partials.data_ptr(), code,
-        n, c, h, w, float(max_shift), stream_ptr(images),
-    )
-    check(lib, err, "fami_warp_translate_bwd")
+    with torch.cuda.device(images.device):
+        err = lib.fami_warp_translate_bwd(
+            images.data_ptr(), offs.data_ptr(), gout.data_ptr(),
+            d_images.data_ptr(), d_offsets.data_ptr(), partials.data_ptr(),
+            code, n, c, h, w, float(max_shift), stream_ptr(images),
+        )
+        check(lib, err, "fami_warp_translate_bwd")
     warp_translate_backward.launches += 1
     return d_images, d_offsets.to(offsets.dtype)
 

@@ -9,6 +9,14 @@ Phases run in the order train -> val -> test on ``--device`` (default
 latest checkpoint of the experiment's directory (``VAL.MODEL_FILE`` or
 ``--val_from_checkpoint`` choose otherwise) and logs the AP tables of the
 final and the backbone heatmaps.
+
+Over N processes, one a GPU (``TPU.MESH_SHAPE [-1, 1]`` spans them)::
+
+    python -m torch.distributed.run --nproc_per_node N -m fami_pose_torch.run \
+        --cfg configs/posetrack17/fami_pose.yaml --train --val
+
+Each rank joins the process group first (NCCL; gloo with ``--device
+cpu``) and runs on ``cuda:LOCAL_RANK``.
 """
 
 import logging
@@ -16,10 +24,12 @@ import random
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fami_pose_torch.config import get_cfg
 from fami_pose_torch.engine.argument_parser import default_parse_args
 from fami_pose_torch.engine.runner import Runner
+from fami_pose_torch.parallel.mesh import maybe_initialize_distributed
 
 
 def set_random_seed(seed):
@@ -36,10 +46,15 @@ def main(argv=None):
         format="%(asctime)s %(name)s %(levelname)s: %(message)s",
     )
     args = default_parse_args(argv)
-    cfg = get_cfg(args)
-    set_random_seed(int(cfg.SEED))
-    runner = Runner(cfg, args)
-    return runner.launch(train=args.train, val=args.val, test=args.test)
+    joined = maybe_initialize_distributed(device=args.device)
+    try:
+        cfg = get_cfg(args)
+        set_random_seed(int(cfg.SEED))
+        runner = Runner(cfg, args)
+        return runner.launch(train=args.train, val=args.val, test=args.test)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1136,3 +1136,74 @@ def test_int8_kernels_stay_inside_their_buffers(guarded, gen, case):
             k, s, s, p, p, d, d, ho, wo, ws.shape[0], *wp.shape, None) == 0
         guarded.sync()
         assert torch.equal(guarded.get(py, ref_y), ref_y)
+
+
+# -- each launch on its tensor's device ------------------------------------------
+
+def test_every_kernel_launches_on_its_tensors_device(gen):
+    """A rank makes ``cuda:LOCAL_RANK`` current and each wrapper launches
+    inside ``torch.cuda.device`` of its tensor (a launch goes to the
+    current device): with ``cuda:0`` current and the tensors on ``cuda:0``
+    every kernel runs once, on that device, against its plain version. The
+    card machine has one GPU, so tensors on another device than the current
+    one are not tried here."""
+    from fami_pose_torch.ops import probes
+    from fami_pose_torch.ops.deform_conv import (
+        deform_conv2d_backward, deform_conv2d_backward_plain,
+    )
+    from fami_pose_torch.ops.int8_conv import (
+        implicit_gemm, implicit_gemm_plain, quant_nhwc, quant_nhwc_plain,
+    )
+    from fami_pose_torch.ops.warp import (
+        warp_translate_backward, warp_translate_backward_plain,
+    )
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda:0")
+    launched = {}
+
+    def count(fn, call):
+        before = fn.launches
+        out = call()
+        torch.cuda.synchronize(dev)
+        launched[fn.__name__] = fn.launches - before
+        return out
+
+    x = torch.randn(2, 16, 13, 11, generator=gen, device=dev)
+    off = (torch.rand(2, 72, 13, 11, generator=gen, device=dev) * 2 - 1) * 3
+    msk = torch.rand(2, 36, 13, 11, generator=gen, device=dev)
+    wgt = torch.randn(32, 16, 3, 3, generator=gen, device=dev) * 0.1
+    gout = torch.randn(2, 32, 13, 11, generator=gen, device=dev)
+    kw = dict(padding=3, dilation=3, offset_groups=4, max_offset=2)
+    got = count(deform_conv2d_windowed,
+                lambda: deform_conv2d_windowed(x, off, msk, wgt, **kw))
+    assert got.device == dev
+    _assert_close(got, deform_conv2d(x, off, msk, wgt, **kw), torch.float32)
+    got = count(deform_conv2d_backward, lambda: deform_conv2d_backward(
+        x, off, msk, wgt, gout, **kw))
+    for g, r in zip(got, deform_conv2d_backward_plain(x, off, msk, wgt, gout,
+                                                      **kw)):
+        assert g.device == dev
+        _assert_close(g, r, torch.float32)
+    img = torch.randn(6, 5, 17, 24, generator=gen, device=dev)
+    offs = (torch.rand(6, 2, generator=gen, device=dev) * 2 - 1) * 40
+    got = count(warp_translate, lambda: warp_translate(img, offs))
+    _assert_close(got, warp_translate_plain(img, offs, 32), torch.float32)
+    g_img = torch.randn_like(img)
+    got = count(warp_translate_backward,
+                lambda: warp_translate_backward(img, offs, g_img))
+    for g, r in zip(got, warp_translate_backward_plain(img, offs, g_img)):
+        _assert_close(g, r, torch.float32)
+    xi, act, _, ws, wp, bias, geo = _int8_inputs(gen, "3x3", torch.float32)
+    xq = count(quant_nhwc, lambda: quant_nhwc(xi, act))
+    assert torch.equal(xq, quant_nhwc_plain(xi, act))
+    got = count(implicit_gemm, lambda: implicit_gemm(
+        xq, wp, ws, act, bias, out_dtype=torch.float32, **geo))
+    assert torch.equal(got, implicit_gemm_plain(
+        xq, wp, ws, act, bias, out_dtype=torch.float32, **geo))
+    for name in ("gather_lane", "gather_3d", "gather_rows", "dynamic_roll"):
+        fn = getattr(probes, name)
+        a, b = probes.probe_inputs(name, device=dev, seed=1)
+        got = count(fn, lambda: fn(a, b))
+        assert torch.equal(got, getattr(probes, f"{name}_plain")(a, b))
+    assert launched == dict.fromkeys(launched, 1) and len(launched) == 10

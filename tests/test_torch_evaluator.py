@@ -292,12 +292,19 @@ def test_eval_sweeps_every_listed_checkpoint(world, variables):
     ("TPU.MESH_SHAPE", [4]), ("DEBUG.VIS_SKELETON", True),
     ("DEBUG.VIS_BBOX", True)])
 def test_unported_options_are_refused(world, key, value):
+    """The overlays are not ported yet; a mesh of 2 or 4 devices in one
+    process raises the JAX package's ``ValueError`` (over several processes
+    the evaluator runs: ``tests/test_torch_distributed_run.py``)."""
     cfg = _cfg(world, make_port_cfg, "out_port_refused")
     section, name = key.split(".")
     setattr(getattr(cfg, section), name, value)
-    with pytest.raises(NotImplementedError, match=key):
+    if section == "TPU":
+        error, match = ValueError, f"needs {value[0]} devices, have 1"
+    else:
+        error, match = NotImplementedError, key
+    with pytest.raises(error, match=match):
         check_supported(cfg)
-    with pytest.raises(NotImplementedError, match=key):
+    with pytest.raises(error, match=match):
         Evaluator(cfg, device="cpu")
 
 

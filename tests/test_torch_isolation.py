@@ -77,6 +77,9 @@ def test_port_files_found():
                  "utils/profiling.py", "tools/convert_model.py",
                  "tools/validate_real_checkpoint.py"):
         assert name in rel, name
+    # and the data-parallel slice's
+    for name in ("parallel/__init__.py", "parallel/mesh.py"):
+        assert name in rel, name
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -185,3 +188,54 @@ def test_cuda_build_needs_nvcc(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.find_nvcc()
+
+
+def test_distributed_entry_points(monkeypatch):
+    """``run.py`` joins the process group before anything else;
+    ``--device cuda`` is this rank's ``cuda:LOCAL_RANK`` under a launcher,
+    an explicit index and ``cpu`` are kept, and joining is a no-op in one
+    process; the group's backend is NCCL for the card and gloo for the CPU
+    (read from the source: no group is joined here)."""
+    from fami_pose_torch import run
+    from fami_pose_torch.engine.runner import Runner
+    from fami_pose_torch.parallel import mesh
+
+    source = inspect.getsource(run.main)
+    assert source.index("maybe_initialize_distributed(") < source.index(
+        "get_cfg(")
+    source = inspect.getsource(mesh.maybe_initialize_distributed)
+    assert '"nccl" if on_card else "gloo"' in source
+    assert source.index("set_device") < source.index("init_process_group")
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    assert mesh.maybe_initialize_distributed() is False
+    assert mesh.local_device("cuda") == "cuda"
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    assert mesh.maybe_initialize_distributed("cpu") is False
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert mesh.local_device("cuda") == "cuda:3"
+    assert mesh.local_device("cuda:1") == "cuda:1"
+    assert mesh.local_device("cpu") == "cpu"
+    for device, want in ((None, "cuda:3"), ("cuda", "cuda:3"),
+                         ("cuda:0", "cuda:0"), ("cpu", "cpu")):
+        runner = Runner.__new__(Runner)  # no directories are made
+        runner.setup_cfg = lambda: None
+        runner.__init__(None, types.SimpleNamespace(device=device))
+        assert runner.device == want, device
+
+
+def test_cuda_wrappers_launch_on_the_tensor_device():
+    """Every CUDA wrapper launches inside ``torch.cuda.device`` of its
+    tensor: a kernel launch goes to the current device, and a rank's
+    tensors may live on another."""
+    from fami_pose_torch.ops import deform_conv, int8_conv, probes, warp
+
+    for fn in (deform_conv._deform_conv_cuda,
+               deform_conv._deform_conv_backward_cuda,
+               warp._warp_translate_cuda, warp._warp_translate_backward_cuda,
+               int8_conv._quant_nhwc_cuda, int8_conv._implicit_gemm_cuda,
+               probes._launch):
+        source = inspect.getsource(fn)
+        assert "with torch.cuda.device(" in source, fn.__name__
+        guard = source.index("with torch.cuda.device(")
+        assert source.index("check(lib", guard) > guard, fn.__name__

@@ -46,6 +46,7 @@ from fami_pose_torch.engine.steps import make_eval_step
 from fami_pose_torch.models.bridge import state_dict_from_flax
 from fami_pose_torch.models.fami_pose import FAMIPose
 from fami_pose_torch.models.quant import calibrate
+from torch_dist import run_ranks
 from torch_port_helpers import nchw, nhwc, random_variables
 
 B, H, W = 2, 64, 64
@@ -426,3 +427,41 @@ def test_streaming_config_matches_the_batch_predictor():
     m = serving_model(cfg, device="cpu", seed=3)
     assert not m.training and m.num_sup == 2 * (int(cfg.DISTANCE) - 1)
     assert streaming.window_order(int(cfg.DISTANCE)) == [2, 0, 1, 3, 4]
+
+
+def test_two_rank_streams_match_one_process(model, tmp_path):
+    """4 streams over a mesh of 2 gloo processes, 2 each
+    (``tests/torch_dist.py``): the global frames in, each rank's state
+    holding its own 2 streams, every step's gathered outputs equal on both
+    ranks and, within 1e-5 of their scale (the backbone and the head run
+    on 2 frames a rank instead of 4), one process's stream; with a
+    re-prime of one stream of rank 0 after 3 frames (rank 1's streams
+    keep their state), the same global masks."""
+    n = 7
+    frames = np.random.RandomState(9).rand(n, 4, 3, H, W).astype(np.float32)
+    centers = np.full((4, 2), 50.0, np.float32)
+    scales = np.full((4, 2), 0.4, np.float32)
+    payload = dict(
+        model_kw=dict(extra=TINY_EXTRA, num_joints=17, num_sup=NUM_SUP,
+                      feat_channels=8, feat_hw=(16, 16), dcn_offset_groups=4,
+                      dcn_max_offset=2, warp_max_shift=26),
+        state_dict=model.state_dict(), frames=frames, distance=DISTANCE,
+        centers=centers, scales=scales, reprime_at=3,
+        moved=np.array([0.0, 1.0, 0.0, 0.0], np.float32))
+    r0, r1 = run_ranks("streaming", 2, tmp_path, payload)
+    assert r0["local_streams"] == r1["local_streams"] == 2
+    ref = streaming.StreamingPosePredictor(model, distance=DISTANCE,
+                                           flip_test=True, reprime_iou=0.5)
+    ref.prime(torch.from_numpy(frames[0]), centers, scales)
+    seq = torch.from_numpy(frames)
+    for t in range(1, n):
+        if t == payload["reprime_at"]:
+            moved = centers + payload["moved"][:, None] * 300.0
+            mask = ref.maybe_reprime(moved, scales, seq[:t])
+            np.testing.assert_array_equal(mask, [False, True, False, False])
+            np.testing.assert_array_equal(r0["masks"][0], mask)
+            np.testing.assert_array_equal(r1["masks"][0], mask)
+        want = ref(seq[t])
+        for got0, got1, w in zip(r0["outs"][t - 1], r1["outs"][t - 1], want):
+            assert torch.equal(got0, got1) and got0.shape == w.shape
+            _same(got0.numpy(), w.numpy())

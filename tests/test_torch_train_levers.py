@@ -55,6 +55,9 @@ Tolerances, by check:
   the port's follow Adam's first step on its own gradient to 1e-6 (where
   g^2 is a normal float32), and in each held tensor at least half of JAX's
   moves are the port's to 1e-2 lr (measured at least 75%, median 99%).
+  Over 2 gloo processes, one sample each, the averaged gradient (each
+  rank's bf16 gradient summed across ranks in float32) is held by the same
+  rule, and the ranks to each other bit for bit.
 """
 
 import json
@@ -114,6 +117,7 @@ from fami_pose_torch.utils.profiling import StepTimer, trace
 from fami_pose_torch.utils.registry import CORE_FUNCTION_REGISTRY, MODEL_REGISTRY
 from fixtures import make_cfg, make_posetrack_fixture
 from test_torch_pretrained import backbone_pth
+from torch_dist import run_ranks
 from torch_port_helpers import make_port_cfg, random_variables
 
 JAX_KW = dict(extra=TINY_EXTRA, num_joints=17, feat_channels=8,
@@ -567,6 +571,29 @@ def test_bf16_grads_parameters_and_statistics_match_jax(bf16_world):
             assert float(close.float().mean()) >= 0.5, key
 
 
+def test_two_process_bf16_grads_step_matches_jax(bf16_inputs, bf16_world,
+                                                 tmp_path):
+    """``BF16_GRADS`` over a mesh of 2 gloo processes, one sample of the
+    batch each: each rank forms its gradient in bfloat16, the sum across
+    ranks is taken in float32 (``engine/steps.py``), so the averaged
+    gradient is not JAX's bf16 sum of the global batch's; it is held to
+    JAX's step by ``chip_smoke.bf16_rule`` as the one-process step is
+    (the same tensors held, none broken), and both ranks end bit for bit
+    equal."""
+    variables, raw_batch = bf16_inputs
+    cfg, model = _port_model(variables, "bfloat16")
+    hm = BF16_SIZE // 4
+    r0, r1 = (r["grads"] for r in run_ranks("train_step", 2, tmp_path, dict(
+        cfg=cfg._to_plain(), state_dict=model.state_dict(), batch=raw_batch,
+        local=1, prepare=(2, (BF16_SIZE, BF16_SIZE), (hm, hm)),
+        bf16_grads=True)))
+    assert all(torch.equal(r0[n], r1[n]) for n in r0)
+    ref, f32 = bf16_world["jax"]["grads"], bf16_world["f32"]["grads"]
+    held, broken, ratios = bf16_rule(r0, ref, f32)
+    assert not broken, {n: ratios[n] for n in broken}
+    assert held == bf16_rule(bf16_world["port"]["grads"], ref, f32)[0]
+
+
 # -- profiler, metric writer, async checkpoints ----------------------------------
 
 def test_trace_writes_a_trace_or_nothing(tmp_path):
@@ -696,14 +723,16 @@ def test_core_function_and_model_registries_match_jax():
 
 
 def test_what_is_left_is_refused(tmp_path):
-    """A mesh of more than one device, in the trainer and the evaluator,
-    and the evaluator's overlays (``DEBUG.VIS_*``), stay refused; the
-    levers do not."""
-    for mesh in ([2, 1], [1, 2]):
+    """In one process a mesh of 2 devices raises the JAX package's
+    ``ValueError`` and a ``model`` axis ``NotImplementedError``, in the
+    trainer and the evaluator; the evaluator's overlays (``DEBUG.VIS_*``)
+    stay refused; the levers are not."""
+    for mesh, error, match in (([2, 1], ValueError, "needs 2 devices"),
+                               ([1, 2], NotImplementedError, "'model' axis")):
         cfg = _train_cfg(str(tmp_path), MESH_SHAPE=mesh)
-        with pytest.raises(NotImplementedError, match="TPU.MESH_SHAPE"):
+        with pytest.raises(error, match=match):
             check_supported(cfg)
-        with pytest.raises(NotImplementedError, match="TPU.MESH_SHAPE"):
+        with pytest.raises(error, match=match):
             ev_check(cfg)
     for key in ("VIS_SKELETON", "VIS_BBOX"):
         cfg = _train_cfg(str(tmp_path))

@@ -16,6 +16,8 @@ order, even between thread counts of one package; the L2 distance of a
 tensor does not. Tensors whose largest entry is below 2e-5 of the largest
 gradient are left out of this: a conv bias before a train-mode BatchNorm
 has a true gradient of zero, and what is computed is rounding noise.
+The same step over 2 gloo processes, one sample each, is held to the
+same bounds, and its two ranks to each other bit for bit.
 Post-step parameters: with SGD the max-abs bound times the learning rate;
 with Adam, whose first step is ``lr * g / (|g| + 1e-8)``, the port's
 parameters first follow that closed form of the port's own gradient to 1e-6;
@@ -53,6 +55,7 @@ from fami_pose_torch.models.bridge import state_dict_from_flax
 from fami_pose_torch.models.fami_pose import FAMIPose
 from fami_pose_torch.ops.heatmap import generate_heatmaps
 from fami_pose_torch.optim import build_lr_lambda, build_optimizer
+from torch_dist import run_ranks
 from torch_port_helpers import nchw, random_variables
 
 JAX_KW = dict(extra=TINY_EXTRA, num_joints=17, feat_channels=8,
@@ -210,10 +213,13 @@ def variables():
     return random_variables(lambda k: m.init(k, kf, sup, train=False), seed=7)
 
 
+PORT_KW = dict(extra=TINY_EXTRA, num_joints=17, num_sup=4, feat_channels=8,
+               feat_hw=(16, 16), dcn_offset_groups=4, dcn_max_offset=2,
+               warp_max_shift=26)
+
+
 def _port_model(variables):
-    m = FAMIPose(extra=TINY_EXTRA, num_joints=17, num_sup=4, feat_channels=8,
-                 feat_hw=(16, 16), dcn_offset_groups=4, dcn_max_offset=2,
-                 warp_max_shift=26)
+    m = FAMIPose(**PORT_KW)
     m.load_state_dict(state_dict_from_flax(variables))
     return m.train()
 
@@ -311,7 +317,6 @@ def _grad_tol(grads):
 @pytest.mark.parametrize("optimizer", ["sgd", "adam"])
 def test_train_step_matches_jax(variables, batch, jax_step, optimizer):
     cfg = _train_cfg(optimizer)
-    lr = float(cfg.TRAIN.LR)
     model = _port_model(variables)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     opt, sched = build_optimizer(cfg, model, steps_per_epoch=5)
@@ -319,7 +324,43 @@ def test_train_step_matches_jax(variables, batch, jax_step, optimizer):
     pb = prepare_train_batch(*batch, 2, (64, 64), (16, 16))
     state, metrics = make_train_step()(state, pb)
     assert state.step == 1
+    _check_step_against_jax(
+        model.state_dict(), {n: p.grad for n, p in model.named_parameters()},
+        metrics, before, jax_step, optimizer, float(cfg.TRAIN.LR))
+    assert opt.param_groups[0]["lr"] == pytest.approx(float(cfg.TRAIN.LR))
 
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_two_process_train_step_matches_jax(variables, batch, jax_step, remat,
+                                            tmp_path):
+    """The same global batch of 2 over a mesh of 2 gloo processes, one
+    sample each (``tests/torch_dist.py``): BatchNorm's statistics and the
+    gradients are the global batch's, so the Adam step meets the bounds of
+    the one-process step against the JAX step above, metrics included, and
+    both ranks end bit for bit equal (parameters, gradients, statistics,
+    Adam's moments, metrics). With ``REMAT_BACKBONE`` the recomputed
+    backbone issues its BatchNorms' all-reduces again inside the
+    backward."""
+    cfg = _train_cfg("adam")
+    model = _port_model(variables)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    r0, r1 = run_ranks("train_step", 2, tmp_path, dict(
+        model_kw=PORT_KW, state_dict=model.state_dict(), cfg=cfg._to_plain(),
+        batch=batch, local=1, prepare=(2, (64, 64), (16, 16)), remat=remat))
+    for key in ("state_dict", "grads", "metrics"):
+        assert list(r0[key]) == list(r1[key])
+        for k in r0[key]:
+            assert torch.equal(r0[key][k], r1[key][k]), (key, k)
+    m0, m1 = r0["optimizer"]["state"], r1["optimizer"]["state"]
+    assert all(torch.equal(m0[i][k], m1[i][k]) for i in m0 for k in m0[i])
+    _check_step_against_jax(r0["state_dict"], r0["grads"], r0["metrics"],
+                            before, jax_step, "adam", float(cfg.TRAIN.LR))
+
+
+def _check_step_against_jax(got, port_grads, metrics, before, jax_step,
+                            optimizer, lr):
+    """The port's state, gradients and metrics after one step against the
+    JAX step's, by the bounds of the module docstring."""
     ref_metrics = jax_step["metrics"]
     assert set(metrics) == set(ref_metrics)
     for k, v in ref_metrics.items():
@@ -333,15 +374,15 @@ def test_train_step_matches_jax(variables, batch, jax_step, optimizer):
     ref_grads = state_dict_from_flax({"params": jax.tree.map(
         np.asarray, jax_step["grads"])})
     atol = _grad_tol(ref_grads)
-    names = [n for n, _ in model.named_parameters()]
+    names = list(port_grads)
     assert set(names) == set(ref_grads)
-    for name, p in model.named_parameters():
-        np.testing.assert_allclose(p.grad.numpy(), ref_grads[name].numpy(),
+    for name, g in port_grads.items():
+        np.testing.assert_allclose(g.numpy(), ref_grads[name].numpy(),
                                    rtol=2e-3, atol=atol, err_msg=name)
     floor = 2e-5 * max(float(g.abs().max()) for g in ref_grads.values())
-    rel_l2 = {name: float((p.grad - ref_grads[name]).norm()
+    rel_l2 = {name: float((g - ref_grads[name]).norm()
                           / ref_grads[name].norm())
-              for name, p in model.named_parameters()
+              for name, g in port_grads.items()
               if float(ref_grads[name].abs().max()) > floor}
     assert len(rel_l2) >= 0.95 * len(names)
     worst = max(rel_l2, key=rel_l2.get)
@@ -352,10 +393,8 @@ def test_train_step_matches_jax(variables, batch, jax_step, optimizer):
     want = state_dict_from_flax({
         "params": jax.tree.map(np.asarray, jax_step[optimizer]),
         "batch_stats": jax.tree.map(np.asarray, jax_step["batch_stats"])})
-    got = model.state_dict()
     assert set(got) == set(want)
     moved = sure_entries = entries = 0
-    port_grads = {n: p.grad for n, p in model.named_parameters()}
     for key, ref in want.items():
         if "running_" in key:
             np.testing.assert_allclose(got[key].numpy(), ref.numpy(),
@@ -381,4 +420,3 @@ def test_train_step_matches_jax(variables, batch, jax_step, optimizer):
     assert moved > 100
     if optimizer == "adam":
         assert sure_entries >= 0.95 * entries, (sure_entries, entries)
-    assert opt.param_groups[0]["lr"] == pytest.approx(lr)

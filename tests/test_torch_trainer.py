@@ -12,6 +12,7 @@ batches are compared exactly.
 """
 
 import logging
+import math
 import os
 
 import numpy as np
@@ -178,15 +179,21 @@ def test_seeded_init_is_reproducible(tmp_path):
     ("TPU.MESH_SHAPE", [8]), ("TPU.MESH_SHAPE", [2, 2]),
 ])
 def test_unported_options_are_refused(tmp_path, key, value):
-    """What the port's trainer still lacks, a mesh of more than one device,
-    is refused; the train-time levers it has run
-    (``tests/test_torch_train_levers.py``)."""
+    """In one process a mesh whose data axis needs more devices than the
+    process group has raises the JAX package's ``ValueError`` ("needs N
+    devices, have 1"), and a ``model`` axis larger than 1 is refused by
+    name (``NotImplementedError``); over several processes the trainer
+    runs (``tests/test_torch_distributed_run.py``)."""
     cfg = _cfg(str(tmp_path), 1)
     section, name = key.split(".")
     setattr(getattr(cfg, section), name, value)
-    with pytest.raises(NotImplementedError, match=key):
+    if value[0] > 1:
+        error, match = ValueError, f"needs {math.prod(value)} devices, have 1"
+    else:
+        error, match = NotImplementedError, "'model' axis"
+    with pytest.raises(error, match=match):
         check_supported(cfg)
-    with pytest.raises(NotImplementedError, match=key):
+    with pytest.raises(error, match=match):
         Trainer(cfg, dataset=_dataset(n=4), device="cpu")
 
 
