@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Phases, one result line each (``[phase] {json}``), then the kernel table
-line ``{"kernels": [...]}``, the card's ``nvidia-smi`` name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``:
+Phases, one result line each (``[phase] {json}``), then ``[timeline]``
+(each phase's wall seconds), the kernel table line ``{"kernels": [...]}``,
+the card's ``nvidia-smi`` name and power limit, and as the last line
+``{"ok": true, "device": {...}}``:
 
   1. device  - needs CUDA; TF32 off for cuDNN and matmuls (parity phases).
   2. build   - nvcc builds every kernel in ``fami_pose_torch/ops/cuda/csrc``
@@ -18,7 +19,12 @@ and as the last line ``{"ok": true, "device": {...}}``:
                serving path's shape, and at (8, 48, 96, 72), the train
                path's, and its backward at (8, 48, 96, 72), with shifts past
                +-26, and both at the val path's shapes (the DCN at B=32 with
-               D in {4, 3, exact}, the warp at 128 images). Each kernel call
+               D in {4, 3, exact}, the warp at 128 images), and the DCN
+               forward and backward at the deform blocks' settings (exact,
+               dilation 1, C = C_out = 64 in bf16 and 48 in f32, the f32
+               forward's widest, whose C = 64 refusal is checked; one group
+               without a mask or two with one; offsets ~N(0, 8) px, many
+               samples off the image). Each kernel call
                is synchronised before its plain version runs, so that a
                fault names the kernel (``run_kernel``). Every kernel is timed
                device-side (``device_ms``: its launches in one CUDA graph),
@@ -145,6 +151,22 @@ and as the last line ``{"ok": true, "device": {...}}``:
                W48, 384x288. The build phase counts the implicit GEMM's
                ``IGMMA`` instructions and reads its registers and spills
                from ``-Xptxas -v``.
+  10b. remainder - the modules ported last: each deform block
+               (``models/deform_blocks.py``: AdaptBlock, AdaptBlockV2 with 2
+               groups and masks, DeformBlock) at C = 64, 96x72, B = 8, bf16,
+               a train-mode forward and backward on the card with one
+               ``dcn_fwd`` and one ``dcn_bwd`` launch a block, and at C = 48
+               in f32 (TF32 off) against the port on the CPU with the same
+               weights; the kernels' width refusals by name; device NMS
+               (``oks_nms_device`` on 64 CUDA poses, ``box_nms_device`` on
+               256 CUDA boxes, with and without padded slots) against the
+               host numpy keep lists; the native NMS library built from
+               source on the card's host against numpy; ``--val`` with
+               ``DEBUG.VIS_SKELETON`` and ``DEBUG.VIS_BBOX`` on phase val's
+               fixture and checkpoint (50 overlays, each file pixel-equal
+               to ``draw_skeleton_in_origin_image`` on the CPU from the same
+               predictions); ``demo --vis`` (its ``main``) on the synthetic
+               clip, batch and ``--streaming``: one overlay drawn per pose.
   11. distributed - the data-parallel path (``parallel/mesh.py``) in
                processes of their own (``python3 chip_smoke.py
                --distributed-worker ...``): (a) one rank over NCCL:
@@ -169,8 +191,15 @@ and as the last line ``{"ok": true, "device": {...}}``:
                same predictions, int8 scales and window on both ranks; the
                f32 keypoints within ``DIST_PX_TOL`` of one process's); 8
                streams, 4 a rank, gathered, against one process's stream
-               (f32, ``STREAM_F32_TOL``). Each rank's step ms, the gradient
-               bucket's bytes and all-reduce ms and the collectives a step,
+               (f32, ``STREAM_F32_TOL``); (c) ``TPU.MESH_SHAPE [1, 2]``
+               on the same two ranks, both replicas of data index 0:
+               ``Trainer.train`` (global B=4, 2 steps) with both states bit
+               for bit equal, the f32 step on the whole batch within
+               ``DIST_GRAD_L2_LIMIT`` of one process's, f32 ``--val`` with
+               every sample one row and the keypoints within
+               ``DIST_PX_TOL`` of one process's. Each rank's step ms, the
+               gradient bucket's bytes and all-reduce ms and the
+               collectives a step,
                labelled as gloo through one card, not a multi-GPU reading.
 
 Any failure raises: the script exits non-zero and prints no last line.
@@ -462,6 +491,134 @@ def dcn_bwd_bound(x, off, msk, wgt, gout, grads):
     return bound_ms(nbytes(x, off, msk, wgt, gout, *grads), ops, x.dtype)
 
 
+# the deform blocks' DCN (models/deform_blocks.py): exact, dilation and
+# padding 1, C = C_out = 64 (bf16; 48 in f32, the f32 forward's widest: it
+# keeps W and its column in f32 shared memory), 1 group without a mask
+# (DCNv1) or 2 groups with one, offsets ~N(0, 8) px, many past the image
+BLOCK_DCN_CASES = [(dtype, groups, groups > 1)
+                   for dtype in (torch.float32, torch.bfloat16)
+                   for groups in (1, 2)]
+BLOCK_WIDTH = {torch.float32: 48, torch.bfloat16: 64}
+BLOCK_OFFSET_STD = 8.0
+
+
+def block_dcn_inputs(gen, dtype, groups, with_mask, b=8, h=96, w=72):
+    dev, c = "cuda", BLOCK_WIDTH[dtype]
+    x = torch.randn(b, c, h, w, generator=gen, device=dev).to(dtype)
+    off = (torch.randn(b, 18 * groups, h, w, generator=gen, device=dev)
+           * BLOCK_OFFSET_STD).to(dtype)
+    msk = (torch.rand(b, 9 * groups, h, w, generator=gen, device=dev)
+           .to(dtype) if with_mask else None)
+    wgt = (torch.randn(c, c, 3, 3, generator=gen, device=dev) * 0.05).to(dtype)
+    return x, off, msk, wgt
+
+
+def off_image_share(off, groups):
+    """The share of a 3x3, dilation 1, padding 1 DCN's samples whose
+    position lies wholly off the image (every bilinear corner outside:
+    they read zeros)."""
+    b, _, h, w = off.shape
+    o = off.float().view(b, groups, 9, 2, h, w)
+    k = torch.arange(9, device=off.device)
+    y = (torch.arange(h, device=off.device).view(1, 1, 1, h, 1)
+         + (k // 3 - 1).view(1, 1, 9, 1, 1) + o[:, :, :, 0])
+    x = (torch.arange(w, device=off.device).view(1, 1, 1, 1, w)
+         + (k % 3 - 1).view(1, 1, 9, 1, 1) + o[:, :, :, 1])
+    return float(((y <= -1) | (y >= h) | (x <= -1) | (x >= w)).float().mean())
+
+
+def block_kernel_rows(gen):
+    """``dcn_fwd`` and ``dcn_bwd`` at the deform blocks' settings
+    (``BLOCK_DCN_CASES``), each against its plain version through
+    ``run_kernel``, timed device-side beside its bound; the f32 forward at
+    C = 64 refused by name. Returns the bf16 rows of the kernels line,
+    keyed ("dcn_fwd" / "dcn_bwd", "blocks", groups)."""
+    from fami_pose_torch.ops.deform_conv import (
+        deform_conv2d, deform_conv2d_backward, deform_conv2d_backward_plain,
+        deform_conv2d_windowed,
+    )
+
+    rows = {}
+    kw = dict(padding=1, dilation=1, max_offset=None)
+    for dtype, groups, with_mask in BLOCK_DCN_CASES:
+        x, off, msk, wgt = block_dcn_inputs(gen, dtype, groups, with_mask)
+        outside = off_image_share(off, groups)
+        tag = (f"C={x.shape[1]} G={groups} "
+               f"{'mask' if with_mask else 'no mask'} {dtype}")
+        run_k = lambda: deform_conv2d_windowed(x, off, msk, wgt,
+                                               offset_groups=groups, **kw)
+        run_p = lambda: deform_conv2d(x, off, msk, wgt, offset_groups=groups,
+                                      **kw)
+        got = run_kernel(f"dcn_fwd blocks {tag}", run_k)
+        err, tol = check_close(f"dcn_fwd blocks {tag}", got, run_p(), dtype)
+        host_ms, k_ms = time_ms(run_k), device_ms(run_k, launches=20)
+        p_ms = time_ms(run_p, iters=3, warmup=1)
+        bnd, by = dcn_fwd_bound(x, off, msk, wgt, got)
+        fwd = dict(shape=list(x.shape), groups=groups, mask=with_mask,
+                   dilation=1, D="exact",
+                   offsets_std_px=BLOCK_OFFSET_STD,
+                   samples_off_the_image=float(outside), max_abs_err=err,
+                   tol=tol, ms=k_ms, host_paced_ms=host_ms,
+                   timing=DCN_TIMING, plain_ms=p_ms, bound_ms=bnd,
+                   bound_by=by, library_ms=None, library=DCN_NO_LIBRARY)
+        emit("kernels", kernel="dcn_fwd", path="deform blocks",
+             dtype=str(dtype)[6:], **fwd)
+
+        gout = torch.randn(got.shape, generator=gen, device="cuda").to(dtype)
+        run_k = lambda: deform_conv2d_backward(x, off, msk, wgt, gout,
+                                               offset_groups=groups, **kw)
+        run_p = lambda: deform_conv2d_backward_plain(
+            x, off, msk, wgt, gout, offset_groups=groups, **kw)
+        got_b = run_kernel(f"dcn_bwd blocks {tag}", run_k)
+        ref_b = run_p()
+        errs = {}
+        for name, a, r in zip(("dx", "doffset", "dmask", "dweight"), got_b,
+                              ref_b):
+            if r is None:  # DCNv1: no mask, no mask gradient
+                if a is not None:
+                    raise AssertionError(f"dcn_bwd blocks {tag}: a dmask "
+                                         "without a mask")
+                continue
+            errs[name] = check_close(f"dcn_bwd blocks {name} {tag}", a, r,
+                                     dtype)
+        host_ms, k_ms = time_ms(run_k), device_ms(run_k, launches=20)
+        p_ms = time_ms(run_p, iters=3, warmup=1)
+        bnd, by = dcn_bwd_bound(x, off, msk, wgt, gout,
+                                [g for g in got_b if g is not None])
+        bwd = dict(shape=list(x.shape), groups=groups, mask=with_mask,
+                   dilation=1, D="exact",
+                   max_abs_err={k: e for k, (e, _) in errs.items()},
+                   tol={k: t for k, (_, t) in errs.items()}, ms=k_ms,
+                   host_paced_ms=host_ms, timing=DCN_TIMING, plain_ms=p_ms,
+                   bound_ms=bnd, bound_by=by, library_ms=None,
+                   library="none: no single PyTorch call computes a "
+                   "deformable conv's gradients")
+        emit("kernels", kernel="dcn_bwd", path="deform blocks",
+             dtype=str(dtype)[6:], **bwd)
+        if dtype == torch.bfloat16:
+            rows["dcn_fwd", "blocks", groups] = fwd
+            rows["dcn_bwd", "blocks", groups] = dict(
+                bwd, max_abs_err=max(e for e, _ in errs.values()),
+                max_abs_err_by_output=bwd["max_abs_err"])
+        del x, off, msk, wgt, got, got_b, ref_b, gout
+    # the f32 forward at C = 64 needs 297,216 B of shared memory: refused
+    x, off, _, _ = block_dcn_inputs(gen, torch.float32, 1, False, b=1, h=8,
+                                    w=8)
+    x = torch.cat([x, x[:, :16]], dim=1)
+    try:
+        deform_conv2d_windowed(x, off, None, torch.zeros(
+            64, 64, 3, 3, device="cuda"), **kw)
+    except ValueError as e:
+        if "shared memory" not in str(e):
+            raise
+        emit("kernels", kernel="dcn_fwd", path="deform blocks",
+             dtype="float32", shape=list(x.shape), refused=str(e))
+    else:
+        raise AssertionError("the f32 DCN forward took C = 64")
+    torch.cuda.empty_cache()
+    return rows
+
+
 def translation_grid(offs, h, w, dtype):
     """grid_sample's sampling grid (align_corners=True) for the warp at
     p - clamp(t, +-26)."""
@@ -578,6 +735,7 @@ def phase_kernels(hgmma):
                                        library=DCN_NO_LIBRARY)
         del x, off, msk, got
     torch.cuda.empty_cache()
+    rows.update(block_kernel_rows(gen))
 
     # the forward warp at the shapes the main paths give it: 128 images (one
     # call for the 4 supporting frames of a B=32 val batch), 32 images (the
@@ -1596,10 +1754,12 @@ def grad_errors(got, ref):
 
 # Relative L2 distance allowed between the card's and the CPU's float32
 # gradient of the whole model. On an H100 host the CPU's own gradient moved
-# 3.1-4.8% under 1e-6 input noise over NOISE_SEEDS and 9.2% under 1e-5
+# 3.1-4.8% under 1e-6 input noise over four seeds and 9.2% under 1e-5
 # (PERF.md, Findings): the limit lies above the first and below the second.
+# The noise runs are printed beside the card's distance, not compared; two
+# seeds keep the script inside half its time limit.
 WHOLE_GRAD_L2_LIMIT = 0.08
-NOISE_SEEDS = (2, 3, 4, 5)
+NOISE_SEEDS = (2, 3)
 BACKBONE_F64_TOL = 1e-6
 
 
@@ -3435,6 +3595,391 @@ def phase_int8(smi, root, dirs, stream_bf16):
 
 # -- phase distributed: the data-parallel path on the one card ----------------------
 
+# -- phase remainder: the rest of the JAX package -----------------------------
+
+REMAINDER_BLOCKS = (("AdaptBlock", {}), ("AdaptBlockV2",
+                                         {"deformable_groups": 2}),
+                    ("DeformBlock", {}))
+# a block on the card against the port on the CPU, f32 with TF32 off: the
+# output, the input gradient and every parameter gradient, each within this
+# share of its largest magnitude (the DCN backward sums dx with atomics;
+# the DCN's bias, whose gradient a train-mode BatchNorm cancels, within it
+# of the largest parameter gradient)
+BLOCK_F32_TOL = 1e-4
+BLOCK_F32_BATCH = 2  # the CPU side's plain DCN is the slow part
+
+
+def nms_boxes(seed, n=256):
+    """(n, 5) [x1 y1 x2 y2 score] around 12 centres, jittered: boxes that
+    overlap, so that NMS suppresses."""
+    rs = np.random.RandomState(seed)
+    centres = rs.rand(12, 2) * 400
+    c = centres[rs.randint(0, 12, n)] + rs.randn(n, 2) * 6
+    wh = 40 + rs.rand(n, 2) * 30
+    dets = np.concatenate([c - wh / 2, c + wh / 2, rs.rand(n, 1)], axis=1)
+    return dets.astype(np.float32)
+
+
+def nms_poses(seed, n=64, j=17):
+    """``n`` pose records {'keypoints' (J, 3), 'score', 'area'} around 8
+    poses, at three spreads."""
+    rs = np.random.RandomState(seed)
+    base = rs.rand(8, j, 2) * 200
+    pick = rs.randint(0, 8, n)
+    xy = base[pick] + rs.randn(n, j, 2) * rs.choice([0.5, 3.0, 12.0],
+                                                    (n, 1, 1))
+    kpts = np.concatenate([xy, rs.rand(n, j, 1)], axis=2).astype(np.float32)
+    return [{"keypoints": kpts[i], "score": float(rs.rand()),
+             "area": float(800 + rs.rand() * 4000)} for i in range(n)]
+
+
+def block_step(block, x, cot):
+    """One train-mode forward and backward of ``block`` on ``x`` (a leaf
+    that requires its gradient): the output, the input gradient and the
+    parameter gradients, on the CPU in float32."""
+    block.zero_grad(set_to_none=True)
+    x.grad = None
+    out = block.train()(x)
+    (out.float() * cot).sum().backward()
+    return ({"out": out.detach().float().cpu(), "dx": x.grad.float().cpu()},
+            {n: p.grad.detach().float().cpu()
+             for n, p in block.named_parameters()})
+
+
+def remainder_blocks():
+    """Each deform block at C = 64, 96x72, B = 8, bf16, forward and
+    backward on the card (one ``dcn_fwd`` and one ``dcn_bwd`` launch a
+    block, counted); at C = 48 in f32 (TF32 off) against the port on the
+    CPU with the same weights; and the kernels' refusals by name. Returns
+    the report and the DCN launches by offset groups."""
+    import torch.nn.functional as F
+
+    from fami_pose_torch.models import deform_blocks
+
+    gen = torch.Generator().manual_seed(0)
+    report, launches = {}, {}
+    for name, kw in REMAINDER_BLOCKS:
+        cls = getattr(deform_blocks, name)
+        groups = kw.get("deformable_groups", 1)
+        torch.manual_seed(0)
+        card = cls(64, 64, **kw).cuda()
+        x = torch.randn(8, 64, 96, 72, generator=gen).cuda().to(
+            torch.bfloat16).requires_grad_(True)
+        cot = torch.randn(8, 64, 96, 72, generator=gen).cuda()
+        block_step(card, x, cot)  # warm-up: cuDNN's choice, the allocator
+        torch.cuda.synchronize()
+        reset_launches()
+        got, grads = block_step(card, x, cot)
+        torch.cuda.synchronize()
+        seen = read_launches()
+        if seen != {"dcn_fwd": 1, "dcn_bwd": 1, "warp_translate": 0,
+                    "warp_bwd": 0}:
+            raise AssertionError(f"{name} bf16 launches {seen}")
+        if not all(torch.isfinite(t).all() for t in
+                   list(got.values()) + list(grads.values())):
+            raise AssertionError(f"{name} bf16: non-finite output or "
+                                 "gradient")
+        step_ms = time_ms(lambda: block_step(card, x, cot), iters=5,
+                          warmup=1)
+        del card, x, cot
+
+        # f32, TF32 off: the card against the CPU
+        torch.manual_seed(1)
+        cpu = cls(48, 48, **kw)
+        card = copy.deepcopy(cpu).cuda()
+        x = torch.randn(BLOCK_F32_BATCH, 48, 96, 72, generator=gen)
+        cot = torch.randn(x.shape, generator=gen)
+        reset_launches()
+        got, got_g = block_step(card, x.cuda().requires_grad_(True),
+                                cot.cuda())  # a new leaf on the card
+        torch.cuda.synchronize()
+        f32_seen = read_launches()
+        ref, ref_g = block_step(cpu, x.requires_grad_(True), cot)
+        errs = {}
+        # the DCN's bias feeds a train-mode BatchNorm, which makes its
+        # gradient zero up to rounding: held to the largest gradient's scale
+        largest = max(float(r.abs().max()) for r in ref_g.values())
+        for k, r in list(ref.items()) + list(ref_g.items()):
+            a = got.get(k, got_g.get(k))
+            scale = largest if k == "adapt_conv.bias" else float(
+                r.abs().max())
+            errs[k] = float((a - r).abs().max()) / max(scale, 1e-30)
+        worst = max(errs, key=errs.get)
+        if errs[worst] > BLOCK_F32_TOL:
+            raise AssertionError(f"{name} f32 card vs CPU: {worst} off by "
+                                 f"{errs[worst]} of its scale")
+        if f32_seen != seen:
+            raise AssertionError(f"{name} f32 launches {f32_seen}")
+        for k in ("dcn_fwd", "dcn_bwd"):
+            by_groups = launches.setdefault(groups, {"dcn_fwd": 0,
+                                                     "dcn_bwd": 0})
+            by_groups[k] += seen[k] + f32_seen[k]
+        report[name] = dict(
+            offset_groups=groups, mask=name == "AdaptBlockV2",
+            bf16=dict(shape=[8, 64, 96, 72], launches=seen,
+                      train_step_ms=step_ms),
+            f32_card_vs_cpu=dict(shape=[BLOCK_F32_BATCH, 48, 96, 72],
+                                 tf32="off", launches=f32_seen,
+                                 worst=worst, worst_rel_err=errs[worst],
+                                 tol=BLOCK_F32_TOL))
+        del card, cpu
+
+    # the kernels' widths, refused on the card by name
+    refusals = {}
+    cases = (("f32 forward, C = 64", lambda: deform_blocks.DeformBlock(
+        64, 64).cuda()(torch.zeros(1, 64, 8, 8, device="cuda"))),
+             ("bf16 forward, C_out = 24", lambda: deform_blocks.DeformBlock(
+                 24, 24).cuda()(torch.zeros(1, 24, 8, 8, device="cuda",
+                                            dtype=torch.bfloat16))))
+    for what, fn in cases:
+        try:
+            fn()
+        except ValueError as e:
+            refusals[what] = str(e)
+        else:
+            raise AssertionError(f"the DCN kernels took the {what}")
+    block = deform_blocks.AdaptBlock(80, 64, has_downsample=True).cuda()
+    x = torch.zeros(1, 80, 8, 8, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    out = block(x)  # the forward takes C = 80
+    try:
+        F.relu(out).float().sum().backward()
+    except ValueError as e:
+        refusals["bf16 backward, C = 80"] = str(e)
+    else:
+        raise AssertionError("the DCN backward took C = 80")
+    if not all(m in r for m, r in zip(
+            ("shared memory", "C_out in 16/32/48/64", "C <= 64"),
+            refusals.values())):
+        raise AssertionError(f"refusals {refusals}")
+    report["refused_by_name"] = refusals
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def remainder_nms():
+    """``oks_nms_device`` on 64 CUDA poses and ``box_nms_device`` on 256
+    CUDA boxes (all valid, then with padded slots) against the host numpy
+    keep lists; the native library built on this host against numpy."""
+    from fami_pose_torch.native import nms as native
+    from fami_pose_torch.ops import nms
+
+    def mask_of(keep, n):
+        m = np.zeros(n, bool)
+        m[np.asarray(keep, np.int64)] = True
+        return m
+
+    def timed(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    db = nms_poses(0)
+    kpts = torch.from_numpy(np.stack([d["keypoints"] for d in db])).cuda()
+    scores = torch.tensor([d["score"] for d in db]).cuda()
+    areas = torch.tensor([d["area"] for d in db]).cuda()
+    dets = nms_boxes(0)
+    boxes = torch.from_numpy(dets).cuda()
+    out = {}
+    for pad in (0, 9):
+        valid = np.ones(len(db), bool)
+        valid[:pad] = False
+        dvalid = torch.from_numpy(valid).cuda()
+        run = lambda: nms.oks_nms_device(kpts, scores, areas, dvalid, thr=0.9)
+        got = run().cpu().numpy()
+        sub = [i for i in range(len(db)) if valid[i]]
+        want = mask_of([sub[k] for k in nms.oks_nms([db[i] for i in sub],
+                                                    0.9)], len(db))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"oks_nms_device (pad {pad}) differs "
+                                 "from the host keep list")
+        valid_b = np.ones(len(dets), bool)
+        valid_b[:4 * pad] = False
+        bvalid = torch.from_numpy(valid_b).cuda()
+        run_b = lambda: nms.box_nms_device(boxes[:, :4], boxes[:, 4], bvalid,
+                                           thr=0.6)
+        got_b = run_b().cpu().numpy()
+        sub_b = np.flatnonzero(valid_b)
+        want_b = mask_of(sub_b[nms.nms(dets[sub_b], 0.6)], len(dets))
+        if not np.array_equal(got_b, want_b):
+            raise AssertionError(f"box_nms_device (pad {pad}) differs "
+                                 "from the host keep list")
+        out[f"pad_{pad}"] = dict(
+            oks_kept=int(got.sum()), oks_ms=timed(run),
+            box_kept=int(got_b.sum()), box_ms=timed(run_b))
+    built_here = not os.path.exists(native.library_path())
+    t0 = time.perf_counter()
+    so = native.build()
+    build_s = time.perf_counter() - t0
+    checks = {
+        "cpu_nms": native.cpu_nms(dets, 0.6) == nms.nms(dets, 0.6),
+        "oks_nms_native": native.oks_nms_native(db, 0.9) == list(
+            nms.oks_nms(db, 0.9)),
+        "oks_nms_native vis 0.3": native.oks_nms_native(
+            db, 0.5, in_vis_thre=0.3) == list(nms.oks_nms(db, 0.5,
+                                                          vis_thr=0.3)),
+        "soft_oks_nms_native": native.soft_oks_nms_native(
+            db, 0.3, soft_sigma=0.5)[0] == list(nms.soft_oks_nms(db, 0.5)),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"native NMS against numpy: {checks}")
+    out["native"] = dict(library=os.path.relpath(so, ROOT),
+                         built_here=built_here, build_s=build_s,
+                         flags=list(native.CXX_FLAGS), equal_to_numpy=checks)
+    out["sizes"] = dict(poses=len(db), boxes=len(dets), oks_thr=0.9,
+                        box_thr=0.6, timing="host-paced ms a call (N steps "
+                        "of tensor operations, no host read)")
+    return out
+
+
+def replay_overlays(drawn, out_dir):
+    """``draw_skeleton_in_origin_image`` on the CPU for each (path,
+    predictions, box) in order into ``out_dir``; returns the files."""
+    from fami_pose_torch.visualization import draw_skeleton_in_origin_image
+
+    return [draw_skeleton_in_origin_image(path, preds, out_dir, bbox=bbox)
+            for path, preds, bbox in drawn]
+
+
+def same_images(files, ref_files):
+    """Each file decodes and equals its reference pixel for pixel."""
+    import cv2
+
+    for a, b in zip(files, ref_files):
+        got, ref = cv2.imread(a), cv2.imread(b)
+        if got is None or ref is None or not np.array_equal(got, ref):
+            raise AssertionError(f"overlay {a} differs from {b}")
+
+
+def remainder_val_overlays(root, dirs):
+    """``Runner.launch(val=True)`` on phase val's fixture and checkpoint
+    with ``DEBUG.VIS_SKELETON`` and ``DEBUG.VIS_BBOX``: 50 overlays drawn
+    (two people of a frame onto one file: 25 files), each decoding to the
+    image ``draw_skeleton_in_origin_image`` draws on the CPU from the same
+    predictions and box."""
+    from fami_pose_torch.engine import evaluator as evaluator_mod
+    from fami_pose_torch.utils.bbox import cs2box
+
+    n_samples = VAL_VIDEOS * VAL_FRAMES * VAL_PEOPLE
+    hook = evaluator_mod.Evaluator._vis_hook
+    written = []
+
+    def spy(self, *args, **kwargs):
+        out = hook(self, *args, **kwargs)
+        written.extend(out)
+        return out
+
+    evaluator_mod.Evaluator._vis_hook = spy
+    try:
+        runner, report = val_pass(root, dirs, n_samples,
+                                  "DEBUG.VIS_SKELETON", True,
+                                  "DEBUG.VIS_BBOX", True)
+    finally:
+        evaluator_mod.Evaluator._vis_hook = hook
+    ev = runner.evaluator
+    drawn = [(path, ev.all_preds[i], cs2box(
+        ev.all_boxes[i, 0:2], ev.all_boxes[i, 2:4], pattern="xyxy"))
+             for path, idxs in ev.img_path_map.items() for i in idxs][:50]
+    if len(written) != 50:
+        raise AssertionError(f"{len(written)} overlays drawn, expected 50")
+    files = sorted(set(written))
+    ref_dir = os.path.join(root, "vis_ref")
+    ref = replay_overlays(drawn, ref_dir)
+    same_images(files, [os.path.join(ref_dir, os.path.relpath(
+        f, os.path.join(ev.output_dir, "validate_vis"))) for f in files])
+    if sorted(set(ref)) != sorted(os.path.join(ref_dir, os.path.relpath(
+            f, os.path.join(ev.output_dir, "validate_vis"))) for f in files):
+        raise AssertionError("overlay files differ from the replay's")
+    return dict(drawn=len(written), files=len(files),
+                launches=report["launches"],
+                samples_per_s=report["samples_per_s"],
+                eval_loop_s=report["eval_loop_s"])
+
+
+def remainder_demo(root):
+    """``python -m fami_pose_torch.demo --vis`` (its ``main``) on the
+    synthetic clip, 2 boxes a frame, batch and ``--streaming``: one overlay
+    drawn per emitted pose, each file the image of the frame's last pose
+    drawn on the CPU."""
+    import cv2
+
+    from fami_pose_torch import demo
+
+    frames, boxes = synthetic_clip()
+    frames_dir = os.path.join(root, "demo", "clip")
+    os.makedirs(frames_dir)
+    names = [f"{i:04d}.png" for i in range(len(frames))]
+    for name, f in zip(names, frames):
+        cv2.imwrite(os.path.join(frames_dir, name),
+                    np.ascontiguousarray(f[..., ::-1]))
+    dets = [{"frame": i, "bbox": b, "score": s}
+            for i, v in boxes.items() for b, s in v]
+    boxes_json = os.path.join(root, "demo", "boxes.json")
+    with open(boxes_json, "w") as fh:
+        json.dump(dets, fh)
+    draw = demo.draw_results
+    out = {}
+    for streaming in (False, True):
+        tag = "streaming" if streaming else "batch"
+        out_dir = os.path.join(root, "demo", tag)
+        drawn = []
+
+        def spy(results, *args):
+            paths = draw(results, *args)
+            drawn.extend(paths)
+            return paths
+
+        demo.draw_results = spy
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            demo.main(["--cfg", os.path.join(
+                ROOT, "configs/posetrack17/fami_pose.yaml"), "--frames",
+                frames_dir, "--boxes", boxes_json, "--out", out_dir,
+                "--vis"] + (["--streaming"] if streaming else []))
+        finally:
+            demo.draw_results = draw
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        seen = read_launches()
+        with open(os.path.join(out_dir, "keypoints.json")) as fh:
+            records = json.load(fh)
+        if len(records) != len(dets) or len(drawn) != len(records):
+            raise AssertionError(f"demo {tag}: {len(records)} poses, "
+                                 f"{len(drawn)} overlays")
+        if not seen["dcn_fwd"] or seen["dcn_bwd"] or seen["warp_bwd"]:
+            raise AssertionError(f"demo {tag} launches {seen}")
+        ref_dir = os.path.join(root, "demo", f"{tag}_ref")
+        ref = replay_overlays(
+            [(os.path.join(frames_dir, r["frame"]),
+              np.asarray(r["keypoints"], np.float32), None) for r in records],
+            ref_dir)
+        files = sorted(set(drawn))
+        same_images(files, sorted(set(ref)))
+        out[tag] = dict(poses=len(records), drawn=len(drawn),
+                        files=len(files), launches=seen, seconds=seconds)
+    return out
+
+
+def phase_remainder(smi, root, dirs):
+    """The modules of the JAX package ported last: the deform blocks on the
+    DCN kernels, device and native NMS, the overlays of ``--val`` and of
+    ``demo --vis``. Returns the blocks' DCN launches by offset groups."""
+    t0 = time.perf_counter()
+    blocks, launches = remainder_blocks()
+    nms_report = remainder_nms()
+    overlays = remainder_val_overlays(root, dirs)
+    demo_report = remainder_demo(root)
+    emit("remainder", card=smi, blocks=blocks, nms=nms_report,
+         val_overlays=overlays, demo_vis=demo_report,
+         phase_seconds=time.perf_counter() - t0)
+    return launches
+
+
 DIST_SAMPLES = 24  # 3 steps of a global batch of 8
 DIST_STREAMS, DIST_STREAM_FRAMES = 8, 6
 DIST_TIMEOUT_S = 600
@@ -3829,8 +4374,142 @@ def dist_two_ranks(ctx):
     out["stream_launches"] = read_launches()
     out["stream_local_streams"] = int(pred._state.feats.shape[1])
     out["stream"] = [tuple(t.cpu() for t in o) for o in outs]
+    del model, pred
+    torch.cuda.empty_cache()
+    out["model_axis"] = dist_model_axis(ctx)
     dist.barrier()
     return out
+
+
+def dist_model_axis(ctx):
+    """(c) The same two gloo ranks with ``TPU.MESH_SHAPE [1, 2]``: both
+    hold data index 0 of every global batch. ``Trainer.train`` at W48,
+    global B=4, one epoch of 2 steps; the f32 step of (b) on the whole
+    global batch of 4; f32 ``--val`` on phase val's fixture and
+    checkpoint."""
+    import torch.distributed as dist
+
+    from fami_pose_torch.engine.runner import Runner
+    from fami_pose_torch.engine.steps import make_train_step
+    from fami_pose_torch.engine.train_state import TrainState
+    from fami_pose_torch.engine.trainer import Trainer
+    from fami_pose_torch.optim import build_optimizer
+    from fami_pose_torch.parallel import mesh as pm
+
+    out = {"rank": ctx["rank"]}
+    cfg = dist_train_cfg(os.path.join(ctx["dir"], "train_model_axis"),
+                         "TPU.MESH_SHAPE", "[1, 2]",
+                         "TRAIN.BATCH_SIZE_PER_GPU", 4, "TRAIN.END_EPOCH", 1)
+    image_size = tuple(int(v) for v in cfg.MODEL.IMAGE_SIZE)
+    data = SyntheticPoseDataset(8, image_size, 2 * (int(cfg.DISTANCE) - 1))
+    trainer = Trainer(cfg, dataset=data, device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    out.update(train_s=time.perf_counter() - t0,
+               train_launches=read_launches(), mesh=trainer.mesh,
+               local_batch=trainer.loader.local_batch_size,
+               steps=trainer.state.step,
+               digests=state_digests(trainer.state))
+    del trainer
+    torch.cuda.empty_cache()
+
+    cfg32, host = cut_depth_step_inputs()
+    model = cut_depth_model(cfg32).cuda().train()
+    opt, sched = build_optimizer(cfg32, model, steps_per_epoch=5)
+    mesh = pm.build_mesh([1, 2])
+    rows = pm.local_batch_slice(host["kf"].shape[0], mesh)
+    reset_launches()
+    _, metrics = make_train_step(mesh=mesh)(
+        TrainState(model, opt, sched),
+        {k: v[rows].cuda() for k, v in host.items()})
+    torch.cuda.synchronize()
+    out.update(f32_rows=rows, f32_launches=read_launches(),
+               f32_grads={n: p.grad.detach().cpu()
+                          for n, p in model.named_parameters()},
+               f32_metrics={k: float(v) for k, v in metrics.items()})
+    del model, opt
+    torch.cuda.empty_cache()
+
+    cfg, args = val_cfg(ctx["root"], ctx["dirs"], "TPU.MESH_SHAPE", "[1, 2]",
+                        "TPU.COMPUTE_DTYPE", "float32")
+    runner = Runner(cfg, args)
+    reset_launches()
+    results = runner.launch(val=True)
+    torch.cuda.synchronize()
+    ev = runner.evaluator
+    out["val"] = dict(
+        results={p: {t: dict(v[0]) for t, v in r.items()}
+                 for p, r in results["val"].items()},
+        launches=read_launches(), all_preds=ev.all_preds.copy(),
+        all_preds_bb=ev.all_preds_bb.copy(), samples=ev.timings["samples"],
+        rows=sorted(i for idxs in ev.img_path_map.values() for i in idxs),
+        mesh=ev.mesh, local_batch=ev.loader.local_batch_size)
+    del runner, ev
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def check_model_axis(a, b, ref_grads, ref_metrics, ref_preds, need):
+    """(c), ``TPU.MESH_SHAPE [1, 2]``, against one process: both ranks'
+    states bit for bit equal after ``Trainer.train``; the f32 step on the
+    whole global batch within ``DIST_GRAD_L2_LIMIT`` / ``DIST_LOSS_RTOL``
+    of one process's, equal on both ranks; ``--val`` scored by rank 0 once,
+    every sample one row (no duplicate from the replica), the keypoints
+    within ``DIST_PX_TOL`` of one process's. Returns the report."""
+    from fami_pose_torch.parallel.mesh import Mesh
+
+    n_samples = VAL_VIDEOS * VAL_FRAMES * VAL_PEOPLE
+    for rank, r in enumerate((a, b)):
+        need(r["mesh"] == Mesh(data=1, model=2, rank=rank)
+             and r["val"]["mesh"] == r["mesh"], f"model axis mesh {rank}")
+        need(r["local_batch"] == 4 and r["steps"] == 2,
+             f"model axis: local batch {r['local_batch']}, {r['steps']} "
+             "steps")
+        need(r["f32_rows"] == slice(0, 4), f"model axis rows {r['f32_rows']}")
+    need(a["digests"] == b["digests"], "model axis: states differ")
+    grads = a["f32_grads"]
+    need(all(torch.equal(grads[n], b["f32_grads"][n]) for n in grads),
+         "model axis: f32 gradients differ across ranks")
+    num = math.sqrt(sum(float(((grads[n].double() - ref_grads[n].double())
+                               ** 2).sum()) for n in ref_grads))
+    den = math.sqrt(sum(float((ref_grads[n].double() ** 2).sum())
+                        for n in ref_grads))
+    loss_rel = {k: abs(a["f32_metrics"][k] - v) / max(abs(v), 1e-12)
+                for k, v in ref_metrics.items() if k.startswith("loss")}
+    need(num / den <= DIST_GRAD_L2_LIMIT, f"model axis f32 rel L2 "
+         f"{num / den}")
+    need(max(loss_rel.values()) <= DIST_LOSS_RTOL,
+         f"model axis loss terms {loss_rel}")
+    ((path, tables),) = a["val"]["results"].items()
+    need(set(tables) == {"final", "backbone"}
+         and b["val"]["results"] == {path: {}}, "model axis val results")
+    for r in (a, b):
+        need(r["val"]["samples"] == n_samples
+             and r["val"]["rows"] == list(range(n_samples))
+             and len(r["val"]["all_preds"]) == n_samples,
+             "model axis val rows")
+        need(r["val"]["local_batch"] == 32, "model axis val batch")
+    need(all(np.array_equal(a["val"][k], b["val"][k])
+             for k in ("all_preds", "all_preds_bb")),
+         "model axis val predictions differ across ranks")
+    px = max(float(np.abs(a["val"][k][..., :2] - ref[..., :2]).max())
+             for k, ref in zip(("all_preds", "all_preds_bb"), ref_preds))
+    need(px <= DIST_PX_TOL, f"model axis val keypoints {px} px")
+    return dict(
+        mesh_shape=[1, 2], states_bitwise_equal=a["digests"] == b["digests"],
+        train=dict(global_batch=4, per_rank=4, steps=a["steps"],
+                   seconds=[a["train_s"], b["train_s"]],
+                   launches_rank0=a["train_launches"]),
+        f32_step=dict(grad_rel_l2_vs_one_process=num / den,
+                      limit=DIST_GRAD_L2_LIMIT,
+                      loss_rel_vs_one_process=loss_rel),
+        val=dict(samples=a["val"]["samples"], px_vs_one_process=px,
+                 tol_px=DIST_PX_TOL,
+                 mean_ap={t: tables[t]["Mean"] for t in tables},
+                 launches_rank0=a["val"]["launches"]))
 
 
 def cut_depth_model(cfg32):
@@ -4033,6 +4712,10 @@ def phase_distributed(smi, root, dirs):
             stream_scale = max(stream_scale, float(c.abs().max()))
     need(stream_err <= STREAM_F32_TOL * stream_scale,
          f"streams {stream_err} from one process's (scale {stream_scale})")
+    # (c) the model axis, in the same two ranks
+    m0, m1 = r0["model_axis"], r1["model_axis"]
+    model_axis = check_model_axis(m0, m1, ref_grads, ref_metrics, ref_preds,
+                                  need)
     readings = {f"rank{r['rank']}": r["readings"] for r in (r0, r1)}
     report = dict(
         card=smi, note=DIST_NOTE,
@@ -4059,6 +4742,7 @@ def phase_distributed(smi, root, dirs):
                      tol=f"STREAM_F32_TOL x scale = "
                      f"{STREAM_F32_TOL * stream_scale}",
                      launches_rank0=r0["stream_launches"]),
+        model_axis=model_axis,
         readings=readings, two_ranks_s=ranks_s,
         phase_seconds=time.perf_counter() - t0)
     emit("distributed", **report)
@@ -4069,6 +4753,9 @@ def phase_distributed(smi, root, dirs):
                                  "stream_launches"))
                 + sum(r[v]["launches"][k] for r in (r0, r1)
                       for v in ("val_f32", "val_int8"))
+                + sum(r[p][k] for r in (m0, m1)
+                      for p in ("train_launches", "f32_launches"))
+                + sum(r["val"]["launches"][k] for r in (m0, m1))
                 for k in KERNEL_COUNTERS}
     launches.update({k: sum(r["val_int8"]["launches"][k] for r in (r0, r1))
                      for k in INT8_COUNTERS})
@@ -4078,29 +4765,47 @@ def phase_distributed(smi, root, dirs):
 
 
 def main():
+    t_start = time.perf_counter()
+    timeline = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its wall seconds kept under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        timeline[name] = time.perf_counter() - t0
+        return out
+
     smi = phase_device()
     sys.path.insert(0, ROOT)
-    rows = phase_kernels(phase_build())
+    hgmma = timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, hgmma)
     reset_launches()
-    pred, serving, model_dcn, batch = phase_main()
+    pred, serving, model_dcn, batch = timed("main", phase_main)
     if any(read_launches()[k] for k in ("dcn_bwd", "warp_bwd")):
         raise AssertionError("the serving path launched a backward kernel")
-    phase_card_vs_cpu(pred)
-    streaming, stream_bf16 = phase_streaming(pred, batch)
+    timed("card-vs-cpu", phase_card_vs_cpu, pred)
+    streaming, stream_bf16 = timed("streaming", phase_streaming, pred, batch)
     del pred
     torch.cuda.empty_cache()
-    train, model_dcn_bwd = phase_train(smi)
-    phase_train_card_vs_cpu()
+    train, model_dcn_bwd = timed("train", phase_train, smi)
+    timed("train-card-vs-cpu", phase_train_card_vs_cpu)
     torch.cuda.empty_cache()
-    levers, validate_exact, validate_d4 = phase_train_levers(smi)
+    levers, validate_exact, validate_d4 = timed(
+        "train-levers", phase_train_levers, smi)
     torch.cuda.empty_cache()
-    probe_launches = phase_probes()
+    probe_launches = timed("probes", phase_probes)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_val_") as root:
-        val, dirs = phase_val(smi, root)
+        val, dirs = timed("val", phase_val, smi, root)
         torch.cuda.empty_cache()
-        int8, int8_rows = phase_int8(smi, root, dirs, stream_bf16)
+        int8, int8_rows = timed("int8", phase_int8, smi, root, dirs,
+                                stream_bf16)
         torch.cuda.empty_cache()
-        distributed = phase_distributed(smi, root, dirs)
+        block_launches = timed("remainder", phase_remainder, smi, root, dirs)
+        torch.cuda.empty_cache()
+        distributed = timed("distributed", phase_distributed, smi, root,
+                            dirs)
+    emit("timeline", seconds_by_phase=timeline,
+         total_s=time.perf_counter() - t_start)
     csrc = "fami_pose_torch/ops/cuda/csrc/"
     replaces = {
         "dcn_fwd": "fami_pose_tpu/ops/pallas/dcn.py:1063",
@@ -4172,6 +4877,19 @@ def main():
                 launches_train_levers=levers[name],
                 launches_distributed=distributed[name],
                 model_inputs=model_dcn_bwd, **rows[name]))
+        if name in ("dcn_fwd", "dcn_bwd"):
+            # the deform blocks (phase remainder): exact, dilation 1, one
+            # group without a mask (AdaptBlock, DeformBlock) or two with one
+            # (AdaptBlockV2); launches of their bf16 and f32 runs
+            for groups in (1, 2):
+                kernels.append(dict(
+                    common, path="deform blocks",
+                    launches=block_launches[groups][name],
+                    launches_of="phase remainder's block runs, bf16 at "
+                    "C = 64 and f32 at C = 48, one a block each",
+                    blocks="AdaptBlockV2" if groups == 2
+                    else "AdaptBlock, DeformBlock",
+                    **rows[name, "blocks", groups]))
     for name in INT8_COUNTERS:
         kernels.append(dict(
             name=name, route="cuda", source=csrc + "int8_conv.cu",

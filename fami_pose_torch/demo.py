@@ -3,7 +3,7 @@
     python -m fami_pose_torch.demo --cfg configs/posetrack17/fami_pose.yaml \\
         --frames /path/to/frames_dir --boxes boxes.json \\
         --weights fami_pose_state_dict.pt --out demo_out [--device cuda] \\
-        [--streaming]
+        [--streaming] [--vis]
 
 The flags are those of ``tools/demo.py`` plus ``--weights`` (a port
 ``state_dict`` saved with ``torch.save``; without it the weights are the
@@ -11,7 +11,10 @@ seeded random init) and ``--device``. ``--boxes`` is a json list of
 ``{"frame": <index-or-filename>, "bbox": [x, y, w, h], "score": s}``; omit it
 for one full-frame box per frame. Writes ``<out>/keypoints.json`` in the
 format of ``tools/demo.py``. Flip-test follows ``VAL.FLIP_VAL``'s default of
-the demo: off.
+the demo: off. ``--vis`` draws each emitted pose onto its source frame
+under ``<out>/vis/<frames dir name>/<frame>`` (``visualization/draw.py``,
+as ``tools/demo.py`` does, for both serving paths; poses of one frame draw
+over the same file, the last one standing).
 
 Without ``--streaming`` every box of every frame runs the batch protocol
 (``engine/predictor.py``: the key frame and its supporting frames cropped
@@ -47,7 +50,7 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--out", default="demo_out")
     p.add_argument("--vis", action="store_true",
-                   help="skeleton overlays (not ported yet)")
+                   help="skeleton overlays under <out>/vis")
     p.add_argument("--streaming", action="store_true",
                    help="cached-feature streaming serving (crops locked at "
                    "the first annotated frame's boxes; see the docstring)")
@@ -57,11 +60,9 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, item in (("checkpoint", "convert it with models.bridge and "
-                        "pass --weights"),
-                       ("vis", "ROADMAP Queue 1 item 7 (visualisation)")):
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} is not supported by the port yet: {item}")
+    if args.checkpoint:
+        raise SystemExit("--checkpoint is not supported by the port: convert "
+                         "it with models.bridge and pass --weights")
     args.root_dir = "."
 
     import cv2
@@ -108,6 +109,22 @@ def main(argv=None):
         json.dump(results, f)
     print(f"wrote {len(results)} poses to {out_json}"
           + (" (streaming)" if args.streaming else ""))
+    if args.vis:
+        drawn = draw_results(results, args.frames, osp.join(args.out, "vis"))
+        print(f"drew {len(drawn)} overlays under {osp.join(args.out, 'vis')}")
+
+
+def draw_results(results, frames_dir, out_dir):
+    """Each record's pose drawn onto its source frame under ``out_dir``
+    (``tools/demo.py``'s ``--vis``); returns the paths written, one a
+    record."""
+    import numpy as np
+
+    from fami_pose_torch.visualization import draw_skeleton_in_origin_image
+
+    return [draw_skeleton_in_origin_image(
+        osp.join(frames_dir, r["frame"]),
+        np.asarray(r["keypoints"], np.float32), out_dir) for r in results]
 
 
 def stream_clip(cfg, state_dict, device, frames, boxes_by_frame, names):

@@ -23,17 +23,21 @@ step from the core function of ``cfg.CORE_FUNCTION``
 (``engine/core_functions.py``).
 
 ``TPU.MESH_SHAPE`` lays the data axis over the ranks of the process group
-(``parallel/mesh.py``): each rank loads its slice of every global batch,
-runs the eval step and the decode on it, and the decoded predictions are
-gathered by rows, so that every rank holds the global predictions. Each
-rank calibrates and measures the DCN window on its own slice; rank 0's
-int8 scales and window are broadcast to every rank, so every rank runs the
-same model. Only rank 0 scores (``dataset.evaluate``); the others return
-``{}`` for each checkpoint.
+(``parallel/mesh.py``): each rank loads its data index's slice of every
+global batch, runs the eval step and the decode on it, and the decoded
+predictions are gathered by rows (one rank of each data index), so that
+every rank holds the global predictions. Each rank calibrates and measures
+the DCN window on its own slice; rank 0's int8 scales and window are
+broadcast to every rank, so every rank runs the same model. Only rank 0
+scores (``dataset.evaluate``); the others return ``{}`` for each
+checkpoint.
 
-Not ported yet, and refused rather than ignored when a config asks for
-them: the skeleton / box overlays (``DEBUG.VIS_SKELETON``,
-``DEBUG.VIS_BBOX``).
+``DEBUG.VIS_SKELETON`` / ``DEBUG.VIS_BBOX`` draw the first 50 predictions
+onto their source frames under ``<output>/<phase>_vis``
+(:meth:`Evaluator._vis_hook`, ``visualization/draw.py``), the box from
+``cs2box(..., "xyxy")`` under ``VIS_BBOX``: the JAX evaluator's overlays.
+Over several ranks rank 0 alone draws, after the predictions are gathered,
+and writes the files the JAX evaluator writes.
 """
 
 import logging
@@ -56,27 +60,15 @@ from fami_pose_torch.models.quant import (
 )
 from fami_pose_torch.ops.heatmap import dark_get_final_preds, get_final_preds
 from fami_pose_torch.parallel.mesh import all_gather_rows, broadcast_tensors
+from fami_pose_torch.utils.bbox import cs2box
 from fami_pose_torch.utils.registry import DATASET_REGISTRY, VAL_PHASE
+from fami_pose_torch.visualization import draw_skeleton_in_origin_image
 
 from . import checkpoints
 from .core_functions import build_core_function
-from .trainer import check_model, config_mesh
-
-
-def check_supported(cfg):
-    """Raise for a config that turns on what the port's evaluator lacks, or
-    a mesh the process group cannot hold (``trainer.config_mesh``)."""
-    config_mesh(cfg)
-    unported = {
-        "DEBUG.VIS_SKELETON": bool(cfg.DEBUG.VIS_SKELETON),
-        "DEBUG.VIS_BBOX": bool(cfg.DEBUG.VIS_BBOX),
-    }
-    on = [name for name, flag in unported.items() if flag]
-    if on:
-        raise NotImplementedError(
-            f"not ported to fami_pose_torch's evaluator yet: {', '.join(on)}"
-        )
-    check_model(cfg)
+# the evaluator refuses what the trainer refuses: a mesh the process group
+# cannot hold, an unregistered core function or model
+from .trainer import check_supported, config_mesh  # noqa: F401
 
 
 class Evaluator:
@@ -121,8 +113,9 @@ class Evaluator:
                 "an eval dataset over several ranks needs an index (`data`: "
                 "center, scale, score and image of every sample) for the "
                 "global rows of each batch")
-        self.loader = build_eval_loader(cfg, dataset, phase=phase,
-                                        num_devices=self.mesh.data)
+        self.loader = build_eval_loader(
+            cfg, dataset, phase=phase, num_devices=self.mesh.data,
+            process_index=self.mesh.data_index, process_count=self.mesh.data)
         self.model = build_model(cfg, phase).to(self.device).eval()
         flip_key = "FLIP_VAL" if phase == VAL_PHASE else "FLIP_TEST"
         self._flip_test = bool(getattr(self.sub, flip_key, False)
@@ -227,7 +220,7 @@ class Evaluator:
             if float((allo > cand).to(torch.float32).mean()) <= eps:
                 d = cand
                 break
-        if self.mesh.data > 1:
+        if self.mesh.size > 1:
             (d0,) = broadcast_tensors(
                 [torch.tensor([-1.0 if d is None else d], device=self.device)])
             d = None if int(d0) < 0 else int(d0)
@@ -261,12 +254,12 @@ class Evaluator:
         self.logger.info(f"int8 PTQ calibration on {len(batches)} eval "
                          f"batches (margin {margin})")
         scales = calibrate(self.model, batches, margin=margin)
-        if self.mesh.data > 1:
+        if self.mesh.size > 1:
             names = list(scales)
             set_quant_scales(self.model, dict(zip(names, broadcast_tensors(
                 [scales[k] for k in names]))))
             self.logger.info(f"int8 PTQ scales broadcast from rank 0 to "
-                             f"{self.mesh.data} ranks")
+                             f"{self.mesh.size} ranks")
 
     @torch.inference_mode()
     def eval_checkpoint(self, variables):
@@ -311,7 +304,8 @@ class Evaluator:
                 preds_bb, maxvals_bb = self._decode(bb_hm, raw["center"],
                                                     raw["scale"])
                 rows = all_gather_rows(torch.cat(
-                    [preds, maxvals, preds_bb, maxvals_bb], dim=-1))[:valid]
+                    [preds, maxvals, preds_bb, maxvals_bb], dim=-1),
+                    self.mesh)[:valid]
                 preds, maxvals, preds_bb, maxvals_bb = rows.split(
                     [2, 1, 2, 1], dim=-1)
                 meta = raw["global_meta"]
@@ -351,6 +345,9 @@ class Evaluator:
         )
         self.all_preds, self.all_preds_bb = all_preds, all_preds_bb
         self.all_boxes, self.img_path_map = all_boxes, img_path_map
+        if self.mesh.rank == 0 and (bool(cfg.DEBUG.VIS_SKELETON)
+                                    or bool(cfg.DEBUG.VIS_BBOX)):
+            self._vis_hook(all_preds, all_boxes, img_path_map)
         if self.mesh.rank != 0:
             # every rank holds the global predictions; scoring writes files
             # and runs the protocol once, on rank 0
@@ -366,6 +363,31 @@ class Evaluator:
             self.logger.info(f"[{tag}] AP: {dict(name_value)}")
             results[tag] = (name_value, mean)
         return results
+
+    def _vis_hook(self, all_preds, all_boxes, img_path_map, limit=50):
+        """Skeleton / box overlays of the first ``limit`` predictions
+        (reference ``vis_helper.draw_skeleton_in_origin_image`` +
+        ``alignment_mi_function_term6_1.py:362-375``); a frame that cannot
+        be read is skipped. Returns the paths written."""
+        out_dir = osp.join(self.output_dir, f"{self.phase}_vis")
+        written = []
+        for path, idxs in img_path_map.items():
+            for i in idxs:
+                bbox = None
+                if bool(self.cfg.DEBUG.VIS_BBOX):
+                    bbox = cs2box(all_boxes[i, 0:2], all_boxes[i, 2:4],
+                                  pattern="xyxy")
+                try:
+                    written.append(draw_skeleton_in_origin_image(
+                        path, all_preds[i], out_dir, bbox=bbox))
+                except IOError:
+                    continue
+                if len(written) >= limit:
+                    self.logger.info(f"vis overlays -> {out_dir}")
+                    return written
+        if written:
+            self.logger.info(f"vis overlays -> {out_dir}")
+        return written
 
     def eval(self):
         out = {}

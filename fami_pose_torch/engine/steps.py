@@ -5,10 +5,12 @@ and returns its metrics as device tensors: nothing in it waits for the
 device, so the caller fetches them only when it prints. The eval step is
 the forward, plus flip-test averaging behind ``flip_test``.
 
-Over a mesh whose data axis is larger than 1 (``parallel/mesh.py``) each
-rank runs the train step on its slice of the global batch: BatchNorm
+Over a mesh of more than one rank (``parallel/mesh.py``) each rank runs
+the train step on its data index's slice of the global batch: BatchNorm
 normalizes with the global batch's statistics, the gradients are averaged
 across ranks before the optimizer, and the metrics are the global batch's.
+The ranks of one data index (a ``model`` axis) replicate one another and
+end each step with the same averaged gradient.
 The eval step runs the forward on the rank's slice; the evaluator gathers
 the decoded predictions."""
 
@@ -158,9 +160,10 @@ def make_train_step(mse_weight=1.0, mi_alpha=0.5, mi_beta=0.1,
     BatchNorm and any float32 use see the bfloat16-rounded values, as in
     flax.
 
-    ``mesh`` (``parallel.mesh.build_mesh``) with a data axis larger than 1:
-    ``batch`` is this rank's slice of the global batch (equal on every
-    rank). The model's BatchNorms take the global batch's statistics
+    ``mesh`` (``parallel.mesh.build_mesh``) of more than one rank:
+    ``batch`` is this rank's data index's slice of the global batch (equal
+    slices; the ranks of one data index hold the same one). The model's
+    BatchNorms take the global batch's statistics
     (``models.layers.sync_batch_norm``, applied at the first call); after
     the backward the gradients are averaged across ranks in one flat
     bucket (:func:`average_gradients`), before the optimizer. Each rank's
@@ -168,7 +171,7 @@ def make_train_step(mse_weight=1.0, mi_alpha=0.5, mi_beta=0.1,
     of the global batch's loss. The loss terms are averaged across ranks
     and the PCK accuracies computed from the global batch's counts, in one
     more all-reduce."""
-    sync = mesh is not None and mesh.data > 1
+    sync = mesh is not None and mesh.size > 1
     synced = []
 
     def loss_and_metrics(model, batch):
@@ -214,8 +217,9 @@ def make_train_step(mse_weight=1.0, mi_alpha=0.5, mi_beta=0.1,
                     metrics[k], _ = heatmap_pck_accuracy(hm, batch["target"])
                 return state, metrics
             # one all-reduce: the loss terms averaged, the PCK counts
-            # scaled by the number of ranks so that their average is their
-            # sum (integers, exact in float32)
+            # scaled by the data axis so that their average over the ranks
+            # (each data index's counted model times) is their sum over the
+            # slices (integers, exact in float32)
             counts = [torch.stack(pck_counts(hm, batch["target"]))
                       for hm in heads.values()]
             flat = all_reduce_mean_(torch.cat(

@@ -54,12 +54,14 @@ function here runs under ``torch.inference_mode``.
 Over a mesh whose data axis is larger than 1 (``mesh=``,
 ``parallel/mesh.py``), the streams are served data-parallel, as the JAX
 package's ``stream_shardings`` shard them: the functions take the global
-frames ``(B, ...)``, each rank keeps and serves its contiguous ``B / n``
-streams with no collective inside the step, and the step's outputs are
-gathered by rows, so that every rank returns the global ``(B, J, h, w)``
-heatmaps. A rank's :class:`StreamState` holds its own streams only;
-:meth:`StreamingPosePredictor.maybe_reprime` takes the global boxes and
-history and re-primes the moved streams among the rank's own.
+frames ``(B, ...)``, each rank keeps and serves its data index's contiguous
+``B / n`` streams with no collective inside the step, and the step's
+outputs are gathered by rows (one rank of each data index), so that every
+rank returns the global ``(B, J, h, w)`` heatmaps. The ranks of a
+``model`` axis serve the same streams. A rank's :class:`StreamState` holds
+its own streams only; :meth:`StreamingPosePredictor.maybe_reprime` takes
+the global boxes and history and re-primes the moved streams among the
+rank's own.
 """
 
 import dataclasses
@@ -246,7 +248,7 @@ def make_step(model, distance: int, flip_test: bool = False,
     def step(state: StreamState, frames):
         if gather:
             state, (final, kf_bb) = local_step(state, local_rows(frames, mesh))
-            both = all_gather_rows(torch.cat([final, kf_bb], dim=1))
+            both = all_gather_rows(torch.cat([final, kf_bb], dim=1), mesh)
             return state, tuple(both.split(final.shape[1], dim=1))
         return local_step(state, frames)
 

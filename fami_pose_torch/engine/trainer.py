@@ -20,8 +20,9 @@ person windows cropped on the device, :meth:`Trainer.prepare`) and
 (``parallel/mesh.py``; one process a GPU, as ``python -m
 torch.distributed.run`` starts them): the global batch is
 ``TRAIN.BATCH_SIZE_PER_GPU`` times the data axis, each rank loads and steps
-its slice, BatchNorm statistics and gradients are global, and only rank 0
-writes checkpoints and ``metrics.jsonl``. Every rank builds the same seeded
+its data index's slice (the ranks of a ``model`` axis replicate it),
+BatchNorm statistics and gradients are global, and only rank 0 writes
+checkpoints and ``metrics.jsonl``. Every rank builds the same seeded
 initial weights, as every JAX process does; nothing broadcasts them.
 """
 
@@ -56,9 +57,8 @@ from .train_state import TrainState
 
 def config_mesh(cfg):
     """The mesh of ``TPU.MESH_SHAPE`` over the process group's ranks
-    (``parallel.mesh.build_mesh``: a data axis needing more ranks than
-    there are raises ``ValueError``, a ``model`` axis larger than 1
-    ``NotImplementedError``)."""
+    (``parallel.mesh.build_mesh``: a shape needing more ranks than there
+    are, or leaving ranks out, raises ``ValueError``)."""
     return build_mesh(list(getattr(cfg.TPU, "MESH_SHAPE", None) or [-1]))
 
 
@@ -109,8 +109,9 @@ class Trainer:
             else None
 
         self.dataset = dataset
-        self.loader = build_train_loader(cfg, dataset,
-                                         num_devices=self.mesh.data)
+        self.loader = build_train_loader(
+            cfg, dataset, num_devices=self.mesh.data,
+            process_index=self.mesh.data_index, process_count=self.mesh.data)
         self.steps_per_epoch = max(1, len(self.loader))
 
         model = build_model(cfg, TRAIN_PHASE)

@@ -25,6 +25,9 @@ biases, identity BatchNorm. :func:`calibrate_batch_norm` then sets the
 BatchNorm statistics from one forward, so that random weights give
 unit-scale activations as trained ones do.
 
+:func:`block_state_dict_from_flax` does the same for one deform block of
+``models/deform_blocks.py`` (the JAX names kept, torch's leaves).
+
 :func:`quant_scales_from_flax` carries the JAX package's int8 ``quant``
 collection (``.../<conv>/act_scale`` leaves) over as the port's scales by
 conv name (``models.quant.set_quant_scales``).
@@ -150,6 +153,30 @@ def state_dict_from_flax(variables):
             out[key] = torch.from_numpy(
                 np.ascontiguousarray(value, dtype=np.float32)
             )
+    return out
+
+
+def block_state_dict_from_flax(variables):
+    """A deform block's flax ``{"params", "batch_stats"}``
+    (``fami_pose_tpu/models/deform_blocks.py``: ``AdaptBlock``,
+    ``AdaptBlockV2``, ``DeformBlock``) -> the port block's ``state_dict``
+    (``models/deform_blocks.py``). Submodules keep their names; conv
+    kernels go HWIO -> OIHW; ``norm/bn/*`` -> ``norm.*`` and the shortcut's
+    ``downsample/{conv,norm/bn}/*`` -> ``downsample.{0,1}.*`` with torch's
+    leaf names."""
+    out = OrderedDict()
+    for coll in ("params", "batch_stats"):
+        for path, value in _leaves(variables.get(coll, {})):
+            if path[-2:-1] == ("bn",):
+                path = path[:-2] + (_BN_LEAF[path[-1]],)
+            if path[0] == "downsample":
+                path = ("downsample", {"conv": "0", "norm": "1"}[path[1]]) \
+                    + path[2:]
+            if path[-1] == "kernel":
+                path = path[:-1] + ("weight",)
+                value = value.transpose(3, 2, 0, 1)
+            out[".".join(path)] = torch.from_numpy(
+                np.array(value, dtype=np.float32))
     return out
 
 

@@ -69,26 +69,31 @@ def _compute_dtype(name):
 class DeformConv(nn.Module):
     """Learnable-weight modulated deformable conv (torchvision
     ``DeformConv2d`` parameters: ``weight`` (Cout, Cin, 3, 3) and ``bias``;
-    offsets and mask are inputs)."""
+    offsets and mask are inputs, the mask optional: None is DCNv1, every
+    sample weighted 1). ``padding`` and ``dilation`` default to the
+    model's 3; ``max_offset`` None (or <= 0) is the exact, unclamped DCN."""
 
     def __init__(self, cin, cout, offset_groups=DCN_OFFSET_GROUPS,
-                 max_offset=6):
+                 max_offset=6, padding=DCN_DILATION, dilation=DCN_DILATION):
         super().__init__()
         k = DCN_KERNEL
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.offset_groups = offset_groups
         self.max_offset = max_offset
+        self.padding = int(padding)
+        self.dilation = int(dilation)
         # flax variance_scaling(1/3, fan_in, uniform): U(-1/sqrt(fan), ...)
         bound = 1.0 / math.sqrt(cin * k * k)
         nn.init.uniform_(self.weight, -bound, bound)
 
-    def forward(self, x, offset, mask):
+    def forward(self, x, offset, mask=None):
         dt = x.dtype
         return deform_conv2d_windowed(
-            x, offset.to(dt), mask.to(dt), self.weight.to(dt),
-            self.bias.to(dt), padding=DCN_DILATION, dilation=DCN_DILATION,
-            offset_groups=self.offset_groups, max_offset=self.max_offset,
+            x, offset.to(dt), None if mask is None else mask.to(dt),
+            self.weight.to(dt), self.bias.to(dt), padding=self.padding,
+            dilation=self.dilation, offset_groups=self.offset_groups,
+            max_offset=self.max_offset,
         )
 
 

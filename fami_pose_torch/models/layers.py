@@ -112,6 +112,19 @@ class Conv2d(nn.Conv2d):
         return y + self.bias.to(x.dtype).view(1, -1, 1, 1)
 
 
+def activation(name: str):
+    """The activation of a reference ``act`` name (``fami_pose_tpu/models/
+    layers.py::activation``): ReLU, LeakyReLU (slope 0.1, as inside the
+    reference's BasicBlock) or SiLU."""
+    if name == "ReLU":
+        return F.relu
+    if name == "LeakyReLU":
+        return lambda x: F.leaky_relu(x, negative_slope=0.1)
+    if name == "SiLU":
+        return F.silu
+    raise ValueError(f"Unsupported activation {name!r}")
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` that computes in its input's dtype, the bias added to
     the product's output in that dtype (flax's ``nn.Dense``; see
@@ -165,7 +178,7 @@ class BatchNorm(nn.Module):
     statistics as before and leaves the running ones as they are: in flax
     they are an output of the function, which recomputation never writes.
 
-    Over a mesh whose data axis is larger than 1 (``mesh``, set by
+    Over a mesh of more than one rank (``mesh``, set by
     :func:`sync_batch_norm`), a training forward normalizes with the
     statistics of the global batch, as the JAX package's BatchNorm over a
     sharded batch does: one all-reduce of (sum x, sum x^2, count) a layer,
@@ -231,10 +244,11 @@ class BatchNorm(nn.Module):
 
 def sync_batch_norm(model, mesh):
     """Make every :class:`BatchNorm` of ``model`` normalize a training
-    batch with the global batch's statistics over ``mesh`` when its data
-    axis is larger than 1; with a data axis of 1 (or no mesh) they keep the
-    local path, with no collective. Returns ``model``."""
-    sync = mesh if mesh is not None and mesh.data > 1 else None
+    batch with the global batch's statistics over ``mesh`` when it has more
+    than one rank (the ranks of one data index replicate their sums, and
+    the count with them); with one rank (or no mesh) they keep the local
+    path, with no collective. Returns ``model``."""
+    sync = mesh if mesh is not None and mesh.size > 1 else None
     for module in model.modules():
         if isinstance(module, BatchNorm):
             module.mesh = sync

@@ -15,8 +15,9 @@ collectives below where the JAX program's sharding implies one:
   rows (``engine/evaluator.py``, ``engine/streaming.py``);
 * process 0's DCN window and int8 scales, broadcast to every rank.
 
-Each is called only when the mesh's data axis is larger than 1: with one
-rank the program is the single-device program, with no collective.
+Each is called only when the mesh has more than one rank (the gathers
+only when its data axis is larger than 1): with one rank the program is
+the single-device program, with no collective.
 
 :func:`maybe_initialize_distributed` joins the process group that a
 launcher describes in the environment (``python -m torch.distributed.run``
@@ -25,8 +26,15 @@ sets ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
 CUDA tensor through host memory here (:func:`_through_host`), so two ranks
 can share one GPU, which NCCL refuses.
 
-A ``model`` axis is reserved in ``TPU.MESH_SHAPE`` as in the JAX package,
-which shards no layer on it; a ``model`` axis larger than 1 is refused.
+``TPU.MESH_SHAPE`` ``[d, m]`` lays d * m ranks out as the JAX package's
+``reshape`` of its device list does: rank r holds data index ``r // m``.
+The JAX package shards no layer on the ``model`` axis (its batch sharding is
+``P("data")``), so the m ranks of one data index replicate one another:
+they load the same slice of each global batch and compute the same thing.
+The gradient bucket and the BatchNorm sums stay all-reduces over every rank
+(each data index's value counted m times, and the BatchNorm count with
+them, so the means are those of the d slices); gathered rows take one rank
+of each data index (:func:`all_gather_rows`), so no row comes twice.
 """
 
 import dataclasses
@@ -78,8 +86,8 @@ def maybe_initialize_distributed(device="cuda", backend=None):
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data-parallel layout: ``data`` ranks, each one device, and a
-    ``model`` axis of 1. ``rank`` is this process's index on ``data``."""
+    """The layout of ``data * model`` ranks, each one device. ``rank`` is
+    this process's rank; it holds data index ``rank // model``."""
 
     data: int
     model: int = 1
@@ -87,8 +95,19 @@ class Mesh:
 
     @property
     def shape(self):
-        """``{"data": n, "model": 1}``, as the JAX mesh's ``shape``."""
+        """``{"data": d, "model": m}``, as the JAX mesh's ``shape``."""
         return {DATA_AXIS: self.data, MODEL_AXIS: self.model}
+
+    @property
+    def size(self):
+        """The number of ranks, ``data * model``."""
+        return self.data * self.model
+
+    @property
+    def data_index(self):
+        """This rank's index on the data axis: the slice of every global
+        batch it loads."""
+        return self.rank // self.model
 
 
 def build_mesh(mesh_shape=None, world=None, rank=None):
@@ -97,11 +116,9 @@ def build_mesh(mesh_shape=None, world=None, rank=None):
     the ranks the others leave, as in the JAX package's ``build_mesh``;
     missing trailing axes are 1.
 
-    A data axis that needs more ranks than there are raises the JAX
-    package's ``ValueError``; a ``model`` axis larger than 1 is refused
-    with ``NotImplementedError`` (no layer shards on it); a data axis that
-    leaves ranks out raises ``ValueError``: every rank trains or scores
-    its own slice of each global batch."""
+    A shape that needs more ranks than there are raises the JAX package's
+    ``ValueError``; a shape that leaves ranks out raises ``ValueError``:
+    every rank trains or scores a slice of each global batch."""
     n = process_count() if world is None else int(world)
     shape = [int(s) for s in (mesh_shape if mesh_shape else [-1])]
     shape += [1] * (2 - len(shape))
@@ -109,28 +126,27 @@ def build_mesh(mesh_shape=None, world=None, rank=None):
         known = math.prod(s for s in shape if s != -1)
         shape[shape.index(-1)] = n // known
     need = math.prod(shape)
-    if shape[0] > n:
+    if need > n:
         raise ValueError(f"mesh shape {shape} needs {need} devices, have {n}")
-    if shape[1] > 1:
-        raise NotImplementedError(
-            f"mesh shape {shape}: a '{MODEL_AXIS}' axis larger than 1 (no "
-            f"layer of fami_pose_torch shards on it)")
-    if shape[0] != n:
-        raise ValueError(f"mesh shape {shape} leaves ranks out: the data "
-                         f"axis must span all {n} processes")
-    return Mesh(data=shape[0], rank=process_index() if rank is None
-                else int(rank))
+    if need != n:
+        raise ValueError(f"mesh shape {shape} leaves ranks out: the mesh "
+                         f"must span all {n} processes")
+    return Mesh(data=shape[0], model=shape[1],
+                rank=process_index() if rank is None else int(rank))
 
 
-def local_batch_slice(global_batch_size):
-    """The contiguous rows of a global batch this process owns."""
-    pc = process_count()
-    if global_batch_size % pc:
+def local_batch_slice(global_batch_size, mesh=None):
+    """The contiguous rows of a global batch this process owns: its data
+    index's slice of ``mesh`` (default: one slice a process)."""
+    if mesh is None:
+        parts, index = process_count(), process_index()
+    else:
+        parts, index = mesh.data, mesh.data_index
+    if global_batch_size % parts:
         raise ValueError(f"global batch {global_batch_size} not divisible by "
-                         f"{pc} processes")
-    local = global_batch_size // pc
-    p = process_index()
-    return slice(p * local, (p + 1) * local)
+                         f"{parts} processes")
+    local = global_batch_size // parts
+    return slice(index * local, (index + 1) * local)
 
 
 def pad_to_multiple(n, k):
@@ -152,11 +168,11 @@ def shard_batch(batch, device):
 
 
 def local_rows(x, mesh):
-    """This rank's contiguous rows of a global batch ``x`` (all of them on
-    a data axis of 1)."""
+    """This rank's contiguous rows of a global batch ``x``: its data
+    index's (all of them on a data axis of 1)."""
     if mesh is None or mesh.data == 1:
         return x
-    return x[local_batch_slice(x.shape[0])]
+    return x[local_batch_slice(x.shape[0], mesh)]
 
 
 # -- collectives -------------------------------------------------------------------
@@ -201,13 +217,17 @@ class _AllReduceSum(torch.autograd.Function):
             grad, lambda u: dist.all_reduce(u, op=dist.ReduceOp.SUM))
 
 
-def all_gather_rows(x):
+def all_gather_rows(x, mesh=None):
     """The ranks' ``x`` (equal shapes) concatenated on the first axis, in
-    rank order, on every rank."""
+    rank order, on every rank. Over a ``mesh`` with a ``model`` axis, one
+    rank of each data index (the first), in data order: the ranks of one
+    data index hold the same rows."""
     host = x.device.type == "cuda" and dist.get_backend() == "gloo"
     src = x.cpu() if host else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(process_count())]
     dist.all_gather(parts, src)
+    if mesh is not None and mesh.model > 1:
+        parts = parts[::mesh.model]
     return torch.cat(parts).to(x.device)
 
 
@@ -227,6 +247,6 @@ def broadcast_tensors(tensors, src=0):
 
 
 def barrier(mesh):
-    """Wait for every rank (a no-op on a data axis of 1)."""
-    if mesh.data > 1:
+    """Wait for every rank (a no-op on a mesh of one rank)."""
+    if mesh.size > 1:
         dist.barrier()

@@ -511,6 +511,69 @@ def test_warp_backward_scalar_path(gen, dtype, layout):
     _check_warp_bwd(img, offs, gout)
 
 
+# -- the deform blocks' settings (models/deform_blocks.py) ------------------------
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 48), (torch.bfloat16, 64)])
+@pytest.mark.parametrize("groups,with_mask", [(1, False), (2, True)])
+def test_dcn_kernels_at_the_deform_blocks_settings(gen, dtype, c, groups,
+                                                   with_mask):
+    """Exact mode, dilation and padding 1, C = C_out (the f32 forward's
+    widest 48, bf16's 64), one group without a mask (DCNv1: dmask None) or
+    two with one, offsets ~N(0, 8) px (many samples off the image): both
+    kernels against their plain versions."""
+    n, h, w = 2, 23, 17
+    x = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
+    off = (torch.randn(n, 18 * groups, h, w, generator=gen, device="cuda")
+           * 8).to(dtype)
+    msk = (torch.rand(n, 9 * groups, h, w, generator=gen, device="cuda")
+           .to(dtype) if with_mask else None)
+    wgt = (torch.randn(c, c, 3, 3, generator=gen, device="cuda")
+           * 0.05).to(dtype)
+    kw = dict(padding=1, dilation=1, offset_groups=groups, max_offset=None)
+    before = deform_conv2d_windowed.launches
+    got = deform_conv2d_windowed(x, off, msk, wgt, **kw)
+    torch.cuda.synchronize()
+    assert deform_conv2d_windowed.launches == before + 1
+    _assert_close(got, deform_conv2d(x, off, msk, wgt, **kw), dtype)
+    _check_backward(gen, x, off, msk, wgt, **kw)
+
+
+@pytest.mark.parametrize("name", ["AdaptBlock", "AdaptBlockV2", "DeformBlock"])
+def test_deform_blocks_on_the_card_launch_the_kernels(gen, name):
+    """Each block at C = 48 on the card (f32, TF32 off) against the port on
+    the CPU with the same weights: one ``dcn_fwd`` and one ``dcn_bwd``
+    launch, the output and every gradient within 1e-4 of its scale (the
+    backward's dx is summed with atomics; the DCN's bias feeds a train-mode
+    BatchNorm, which makes its gradient zero up to rounding: it is held to
+    1e-4 of the largest gradient)."""
+    import copy
+
+    from fami_pose_torch.models import deform_blocks
+    from fami_pose_torch.ops.deform_conv import deform_conv2d_backward
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = {"deformable_groups": 2} if name == "AdaptBlockV2" else {}
+    torch.manual_seed(0)
+    cpu = getattr(deform_blocks, name)(48, 48, **kw).train()
+    card = copy.deepcopy(cpu).cuda()
+    x = torch.randn(2, 48, 24, 18)
+    results = []
+    fwd, bwd = deform_conv2d_windowed.launches, deform_conv2d_backward.launches
+    for m, xin in ((cpu, x.clone()), (card, x.cuda())):
+        xin.requires_grad_(True)
+        m(xin).square().sum().backward()
+        results.append({"dx": xin.grad.cpu(), **{
+            n: p.grad.cpu() for n, p in m.named_parameters()}})
+    assert deform_conv2d_windowed.launches == fwd + 1
+    assert deform_conv2d_backward.launches == bwd + 1
+    ref, got = results
+    largest = max(float(r.abs().max()) for r in ref.values())
+    for k, r in ref.items():
+        scale = largest if k == "adapt_conv.bias" else float(r.abs().max())
+        assert float((got[k] - r).abs().max()) <= 1e-4 * max(scale, 1e-30), k
+
+
 # -- the on-chip gather and rotate probes (bitwise: copies of input values) --
 
 def _probe_on_card(name, **kw):

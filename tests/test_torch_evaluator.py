@@ -292,16 +292,19 @@ def test_eval_sweeps_every_listed_checkpoint(world, variables):
     ("TPU.MESH_SHAPE", [4]), ("DEBUG.VIS_SKELETON", True),
     ("DEBUG.VIS_BBOX", True)])
 def test_unported_options_are_refused(world, key, value):
-    """The overlays are not ported yet; a mesh of 2 or 4 devices in one
-    process raises the JAX package's ``ValueError`` (over several processes
-    the evaluator runs: ``tests/test_torch_distributed_run.py``)."""
+    """A mesh of 2 or 4 devices in one process raises the JAX package's
+    ``ValueError`` (over several processes the evaluator runs:
+    ``tests/test_torch_distributed_run.py``). The overlays are ported now:
+    ``DEBUG.VIS_*`` is no longer refused (``tests/
+    test_torch_visualization.py`` runs them)."""
     cfg = _cfg(world, make_port_cfg, "out_port_refused")
     section, name = key.split(".")
     setattr(getattr(cfg, section), name, value)
-    if section == "TPU":
-        error, match = ValueError, f"needs {value[0]} devices, have 1"
-    else:
-        error, match = NotImplementedError, key
+    if section == "DEBUG":
+        check_supported(cfg)
+        assert getattr(Evaluator(cfg, device="cpu").cfg.DEBUG, name)
+        return
+    error, match = ValueError, f"needs {value[0]} devices, have 1"
     with pytest.raises(error, match=match):
         check_supported(cfg)
     with pytest.raises(error, match=match):

@@ -80,6 +80,17 @@ def test_port_files_found():
     # and the data-parallel slice's
     for name in ("parallel/__init__.py", "parallel/mesh.py"):
         assert name in rel, name
+    # and the rest of the JAX package: visualisation, NMS (host, device,
+    # native), the optional losses, offset targets, coords, initializers,
+    # deform blocks, IO and logging helpers, the poseval converter
+    for name in ("visualization/__init__.py", "visualization/draw.py",
+                 "visualization/debug.py", "ops/nms.py", "native/__init__.py",
+                 "native/nms.py", "losses/optional.py",
+                 "data/target_generators.py", "ops/coords.py",
+                 "models/weight_init.py", "models/deform_blocks.py",
+                 "utils/io_utils.py", "utils/logging_utils.py",
+                 "tools/convert_poseval.py"):
+        assert name in rel, name
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -73,14 +73,45 @@ def test_build_mesh_matches_jax(world, shape):
 @pytest.mark.parametrize("world,shape", [(1, [1, 4]), (4, [1, 4]),
                                          (4, [2, 2]), (8, [-1, 2])])
 def test_model_axis_is_refused_by_name(world, shape):
-    """JAX reserves the ``model`` axis and shards no layer on it; a
-    ``model`` axis larger than 1 is refused by name, where JAX builds the
-    mesh and where (one process, ``[1, 4]``) the data axis fits but the
-    whole shape needs more devices than there are."""
-    if world > 1:
-        jax_mesh.build_mesh(devices=jax.devices()[:world], mesh_shape=shape)
-    with pytest.raises(NotImplementedError, match="'model' axis"):
-        port_mesh.build_mesh(shape, world=world)
+    """JAX shards no layer on the ``model`` axis; the port replicates the
+    work over it. Where the whole shape needs more devices than there are
+    (one process, ``[1, 4]``), both raise JAX's ``ValueError``; elsewhere
+    the port's mesh has JAX's shape, and rank r holds the data index of
+    device r in JAX's mesh (its ``reshape`` of the device list)."""
+    devices = jax.devices()[:world]
+    try:
+        ref = jax_mesh.build_mesh(devices=devices, mesh_shape=shape)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            port_mesh.build_mesh(shape, world=world)
+        assert str(got.value) == str(e) and world == 1
+        return
+    for rank, device in enumerate(devices):
+        got = port_mesh.build_mesh(shape, world=world, rank=rank)
+        assert got.shape == dict(ref.shape) and got.size == world
+        (data_index, model_index), = np.argwhere(ref.devices == device)
+        assert got.data_index == data_index
+        assert rank == data_index * got.model + model_index
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_a_two_by_two_mesh_slices_by_data_index(rank):
+    """``[2, 2]`` over 4 ranks: ranks 0, 1 hold data index 0 and ranks 2, 3
+    data index 1, each the contiguous half of a global batch of 8 that its
+    data index owns (``local_batch_slice``, ``local_rows``), as JAX's
+    ``P("data")`` sharding over ``reshape([2, 2])`` of 4 devices places
+    it."""
+    mesh = port_mesh.build_mesh([2, 2], world=4, rank=rank)
+    assert (mesh.data, mesh.model, mesh.size) == (2, 2, 4)
+    assert mesh.data_index == rank // 2
+    ref = jax_mesh.build_mesh(devices=jax.devices()[:4], mesh_shape=[2, 2])
+    sharding = jax_mesh.batch_sharding(ref)
+    placed = sharding.devices_indices_map((8,))[jax.devices()[rank]]
+    assert port_mesh.local_batch_slice(8, mesh) == placed[0]
+    x = torch.arange(8)
+    assert torch.equal(port_mesh.local_rows(x, mesh), x[placed[0]])
+    with pytest.raises(ValueError, match="not divisible by 2"):
+        port_mesh.local_batch_slice(7, mesh)
 
 
 def test_a_data_axis_must_span_the_ranks():
@@ -229,10 +260,75 @@ def test_collectives_in_two_processes(tmp_path):
         assert r["slice"] == slice(4 * rank, 4 * rank + 4)
         assert r["shard"]["n"] == 3 and r["shard"]["a"].shape == (2, 3)
         assert r["refused"] == {"[4]": "ValueError", "[1, 1]": "ValueError",
-                                "[1, 2]": "NotImplementedError",
                                 "[8, 1]": "ValueError"}
         assert all(m == port_mesh.Mesh(data=2, rank=rank)
                    for m in r["meshes"])
+        assert all(m == port_mesh.Mesh(data=1, model=2, rank=rank)
+                   for m in r["model_meshes"])
+
+
+def test_a_model_axis_replicates_one_process(tmp_path, monkeypatch):
+    """``TPU.MESH_SHAPE [1, 2]`` on two gloo processes: both ranks hold data
+    index 0 and the whole global batch of 2; ``all_gather_rows`` keeps rank
+    0's rows once; one train step and the flip-tested eval step leave both
+    ranks bit for bit equal (state, gradients, metrics, heatmaps) and bit
+    for bit one process's step whose BatchNorms take the global path with
+    the all-reduce as the identity: the ranks' sums and count are twice one
+    copy's, their cotangents summed twice one copy's, and the gradients
+    averaged over two equal copies, all exact in float32 (one intra-op
+    thread on both sides). A ``Trainer`` over that mesh loads the whole
+    global batch a rank."""
+    import fami_pose_torch.models.layers as port_layers
+    from fami_pose_torch.data.loader import prepare_train_batch
+    from test_torch_trainer import _cfg
+
+    rs = np.random.RandomState(5)
+    batch = (rs.randint(0, 256, size=(2, 64, 64, 3)).astype(np.uint8),
+             rs.randint(0, 256, size=(2, 64, 64, 12)).astype(np.uint8),
+             (rs.rand(2, 17, 2) * 64).astype(np.float32),
+             (rs.rand(2, 17) > 0.2).astype(np.float32))
+    kw = dict(extra=TINY_EXTRA, num_joints=17, num_sup=4, feat_channels=8,
+              feat_hw=(16, 16), dcn_offset_groups=4, dcn_max_offset=2)
+    torch.manual_seed(0)
+    base = FAMIPose(**kw)
+    cfg = _cfg(str(tmp_path / "out"), 1)
+    prepare = (2, (64, 64), (16, 16))
+    r0, r1 = run_ranks("model_axis", 2, tmp_path / "ranks", dict(
+        model_kw=kw, state_dict=base.state_dict(), cfg=cfg._to_plain(),
+        batch=batch, prepare=prepare))
+
+    model = FAMIPose(**kw).train()
+    model.load_state_dict(base.state_dict())
+    monkeypatch.setattr(port_layers, "all_reduce_sum", lambda x: x)
+    for bn in model.modules():
+        if isinstance(bn, BatchNorm):
+            bn.mesh = port_mesh.Mesh(data=1, model=2)
+    opt, sched = build_optimizer(cfg, model, steps_per_epoch=5)
+    pb = prepare_train_batch(*batch, *prepare)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _, metrics = make_train_step()(TrainState(model, opt, sched), pb)
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.eval()
+        heatmaps = make_eval_step(model, flip_test=True)(pb["kf"], pb["sup"])
+    finally:
+        torch.set_num_threads(threads)
+    ref = {"state_dict": model.state_dict(), "grads": grads,
+           "metrics": metrics, "heatmaps": dict(enumerate(heatmaps))}
+
+    for rank, r in enumerate((r0, r1)):
+        assert r["mesh"] == port_mesh.Mesh(data=1, model=2, rank=rank)
+        assert r["mesh"].data_index == 0 and r["slice"] == slice(0, 4)
+        assert torch.equal(r["rows"], torch.zeros(2, 3))
+        assert r["trainer"] == (r["mesh"], int(cfg.TRAIN.BATCH_SIZE_PER_GPU),
+                                0, 1)
+        r["heatmaps"] = dict(enumerate(r["heatmaps"]))
+    for key, want in ref.items():
+        assert list(r0[key]) == list(r1[key]) == list(want), key
+        for k, v in want.items():
+            assert torch.equal(r0[key][k], r1[key][k]), (key, k)
+            assert torch.equal(r0[key][k], v), (key, k)
 
 
 def test_every_rank_builds_the_same_seeded_weights(tmp_path):

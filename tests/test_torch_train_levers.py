@@ -724,11 +724,11 @@ def test_core_function_and_model_registries_match_jax():
 
 def test_what_is_left_is_refused(tmp_path):
     """In one process a mesh of 2 devices raises the JAX package's
-    ``ValueError`` and a ``model`` axis ``NotImplementedError``, in the
-    trainer and the evaluator; the evaluator's overlays (``DEBUG.VIS_*``)
-    stay refused; the levers are not."""
+    ``ValueError``, on the data axis or the ``model`` axis, in the trainer
+    and the evaluator; the evaluator's overlays (``DEBUG.VIS_*``) and the
+    levers are not refused."""
     for mesh, error, match in (([2, 1], ValueError, "needs 2 devices"),
-                               ([1, 2], NotImplementedError, "'model' axis")):
+                               ([1, 2], ValueError, "needs 2 devices")):
         cfg = _train_cfg(str(tmp_path), MESH_SHAPE=mesh)
         with pytest.raises(error, match=match):
             check_supported(cfg)
@@ -737,8 +737,7 @@ def test_what_is_left_is_refused(tmp_path):
     for key in ("VIS_SKELETON", "VIS_BBOX"):
         cfg = _train_cfg(str(tmp_path))
         setattr(cfg.DEBUG, key, True)
-        with pytest.raises(NotImplementedError, match=f"DEBUG.{key}"):
-            ev_check(cfg)
+        ev_check(cfg)
     cfg = _train_cfg(str(tmp_path), BF16_GRADS=True, REMAT_BACKBONE=True,
                      DEVICE_CROP=True, PROFILE_DIR="/some/dir",
                      ASYNC_CHECKPOINT=True, MESH_SHAPE=[-1, 1])

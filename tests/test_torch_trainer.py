@@ -179,18 +179,15 @@ def test_seeded_init_is_reproducible(tmp_path):
     ("TPU.MESH_SHAPE", [8]), ("TPU.MESH_SHAPE", [2, 2]),
 ])
 def test_unported_options_are_refused(tmp_path, key, value):
-    """In one process a mesh whose data axis needs more devices than the
-    process group has raises the JAX package's ``ValueError`` ("needs N
-    devices, have 1"), and a ``model`` axis larger than 1 is refused by
-    name (``NotImplementedError``); over several processes the trainer
-    runs (``tests/test_torch_distributed_run.py``)."""
+    """In one process a mesh that needs more devices than the process
+    group has, on the data axis or the ``model`` axis, raises the JAX
+    package's ``ValueError`` ("needs N devices, have 1"); over several
+    processes the trainer runs (``tests/test_torch_distributed_run.py``,
+    ``tests/test_torch_parallel.py``)."""
     cfg = _cfg(str(tmp_path), 1)
     section, name = key.split(".")
     setattr(getattr(cfg, section), name, value)
-    if value[0] > 1:
-        error, match = ValueError, f"needs {math.prod(value)} devices, have 1"
-    else:
-        error, match = NotImplementedError, "'model' axis"
+    error, match = ValueError, f"needs {math.prod(value)} devices, have 1"
     with pytest.raises(error, match=match):
         check_supported(cfg)
     with pytest.raises(error, match=match):

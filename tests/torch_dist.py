@@ -177,6 +177,7 @@ def collectives(mesh, payload):
             refused[str(shape)] = type(e).__name__
     out["refused"] = refused
     out["meshes"] = [pm.build_mesh(s) for s in ([-1, 1], [2], [-1], None)]
+    out["model_meshes"] = [pm.build_mesh(s) for s in ([1, 2], [1, -1])]
     pm.barrier(mesh)
     return out
 
@@ -203,6 +204,50 @@ def streaming(mesh, payload):
         outs.append(pred(frames[t]))
     return {"outs": outs, "masks": masks,
             "local_streams": int(pred._state.feats.shape[1])}
+
+
+def model_axis(mesh, payload):
+    """``TPU.MESH_SHAPE [1, 2]`` over the two ranks (``mesh`` is the
+    default ``[-1, 1]``'s, unused): the mesh, this rank's slice of a global
+    batch of 4, the rows ``all_gather_rows`` keeps, one train step of the
+    tiny model on the data index's slice of ``payload["batch"]`` (its
+    state, gradients and metrics), the ``Trainer``'s loader share of the
+    config ``payload["cfg"]`` with that mesh, and the eval step's heatmaps
+    on the slice."""
+    from fami_pose_torch.data.loader import prepare_train_batch
+    from fami_pose_torch.engine.steps import make_eval_step, make_train_step
+    from fami_pose_torch.engine.train_state import TrainState
+    from fami_pose_torch.optim import build_optimizer
+    from fami_pose_torch.parallel import mesh as pm
+
+    mesh = pm.build_mesh([1, 2])
+    out = {"mesh": mesh, "slice": pm.local_batch_slice(4, mesh),
+           "rows": pm.all_gather_rows(
+               torch.full((2, 3), float(mesh.rank)), mesh)}
+    model = tiny_model(payload)
+    opt, sched = build_optimizer(config(payload), model, steps_per_epoch=5)
+    rows = pm.local_batch_slice(payload["batch"][0].shape[0], mesh)
+    batch = prepare_train_batch(*(a[rows] for a in payload["batch"]),
+                                *payload["prepare"])
+    state, metrics = make_train_step(mesh=mesh)(
+        TrainState(model, opt, sched), batch)
+    out.update(state_dict=model.state_dict(),
+               grads={n: p.grad for n, p in model.named_parameters()},
+               metrics={k: v.clone() for k, v in metrics.items()})
+    model.eval()
+    out["heatmaps"] = make_eval_step(model, flip_test=True, mesh=mesh)(
+        batch["kf"], batch["sup"])
+    from chip_smoke import SyntheticPoseDataset
+    from fami_pose_torch.engine.trainer import Trainer
+
+    cfg = config(payload)
+    cfg.TPU.MESH_SHAPE = [1, 2]
+    trainer = Trainer(cfg, dataset=SyntheticPoseDataset(
+        8, tuple(cfg.MODEL.IMAGE_SIZE), 4), device="cpu")
+    out["trainer"] = (trainer.mesh, trainer.loader.local_batch_size,
+                      trainer.loader.process_index,
+                      trainer.loader.process_count)
+    return out
 
 
 def main(argv):
