@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from fami_pose_torch.ops.heatmap import generate_heatmaps
+from fami_pose_torch.parallel.mesh import data_split
 from fami_pose_torch.parallel.mesh import process_count as _process_count
 from fami_pose_torch.parallel.mesh import process_index as _process_index
 from fami_pose_torch.ops.warp import crop_and_warp
@@ -287,12 +288,12 @@ class DataLoader:
         self.epoch += 1
 
 
-def build_train_loader(cfg, dataset, num_devices=None, **kwargs):
+def build_train_loader(cfg, dataset, mesh=None, **kwargs):
     """The training loader of a config: a global batch of
-    ``TRAIN.BATCH_SIZE_PER_GPU`` samples a device of the data axis
-    (``num_devices``, default: the process group's ranks), shuffled, last
-    partial batch dropped."""
-    n_dev = _process_count() if num_devices is None else int(num_devices)
+    ``TRAIN.BATCH_SIZE_PER_GPU`` samples a slice of the data axis of
+    ``mesh`` (default: one slice a rank of the process group), this rank's
+    slice loaded, shuffled, last partial batch dropped."""
+    n_dev, index = data_split(mesh)
     return DataLoader(
         dataset,
         batch_size=int(cfg.TRAIN.BATCH_SIZE_PER_GPU) * n_dev,
@@ -300,24 +301,27 @@ def build_train_loader(cfg, dataset, num_devices=None, **kwargs):
         num_workers=int(cfg.WORKERS),
         drop_last=True,
         seed=int(cfg.SEED),
+        process_index=index,
+        process_count=n_dev,
         **kwargs,
     )
 
 
-def build_eval_loader(cfg, dataset, phase="validate", num_devices=None,
-                      **kwargs):
+def build_eval_loader(cfg, dataset, phase="validate", mesh=None, **kwargs):
     """The eval loader of a config: a global batch of ``VAL`` /
-    ``TEST.BATCH_SIZE_PER_GPU`` samples a device of the data axis
-    (``num_devices``, default: the process group's ranks), in dataset
-    order, the last batch padded (``batch["valid"]`` counts its real
-    rows)."""
+    ``TEST.BATCH_SIZE_PER_GPU`` samples a slice of the data axis of
+    ``mesh`` (default: one slice a rank of the process group), this rank's
+    slice loaded, in dataset order, the last batch padded
+    (``batch["valid"]`` counts its real rows)."""
     sub = cfg.VAL if phase == "validate" else cfg.TEST
-    n_dev = _process_count() if num_devices is None else int(num_devices)
+    n_dev, index = data_split(mesh)
     return DataLoader(
         dataset,
         batch_size=int(sub.BATCH_SIZE_PER_GPU) * n_dev,
         shuffle=False,
         num_workers=int(cfg.WORKERS),
         drop_last=False,
+        process_index=index,
+        process_count=n_dev,
         **kwargs,
     )

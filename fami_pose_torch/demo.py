@@ -110,21 +110,22 @@ def main(argv=None):
     print(f"wrote {len(results)} poses to {out_json}"
           + (" (streaming)" if args.streaming else ""))
     if args.vis:
-        drawn = draw_results(results, args.frames, osp.join(args.out, "vis"))
-        print(f"drew {len(drawn)} overlays under {osp.join(args.out, 'vis')}")
+        draw_results(results, args.frames, osp.join(args.out, "vis"))
+        print(f"drew {len(results)} overlays under "
+              f"{osp.join(args.out, 'vis')}")
 
 
 def draw_results(results, frames_dir, out_dir):
     """Each record's pose drawn onto its source frame under ``out_dir``
-    (``tools/demo.py``'s ``--vis``); returns the paths written, one a
-    record."""
+    (``tools/demo.py``'s ``--vis``)."""
     import numpy as np
 
     from fami_pose_torch.visualization import draw_skeleton_in_origin_image
 
-    return [draw_skeleton_in_origin_image(
-        osp.join(frames_dir, r["frame"]),
-        np.asarray(r["keypoints"], np.float32), out_dir) for r in results]
+    for r in results:
+        draw_skeleton_in_origin_image(
+            osp.join(frames_dir, r["frame"]),
+            np.asarray(r["keypoints"], np.float32), out_dir)
 
 
 def stream_clip(cfg, state_dict, device, frames, boxes_by_frame, names):

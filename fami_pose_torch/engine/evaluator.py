@@ -108,14 +108,13 @@ class Evaluator:
         if dataset is None:
             dataset = DATASET_REGISTRY.get(cfg.DATASET.NAME)(cfg, phase)
         self.dataset = dataset
-        if self.mesh.data > 1 and getattr(dataset, "data", None) is None:
+        if self.mesh.sharded and getattr(dataset, "data", None) is None:
             raise ValueError(
                 "an eval dataset over several ranks needs an index (`data`: "
                 "center, scale, score and image of every sample) for the "
                 "global rows of each batch")
         self.loader = build_eval_loader(
-            cfg, dataset, phase=phase, num_devices=self.mesh.data,
-            process_index=self.mesh.data_index, process_count=self.mesh.data)
+            cfg, dataset, phase=phase, mesh=self.mesh)
         self.model = build_model(cfg, phase).to(self.device).eval()
         flip_key = "FLIP_VAL" if phase == VAL_PHASE else "FLIP_TEST"
         self._flip_test = bool(getattr(self.sub, flip_key, False)
@@ -220,7 +219,7 @@ class Evaluator:
             if float((allo > cand).to(torch.float32).mean()) <= eps:
                 d = cand
                 break
-        if self.mesh.size > 1:
+        if self.mesh.distributed:
             (d0,) = broadcast_tensors(
                 [torch.tensor([-1.0 if d is None else d], device=self.device)])
             d = None if int(d0) < 0 else int(d0)
@@ -254,7 +253,7 @@ class Evaluator:
         self.logger.info(f"int8 PTQ calibration on {len(batches)} eval "
                          f"batches (margin {margin})")
         scales = calibrate(self.model, batches, margin=margin)
-        if self.mesh.size > 1:
+        if self.mesh.distributed:
             names = list(scales)
             set_quant_scales(self.model, dict(zip(names, broadcast_tensors(
                 [scales[k] for k in names]))))
@@ -368,9 +367,9 @@ class Evaluator:
         """Skeleton / box overlays of the first ``limit`` predictions
         (reference ``vis_helper.draw_skeleton_in_origin_image`` +
         ``alignment_mi_function_term6_1.py:362-375``); a frame that cannot
-        be read is skipped. Returns the paths written."""
+        be read is skipped."""
         out_dir = osp.join(self.output_dir, f"{self.phase}_vis")
-        written = []
+        n = 0
         for path, idxs in img_path_map.items():
             for i in idxs:
                 bbox = None
@@ -378,16 +377,16 @@ class Evaluator:
                     bbox = cs2box(all_boxes[i, 0:2], all_boxes[i, 2:4],
                                   pattern="xyxy")
                 try:
-                    written.append(draw_skeleton_in_origin_image(
-                        path, all_preds[i], out_dir, bbox=bbox))
+                    draw_skeleton_in_origin_image(path, all_preds[i], out_dir,
+                                                  bbox=bbox)
                 except IOError:
                     continue
-                if len(written) >= limit:
+                n += 1
+                if n >= limit:
                     self.logger.info(f"vis overlays -> {out_dir}")
-                    return written
-        if written:
+                    return
+        if n:
             self.logger.info(f"vis overlays -> {out_dir}")
-        return written
 
     def eval(self):
         out = {}

@@ -22,7 +22,7 @@ from fami_pose_torch.data.keypoints import COCO_FLIP_PAIRS
 from fami_pose_torch.losses import fami_total_loss
 from fami_pose_torch.models.layers import sync_batch_norm
 from fami_pose_torch.ops.pose import flip_back
-from fami_pose_torch.parallel.mesh import all_reduce_mean_
+from fami_pose_torch.parallel.mesh import all_reduce_mean_, is_distributed
 
 
 def pck_counts(pred, target, thr=0.5):
@@ -171,7 +171,7 @@ def make_train_step(mse_weight=1.0, mi_alpha=0.5, mi_beta=0.1,
     of the global batch's loss. The loss terms are averaged across ranks
     and the PCK accuracies computed from the global batch's counts, in one
     more all-reduce."""
-    sync = mesh is not None and mesh.size > 1
+    sync = is_distributed(mesh)
     synced = []
 
     def loss_and_metrics(model, batch):

@@ -233,7 +233,7 @@ def make_step(model, distance: int, flip_test: bool = False,
     are every rank's, gathered by rows: the global ``(B, J, h, w)``.
     """
     lat = distance - 1
-    gather = mesh is not None and mesh.data > 1
+    gather = mesh is not None and mesh.sharded
     w = 2 * distance - 1
     # fold order relative to the key slot: [0, -lat..-1, +1..+lat]
     rel = [i - lat for i in window_order(distance)]

@@ -110,8 +110,7 @@ class Trainer:
 
         self.dataset = dataset
         self.loader = build_train_loader(
-            cfg, dataset, num_devices=self.mesh.data,
-            process_index=self.mesh.data_index, process_count=self.mesh.data)
+            cfg, dataset, mesh=self.mesh)
         self.steps_per_epoch = max(1, len(self.loader))
 
         model = build_model(cfg, TRAIN_PHASE)

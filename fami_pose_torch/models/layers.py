@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from fami_pose_torch.ops.int8_conv import (
     int8_conv2d, pack_weight, quantize_weight,
 )
-from fami_pose_torch.parallel.mesh import all_reduce_sum
+from fami_pose_torch.parallel.mesh import all_reduce_sum, is_distributed
 
 from .quant import QUANT_CALIBRATE, QUANT_INT8, QUANT_MODES, QUANT_OFF
 
@@ -248,7 +248,7 @@ def sync_batch_norm(model, mesh):
     than one rank (the ranks of one data index replicate their sums, and
     the count with them); with one rank (or no mesh) they keep the local
     path, with no collective. Returns ``model``."""
-    sync = mesh if mesh is not None and mesh.size > 1 else None
+    sync = mesh if is_distributed(mesh) else None
     for module in model.modules():
         if isinstance(module, BatchNorm):
             module.mesh = sync

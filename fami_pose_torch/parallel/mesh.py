@@ -15,9 +15,12 @@ collectives below where the JAX program's sharding implies one:
   rows (``engine/evaluator.py``, ``engine/streaming.py``);
 * process 0's DCN window and int8 scales, broadcast to every rank.
 
-Each is called only when the mesh has more than one rank (the gathers
-only when its data axis is larger than 1): with one rank the program is
-the single-device program, with no collective.
+Two properties of :class:`Mesh` decide where they are called:
+``distributed`` (more than one rank) for the all-reduces, broadcasts and
+the barrier, and ``sharded`` (a data axis larger than 1) for the gathers
+and the slicing of rows. :func:`local_rows` and :func:`all_gather_rows`
+read ``sharded`` themselves. With one rank the program is the
+single-device program, with no collective.
 
 :func:`maybe_initialize_distributed` joins the process group that a
 launcher describes in the environment (``python -m torch.distributed.run``
@@ -109,6 +112,32 @@ class Mesh:
         batch it loads."""
         return self.rank // self.model
 
+    @property
+    def distributed(self):
+        """More than one rank: the gradient bucket, the BatchNorm sums, the
+        broadcasts and the barrier go across the ranks."""
+        return self.size > 1
+
+    @property
+    def sharded(self):
+        """A data axis larger than 1: each rank holds a slice of the rows of
+        every global batch, and outputs are gathered by rows."""
+        return self.data > 1
+
+
+def is_distributed(mesh):
+    """``mesh.distributed``, False without a mesh."""
+    return mesh is not None and mesh.distributed
+
+
+def data_split(mesh=None):
+    """``(parts, index)``: the number of slices of every global batch and
+    the one this process loads, from ``mesh``'s data axis (default: one
+    slice a rank of the process group)."""
+    if mesh is None:
+        return process_count(), process_index()
+    return mesh.data, mesh.data_index
+
 
 def build_mesh(mesh_shape=None, world=None, rank=None):
     """The mesh of ``TPU.MESH_SHAPE`` over the ranks of the process group
@@ -138,10 +167,7 @@ def build_mesh(mesh_shape=None, world=None, rank=None):
 def local_batch_slice(global_batch_size, mesh=None):
     """The contiguous rows of a global batch this process owns: its data
     index's slice of ``mesh`` (default: one slice a process)."""
-    if mesh is None:
-        parts, index = process_count(), process_index()
-    else:
-        parts, index = mesh.data, mesh.data_index
+    parts, index = data_split(mesh)
     if global_batch_size % parts:
         raise ValueError(f"global batch {global_batch_size} not divisible by "
                          f"{parts} processes")
@@ -170,7 +196,7 @@ def shard_batch(batch, device):
 def local_rows(x, mesh):
     """This rank's contiguous rows of a global batch ``x``: its data
     index's (all of them on a data axis of 1)."""
-    if mesh is None or mesh.data == 1:
+    if mesh is None or not mesh.sharded:
         return x
     return x[local_batch_slice(x.shape[0], mesh)]
 
@@ -219,9 +245,11 @@ class _AllReduceSum(torch.autograd.Function):
 
 def all_gather_rows(x, mesh=None):
     """The ranks' ``x`` (equal shapes) concatenated on the first axis, in
-    rank order, on every rank. Over a ``mesh`` with a ``model`` axis, one
-    rank of each data index (the first), in data order: the ranks of one
-    data index hold the same rows."""
+    rank order, on every rank. Over a ``mesh``, one rank of each data index
+    (the first), in data order: the ranks of one data index hold the same
+    rows; ``x`` itself when the mesh is not ``sharded``."""
+    if mesh is not None and not mesh.sharded:
+        return x
     host = x.device.type == "cuda" and dist.get_backend() == "gloo"
     src = x.cpu() if host else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(process_count())]
@@ -248,5 +276,5 @@ def broadcast_tensors(tensors, src=0):
 
 def barrier(mesh):
     """Wait for every rank (a no-op on a mesh of one rank)."""
-    if mesh.size > 1:
+    if mesh.distributed:
         dist.barrier()

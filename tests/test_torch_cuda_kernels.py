@@ -541,37 +541,22 @@ def test_dcn_kernels_at_the_deform_blocks_settings(gen, dtype, c, groups,
 @pytest.mark.parametrize("name", ["AdaptBlock", "AdaptBlockV2", "DeformBlock"])
 def test_deform_blocks_on_the_card_launch_the_kernels(gen, name):
     """Each block at C = 48 on the card (f32, TF32 off) against the port on
-    the CPU with the same weights: one ``dcn_fwd`` and one ``dcn_bwd``
-    launch, the output and every gradient within 1e-4 of its scale (the
-    backward's dx is summed with atomics; the DCN's bias feeds a train-mode
-    BatchNorm, which makes its gradient zero up to rounding: it is held to
-    1e-4 of the largest gradient)."""
-    import copy
+    the CPU with the same weights, by ``chip_smoke.block_card_vs_cpu``: one
+    ``dcn_fwd`` and one ``dcn_bwd`` launch, the output and every gradient
+    within 1e-4 of its scale (the backward's dx is summed with atomics;
+    the DCN's bias feeds a train-mode BatchNorm, which makes its gradient
+    zero up to rounding: it is held to 1e-4 of the largest gradient)."""
+    from chip_smoke import block_card_vs_cpu
 
-    from fami_pose_torch.models import deform_blocks
-    from fami_pose_torch.ops.deform_conv import deform_conv2d_backward
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     kw = {"deformable_groups": 2} if name == "AdaptBlockV2" else {}
-    torch.manual_seed(0)
-    cpu = getattr(deform_blocks, name)(48, 48, **kw).train()
-    card = copy.deepcopy(cpu).cuda()
-    x = torch.randn(2, 48, 24, 18)
-    results = []
-    fwd, bwd = deform_conv2d_windowed.launches, deform_conv2d_backward.launches
-    for m, xin in ((cpu, x.clone()), (card, x.cuda())):
-        xin.requires_grad_(True)
-        m(xin).square().sum().backward()
-        results.append({"dx": xin.grad.cpu(), **{
-            n: p.grad.cpu() for n, p in m.named_parameters()}})
-    assert deform_conv2d_windowed.launches == fwd + 1
-    assert deform_conv2d_backward.launches == bwd + 1
-    ref, got = results
-    largest = max(float(r.abs().max()) for r in ref.values())
-    for k, r in ref.items():
-        scale = largest if k == "adapt_conv.bias" else float(r.abs().max())
-        assert float((got[k] - r).abs().max()) <= 1e-4 * max(scale, 1e-30), k
+    cpu_gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 48, 24, 18, generator=cpu_gen)
+    errs, seen = block_card_vs_cpu(name, kw, x, torch.randn(
+        x.shape, generator=cpu_gen), seed=0)
+    assert seen == {"dcn_fwd": 1, "dcn_bwd": 1, "warp_translate": 0,
+                    "warp_bwd": 0}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= 1e-4, (worst, errs[worst])
 
 
 # -- the on-chip gather and rotate probes (bitwise: copies of input values) --

@@ -52,10 +52,10 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _torchrun(target, args, cwd, env):
+def _torchrun(target, args, cwd, env, nproc=2):
     return subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-         "2", "--master_addr", "127.0.0.1", "--master_port",
+         str(nproc), "--master_addr", "127.0.0.1", "--master_port",
          str(_free_port())] + target + args,
         cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
 
@@ -102,7 +102,7 @@ def two_ranks(tmp_path_factory):
     if rec.returncode == 0:
         records = [torch.load(osp.join(record_dir, f"rank{r}.pt"),
                               weights_only=False) for r in range(2)]
-    return dict(root=root, cfg_path=cfg_path, cli=cli, rec=rec,
+    return dict(root=root, cfg_path=cfg_path, cli=cli, rec=rec, env=env,
                 cli_logs=[open(log).read() for log in cli_logs],
                 out_dir=out_dir, ckpt_dir=ckpt_dir, first=first,
                 records=records)
@@ -191,6 +191,42 @@ def test_val_over_two_ranks(two_ranks):
         np.testing.assert_allclose(got[..., 2], ref[..., 2], atol=1e-5,
                                    err_msg=k)
     assert set(one) == {"final", "backbone"}
+
+
+def test_val_over_a_two_by_two_mesh(two_ranks):
+    """``--val`` with ``TPU.MESH_SHAPE [2, 2]`` and ``DEBUG.VIS_SKELETON``
+    on four ranks: ranks 0 and 1 load data index 0's 2 rows of each global
+    batch of 4, ranks 2 and 3 data index 1's; the gather keeps one rank a
+    data index, so each of the 6 samples is one row, the same on every
+    rank and bit for bit the ``[-1, 1]`` two-rank run's (each forward runs
+    the same 2 rows); rank 0 alone scores and draws (6 overlays, one a
+    frame)."""
+    assert two_ranks["rec"].returncode == 0
+    root = two_ranks["root"]
+    rec_dir = osp.join(root, "records_2x2")
+    os.makedirs(rec_dir)
+    run = _torchrun(
+        [osp.join(HERE, "torch_dist_run.py"), rec_dir],
+        ["--cfg", two_ranks["cfg_path"], "--device", "cpu", "--val",
+         "TPU.MESH_SHAPE", "[2,2]", "DEBUG.VIS_SKELETON", "True"],
+        root, two_ranks["env"], nproc=4)
+    assert run.returncode == 0, (run.stdout + run.stderr)[-5000:]
+    ranks = [torch.load(osp.join(rec_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(4)]
+    evals = [r["evals"][0] for r in ranks]
+    assert [e["loader"] for e in evals] == [(0, 2, 2), (0, 2, 2), (1, 2, 2),
+                                            (1, 2, 2)]
+    assert set(evals[0]["results"]) == {"final", "backbone"}
+    assert all(e["results"] == {} for e in evals[1:])
+    two = two_ranks["records"][0]["evals"][0]
+    for k in ("all_preds", "all_preds_bb", "all_boxes"):
+        assert evals[0][k].shape[0] == 6
+        for e in evals:
+            np.testing.assert_array_equal(e[k], two[k], err_msg=k)
+    (vis,) = glob.glob(osp.join(root, "out", "**", "validate_vis"),
+                       recursive=True)
+    drawn = [f for _, _, files in os.walk(vis) for f in files]
+    assert len(drawn) == 6
 
 
 def test_int8_val_over_two_ranks(two_ranks):

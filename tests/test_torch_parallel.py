@@ -269,8 +269,8 @@ def test_collectives_in_two_processes(tmp_path):
 
 def test_a_model_axis_replicates_one_process(tmp_path, monkeypatch):
     """``TPU.MESH_SHAPE [1, 2]`` on two gloo processes: both ranks hold data
-    index 0 and the whole global batch of 2; ``all_gather_rows`` keeps rank
-    0's rows once; one train step and the flip-tested eval step leave both
+    index 0 and the whole global batch of 2; ``all_gather_rows`` over a data
+    axis of 1 is each rank's own rows, with no collective; one train step and the flip-tested eval step leave both
     ranks bit for bit equal (state, gradients, metrics, heatmaps) and bit
     for bit one process's step whose BatchNorms take the global path with
     the all-reduce as the identity: the ranks' sums and count are twice one
@@ -295,7 +295,7 @@ def test_a_model_axis_replicates_one_process(tmp_path, monkeypatch):
     prepare = (2, (64, 64), (16, 16))
     r0, r1 = run_ranks("model_axis", 2, tmp_path / "ranks", dict(
         model_kw=kw, state_dict=base.state_dict(), cfg=cfg._to_plain(),
-        batch=batch, prepare=prepare))
+        batch=batch, prepare=prepare, mesh_shape=[1, 2]))
 
     model = FAMIPose(**kw).train()
     model.load_state_dict(base.state_dict())
@@ -320,7 +320,7 @@ def test_a_model_axis_replicates_one_process(tmp_path, monkeypatch):
     for rank, r in enumerate((r0, r1)):
         assert r["mesh"] == port_mesh.Mesh(data=1, model=2, rank=rank)
         assert r["mesh"].data_index == 0 and r["slice"] == slice(0, 4)
-        assert torch.equal(r["rows"], torch.zeros(2, 3))
+        assert torch.equal(r["rows"], torch.full((2, 3), float(rank)))
         assert r["trainer"] == (r["mesh"], int(cfg.TRAIN.BATCH_SIZE_PER_GPU),
                                 0, 1)
         r["heatmaps"] = dict(enumerate(r["heatmaps"]))

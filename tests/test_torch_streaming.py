@@ -437,6 +437,20 @@ def test_two_rank_streams_match_one_process(model, tmp_path):
     on 2 frames a rank instead of 4), one process's stream; with a
     re-prime of one stream of rank 0 after 3 frames (rank 1's streams
     keep their state), the same global masks."""
+    _check_streams_over_ranks(model, tmp_path, [-1, 1], 2)
+
+
+def test_two_by_two_mesh_streams_match_one_process(model, tmp_path):
+    """The same 4 streams over ``TPU.MESH_SHAPE [2, 2]``, four gloo
+    processes: ranks 0 and 1 hold streams 0-1 (data index 0), ranks 2 and
+    3 streams 2-3; the gathered outputs take one rank a data index, so
+    every rank returns the 4 streams once each, equal on every rank and to
+    one process's stream; the re-prime of stream 1 moves data index 0's
+    ranks only."""
+    _check_streams_over_ranks(model, tmp_path, [2, 2], 4)
+
+
+def _check_streams_over_ranks(model, tmp_path, mesh_shape, world):
     n = 7
     frames = np.random.RandomState(9).rand(n, 4, 3, H, W).astype(np.float32)
     centers = np.full((4, 2), 50.0, np.float32)
@@ -447,9 +461,10 @@ def test_two_rank_streams_match_one_process(model, tmp_path):
                       dcn_max_offset=2, warp_max_shift=26),
         state_dict=model.state_dict(), frames=frames, distance=DISTANCE,
         centers=centers, scales=scales, reprime_at=3,
-        moved=np.array([0.0, 1.0, 0.0, 0.0], np.float32))
-    r0, r1 = run_ranks("streaming", 2, tmp_path, payload)
-    assert r0["local_streams"] == r1["local_streams"] == 2
+        moved=np.array([0.0, 1.0, 0.0, 0.0], np.float32),
+        mesh_shape=mesh_shape)
+    ranks = run_ranks("streaming", world, tmp_path, payload)
+    assert [r["local_streams"] for r in ranks] == [2] * world
     ref = streaming.StreamingPosePredictor(model, distance=DISTANCE,
                                            flip_test=True, reprime_iou=0.5)
     ref.prime(torch.from_numpy(frames[0]), centers, scales)
@@ -459,9 +474,11 @@ def test_two_rank_streams_match_one_process(model, tmp_path):
             moved = centers + payload["moved"][:, None] * 300.0
             mask = ref.maybe_reprime(moved, scales, seq[:t])
             np.testing.assert_array_equal(mask, [False, True, False, False])
-            np.testing.assert_array_equal(r0["masks"][0], mask)
-            np.testing.assert_array_equal(r1["masks"][0], mask)
+            for r in ranks:
+                np.testing.assert_array_equal(r["masks"][0], mask)
         want = ref(seq[t])
-        for got0, got1, w in zip(r0["outs"][t - 1], r1["outs"][t - 1], want):
-            assert torch.equal(got0, got1) and got0.shape == w.shape
-            _same(got0.numpy(), w.numpy())
+        for i, w in enumerate(want):
+            got = [r["outs"][t - 1][i] for r in ranks]
+            assert all(torch.equal(got[0], g) for g in got[1:])
+            assert got[0].shape == w.shape
+            _same(got[0].numpy(), w.numpy())

@@ -585,7 +585,7 @@ def test_two_process_bf16_grads_step_matches_jax(bf16_inputs, bf16_world,
     hm = BF16_SIZE // 4
     r0, r1 = (r["grads"] for r in run_ranks("train_step", 2, tmp_path, dict(
         cfg=cfg._to_plain(), state_dict=model.state_dict(), batch=raw_batch,
-        local=1, prepare=(2, (BF16_SIZE, BF16_SIZE), (hm, hm)),
+        prepare=(2, (BF16_SIZE, BF16_SIZE), (hm, hm)),
         bf16_grads=True)))
     assert all(torch.equal(r0[n], r1[n]) for n in r0)
     ref, f32 = bf16_world["jax"]["grads"], bf16_world["f32"]["grads"]

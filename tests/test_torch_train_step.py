@@ -330,29 +330,38 @@ def test_train_step_matches_jax(variables, batch, jax_step, optimizer):
     assert opt.param_groups[0]["lr"] == pytest.approx(float(cfg.TRAIN.LR))
 
 
-@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+@pytest.mark.parametrize("remat,mesh_shape,world", [
+    (False, [-1, 1], 2), (True, [-1, 1], 2), (False, [1, 2], 2),
+    (False, [2, 2], 4)], ids=["plain", "remat", "model-axis", "two-by-two"])
 def test_two_process_train_step_matches_jax(variables, batch, jax_step, remat,
-                                            tmp_path):
-    """The same global batch of 2 over a mesh of 2 gloo processes, one
-    sample each (``tests/torch_dist.py``): BatchNorm's statistics and the
-    gradients are the global batch's, so the Adam step meets the bounds of
-    the one-process step against the JAX step above, metrics included, and
-    both ranks end bit for bit equal (parameters, gradients, statistics,
-    Adam's moments, metrics). With ``REMAT_BACKBONE`` the recomputed
-    backbone issues its BatchNorms' all-reduces again inside the
-    backward."""
+                                            mesh_shape, world, tmp_path):
+    """The same global batch of 2 over a mesh of gloo processes
+    (``tests/torch_dist.py``): ``[-1, 1]``, one sample a rank; ``[1, 2]``,
+    both ranks the whole batch; ``[2, 2]``, one sample a data index and
+    two ranks each. BatchNorm's statistics and the gradients are the
+    global batch's (a model axis counts each data index's sums, count and
+    gradient ``m`` times over, and the PCK counts are scaled by the data
+    axis to match), so the Adam step meets the bounds of the one-process
+    step against the JAX step above, metrics included, and every rank ends
+    bit for bit equal (parameters, gradients, statistics, Adam's moments,
+    metrics). With ``REMAT_BACKBONE`` the recomputed backbone issues its
+    BatchNorms' all-reduces again inside the backward."""
     cfg = _train_cfg("adam")
     model = _port_model(variables)
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    r0, r1 = run_ranks("train_step", 2, tmp_path, dict(
+    ranks = run_ranks("train_step", world, tmp_path, dict(
         model_kw=PORT_KW, state_dict=model.state_dict(), cfg=cfg._to_plain(),
-        batch=batch, local=1, prepare=(2, (64, 64), (16, 16)), remat=remat))
-    for key in ("state_dict", "grads", "metrics"):
-        assert list(r0[key]) == list(r1[key])
-        for k in r0[key]:
-            assert torch.equal(r0[key][k], r1[key][k]), (key, k)
-    m0, m1 = r0["optimizer"]["state"], r1["optimizer"]["state"]
-    assert all(torch.equal(m0[i][k], m1[i][k]) for i in m0 for k in m0[i])
+        batch=batch, prepare=(2, (64, 64), (16, 16)), remat=remat,
+        mesh_shape=mesh_shape))
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for key in ("state_dict", "grads", "metrics"):
+            assert list(r0[key]) == list(r[key])
+            for k in r0[key]:
+                assert torch.equal(r0[key][k], r[key][k]), (key, k)
+        m0, m1 = r0["optimizer"]["state"], r["optimizer"]["state"]
+        assert all(torch.equal(m0[i][k], m1[i][k]) for i in m0
+                   for k in m0[i])
     _check_step_against_jax(r0["state_dict"], r0["grads"], r0["metrics"],
                             before, jax_step, "adam", float(cfg.TRAIN.LR))
 

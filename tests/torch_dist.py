@@ -6,7 +6,9 @@ process a rank (``python tests/torch_dist.py <function> <rank> <world>
 <dir>``: this file as a script, which imports torch and the port only, no
 JAX), each joins a gloo group through a file in ``<dir>``, calls
 ``<function>(mesh, payload)`` from this module on one intra-op thread, and
-saves what it returns; the results come back in rank order.
+saves what it returns; the results come back in rank order. ``mesh`` is
+``build_mesh(payload["mesh_shape"])``, ``[-1, 1]`` (a data axis over every
+rank) when the payload names none.
 """
 
 import os
@@ -77,21 +79,22 @@ def tiny_model(payload):
 
 
 def train_step(mesh, payload):
-    """One train step of the tiny model on this rank's slice of the global
-    batch ``payload["batch"]`` (numpy, as ``prepare_train_batch`` takes
-    it) with the optimizer of the config ``payload["cfg"]``; returns the
-    state, the gradients and the metrics."""
+    """One train step of the tiny model on this rank's data index's slice
+    of the global batch ``payload["batch"]`` (numpy, as
+    ``prepare_train_batch`` takes it) with the optimizer of the config
+    ``payload["cfg"]``; returns the state, the gradients and the
+    metrics."""
     from fami_pose_torch.data.loader import prepare_train_batch
     from fami_pose_torch.engine.steps import make_train_step
     from fami_pose_torch.engine.train_state import TrainState
     from fami_pose_torch.optim import build_optimizer
+    from fami_pose_torch.parallel.mesh import local_batch_slice
 
     model = tiny_model(payload)
     model.hrnet.remat = model.hrnet.remat or bool(payload.get("remat"))
     opt, sched = build_optimizer(config(payload), model, steps_per_epoch=5)
     state = TrainState(model, opt, sched)
-    rows = slice(mesh.rank * payload["local"],
-                 (mesh.rank + 1) * payload["local"])
+    rows = local_batch_slice(payload["batch"][0].shape[0], mesh)
     batch = prepare_train_batch(*(a[rows] for a in payload["batch"]),
                                 *payload["prepare"])
     step = make_train_step(mesh=mesh,
@@ -207,9 +210,9 @@ def streaming(mesh, payload):
 
 
 def model_axis(mesh, payload):
-    """``TPU.MESH_SHAPE [1, 2]`` over the two ranks (``mesh`` is the
-    default ``[-1, 1]``'s, unused): the mesh, this rank's slice of a global
-    batch of 4, the rows ``all_gather_rows`` keeps, one train step of the
+    """Over a mesh with a model axis (``payload["mesh_shape"]``): the mesh,
+    this rank's slice of a global batch of 4, what ``all_gather_rows``
+    returns of rows filled with the rank, one train step of the
     tiny model on the data index's slice of ``payload["batch"]`` (its
     state, gradients and metrics), the ``Trainer``'s loader share of the
     config ``payload["cfg"]`` with that mesh, and the eval step's heatmaps
@@ -220,7 +223,6 @@ def model_axis(mesh, payload):
     from fami_pose_torch.optim import build_optimizer
     from fami_pose_torch.parallel import mesh as pm
 
-    mesh = pm.build_mesh([1, 2])
     out = {"mesh": mesh, "slice": pm.local_batch_slice(4, mesh),
            "rows": pm.all_gather_rows(
                torch.full((2, 3), float(mesh.rank)), mesh)}
@@ -241,7 +243,7 @@ def model_axis(mesh, payload):
     from fami_pose_torch.engine.trainer import Trainer
 
     cfg = config(payload)
-    cfg.TPU.MESH_SHAPE = [1, 2]
+    cfg.TPU.MESH_SHAPE = list(payload["mesh_shape"])
     trainer = Trainer(cfg, dataset=SyntheticPoseDataset(
         8, tuple(cfg.MODEL.IMAGE_SIZE), 4), device="cpu")
     out["trainer"] = (trainer.mesh, trainer.loader.local_batch_size,
@@ -264,7 +266,8 @@ def main(argv):
     try:
         payload = torch.load(osp.join(directory, "payload.pt"),
                              weights_only=False)
-        result = globals()[function](build_mesh([-1, 1]), payload)
+        mesh = build_mesh((payload or {}).get("mesh_shape") or [-1, 1])
+        result = globals()[function](mesh, payload)
         torch.save(result, osp.join(directory, f"result{rank}.pt"))
     finally:
         dist.destroy_process_group()

@@ -9,7 +9,8 @@ The rank joins the process group first, so that every ``main`` call runs
 in it, then runs ``main`` once for each argument list. It records the
 checkpoints it wrote (``torch.save`` on a checkpoint path), the state each
 auto-resume loaded, the int8 scales and DCN window each evaluator chose,
-the evaluators' predictions and their results, and the final train state,
+the evaluators' predictions, their loaders' slices and their results,
+and the final train state,
 into ``<out_dir>/rank<r>.pt``.
 """
 
@@ -69,7 +70,9 @@ def main(argv):
                        if v is not None},
             "all_preds": self.all_preds.copy(),
             "all_preds_bb": self.all_preds_bb.copy(),
-            "all_boxes": self.all_boxes.copy()})
+            "all_boxes": self.all_boxes.copy(),
+            "loader": (self.loader.process_index, self.loader.process_count,
+                       self.loader.local_batch_size)})
         return out
 
     Evaluator.eval_checkpoint = recording_eval
