@@ -21,10 +21,12 @@ the card's ``nvidia-smi`` name and power limit, and as the last line
                +-26, and both at the val path's shapes (the DCN at B=32 with
                D in {4, 3, exact}, the warp at 128 images), and the DCN
                forward and backward at the deform blocks' settings (exact,
-               dilation 1, C = C_out = 64 in bf16 and 48 in f32, the f32
-               forward's widest, whose C = 64 refusal is checked; one group
-               without a mask or two with one; offsets ~N(0, 8) px, many
-               samples off the image). Each kernel call
+               dilation 1, B = 8; ``BLOCK_DCN_CASES``: bf16 at HRNet-W48's
+               four branch widths, C = C_out = 48 at 96x72, 96 at 48x36, 192
+               at 24x18 and 384 at 12x9, one group without a mask or two
+               with one, the JAX tests' odd widths 6 -> 6 and 18 -> 16,
+               C_out = 24, and f32 at C = C_out = 64 and 96; offsets
+               ~N(0, 8) px, many samples off the image). Each kernel call
                is synchronised before its plain version runs, so that a
                fault names the kernel (``run_kernel``). Every kernel is timed
                device-side (``device_ms``: its launches in one CUDA graph),
@@ -157,7 +159,10 @@ the card's ``nvidia-smi`` name and power limit, and as the last line
                a train-mode forward and backward on the card with one
                ``dcn_fwd`` and one ``dcn_bwd`` launch a block, and at C = 48
                in f32 (TF32 off) against the port on the CPU with the same
-               weights; the kernels' width refusals by name; device NMS
+               weights, DeformBlock also at C = 96; a block at each width
+               of ``BLOCK_DCN_CASES``, a train step on the card in the
+               case's type (the launches of the kernels line's block rows);
+               device NMS
                (``oks_nms_device`` on 64 CUDA poses, ``box_nms_device`` on
                256 CUDA boxes, with and without padded slots) against the
                host numpy keep lists; the native NMS library built from
@@ -167,6 +172,23 @@ the card's ``nvidia-smi`` name and power limit, and as the last line
                to ``draw_skeleton_in_origin_image`` on the CPU from the same
                predictions); ``demo --vis`` (its ``main``) on the synthetic
                clip, batch and ``--streaming``: one overlay drawn per pose.
+  10c. jhmdb - the Sub-JHMDB configuration (``configs/jhmdb/fami_pose.yaml``:
+               HRNet-W48, 256x256, 15 joints, ``DISTANCE: 2`` so 2
+               supporting frames, bf16, DCN window 6) at full width on a
+               seeded synthetic fixture the script writes (2 clips x 16
+               frames, one person a frame, 15 JHMDB-order joints): the
+               flip-tested eval step at B = 8 with ``JHMDB_FLIP_PAIRS`` (8
+               DCN + 2 warp launches, ms, a traced call's device-busy ms),
+               its f32 forward on the card against the CPU (one key frame,
+               phase card-vs-cpu's tolerance), ``Trainer`` for one epoch of
+               4 steps at B = 8 (the file's 32 cut to 8; 4 DCN forward and
+               backward launches a step, 2 warp and 2 warp backward) and its
+               step timed, ``Runner.launch(val=True)`` on the checkpoint it
+               wrote, scored with the dataset's PCK (GT as predictions ->
+               100; the file leaves VAL.FLIP_VAL off: 4 DCN + 1 warp a
+               batch). Phase kernels times the four kernels at this path's
+               shapes (the DCN at (8, 48, 64, 64), D = 6; the warp on 16
+               and 8 images of 48 x 64 x 64).
   11. distributed - the data-parallel path (``parallel/mesh.py``) in
                processes of their own (``python3 chip_smoke.py
                --distributed-worker ...``): (a) one rank over NCCL:
@@ -381,12 +403,15 @@ def hgmma_counts(sass):
     for line in sass.splitlines():
         if "Function : " in line:
             row = None
-            m = re.search(r"(dcn_(?:fwd|bwd))_bf16_kernelILi(\d+)ELi(\d+)E",
-                          line)
+            m = re.search(r"(dcn_(?:fwd|bwd))_bf16_(?:chunked_)?kernelILi"
+                          r"(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
             g = re.search(r"igemm_kernelI(13__nv_bfloat16|f)Li(\d+)E", line)
             if m:
                 row, op = counts.setdefault(m.group(1), {}), "HGMMA"
-                key = f"{m.group(1)}_bf16_kernel<{m.group(2)}, {m.group(3)}>"
+                chunked = "_chunked" if "chunked" in line else ""
+                args = ", ".join(g for g in m.group(2, 3) if g) + (
+                    ", wide" if m.group(4) == "1" else "")
+                key = f"{m.group(1)}_bf16{chunked}_kernel<{args}>"
             elif g:
                 row, op = counts.setdefault("int8_implicit_gemm", {}), "IGMMA"
                 dt = "float" if g.group(1) == "f" else "bf16"
@@ -492,24 +517,39 @@ def dcn_bwd_bound(x, off, msk, wgt, gout, grads):
 
 
 # the deform blocks' DCN (models/deform_blocks.py): exact, dilation and
-# padding 1, C = C_out = 64 (bf16; 48 in f32, the f32 forward's widest: it
-# keeps W and its column in f32 shared memory), 1 group without a mask
-# (DCNv1) or 2 groups with one, offsets ~N(0, 8) px, many past the image
-BLOCK_DCN_CASES = [(dtype, groups, groups > 1)
-                   for dtype in (torch.float32, torch.bfloat16)
-                   for groups in (1, 2)]
-BLOCK_WIDTH = {torch.float32: 48, torch.bfloat16: 64}
+# padding 1, offsets ~N(0, 8) px (many samples off the image), B = 8. Each
+# case is (dtype, C, C_out, groups, plane), a mask with 2 groups and none
+# (DCNv1) with 1: the blocks inside HRNet-W48's four branches, C = C_out =
+# 48 at 96x72, 96 at 48x36, 192 at 24x18 and 384 at 12x9; the JAX tests'
+# odd widths (6 -> 6 and 18 -> 16); C_out = 24; float32 at C = C_out = 64
+# and 96 (the chunked f32 forward: the whole-W layout needed 297,216 B of
+# shared memory at 64 and was refused)
+HRNET_W48_BRANCHES = ((48, (96, 72)), (96, (48, 36)), (192, (24, 18)),
+                      (384, (12, 9)))
+BLOCK_DCN_CASES = (
+    [(torch.bfloat16, c, c, g, hw) for c, hw in HRNET_W48_BRANCHES
+     for g in (1, 2)]
+    + [(torch.bfloat16, 6, 6, 1, (96, 72)), (torch.bfloat16, 18, 16, 1, (96, 72)),
+       (torch.bfloat16, 48, 24, 2, (96, 72)),
+       (torch.float32, 64, 64, 1, (96, 72)), (torch.float32, 64, 64, 2, (96, 72)),
+       (torch.float32, 96, 96, 1, (48, 36))])
 BLOCK_OFFSET_STD = 8.0
+BLOCK_BATCH = 8
 
 
-def block_dcn_inputs(gen, dtype, groups, with_mask, b=8, h=96, w=72):
-    dev, c = "cuda", BLOCK_WIDTH[dtype]
+def block_case_key(dtype, c, c_out, groups):
+    return f"{str(dtype)[6:]} C={c} C_out={c_out} G={groups}"
+
+
+def block_dcn_inputs(gen, dtype, c, c_out, groups, hw, b=BLOCK_BATCH):
+    dev, (h, w) = "cuda", hw
     x = torch.randn(b, c, h, w, generator=gen, device=dev).to(dtype)
     off = (torch.randn(b, 18 * groups, h, w, generator=gen, device=dev)
            * BLOCK_OFFSET_STD).to(dtype)
     msk = (torch.rand(b, 9 * groups, h, w, generator=gen, device=dev)
-           .to(dtype) if with_mask else None)
-    wgt = (torch.randn(c, c, 3, 3, generator=gen, device=dev) * 0.05).to(dtype)
+           .to(dtype) if groups > 1 else None)
+    wgt = (torch.randn(c_out, c, 3, 3, generator=gen, device=dev)
+           * (0.4 / math.sqrt(c))).to(dtype)
     return x, off, msk, wgt
 
 
@@ -530,9 +570,8 @@ def off_image_share(off, groups):
 def block_kernel_rows(gen):
     """``dcn_fwd`` and ``dcn_bwd`` at the deform blocks' settings
     (``BLOCK_DCN_CASES``), each against its plain version through
-    ``run_kernel``, timed device-side beside its bound; the f32 forward at
-    C = 64 refused by name. Returns the bf16 rows of the kernels line,
-    keyed ("dcn_fwd" / "dcn_bwd", "blocks", groups)."""
+    ``run_kernel``, timed device-side beside its bound. Returns the rows of
+    the kernels line, keyed ("dcn_fwd" / "dcn_bwd", "blocks", case key)."""
     from fami_pose_torch.ops.deform_conv import (
         deform_conv2d, deform_conv2d_backward, deform_conv2d_backward_plain,
         deform_conv2d_windowed,
@@ -540,11 +579,12 @@ def block_kernel_rows(gen):
 
     rows = {}
     kw = dict(padding=1, dilation=1, max_offset=None)
-    for dtype, groups, with_mask in BLOCK_DCN_CASES:
-        x, off, msk, wgt = block_dcn_inputs(gen, dtype, groups, with_mask)
+    for dtype, c, c_out, groups, hw in BLOCK_DCN_CASES:
+        x, off, msk, wgt = block_dcn_inputs(gen, dtype, c, c_out, groups, hw)
+        with_mask = msk is not None
         outside = off_image_share(off, groups)
-        tag = (f"C={x.shape[1]} G={groups} "
-               f"{'mask' if with_mask else 'no mask'} {dtype}")
+        key = block_case_key(dtype, c, c_out, groups)
+        tag = f"{key} {'mask' if with_mask else 'no mask'}"
         run_k = lambda: deform_conv2d_windowed(x, off, msk, wgt,
                                                offset_groups=groups, **kw)
         run_p = lambda: deform_conv2d(x, off, msk, wgt, offset_groups=groups,
@@ -554,15 +594,15 @@ def block_kernel_rows(gen):
         host_ms, k_ms = time_ms(run_k), device_ms(run_k, launches=20)
         p_ms = time_ms(run_p, iters=3, warmup=1)
         bnd, by = dcn_fwd_bound(x, off, msk, wgt, got)
-        fwd = dict(shape=list(x.shape), groups=groups, mask=with_mask,
-                   dilation=1, D="exact",
-                   offsets_std_px=BLOCK_OFFSET_STD,
+        common = dict(shape=list(x.shape), c_out=c_out, groups=groups,
+                      mask=with_mask, dilation=1, D="exact",
+                      dtype=str(dtype)[6:])
+        fwd = dict(common, offsets_std_px=BLOCK_OFFSET_STD,
                    samples_off_the_image=float(outside), max_abs_err=err,
                    tol=tol, ms=k_ms, host_paced_ms=host_ms,
                    timing=DCN_TIMING, plain_ms=p_ms, bound_ms=bnd,
                    bound_by=by, library_ms=None, library=DCN_NO_LIBRARY)
-        emit("kernels", kernel="dcn_fwd", path="deform blocks",
-             dtype=str(dtype)[6:], **fwd)
+        emit("kernels", kernel="dcn_fwd", path="deform blocks", **fwd)
 
         gout = torch.randn(got.shape, generator=gen, device="cuda").to(dtype)
         run_k = lambda: deform_conv2d_backward(x, off, msk, wgt, gout,
@@ -585,36 +625,117 @@ def block_kernel_rows(gen):
         p_ms = time_ms(run_p, iters=3, warmup=1)
         bnd, by = dcn_bwd_bound(x, off, msk, wgt, gout,
                                 [g for g in got_b if g is not None])
-        bwd = dict(shape=list(x.shape), groups=groups, mask=with_mask,
-                   dilation=1, D="exact",
-                   max_abs_err={k: e for k, (e, _) in errs.items()},
+        bwd = dict(common, max_abs_err=max(e for e, _ in errs.values()),
+                   max_abs_err_by_output={k: e for k, (e, _) in errs.items()},
                    tol={k: t for k, (_, t) in errs.items()}, ms=k_ms,
                    host_paced_ms=host_ms, timing=DCN_TIMING, plain_ms=p_ms,
                    bound_ms=bnd, bound_by=by, library_ms=None,
                    library="none: no single PyTorch call computes a "
                    "deformable conv's gradients")
-        emit("kernels", kernel="dcn_bwd", path="deform blocks",
-             dtype=str(dtype)[6:], **bwd)
-        if dtype == torch.bfloat16:
-            rows["dcn_fwd", "blocks", groups] = fwd
-            rows["dcn_bwd", "blocks", groups] = dict(
-                bwd, max_abs_err=max(e for e, _ in errs.values()),
-                max_abs_err_by_output=bwd["max_abs_err"])
+        emit("kernels", kernel="dcn_bwd", path="deform blocks", **bwd)
+        rows["dcn_fwd", "blocks", key] = fwd
+        rows["dcn_bwd", "blocks", key] = bwd
         del x, off, msk, wgt, got, got_b, ref_b, gout
-    # the f32 forward at C = 64 needs 297,216 B of shared memory: refused
-    x, off, _, _ = block_dcn_inputs(gen, torch.float32, 1, False, b=1, h=8,
-                                    w=8)
-    x = torch.cat([x, x[:, :16]], dim=1)
-    try:
-        deform_conv2d_windowed(x, off, None, torch.zeros(
-            64, 64, 3, 3, device="cuda"), **kw)
-    except ValueError as e:
-        if "shared memory" not in str(e):
-            raise
-        emit("kernels", kernel="dcn_fwd", path="deform blocks",
-             dtype="float32", shape=list(x.shape), refused=str(e))
-    else:
-        raise AssertionError("the f32 DCN forward took C = 64")
+    torch.cuda.empty_cache()
+    return rows
+
+
+# the Sub-JHMDB path's shapes (configs/jhmdb/fami_pose.yaml: 256x256 input,
+# 64x64 features, 2 supporting frames, DCN window 6): the DCN at B = 8, the
+# forward warp on the 16 supporting-frame features of a B = 8 eval batch
+# (one call), its backward on the 8 of one supporting frame of a train step
+JHMDB_DCN_D = 6
+JHMDB_PLANE = (64, 64)
+
+
+def jhmdb_kernel_rows(gen):
+    """``dcn_fwd``, ``dcn_bwd``, ``warp_translate`` and ``warp_bwd`` in bf16
+    at the Sub-JHMDB path's shapes, against their plain versions, timed
+    device-side beside their bounds. Returns the rows keyed (name,
+    "jhmdb")."""
+    from fami_pose_torch.ops.deform_conv import (
+        deform_conv2d, deform_conv2d_backward, deform_conv2d_backward_plain,
+        deform_conv2d_windowed,
+    )
+    from fami_pose_torch.ops.warp import (
+        warp_translate, warp_translate_backward,
+        warp_translate_backward_plain, warp_translate_plain,
+    )
+
+    dtype, d, (h, w) = torch.bfloat16, JHMDB_DCN_D, JHMDB_PLANE
+    rows = {}
+    x, off, msk, wgt = dcn_inputs(gen, dtype, d, b=JHMDB_BATCH, h=h, w=w)
+    kw = dict(padding=3, dilation=3, offset_groups=12, max_offset=d)
+    run_k = lambda: deform_conv2d_windowed(x, off, msk, wgt, **kw)
+    run_p = lambda: deform_conv2d(x, off, msk, wgt, **kw)
+    got = run_kernel("dcn_fwd Sub-JHMDB", run_k)
+    err, tol = check_close("dcn_fwd Sub-JHMDB", got, run_p(), dtype)
+    bnd, by = dcn_fwd_bound(x, off, msk, wgt, got)
+    rows["dcn_fwd", "jhmdb"] = dict(
+        shape=list(x.shape), D=d, max_abs_err=err, tol=tol,
+        ms=device_ms(run_k, launches=20), host_paced_ms=time_ms(run_k),
+        timing=DCN_TIMING, plain_ms=time_ms(run_p, iters=3, warmup=1),
+        bound_ms=bnd, bound_by=by, library_ms=None, library=DCN_NO_LIBRARY)
+    gout = torch.randn(got.shape, generator=gen, device="cuda").to(dtype)
+    run_k = lambda: deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
+    run_p = lambda: deform_conv2d_backward_plain(x, off, msk, wgt, gout, **kw)
+    got_b = run_kernel("dcn_bwd Sub-JHMDB", run_k)
+    errs = {n: check_close(f"dcn_bwd {n} Sub-JHMDB", a, r, dtype)[0]
+            for n, a, r in zip(("dx", "doffset", "dmask", "dweight"), got_b,
+                               run_p())}
+    bnd, by = dcn_bwd_bound(x, off, msk, wgt, gout, got_b)
+    rows["dcn_bwd", "jhmdb"] = dict(
+        shape=list(x.shape), D=d, max_abs_err=max(errs.values()),
+        max_abs_err_by_output=errs, ms=device_ms(run_k, launches=20),
+        host_paced_ms=time_ms(run_k), timing=DCN_TIMING,
+        plain_ms=time_ms(run_p, iters=3, warmup=1), bound_ms=bnd,
+        bound_by=by, library_ms=None,
+        library="none: no single PyTorch call computes a deformable conv's "
+        "gradients")
+    del x, off, msk, wgt, got, got_b, gout
+    for name, n in (("warp_translate", 2 * JHMDB_BATCH),
+                    ("warp_bwd", JHMDB_BATCH)):
+        img = torch.randn(n, 48, h, w, generator=gen, device="cuda").to(dtype)
+        offs = (torch.rand(n, 2, generator=gen, device="cuda") * 2 - 1) * 40.0
+        grid = translation_grid(offs, h, w, dtype)
+        if name == "warp_translate":
+            run_k = lambda: warp_translate(img, offs, max_shift=26)
+            run_p = lambda: warp_translate_plain(img, offs, 26)
+            run_l = lambda: torch.nn.functional.grid_sample(
+                img, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True)
+            got = run_kernel("warp_translate Sub-JHMDB", run_k)
+            err = check_close("warp_translate Sub-JHMDB", got, run_p(),
+                              dtype)[0]
+            bnd, by = bound_ms(nbytes(img, offs, got), 9 * img.numel(), dtype)
+            library = ("F.grid_sample(bilinear, zeros, align_corners=True) "
+                       "on a precomputed grid")
+        else:
+            gout = torch.randn(img.shape, generator=gen,
+                               device="cuda").to(dtype)
+            run_k = lambda: warp_translate_backward(img, offs, gout, 26)
+            run_p = lambda: warp_translate_backward_plain(img, offs, gout, 26)
+            run_l = lambda: torch.ops.aten.grid_sampler_2d_backward(
+                gout, img, grid, 0, 0, True, [True, True])
+            got = run_kernel("warp_bwd Sub-JHMDB", run_k)
+            ref = run_p()
+            err = max(check_close("warp_bwd d_images Sub-JHMDB", got[0],
+                                  ref[0], dtype)[0],
+                      check_close("warp_bwd d_offsets Sub-JHMDB", got[1],
+                                  ref[1], torch.float32)[0])
+            bnd, by = bound_ms(nbytes(img, offs, gout, *got),
+                               30 * img.numel(), dtype)
+            library = WARP_BWD_LIBRARY
+        rows[name, "jhmdb"] = dict(
+            shape=[n, 48, h, w], max_shift=26, max_abs_err=err,
+            ms=device_ms(run_k), host_paced_ms=time_ms(run_k),
+            plain_ms=time_ms(run_p), bound_ms=bnd, bound_by=by,
+            library_ms=device_ms(run_l), library=library,
+            timing=DEVICE_TIMING)
+        del img, offs, grid, got
+    for (name, _), row in rows.items():
+        emit("kernels", kernel=name, path="Sub-JHMDB", dtype="bfloat16",
+             **row)
     torch.cuda.empty_cache()
     return rows
 
@@ -736,6 +857,7 @@ def phase_kernels(hgmma):
         del x, off, msk, got
     torch.cuda.empty_cache()
     rows.update(block_kernel_rows(gen))
+    rows.update(jhmdb_kernel_rows(gen))
 
     # the forward warp at the shapes the main paths give it: 128 images (one
     # call for the 4 supporting frames of a B=32 val batch), 32 images (the
@@ -1560,7 +1682,7 @@ def dcn_bwd_on_model_inputs(trainer, state, batch):
         mask_abs_max=float(msk.float().abs().max()))
 
 
-def phase_train(smi, batch=8, epoch_steps=4, timed_steps=7, split_steps=3,
+def phase_train(smi, batch=8, epoch_steps=4, timed_steps=5, split_steps=3,
                 fixed_steps=8):
     import tempfile
 
@@ -1947,7 +2069,7 @@ def phase_train_card_vs_cpu():
 # people, 4 steps of 8
 LEVERS_TRAIN_IMAGES = 16
 LEVERS_STEPS = 4
-LEVERS_TIMED_STEPS = 5
+LEVERS_TIMED_STEPS = 4
 # the rule for a bf16 gradient tensor against a reference's
 # (tests/test_torch_train_levers.py holds the port against JAX with it, and
 # phase train-levers the card against the port on the CPU): a tensor is held
@@ -2226,7 +2348,7 @@ def bf16_cast_ms(model, reps=10):
     return dict(parameters=len(params), reps=reps, **times)
 
 
-def lever_turns(trainer, raws, rounds=3, steps=3):
+def lever_turns(trainer, raws, rounds=2, steps=2):
     """Host ms of a synchronised train step without a lever and with
     ``BF16_GRADS`` alone, in turns (none, bf16, bf16, none, each
     ``steps`` steps after one warm-up, ``rounds`` times)."""
@@ -3058,6 +3180,279 @@ def phase_val(smi, root):
     return main["launches"], dirs
 
 
+JHMDB_CFG = "configs/jhmdb/fami_pose.yaml"
+# the Sub-JHMDB fixture: clips x frames, one person a frame, every frame
+# labelled; the same clips are the train and the val split
+JHMDB_CLIPS, JHMDB_FRAMES = 2, 16
+JHMDB_BATCH = 8  # the file's TRAIN / VAL.BATCH_SIZE_PER_GPU 32, cut to 8
+JHMDB_TIMED = 5  # synchronised eval and train steps timed
+
+
+def write_jhmdb_fixture(root, seed=0, w=320, h=240):
+    """A seeded synthetic Sub-JHMDB-style dataset under ``root``: jpeg
+    frames ``images/clip_000c/0000000f.jpg`` (8 digits from 1), one person a
+    frame with 15 visible joints in the JHMDB order and a box, in the COCO
+    json ``json/jhmdb_train.json`` and ``json/jhmdb_val.json`` (the same
+    clips: the dataset reads GT boxes in both). Returns (json_dir,
+    img_dir)."""
+    import cv2
+
+    rs = np.random.RandomState(seed)
+    img_dir = os.path.join(root, "images")
+    json_dir = os.path.join(root, "json")
+    os.makedirs(json_dir)
+    images, annotations = [], []
+    for v in range(JHMDB_CLIPS):
+        clip = f"clip_{v:04d}"
+        os.makedirs(os.path.join(img_dir, clip))
+        center = rs.uniform([100, 90], [w - 100, h - 90])
+        skeleton = rs.uniform([-50, -80], [50, 80], size=(15, 2))
+        velocity = rs.uniform(-2, 2, size=2)
+        for f in range(1, JHMDB_FRAMES + 1):
+            fname = f"{clip}/{f:08d}.jpg"
+            cv2.imwrite(os.path.join(img_dir, fname),
+                        rs.randint(0, 256, size=(h, w, 3), dtype=np.uint8))
+            img_id = len(images) + 1
+            images.append(dict(id=img_id, file_name=fname, width=w, height=h,
+                               nframes=JHMDB_FRAMES, frame_id=f, vid_id=clip,
+                               is_labeled=True))
+            pts = np.clip(center + f * velocity + skeleton, [2, 2],
+                          [w - 3, h - 3])
+            x0, y0 = pts.min(0) - 8
+            x1, y1 = pts.max(0) + 8
+            kps = np.concatenate([pts, np.ones((15, 1))], axis=1)
+            annotations.append(dict(
+                id=len(annotations) + 1, image_id=img_id, category_id=1,
+                bbox=[float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                area=float((x1 - x0) * (y1 - y0)), iscrowd=0,
+                keypoints=[float(t) for t in kps.ravel()], track_id=0))
+    for split in ("train", "val"):
+        with open(os.path.join(json_dir, f"jhmdb_{split}.json"), "w") as fh:
+            json.dump(dict(images=images, annotations=annotations,
+                           categories=[dict(id=1, name="person")]), fh)
+    return json_dir, img_dir
+
+
+def jhmdb_cfg(root, dirs, *opts):
+    """``configs/jhmdb/fami_pose.yaml`` at full width pointed at the
+    fixture, batches of ``JHMDB_BATCH``, with the command line namespace
+    ``Runner`` reads."""
+    import types
+
+    from fami_pose_torch.config import get_cfg
+
+    json_dir, img_dir = dirs
+    args = types.SimpleNamespace(
+        cfg=os.path.join(ROOT, JHMDB_CFG),
+        opts=["OUTPUT_DIR", os.path.join(root, "out"),
+              "DATASET.JSON_DIR", json_dir, "DATASET.IMG_DIR", img_dir,
+              "DATASET.TEST_IMG_DIR", img_dir,
+              "TRAIN.BATCH_SIZE_PER_GPU", JHMDB_BATCH,
+              "VAL.BATCH_SIZE_PER_GPU", JHMDB_BATCH, "TRAIN.END_EPOCH", 1,
+              "TRAIN.AUTO_RESUME", False, "WORKERS", 4, *opts],
+        root_dir=ROOT, device="cuda", val_from_checkpoint=-1)
+    return get_cfg(args), args
+
+
+def synced_ms(fn, reps=JHMDB_TIMED):
+    """Median host ms of ``fn`` from one device synchronisation to the
+    next, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_jhmdb(smi, root):
+    """The Sub-JHMDB configuration (``configs/jhmdb/fami_pose.yaml``:
+    HRNet-W48, 256x256, 15 joints, ``DISTANCE: 2`` so 2 supporting frames,
+    bf16) through the port's entry points at full width: the flip-tested
+    eval step at B = 8 with ``JHMDB_FLIP_PAIRS`` (launches, ms, a traced
+    step's device-busy ms), its f32 forward on the card against the CPU
+    (phase card-vs-cpu's tolerance), ``Trainer`` for one epoch of B = 8
+    steps on the fixture's train split (launches, ms a step), and
+    ``Runner.launch(val=True)`` on the checkpoint it wrote, scored with the
+    dataset's PCK (GT as predictions -> 100). Returns the launches of the
+    phase by kernel."""
+    from fami_pose_torch.data.jhmdb import JHMDB_FLIP_PAIRS
+    from fami_pose_torch.engine.runner import Runner
+    from fami_pose_torch.engine.steps import make_eval_step
+    from fami_pose_torch.engine.trainer import Trainer
+    from fami_pose_torch.models.bridge import (
+        calibrate_batch_norm, init_weights,
+    )
+    from fami_pose_torch.models.fami_pose import FAMIPose
+
+    t0 = time.perf_counter()
+    dirs = write_jhmdb_fixture(os.path.join(root, "jhmdb_data"))
+    n_samples = JHMDB_CLIPS * JHMDB_FRAMES
+    cfg, _ = jhmdb_cfg(root, dirs)
+    w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
+    gen = torch.Generator().manual_seed(0)
+    model = init_weights(FAMIPose.from_config(cfg), seed=0).cuda().eval()
+    num_sup, joints = model.num_sup, int(cfg.MODEL.NUM_JOINTS)
+    if (num_sup, joints, (w, h)) != (2, 15, (256, 256)):
+        raise AssertionError(f"Sub-JHMDB model: {num_sup} supporting "
+                             f"frames, {joints} joints, {w}x{h}")
+    frames = torch.randn(JHMDB_BATCH, 3 * (1 + num_sup), h, w, generator=gen)
+    with torch.inference_mode():
+        calibrate_batch_norm(model, frames[:2, :3].cuda(),
+                             frames[:2, 3:].cuda())
+    kf, sup = frames[:, :3].cuda(), frames[:, 3:].cuda()
+
+    # the flip-tested eval step at B = 8 with the dataset's flip pairs
+    step = make_eval_step(model, flip_test=True, flip_pairs=JHMDB_FLIP_PAIRS)
+    step(kf, sup)
+    torch.cuda.synchronize()
+    reset_launches()
+    final, kf_bb = step(kf, sup)
+    torch.cuda.synchronize()
+    eval_launches = read_launches()
+    want = {"dcn_fwd": 8, "dcn_bwd": 0, "warp_translate": 2, "warp_bwd": 0}
+    if eval_launches != want:
+        raise AssertionError(f"Sub-JHMDB eval step launches {eval_launches}, "
+                             f"expected {want}")
+    hm = (JHMDB_BATCH, joints, h // 4, w // 4)
+    for name, t in (("final", final), ("kf_bb", kf_bb)):
+        if tuple(t.shape) != hm or not torch.isfinite(t).all():
+            raise AssertionError(f"Sub-JHMDB {name} heatmaps {tuple(t.shape)}"
+                                 ", expected finite " + str(hm))
+    eval_ms = synced_ms(lambda: step(kf, sup))
+    eval_trace = profile_call(lambda: step(kf, sup))
+
+    # card against the CPU: the same weights in f32, TF32 off, one key frame
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev).float()
+        m.compute_dtype = torch.float32
+        t1 = time.perf_counter()
+        outs[dev] = make_eval_step(m, flip_test=True,
+                                   flip_pairs=JHMDB_FLIP_PAIRS)(
+            kf[:1].to(dev), sup[:1].to(dev))[0].cpu()
+        outs[dev + "_s"] = time.perf_counter() - t1
+        del m
+    err = max_err(outs["cuda"], outs["cpu"])
+    scale = max(1.0, float(outs["cpu"].abs().max()))
+    tol = 1e-3 * scale  # phase card-vs-cpu's
+    if not math.isfinite(err) or err > tol:
+        raise AssertionError(f"Sub-JHMDB card vs CPU: max abs diff {err} > "
+                             f"{tol}")
+    del model, step, final, kf_bb
+    torch.cuda.empty_cache()
+
+    # Trainer: one epoch of B = 8 steps on the fixture's train split, the
+    # checkpoint into the Runner's directory; then the trainer's own step
+    # timed on the loader's batches
+    runner = Runner(*jhmdb_cfg(root, dirs))
+    tcfg, _ = jhmdb_cfg(root, dirs)
+    trainer = Trainer(tcfg, output_dirs=runner.dirs, device="cuda")
+    steps = trainer.steps_per_epoch
+    if steps != n_samples // JHMDB_BATCH or len(trainer.dataset) != n_samples:
+        raise AssertionError(f"Sub-JHMDB train split: {len(trainer.dataset)} "
+                             f"samples, {steps} steps")
+    reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state = trainer.train()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t1
+    train_launches = read_launches()
+    want = {"dcn_fwd": 4 * steps, "dcn_bwd": 4 * steps,
+            "warp_translate": num_sup * steps, "warp_bwd": num_sup * steps}
+    if train_launches != want:
+        raise AssertionError(f"Sub-JHMDB train launches {train_launches}, "
+                             f"expected {want}")
+    raws = list(trainer.loader)
+    batch0 = trainer.prepare(raws[0])
+    metrics = trainer.train_step(state, batch0)[1]
+    bad = [k for k, v in metrics.items() if not math.isfinite(float(v))]
+    if bad:
+        raise AssertionError(f"Sub-JHMDB train step: non-finite {bad}")
+    train_ms = synced_ms(lambda: trainer.train_step(state, batch0))
+    train_trace = profile_call(lambda: trainer.train_step(state, batch0))
+    ckpts = sorted(os.listdir(runner.dirs["checkpoints"]))
+    del trainer, state, raws, batch0
+    torch.cuda.empty_cache()
+
+    # --val on the checkpoint the trainer wrote: flip-tested, PCK
+    vcfg, vargs = jhmdb_cfg(root, dirs)
+    val_runner = Runner(vcfg, vargs)
+    reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    results = val_runner.launch(val=True)
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t1
+    val_launches = read_launches()
+    # VAL.FLIP_VAL is off in this file: one forward a batch, 4 DCN + 1 warp
+    batches = math.ceil(n_samples / JHMDB_BATCH)
+    passes = 2 if bool(vcfg.VAL.FLIP_VAL) else 1
+    want = {"dcn_fwd": 4 * passes * batches, "dcn_bwd": 0,
+            "warp_translate": passes * batches, "warp_bwd": 0}
+    if val_launches != want:
+        raise AssertionError(f"Sub-JHMDB val launches {val_launches}, "
+                             f"expected {want}")
+    ev = val_runner.evaluator
+    ((path, tables),) = results["val"].items()
+    pck = {tag: dict(tables[tag][0]) for tag in tables}
+    for tag, table in pck.items():
+        if not all(math.isfinite(v) and 0.0 <= v <= 100.0
+                   for v in table.values()):
+            raise AssertionError(f"Sub-JHMDB PCK [{tag}] {table}")
+    if ev.timings["samples"] != n_samples or not np.all(
+            np.isfinite(ev.all_preds)):
+        raise AssertionError("Sub-JHMDB val: samples or predictions")
+    gt = np.zeros_like(ev.all_preds)
+    for i, item in enumerate(ev.dataset.data):
+        gt[i, :, :2] = item["joints_3d"][:, :2]
+        gt[i, :, 2] = 0.9
+    gt_table, gt_mean = ev.dataset.evaluate(vcfg, gt, root, ev.all_boxes,
+                                            ev.img_path_map)
+    if abs(gt_mean - 100.0) > 1e-9:
+        raise AssertionError(f"Sub-JHMDB GT as predictions: {dict(gt_table)}")
+    t = ev.timings
+    launches = {k: eval_launches[k] + train_launches[k] + val_launches[k]
+                for k in KERNEL_COUNTERS}
+    emit("jhmdb", config=JHMDB_CFG, card=smi,
+         model="FAMIPose HRNet-W48 256x256 bf16 15 joints DISTANCE 2 "
+         "(num_sup=2)", fixture=f"{JHMDB_CLIPS} clips x {JHMDB_FRAMES} "
+         "frames, 1 person, 320x240 jpeg, seeded", batch_size=JHMDB_BATCH,
+         batch_size_note="the file's TRAIN and VAL.BATCH_SIZE_PER_GPU 32, "
+         "cut to 8",
+         weights="seeded init (seed 0), BatchNorm calibrated; --val on the "
+         "trainer's epoch_0 checkpoint",
+         eval_step=dict(flip_test=True, flip_pairs="JHMDB_FLIP_PAIRS",
+                        launches=eval_launches, ms=eval_ms,
+                        key_frames_per_s=JHMDB_BATCH / (eval_ms / 1e3),
+                        timed=f"median of {JHMDB_TIMED} synchronised calls",
+                        trace=eval_trace),
+         card_vs_cpu=dict(dtype="float32", tf32="off", key_frames=1,
+                          flip_test=True, max_abs_diff=err, tol=tol,
+                          heatmap_absmax=float(outs["cpu"].abs().max()),
+                          cuda_s=outs["cuda_s"], cpu_s=outs["cpu_s"]),
+         train=dict(entry="Trainer(cfg).train()", steps=steps,
+                    launches=train_launches, epoch_seconds=epoch_s,
+                    step_ms_median=train_ms,
+                    samples_per_s=JHMDB_BATCH / (train_ms / 1e3),
+                    last_metrics={k: float(v) for k, v in metrics.items()},
+                    checkpoints=ckpts, trace=train_trace),
+         val=dict(entry="Runner(cfg, args).launch(val=True)",
+                  flip_test=bool(vcfg.VAL.FLIP_VAL),
+                  checkpoint=os.path.basename(path), samples=t["samples"],
+                  batches=t["batches"], launches=val_launches,
+                  pck_final=pck["final"], pck_backbone=pck["backbone"],
+                  gt_as_predictions_mean=gt_mean, launch_seconds=val_s,
+                  samples_per_s=t["samples"] / t["loop_s"],
+                  loader_share=t["loader_s"] / t["loop_s"]),
+         phase_seconds=time.perf_counter() - t0)
+    return launches
+
+
 INT8_OPTS = ("TPU.INT8_EVAL", True, "TPU.INT8_CALIB_BATCHES", 2,
              "TPU.DCN_AUTO_WINDOW", True)
 # the int8 convs of one W48 FAMIPose forward: the backbone's 292 (all but
@@ -3676,18 +4071,33 @@ def block_card_vs_cpu(name, kw, x, cot, seed=1):
     return errs, seen
 
 
+def block_for(c, c_out, groups):
+    """The deform block of a width case: AdaptBlockV2 with its masks for 2
+    offset groups, DeformBlock (DCNv1) for one; a downsample shortcut where
+    C != C_out."""
+    from fami_pose_torch.models import deform_blocks
+
+    if groups > 1:
+        return deform_blocks.AdaptBlockV2(c, c_out, deformable_groups=groups,
+                                          has_downsample=c != c_out)
+    return deform_blocks.DeformBlock(c, c_out, has_downsample=c != c_out)
+
+
 def remainder_blocks():
     """Each deform block at C = 64, 96x72, B = 8, bf16, forward and
     backward on the card (one ``dcn_fwd`` and one ``dcn_bwd`` launch a
     block, counted); at C = 48 in f32 (TF32 off) against the port on the
-    CPU with the same weights; and the kernels' refusals by name. Returns
-    the report and the DCN launches by offset groups."""
-    import torch.nn.functional as F
-
+    CPU with the same weights, and DeformBlock at C = 96 likewise; then a
+    block at each width of ``BLOCK_DCN_CASES`` (the kernels once refused
+    most of them), a train-mode forward and backward on the card in the
+    case's type, its launches counted. Returns the report and the DCN
+    launches by case key."""
     from fami_pose_torch.models import deform_blocks
 
     gen = torch.Generator().manual_seed(0)
-    report, launches = {}, {}
+    report = {}
+    one_each = {"dcn_fwd": 1, "dcn_bwd": 1, "warp_translate": 0,
+                "warp_bwd": 0}
     for name, kw in REMAINDER_BLOCKS:
         cls = getattr(deform_blocks, name)
         groups = kw.get("deformable_groups", 1)
@@ -3702,8 +4112,7 @@ def remainder_blocks():
         got, grads = block_step(card, x, cot)
         torch.cuda.synchronize()
         seen = read_launches()
-        if seen != {"dcn_fwd": 1, "dcn_bwd": 1, "warp_translate": 0,
-                    "warp_bwd": 0}:
+        if seen != one_each:
             raise AssertionError(f"{name} bf16 launches {seen}")
         if not all(torch.isfinite(t).all() for t in
                    list(got.values()) + list(grads.values())):
@@ -3723,10 +4132,6 @@ def remainder_blocks():
                                  f"{errs[worst]} of its scale")
         if f32_seen != seen:
             raise AssertionError(f"{name} f32 launches {f32_seen}")
-        for k in ("dcn_fwd", "dcn_bwd"):
-            by_groups = launches.setdefault(groups, {"dcn_fwd": 0,
-                                                     "dcn_bwd": 0})
-            by_groups[k] += seen[k] + f32_seen[k]
         report[name] = dict(
             offset_groups=groups, mask=name == "AdaptBlockV2",
             bf16=dict(shape=[8, 64, 96, 72], launches=seen,
@@ -3736,35 +4141,45 @@ def remainder_blocks():
                                  worst=worst, worst_rel_err=errs[worst],
                                  tol=BLOCK_F32_TOL))
 
-    # the kernels' widths, refused on the card by name
-    refusals = {}
-    cases = (("f32 forward, C = 64", lambda: deform_blocks.DeformBlock(
-        64, 64).cuda()(torch.zeros(1, 64, 8, 8, device="cuda"))),
-             ("bf16 forward, C_out = 24", lambda: deform_blocks.DeformBlock(
-                 24, 24).cuda()(torch.zeros(1, 24, 8, 8, device="cuda",
-                                            dtype=torch.bfloat16))))
-    for what, fn in cases:
-        try:
-            fn()
-        except ValueError as e:
-            refusals[what] = str(e)
-        else:
-            raise AssertionError(f"the DCN kernels took the {what}")
-    block = deform_blocks.AdaptBlock(80, 64, has_downsample=True).cuda()
-    x = torch.zeros(1, 80, 8, 8, device="cuda", dtype=torch.bfloat16,
-                    requires_grad=True)
-    out = block(x)  # the forward takes C = 80
-    try:
-        F.relu(out).float().sum().backward()
-    except ValueError as e:
-        refusals["bf16 backward, C = 80"] = str(e)
-    else:
-        raise AssertionError("the DCN backward took C = 80")
-    if not all(m in r for m, r in zip(
-            ("shared memory", "C_out in 16/32/48/64", "C <= 64"),
-            refusals.values())):
-        raise AssertionError(f"refusals {refusals}")
-    report["refused_by_name"] = refusals
+    # a block at C = 96 (two of the backward's 64-channel slices, the
+    # forward's chunks and two Cout tiles), f32 card against the CPU
+    x = torch.randn(BLOCK_F32_BATCH, 96, 48, 36, generator=gen)
+    errs, seen96 = block_card_vs_cpu("DeformBlock", {}, x,
+                                     torch.randn(x.shape, generator=gen))
+    worst = max(errs, key=errs.get)
+    if errs[worst] > BLOCK_F32_TOL or seen96 != one_each:
+        raise AssertionError(f"DeformBlock C = 96 f32 card vs CPU: {worst} "
+                             f"off by {errs[worst]} of its scale, launches "
+                             f"{seen96}")
+    report["DeformBlock C=96"] = dict(
+        f32_card_vs_cpu=dict(shape=list(x.shape), tf32="off", launches=seen96,
+                             worst=worst, worst_rel_err=errs[worst],
+                             tol=BLOCK_F32_TOL))
+
+    # a block at each width case: the widths the kernels take now
+    launches, widths = {}, {}
+    for dtype, c, c_out, groups, (h, w) in BLOCK_DCN_CASES:
+        key = block_case_key(dtype, c, c_out, groups)
+        torch.manual_seed(0)
+        card = block_for(c, c_out, groups).cuda()
+        x = torch.randn(BLOCK_BATCH, c, h, w, generator=gen).cuda().to(
+            dtype).requires_grad_(True)
+        cot = torch.randn(BLOCK_BATCH, c_out, h, w, generator=gen).cuda()
+        reset_launches()
+        got, grads = block_step(card, x, cot)
+        torch.cuda.synchronize()
+        seen = read_launches()
+        if seen != one_each:
+            raise AssertionError(f"block {key}: launches {seen}")
+        if not all(torch.isfinite(t).all() for t in
+                   list(got.values()) + list(grads.values())):
+            raise AssertionError(f"block {key}: non-finite output or "
+                                 "gradient")
+        launches[key] = {k: seen[k] for k in ("dcn_fwd", "dcn_bwd")}
+        widths[key] = dict(block=type(card).__name__,
+                           shape=[BLOCK_BATCH, c, h, w], launches=seen)
+        del card, x, cot, got, grads
+    report["widths"] = widths
     torch.cuda.empty_cache()
     return report, launches
 
@@ -4801,6 +5216,8 @@ def main():
         torch.cuda.empty_cache()
         block_launches = timed("remainder", phase_remainder, smi, root, dirs)
         torch.cuda.empty_cache()
+        jhmdb = timed("jhmdb", phase_jhmdb, smi, root)
+        torch.cuda.empty_cache()
         distributed = timed("distributed", phase_distributed, smi, root,
                             dirs)
     emit("timeline", seconds_by_phase=timeline,
@@ -4878,17 +5295,23 @@ def main():
                 model_inputs=model_dcn_bwd, **rows[name]))
         if name in ("dcn_fwd", "dcn_bwd"):
             # the deform blocks (phase remainder): exact, dilation 1, one
-            # group without a mask (AdaptBlock, DeformBlock) or two with one
-            # (AdaptBlockV2); launches of their bf16 and f32 runs
-            for groups in (1, 2):
+            # group without a mask (DeformBlock) or two with one
+            # (AdaptBlockV2), at each width case; launches of phase
+            # remainder's run of a block at that width
+            for dtype, c, c_out, groups, _ in BLOCK_DCN_CASES:
+                key = block_case_key(dtype, c, c_out, groups)
                 kernels.append(dict(
                     common, path="deform blocks",
-                    launches=block_launches[groups][name],
-                    launches_of="phase remainder's block runs, bf16 at "
-                    "C = 64 and f32 at C = 48, one a block each",
-                    blocks="AdaptBlockV2" if groups == 2
-                    else "AdaptBlock, DeformBlock",
-                    **rows[name, "blocks", groups]))
+                    launches=block_launches[key][name],
+                    launches_of="phase remainder's train step of one block "
+                    "at this width", width=key,
+                    blocks="AdaptBlockV2" if groups == 2 else "DeformBlock",
+                    **rows[name, "blocks", key]))
+        # the Sub-JHMDB path (phase jhmdb): its eval step, train epoch and
+        # --val, each driven with the counts set to 0 just before it
+        kernels.append(dict(
+            common, path="Sub-JHMDB (configs/jhmdb/fami_pose.yaml)",
+            launches=jhmdb[name], **rows[name, "jhmdb"]))
     for name in INT8_COUNTERS:
         kernels.append(dict(
             name=name, route="cuda", source=csrc + "int8_conv.cu",

@@ -2,12 +2,16 @@
 
     python -m fami_pose_torch.demo --cfg configs/posetrack17/fami_pose.yaml \\
         --frames /path/to/frames_dir --boxes boxes.json \\
-        --weights fami_pose_state_dict.pt --out demo_out [--device cuda] \\
-        [--streaming] [--vis]
+        --checkpoint output/.../epoch_19_state.ckpt --out demo_out \\
+        [--device cuda] [--streaming] [--vis]
 
-The flags are those of ``tools/demo.py`` plus ``--weights`` (a port
-``state_dict`` saved with ``torch.save``; without it the weights are the
-seeded random init) and ``--device``. ``--boxes`` is a json list of
+The flags are those of ``tools/demo.py`` plus ``--weights`` and
+``--device``. ``--checkpoint`` is a checkpoint the port's trainer wrote
+(``epoch_N_state.ckpt``), read with ``engine/checkpoints.load_variables``
+as ``tools/demo.py`` reads its trainer's; the JAX trainer's file of the same
+name (flax msgpack) is refused by name. ``--weights`` is a port
+``state_dict`` saved with ``torch.save``. With neither the weights are the
+seeded random init. ``--boxes`` is a json list of
 ``{"frame": <index-or-filename>, "bbox": [x, y, w, h], "score": s}``; omit it
 for one full-frame box per frame. Writes ``<out>/keypoints.json`` in the
 format of ``tools/demo.py``. Flip-test follows ``VAL.FLIP_VAL``'s default of
@@ -45,7 +49,9 @@ def parse_args(argv=None):
     p.add_argument("--frames", required=True, help="directory of ordered frames")
     p.add_argument("--boxes", default="", help="per-frame person boxes json")
     p.add_argument("--checkpoint", default="",
-                   help="JAX checkpoint: not readable by the port, use --weights")
+                   help="a checkpoint of the port's trainer "
+                   "(epoch_N_state.ckpt); a JAX (flax msgpack) one is "
+                   "refused")
     p.add_argument("--weights", default="", help="port state_dict (torch.save)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--out", default="demo_out")
@@ -60,9 +66,9 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.checkpoint:
-        raise SystemExit("--checkpoint is not supported by the port: convert "
-                         "it with models.bridge and pass --weights")
+    if args.checkpoint and args.weights:
+        raise SystemExit("--checkpoint and --weights both name the weights: "
+                         "pass one")
     args.root_dir = "."
 
     import cv2
@@ -93,9 +99,13 @@ def main(argv=None):
                 boxes_by_frame.setdefault(idx, []).append(
                     (det["bbox"], det.get("score", 1.0))
                 )
-    state_dict = (
-        torch.load(args.weights, map_location="cpu") if args.weights else None
-    )
+    state_dict = None
+    if args.checkpoint:
+        from fami_pose_torch.engine.checkpoints import load_variables
+
+        state_dict = load_variables(args.checkpoint)
+    elif args.weights:
+        state_dict = torch.load(args.weights, map_location="cpu")
     if args.streaming:
         results = stream_clip(cfg, state_dict, args.device, frames,
                               boxes_by_frame, names)

@@ -12,9 +12,9 @@ with dilation and padding ``dilation`` (1 by default), 1 or G offset groups,
 and no mask (DCNv1) except ``AdaptBlockV2``'s. On a CUDA tensor that is
 ``ops/cuda/csrc/dcn_fwd.cu`` forward and ``dcn_bwd.cu`` backward
 (``ops.deform_conv.deform_conv2d_windowed``, counted in its launch
-counters), within the kernels' widths: C_out in {16, 32, 48, 64} and, for
-the backward, C <= 64; other widths are refused there by name. A CPU
-tensor runs the plain versions at any width.
+counters) at any width, as a CPU tensor runs the plain versions: the
+kernels take any C and C_out (HRNet-W48's branches put blocks at 48, 96,
+192 and 384 channels).
 
 Blocks compute in their input's dtype (the weights are cast to it, as the
 port's ``Conv2d`` does); the affine offsets are formed in float32 and cast

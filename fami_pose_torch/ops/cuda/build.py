@@ -40,13 +40,14 @@ c_float = ctypes.c_float
 # argtypes of each C entry point (csrc/*.cu); every entry returns the
 # cudaError_t of its launch as an int
 SIGNATURES = {
-    # x, x_grouped (scratch of x's size), offset, mask, weight, out, dtype,
-    # B, C, H, W, Cout, Ho, Wo, kh, kw, pad, dil, groups, max_offset, stream
-    "fami_dcn_fwd": [c_ptr] * 6 + [c_int] * 13 + [c_float, c_ptr],
+    # x, x_grouped (scratch of x's size), offset, mask, weight, out, work
+    # (scratch of fami_dcn_fwd_workspace bytes), dtype, B, C, H, W, Cout, Ho,
+    # Wo, kh, kw, pad, dil, groups, max_offset, stream
+    "fami_dcn_fwd": [c_ptr] * 7 + [c_int] * 13 + [c_float, c_ptr],
     # x, x_grouped, offset, mask, weight, gout, dx, doffset, dmask, dweight,
-    # dx_acc, dw_part (scratch), dw_slots, dtype, B, C, H, W, Cout, Ho, Wo,
-    # kh, kw, pad, dil, groups, max_offset, stream
-    "fami_dcn_bwd": [c_ptr] * 12 + [c_int] * 14 + [c_float, c_ptr],
+    # dx_acc, work (f32 scratch of fami_dcn_bwd_workspace elements), dtype,
+    # B, C, H, W, Cout, Ho, Wo, kh, kw, pad, dil, groups, max_offset, stream
+    "fami_dcn_bwd": [c_ptr] * 12 + [c_int] * 13 + [c_float, c_ptr],
     # images, offsets, out, dtype, blend, N, C, H, W, max_shift, stream
     "fami_warp_translate": [c_ptr] * 3 + [c_int] * 6 + [c_float, c_ptr],
     # images, offsets, gout, d_images, d_offsets, partials (scratch), dtype,
@@ -158,6 +159,13 @@ def load_library():
     # dtype, C, H, W -> blocks a warp_bwd launch gives each image
     lib.fami_warp_translate_bwd_blocks.argtypes = [c_int] * 4
     lib.fami_warp_translate_bwd_blocks.restype = ctypes.c_longlong
+    # dtype, C, Cout, kh, kw -> bytes of the DCN forward's workspace
+    lib.fami_dcn_fwd_workspace.argtypes = [c_int] * 5
+    lib.fami_dcn_fwd_workspace.restype = ctypes.c_longlong
+    # B, C, Cout, Ho, Wo, kh, kw, groups -> float32 elements of the DCN
+    # backward's workspace on the current device
+    lib.fami_dcn_bwd_workspace.argtypes = [c_int] * 8
+    lib.fami_dcn_bwd_workspace.restype = ctypes.c_longlong
     return lib
 
 

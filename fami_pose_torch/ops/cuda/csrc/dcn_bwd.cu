@@ -17,8 +17,8 @@
 //                  -sign(u) * (|u| < 1) vanishes at u = 0 and |u| = 1) and
 //                  zero where the raw offset lies outside [-D, D]
 //   dx[c][corner] += m * w_corner * dcol[k][c]         (the sampling adjoint)
-// No bias: its gradient is a plain sum of gout outside the kernel, as on the
-// TPU.
+// for any C >= 1 with C % G == 0 and any Cout >= 1. No bias: its gradient is
+// a plain sum of gout outside the kernel, as on the TPU.
 //
 // The TPU form (128-lane rows, group-minor channels, a loop over the (2D+1)^2
 // integer shifts of the hat window, rolls for the dx adjoint, two kernels) is
@@ -44,53 +44,71 @@
 //      the Cg channels of one group at one corner are one vector load, and
 //      zeroes the float32 dx accumulator of the same order.
 //   1. dcn_bwd_bf16_kernel: persistent blocks of 256 threads, two an SM at
-//      the main-path shape. The taps are cut into groups of 3 (the dW
-//      accumulators of all 9 would not fit in registers); a block owns one
-//      tap group (blockIdx % tap groups) and walks 64-pixel tiles with it.
-//      Its slice of W (3 taps: Cout x 3C, bf16) is staged once as the
-//      wgmma B operand, beside a table of its gather units (group, tap).
-//      For each tile:
-//        a. the gout tile is staged twice in bf16: [pixel][o] (the A
-//           operand of dcol) and [o][pixel] (the A operand of dW);
-//        b. dcol[64 px][3C] = gout^T . W_slice on the tensor cores (wgmma
-//           m64 n24 k16, Cout / 16 k-steps, each warpgroup half of the
-//           columns), the f32 result stored to shared memory;
-//        c. all 256 threads sample: one unit is (pixel, group, tap), all Cg
-//           channels. It reads its offsets and mask, gathers the 4 corners
-//           (one 8-byte load each for Cg = 4 in bf16), reads dcol (one
-//           16-byte shared load), writes m * S to the column in bf16 (the
-//           wgmma B operand of dW), writes doffset and dmask, and adds
-//           m * w_corner * dcol into the dx accumulator with one float4
-//           atomic a corner (vector atomics exist for global memory on
-//           compute capability 9.x; corners of weight 0 are skipped; Cg not
-//           a multiple of 4 takes scalar atomics). A tile's dx summed in
+//      the main-path shape. A block owns one work item (tap group, channel
+//      chunk, Cout chunk) and walks 64-pixel tiles with it:
+//        - the taps are cut into groups of 3 (the dW accumulators of all 9
+//          would not fit in registers);
+//        - the channels into chunks of at most 64 (padded to CP = 16, 32,
+//          48 or 64 columns a tap): whole offset groups where a group has
+//          at most 64 channels (C = 48, G = 12 on the main path is one
+//          chunk), else 64-channel slices of one group;
+//        - the output channels into chunks of 64 (one on the main path),
+//          the M of the dW tile. Only the block of the first Cout chunk
+//          forms dcol (all of Cout) and writes the sampling side's outputs;
+//          the others sample their column for their rows of dW alone.
+//      Where Cout <= 64 the block stages its slice of W (3 taps: Cout x
+//      3CP, bf16) once as the wgmma B operand, else one 64-row chunk of it
+//      at a time, beside a table of its gather units (group, tap). For each
+//      tile:
+//        a. the gout tile is staged in bf16: [pixel][o] (the A operand of
+//           dcol, one 64-row Cout chunk at a time) and [o][pixel] (the A
+//           operand of dW, the block's Cout chunk);
+//        b. dcol[64 px][3CP] = gout^T . W_slice on the tensor cores (wgmma
+//           m64 n24 k16, each warpgroup half of the columns), summed in
+//           registers over the Cout chunks, the f32 result stored to shared
+//           memory;
+//        c. all 256 threads sample: one unit is (pixel, group, tap), the
+//           chunk's channels of that group. It reads its offsets and mask,
+//           gathers the 4 corners (one 8-byte load each for Cg = 4 in bf16),
+//           reads dcol (one 16-byte shared load), writes m * S to the column
+//           in bf16 (the wgmma B operand of dW), writes doffset and dmask,
+//           and adds m * w_corner * dcol into the dx accumulator with one
+//           float4 atomic a corner (vector atomics exist for global memory
+//           on compute capability 9.x; corners of weight 0 are skipped; Cg
+//           not a multiple of 4 takes scalar atomics). A tile's dx summed in
 //           shared memory first was 3x slower: a float atomicAdd to shared
-//           memory is a compare-and-swap loop on this card.
-//        d. dW[o][3C] += gout . column on the tensor cores (M = Cout padded
-//           to 64, K = the 64 pixels), the f32 accumulators held in
-//           registers across all the block's tiles.
+//           memory is a compare-and-swap loop on this card. Where a group
+//           spans several chunks (more than 64 channels), doffset and dmask
+//           are sums over the chunks: each chunk writes its f32 partial to
+//           scratch, and the finish kernel sums them in a fixed order, so
+//           that they stay deterministic (no float atomics there);
+//        d. dW[o][3CP] += gout . column on the tensor cores (M = the Cout
+//           chunk padded to 64, K = the 64 pixels), the f32 accumulators
+//           held in registers across all the block's tiles.
 //      At the end each block writes its dW slice to a float32 partial of
 //      its own (no atomics: dW is deterministic).
-//   2. finish_kernel turns the dx accumulator into NCHW in x's type and
-//      sums the blocks' dW partials into (Cout, C, kh, kw) in W's type.
+//   2. finish_kernel turns the dx accumulator into NCHW in x's type, sums
+//      the blocks' dW partials into (Cout, C, kh, kw) in W's type, and,
+//      where groups span chunks, the doffset and dmask partials.
 //   dcn_bwd_f32_kernel (float32 inputs: the card-vs-CPU checks) has the
-//   same tap groups, gathers and atomics with the column and W in f32 and
-//   both contractions as full-f32 FMA loops on the CUDA cores; TF32 would
-//   miss the 1e-4 tolerance of those checks.
+//   same work items, gathers and atomics with the column and W in f32 and
+//   both contractions as full-f32 FMA loops on the CUDA cores over 64-row
+//   Cout chunks; TF32 would miss the 1e-4 tolerance of those checks.
+// A block's shared memory is bounded by the widest chunk (CP = 64, a Cout
+// chunk of 64) whatever C and Cout are. The bf16 kernel is compiled twice:
+// the main path's calls (one Cout chunk, no group split in slices, Cout a
+// multiple of 16) without the wide branches, whose runtime forms made the
+// main-path call 5% slower in turns (PERF.md).
 // Numerics (bf16): gout and W are bf16 already, so dcol is exact products
 // summed in f32, as before; the column m * S is rounded to bf16 once for the
 // dW contraction (the one new rounding: 0.19-0.28 of the 2^-7-of-scale
 // tolerance, tests/test_torch_dcn_numerics.py); dx, dmask and doffset are
 // computed in f32 and rounded once.
 //
-// Build (nvcc 12.9, -Xptxas -v, sm_90a): dcn_bwd_bf16_kernel<48, 4> 127
-// registers, no spills, 85,120 B of dynamic shared memory at the main-path
-// shape (2 blocks an SM); the other bf16 instances 80-123 registers, no
-// spills; 33 HGMMA.64x24x16.F32.BF16 (and one HGMMA.64x8x16.F16 the
-// compiler adds) in the SASS of each C = 48 instance, 11 / 22 / 44 at C
-// padded to 16 / 32 / 64; dcn_bwd_f32_kernel 70-128 registers, 118,400 B
-// at the main-path shape, <32, 3, 1> spilling 12 bytes; prep_kernel 32-40
-// and finish_kernel 48 registers.
+// Build (nvcc 12.9, -Xptxas -v, sm_90a), before this form took every
+// width: dcn_bwd_bf16_kernel<48, 4> 127 registers, no spills, 85,120 B of
+// dynamic shared memory at the main-path shape (2 blocks an SM); 33
+// HGMMA.64x24x16.F32.BF16 in the SASS of each C = 48 instance.
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py, device-side): 0.2440-0.2461
 // ms at B=8, D = 4 (the previous scalar-atomic design 0.9871) against the
 // 0.0262 ms bound.
@@ -103,22 +121,25 @@ constexpr int kTilePix = 64;   // output pixels per tile: wgmma's M
 constexpr int kThreads = 256;  // two warpgroups
 constexpr int kTaps = 3;       // taps of one block's slice
 constexpr int kColStride = kTilePix + 4;  // f32 rows of 64 pixels, padded
+constexpr int kChunk = 64;     // channels of a chunk, rows of a Cout chunk
+constexpr int kBlocksPerSm = 2;  // the bf16 kernel's __launch_bounds__
 
 // Byte offsets of the bf16 kernel's dynamic shared memory, for the padded
-// channel count cp (C rounded up to 16) and nw = 3 * cp slice columns:
-// W slice (B of dcol, Cout x nw), gout^T (A of dcol, 64 x Cout), gout (A of
-// dW, 64 x 64, rows past Cout zero), the column (B of dW, 64 x nw), dcol
-// (f32, 64 rows of nw + 4), the unit table (16 bytes a unit).
+// chunk width cp and nw = 3 * cp slice columns, ocp = the Cout chunk's rows
+// (Cout rounded up to 16, at most 64): W slice (B of dcol, ocp x nw), gout^T
+// (A of dcol, 64 x ocp), gout (A of dW, 64 x 64, rows past Cout zero), the
+// column (B of dW, 64 x nw), dcol (f32, 64 rows of nw + 4), the unit table
+// (16 bytes a unit).
 struct BfLayout {
   size_t w, ga, gb, col, dcol, tab, total;
 };
 
-__host__ __device__ inline BfLayout bf16_layout(int cp, int cout, int units) {
+__host__ __device__ inline BfLayout bf16_layout(int cp, int ocp, int units) {
   const int nw = kTaps * cp;
   BfLayout l;
   l.w = 0;
-  l.ga = align128((size_t)cout * nw * 2);
-  l.gb = l.ga + align128((size_t)kTilePix * cout * 2);
+  l.ga = align128((size_t)ocp * nw * 2);
+  l.gb = l.ga + align128((size_t)kTilePix * ocp * 2);
   l.col = l.gb + align128((size_t)64 * kTilePix * 2);
   l.dcol = l.col + align128((size_t)kTilePix * nw * 2);
   l.tab = l.dcol + align128((size_t)kTilePix * (nw + 4) * 4);
@@ -132,28 +153,74 @@ struct F32Layout {
   size_t w, g, col, dcol, tab, total;
 };
 
-__host__ __device__ inline F32Layout f32_layout(int cp, int cout, int units) {
+__host__ __device__ inline F32Layout f32_layout(int cp, int ocp, int units) {
   const int nw = kTaps * cp;
   F32Layout l;
   l.w = 0;
-  l.g = align128((size_t)cout * nw * 4);
-  l.col = l.g + align128((size_t)cout * kColStride * 4);
+  l.g = align128((size_t)ocp * nw * 4);
+  l.col = l.g + align128((size_t)ocp * kColStride * 4);
   l.dcol = l.col + align128((size_t)nw * kColStride * 4);
   l.tab = l.dcol + align128((size_t)kTilePix * (nw + 4) * 4);
   l.total = l.tab + align128((size_t)units * 16);
   return l;
 }
 
-// ---- conversions, atomics ----------------------------------------------------
+// ---- the plan: work items and scratch ----------------------------------------
 
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
+// How a call is cut: channel chunks (cc channels of whole groups, or n_sub
+// 64-channel slices of each group), Cout chunks of 64, tap groups of 3.
+struct Plan {
+  int cc, n_sub, n_ci, n_oc, cp, ocp, gpc, tap_groups, work;
+};
+
+__host__ __device__ inline Plan make_plan(int C, int Cout, int K, int G) {
+  Plan pl;
+  const int Cg = C / G;
+  if (Cg <= kChunk) {
+    pl.gpc = kChunk / Cg;  // whole groups a chunk
+    if (pl.gpc > G) pl.gpc = G;
+    pl.cc = pl.gpc * Cg;
+    pl.n_sub = 1;
+    pl.n_ci = (G + pl.gpc - 1) / pl.gpc;
+  } else {
+    pl.gpc = 1;
+    pl.cc = kChunk;
+    pl.n_sub = (Cg + kChunk - 1) / kChunk;
+    pl.n_ci = G * pl.n_sub;
+  }
+  pl.cp = (pl.cc + 15) & ~15;
+  const int c16 = (Cout + 15) & ~15;
+  pl.ocp = c16 < kChunk ? c16 : kChunk;
+  pl.n_oc = (Cout + kChunk - 1) / kChunk;
+  pl.tap_groups = (K + kTaps - 1) / kTaps;
+  pl.work = pl.tap_groups * pl.n_ci * pl.n_oc;
+  return pl;
 }
+
+// Blocks a work item at most, given the SMs (kBlocksPerSm blocks an SM)
+int max_slots(const Plan& pl, int sms) {
+  return (kBlocksPerSm * sms + pl.work - 1) / pl.work;
+}
+
+// float32 scratch: the dW partials (a slot's copy of dW for each of its tap
+// groups), then, where groups span chunks, the doffset and dmask partials
+// of each slice
+struct Scratch {
+  long long dw, doff, dmsk, total;
+};
+
+Scratch scratch_floats(const Plan& pl, int slots, int B, int C, int Cout,
+                       int G, int K, int HWo) {
+  Scratch s;
+  s.dw = (long long)slots * pl.tap_groups * Cout * kTaps * C;
+  const long long n_msk = (long long)B * G * K * HWo;
+  s.doff = pl.n_sub > 1 ? pl.n_sub * 2 * n_msk : 0;
+  s.dmsk = pl.n_sub > 1 ? pl.n_sub * n_msk : 0;
+  s.total = s.dw + s.doff + s.dmsk;
+  return s;
+}
+
+// ---- atomics ---------------------------------------------------------------------
 
 // dx[p .. p + VW) += s * md[0 .. VW): one 16-byte atomic for VW = 4
 template <int VW>
@@ -198,8 +265,8 @@ struct StoreColF32 {
 
 struct Args {
   int B, C, H, W, Ho, Wo, kh, kw, pad, dil, G, Cout;
-  int tap_groups;  // ceil(K / 3)
   float dmax;
+  Plan pl;
 };
 
 struct Conv {
@@ -215,24 +282,66 @@ __device__ __forceinline__ Conv make_conv(const Args& a) {
   return cv;
 }
 
-// The block's units (group g, tap k0 + kk) for kk < kt, built once so that
-// the sample loop does no integer division:
-//   x = the unit's first column in the slice, kk * cp + g * Cg (also its
-//       place in a dcol row),
-//   y = offset of the group's plane in the image's (G, H, W, Cg) arrays,
+// One block's work item: tap group tg (taps k0 .. k0 + kt), channel chunk
+// ci (groups g_lo .. g_lo + gpc, channels j0 .. j0 + nc of each, which are
+// the chunk's columns c_lo .. c_lo + cw of x), Cout chunk oi (rows o0 ..
+// o0 + orows), the slice sub of its group where groups span chunks, and
+// whether it forms dcol and the sampling side's outputs (side: oi == 0).
+struct Item {
+  int tg, k0, kt, g_lo, gpc, j0, nc, c_lo, cw, sub, oi, o0, orows;
+  bool side;
+  __device__ __forceinline__ Item(int w, const Args& a, const Conv& cv) {
+    const Plan& pl = a.pl;
+    tg = w / (pl.n_ci * pl.n_oc);
+    const int rem = w - tg * pl.n_ci * pl.n_oc;
+    const int ci = rem / pl.n_oc;
+    oi = rem - ci * pl.n_oc;
+    k0 = tg * kTaps;
+    kt = min(kTaps, cv.K - k0);
+    if (pl.n_sub == 1) {
+      g_lo = ci * pl.gpc;
+      gpc = min(pl.gpc, cv.G - g_lo);
+      j0 = 0;
+      nc = cv.Cg;
+      sub = 0;
+      c_lo = g_lo * cv.Cg;
+      cw = gpc * cv.Cg;
+    } else {
+      g_lo = ci / pl.n_sub;
+      sub = ci - g_lo * pl.n_sub;
+      gpc = 1;
+      j0 = sub * kChunk;
+      nc = min(kChunk, cv.Cg - j0);
+      c_lo = g_lo * cv.Cg + j0;
+      cw = nc;
+    }
+    o0 = oi * kChunk;
+    orows = min(kChunk, a.Cout - o0);
+    side = oi == 0;
+  }
+};
+
+// The block's units (group g_lo + gi, tap k0 + kk) for kk < kt, built once
+// so that the sample loop does no integer division:
+//   x = the unit's first column in the slice, kk * cp + (its channels' first
+//       column in the chunk) (also its place in a dcol row),
+//   y = offset of the unit's first channel in the image's (G, H, W, Cg)
+//       arrays,
 //   z = (g * K + k) * HWo: its dy row in the image's offsets is 2z, its dx
 //       row 2z + HWo, its mask row z,
 //   w = the tap's displacement, (ky*dil - pad) << 16 | (kx*dil - pad).
 __device__ __forceinline__ int build_units(int4* tab, const Conv& cv, int cp,
-                                           int k0, int kt) {
-  const int n = cv.G * kt;
+                                           const Item& it) {
+  const int n = it.gpc * it.kt;
   for (int u = threadIdx.x; u < n; u += kThreads) {
-    const int g = u / kt;
-    const int kk = u - g * kt;
-    const int k = k0 + kk;
+    const int gi = u / it.kt;
+    const int kk = u - gi * it.kt;
+    const int g = it.g_lo + gi;
+    const int k = it.k0 + kk;
     const int ky = k / cv.kw;
     const int kx = k - ky * cv.kw;
-    tab[u] = make_int4(kk * cp + g * cv.Cg, g * cv.H * cv.W * cv.Cg,
+    tab[u] = make_int4(kk * cp + g * cv.Cg + it.j0 - it.c_lo,
+                       g * cv.H * cv.W * cv.Cg + it.j0,
                        (g * cv.K + k) * cv.HWo,
                        ((ky * cv.dil - cv.pad) << 16) |
                            ((kx * cv.dil - cv.pad) & 0xffff));
@@ -240,18 +349,28 @@ __device__ __forceinline__ int build_units(int4* tab, const Conv& cv, int cp,
   return n;
 }
 
+// The per-pixel outputs of one tile: doffset and dmask in T, or, where
+// groups span chunks (pdoff non-null), this slice's f32 partials of them;
+// each points at the pixel in the image's first row
+template <typename T>
+struct SideOut {
+  T *doff, *dmsk;
+  float *pdoff, *pdmsk;
+};
+
 // The sampling side of one tile for this thread's pixel p. Thread t takes
 // the units t / 64, t / 64 + 4, ..., one at a time (two in flight, their
 // loads issued together, measured 2-4% slower at the 128-register cap of
-// two blocks an SM). off / msk / doff / dmsk point at the pixel in the
+// two blocks an SM), nc channels each. off / msk point at the pixel in the
 // image's first offset and mask row (a pixel past the image points at the
 // tile's first pixel and neither gathers nor writes); xg and dxa at the
-// image's (G, H, W, Cg) arrays; dcol_p at the pixel's dcol row.
+// image's (G, H, W, Cg) arrays; dcol_p at the pixel's dcol row. Without
+// `side` a unit only writes its column (a block of a later Cout chunk).
 template <typename T, int VW, class Store>
 __device__ __forceinline__ void sample_tile(
     const T* __restrict__ xg, float* __restrict__ dxa,
     const T* __restrict__ off, const T* __restrict__ msk,
-    T* __restrict__ doff, T* __restrict__ dmsk, const int4* tab, int n_units,
+    const SideOut<T>& so, const int4* tab, int n_units, int nc, bool side,
     const float* dcol_p, int p, bool pvalid, int oy, int ox, const Conv& cv,
     const Store& store) {
   const int wc = cv.W * cv.Cg;
@@ -285,7 +404,7 @@ __device__ __forceinline__ void sample_tile(
     const bool ok[4] = {vy0 && vx0, vy0 && vx1, vy1 && vx0, vy1 && vx1};
     const int cb = e.y + (y0 * cv.W + x0) * cv.Cg;
     float dm = 0.f, gy = 0.f, gx = 0.f;
-    for (int j = 0; j < cv.Cg; j += VW) {
+    for (int j = 0; j < nc; j += VW) {
       Corner<T, VW> v[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -293,11 +412,13 @@ __device__ __forceinline__ void sample_tile(
       }
       const int n = e.x + j;
       float d[VW];
-      if constexpr (VW == 4) {
-        const float4 dv = *reinterpret_cast<const float4*>(dcol_p + n);
-        d[0] = dv.x; d[1] = dv.y; d[2] = dv.z; d[3] = dv.w;
-      } else {
-        d[0] = dcol_p[n];
+      if (side) {
+        if constexpr (VW == 4) {
+          const float4 dv = *reinterpret_cast<const float4*>(dcol_p + n);
+          d[0] = dv.x; d[1] = dv.y; d[2] = dv.z; d[3] = dv.w;
+        } else {
+          d[0] = dcol_p[n];
+        }
       }
       float col[VW], md[VW];
 #pragma unroll
@@ -311,22 +432,34 @@ __device__ __forceinline__ void sample_tile(
         const float sy = fmaf(lx, sx1, v10) - top;
         const float s = fmaf(ly, sy, top);
         col[i] = m * s;
-        md[i] = m * d[i];
-        dm = fmaf(s, d[i], dm);
-        gy = fmaf(d[i], sy, gy);
-        gx = fmaf(d[i], fmaf(ly, sx1 - sx0, sx0), gx);
+        if (side) {
+          md[i] = m * d[i];
+          dm = fmaf(s, d[i], dm);
+          gy = fmaf(d[i], sy, gy);
+          gx = fmaf(d[i], fmaf(ly, sx1 - sx0, sx0), gx);
+        }
       }
       store.template put<VW>(n, p, col);
+      if (side) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (ok[c] && w[c] != 0.f)
-          add_corner<VW>(dxa + cb + j + corner[c], w[c], md);
+        for (int c = 0; c < 4; ++c) {
+          if (ok[c] && w[c] != 0.f)
+            add_corner<VW>(dxa + cb + j + corner[c], w[c], md);
+        }
       }
     }
-    if (pvalid) {
-      doff[2 * e.z] = from_f<T>(pass_y && ly != 0.f ? m * gy : 0.f);
-      doff[2 * e.z + cv.HWo] = from_f<T>(pass_x && lx != 0.f ? m * gx : 0.f);
-      if (dmsk) dmsk[e.z] = from_f<T>(dm);
+    if (side && pvalid) {
+      const float oy_v = pass_y && ly != 0.f ? m * gy : 0.f;
+      const float ox_v = pass_x && lx != 0.f ? m * gx : 0.f;
+      if (so.pdoff) {
+        so.pdoff[2 * e.z] = oy_v;
+        so.pdoff[2 * e.z + cv.HWo] = ox_v;
+        if (so.pdmsk) so.pdmsk[e.z] = dm;
+      } else {
+        so.doff[2 * e.z] = from_f<T>(oy_v);
+        so.doff[2 * e.z + cv.HWo] = from_f<T>(ox_v);
+        if (so.dmsk) so.dmsk[e.z] = from_f<T>(dm);
+      }
     }
   }
 }
@@ -384,8 +517,8 @@ __global__ void prep_kernel(const T* __restrict__ x, T* __restrict__ xg,
   }
 }
 
-// The geometry of tile `tile` for this thread's pixel (a block of tap group
-// blockIdx % tap_groups walks the tiles slot, slot + slots, ...).
+// The geometry of tile `tile` for this thread's pixel (a block of work
+// item w walks the tiles slot, slot + slots, ...).
 struct Tile {
   int b, p0, pix, oy, ox, pe;
   bool pvalid;
@@ -401,26 +534,72 @@ struct Tile {
   }
 };
 
-template <int CP, int VW>
-__global__ void __launch_bounds__(kThreads, 2)
+// The sampling side's per-pixel outputs of image b for this thread's pixel
+template <typename T>
+__device__ __forceinline__ SideOut<T> side_out(
+    T* doffset, T* dmask, float* pdoff, float* pdmsk, const Args& a,
+    const Item& it, int b, int pe) {
+  const size_t msk_img = (size_t)a.G * a.kh * a.kw * a.Ho * a.Wo;
+  SideOut<T> so;
+  so.doff = doffset + b * 2 * msk_img + pe;
+  so.dmsk = dmask ? dmask + b * msk_img + pe : nullptr;
+  so.pdoff = nullptr;
+  so.pdmsk = nullptr;
+  if (pdoff) {  // groups span chunks: this slice's partials
+    const size_t all = (size_t)a.B * msk_img;
+    so.pdoff = pdoff + it.sub * 2 * all + b * 2 * msk_img + pe;
+    so.pdmsk = dmask ? pdmsk + it.sub * all + b * msk_img + pe : nullptr;
+  }
+  return so;
+}
+
+// W[o][c][k0 + kk] for the Cout chunk starting at o0 -> the slice
+// [o - o0][n = kk*CP + c - c_lo], zero past the chunk's channels, the
+// block's taps and Cout, through `put(o', n, value)`
+template <int CP, typename T, class Put>
+__device__ __forceinline__ void stage_w(const T* __restrict__ weight,
+                                        const Args& a, const Item& it, int o0,
+                                        int ocp, const Put& put) {
+  constexpr int NW = kTaps * CP;
+  const int K = a.kh * a.kw;
+  for (int i = threadIdx.x; i < ocp * NW; i += kThreads) {
+    const int o = i / NW;
+    const int n = i - o * NW;
+    const int kk = n / CP;
+    const int c = n - kk * CP;
+    const bool ok = kk < it.kt && c < it.cw && o0 + o < a.Cout;
+    put(o, n, ok ? weight[((size_t)(o0 + o) * a.C + it.c_lo + c) * K +
+                          it.k0 + kk]
+                 : from_f<T>(0.f));
+  }
+}
+
+// WIDE: a call with more than one Cout chunk, groups split in slices or
+// Cout not a multiple of 16; the main path's calls compile without those
+// branches
+template <int CP, int VW, bool WIDE>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     dcn_bwd_bf16_kernel(const bf16* __restrict__ xg,
                         const bf16* __restrict__ offset,
                         const bf16* __restrict__ mask,
                         const bf16* __restrict__ weight,
                         const bf16* __restrict__ gout, float* __restrict__ dxa,
                         bf16* __restrict__ doffset, bf16* __restrict__ dmask,
-                        float* __restrict__ dw_part, Args a, int vec_gout) {
+                        float* __restrict__ dw_part, float* __restrict__ pdoff,
+                        float* __restrict__ pdmsk, Args a, int vec_gout) {
   constexpr int NW = kTaps * CP;
   constexpr int NH = NW / 2;  // columns a warpgroup
   extern __shared__ __align__(128) unsigned char smem[];
   const Conv cv = make_conv(a);
-  const int cout = a.Cout;
-  const int tg = blockIdx.x % a.tap_groups;
-  const int slot = blockIdx.x / a.tap_groups;
-  const int slots = gridDim.x / a.tap_groups;
-  const int k0 = tg * kTaps;
-  const int kt = min(kTaps, cv.K - k0);
-  const BfLayout L = bf16_layout(CP, cout, cv.G * kTaps);
+  const Plan& pl = a.pl;
+  const int ocp = pl.ocp;
+  const int work = pl.work;
+  const Item it(blockIdx.x % work, a, cv);
+  const bool side = !WIDE || it.side;
+  const int n_oc = WIDE ? pl.n_oc : 1;
+  const int slot = blockIdx.x / work;
+  const int slots = gridDim.x / work;
+  const BfLayout L = bf16_layout(CP, ocp, pl.gpc * kTaps);
   unsigned char* w_s = smem + L.w;
   unsigned char* ga_s = smem + L.ga;
   unsigned char* gb_s = smem + L.gb;
@@ -428,22 +607,18 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* dcol_s = reinterpret_cast<float*>(smem + L.dcol);
   int4* tab = reinterpret_cast<int4*>(smem + L.tab);
   const int tid = threadIdx.x;
-  const int n_units = build_units(tab, cv, CP, k0, kt);
+  const int n_units = build_units(tab, cv, CP, it);
 
-  // W[o][c][k0 + kk] -> B of dcol (K = o, N = n = kk*CP + c), zero past C
-  // and past the last tap: byte (o/8)*NW*16 + n*16 + (o%8)*2
-  const bf16 zero = __ushort_as_bfloat16(0);
-  for (int i = tid; i < cout * NW; i += kThreads) {
-    const int o = i / NW;
-    const int n = i - o * NW;
-    const int kk = n / CP;
-    const int c = n - kk * CP;
+  // W's slice as the B operand of dcol (K = o, N = n):
+  // byte (o/8)*NW*16 + n*16 + (o%8)*2
+  auto put_w = [&](int o, int n, bf16 v) {
     *reinterpret_cast<bf16*>(w_s + (o >> 3) * (NW * 16) + n * 16 +
-                             (o & 7) * 2) =
-        kk < kt && c < cv.C ? weight[((size_t)o * cv.C + c) * cv.K + k0 + kk]
-                            : zero;
-  }
-  // gout's rows past Cout and the column's padding stay zero
+                             (o & 7) * 2) = v;
+  };
+  const bool w_once = n_oc == 1;
+  if (w_once && side) stage_w<CP>(weight, a, it, 0, ocp, put_w);
+  // gout's rows past the block's Cout chunk and the column's padding stay
+  // zero
   for (int i = tid; i < 64 * kTilePix / 8; i += kThreads)
     reinterpret_cast<uint4*>(gb_s)[i] = make_uint4(0u, 0u, 0u, 0u);
   for (int i = tid; i < kTilePix * NW / 8; i += kThreads)
@@ -465,29 +640,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   for (int tile = slot; tile < n_tiles; tile += slots) {
     const Tile t(tile, tiles_per_img, cv);
+    const bf16* g_img = gout + (size_t)t.b * a.Cout * HWo + t.p0;
     // the previous tile's wgmma have been waited for by their warpgroups
     __syncthreads();
-    // a. gout tile -> ga_s [px][o] (byte (o/8)*1024 + px*16 + (o%8)*2) and
-    //    gb_s [o][px] (byte (px/8)*1024 + o*16 + (px%8)*2)
-    const bf16* g_b = gout + (size_t)t.b * cout * HWo + t.p0;
-    for (int i = tid; i < kTilePix * cout / 8; i += kThreads) {
-      const int px = i % kTilePix;
-      const int oc = i / kTilePix;
-      uint32_t h[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-        h[r] = t.p0 + px < HWo
-                   ? (uint32_t)__bfloat16_as_ushort(
-                         g_b[(size_t)(oc * 8 + r) * HWo + px])
-                   : 0u;
-      *reinterpret_cast<uint4*>(ga_s + oc * 1024 + px * 16) =
-          make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16, h[4] | h[5] << 16,
-                     h[6] | h[7] << 16);
-    }
-    for (int i = tid; i < cout * 8; i += kThreads) {
+    // gout rows o0 .. o0 + orows -> gb_s [o][px] (byte (px/8)*1024 + o*16 +
+    // (px%8)*2): the A operand of this block's dW rows
+    for (int i = tid; i < it.orows * 8; i += kThreads) {
       const int pc = i & 7;
       const int o = i >> 3;
-      const bf16* src = g_b + (size_t)o * HWo + pc * 8;
+      const bf16* src = g_img + (size_t)(it.o0 + o) * HWo + pc * 8;
       uint4 v;
       if (vec_gout && t.p0 + pc * 8 + 8 <= HWo) {
         v = __ldg(reinterpret_cast<const uint4*>(src));
@@ -502,22 +663,47 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       *reinterpret_cast<uint4*>(gb_s + pc * 1024 + o * 16) = v;
     }
-    fence_proxy_async();
-    __syncthreads();
 
-    // b. dcol[px][n] = sum_o gout[o][px] * W[o][n], this warpgroup's half
-    {
+    if (side) {
+      // dcol[px][n] = sum_o gout[o][px] * W[o][n], this warpgroup's half,
+      // summed over the Cout chunks
       float acc[NH / 2];
 #pragma unroll
       for (int j = 0; j < NH / 2; ++j) acc[j] = 0.f;
-      fence_acc(acc);
-      wgmma_fence();
-      wgmma_rows<NH>(acc, make_desc(ga_s, kTilePix * 16, 128),
-                     make_desc(w_s + wg * NH * 16, NW * 16, 128), cout / 16,
-                     2 * kTilePix, 2 * NW);
-      wgmma_commit();
-      wgmma_wait0();
-      fence_acc(acc);
+      for (int oc = 0; oc < n_oc; ++oc) {
+        const int o0 = oc * kChunk;
+        if (oc > 0) __syncthreads();  // the last chunk's wgmma are done
+        if (!w_once) stage_w<CP>(weight, a, it, o0, ocp, put_w);
+        // gout^T -> ga_s [px][o] (byte (o/8)*1024 + px*16 + (o%8)*2), zero
+        // past Cout
+        for (int i = tid; i < kTilePix * ocp / 8; i += kThreads) {
+          const int px = i % kTilePix;
+          const int oc8 = i / kTilePix;
+          uint32_t h[8];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const int o = o0 + oc8 * 8 + r;
+            h[r] = t.p0 + px < HWo && (!WIDE || o < a.Cout)
+                       ? (uint32_t)__bfloat16_as_ushort(
+                             g_img[(size_t)o * HWo + px])
+                       : 0u;
+          }
+          *reinterpret_cast<uint4*>(ga_s + oc8 * 1024 + px * 16) =
+              make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16,
+                         h[4] | h[5] << 16, h[6] | h[7] << 16);
+        }
+        fence_proxy_async();
+        __syncthreads();
+        const int rows = min(kChunk, a.Cout - o0);
+        fence_acc(acc);
+        wgmma_fence();
+        wgmma_rows<NH>(acc, make_desc(ga_s, kTilePix * 16, 128),
+                       make_desc(w_s + wg * NH * 16, NW * 16, 128),
+                       (rows + 15) / 16, 2 * kTilePix, 2 * NW);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_acc(acc);
+      }
       // accumulator fragment: rows warp*16 + lane/4 (+8), columns
       // 8j + 2*(lane%4) (+1) of this warpgroup's half
       const int m0 = ((tid & 127) >> 5) * 16 + ((tid & 31) >> 2);
@@ -531,15 +717,17 @@ __global__ void __launch_bounds__(kThreads, 2)
             make_float2(acc[4 * j + 2], acc[4 * j + 3]);
       }
     }
+    fence_proxy_async();  // gb_s's stores, visible to wgmma
     __syncthreads();
 
     // c. the sampling side
     sample_tile<bf16, VW>(
         xg + t.b * img, dxa + t.b * img, offset + t.b * offs_img + t.pe,
         mask ? mask + t.b * msk_img + t.pe : nullptr,
-        doffset + t.b * offs_img + t.pe,
-        dmask ? dmask + t.b * msk_img + t.pe : nullptr, tab, n_units,
-        dcol_s + p * (NW + 4), p, t.pvalid, t.oy, t.ox, cv, store);
+        side_out(doffset, dmask, WIDE ? pdoff : nullptr, pdmsk, a, it, t.b,
+                 t.pe),
+        tab, n_units, it.nc, side, dcol_s + p * (NW + 4), p, t.pvalid, t.oy,
+        t.ox, cv, store);
     fence_proxy_async();  // the column's stores, visible to wgmma
     __syncthreads();
 
@@ -554,9 +742,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     fence_acc(acc_dw);
   }
 
-  // this block's dW slice -> its partial [o][kk][c] (o < Cout, kk < kt,
-  // c < C); the finish kernel sums the partials of the tap group
-  float* part = dw_part + (size_t)blockIdx.x * cout * kTaps * cv.C;
+  // this block's dW slice -> its slot's partial [o][kk][c] (o in its Cout
+  // chunk, kk < kt, c in its channel chunk); the finish kernel sums the
+  // slots' partials
+  float* part = dw_part + ((size_t)slot * pl.tap_groups + it.tg) * a.Cout *
+                              kTaps * cv.C;
   const int m0 = ((tid & 127) >> 5) * 16 + ((tid & 31) >> 2);
   const int n0 = wg * NH + 2 * (tid & 3);
 #pragma unroll
@@ -567,14 +757,16 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int n = 8 * j + n0 + (e & 1);
       const int kk = n / CP;
       const int c = n - kk * CP;
-      if (o < cout && kk < kt && c < cv.C)
-        part[((size_t)o * kTaps + kk) * cv.C + c] = acc_dw[4 * j + e];
+      if (o < it.orows && kk < it.kt && c < it.cw)
+        part[((size_t)(it.o0 + o) * kTaps + kk) * cv.C + it.c_lo + c] =
+            acc_dw[4 * j + e];
     }
   }
 }
 
-// float32: the same tap groups, gathers and atomics; both contractions as
-// full-f32 FMA loops. NOC = Cout / 16.
+// float32: the same work items, gathers and atomics; both contractions as
+// full-f32 FMA loops over Cout chunks of 64 rows (rows past Cout zero: one
+// instance a chunk width, NOC = 4, for the check path's few calls)
 template <int CP, int NOC, int VW>
 __global__ void __launch_bounds__(kThreads)
     dcn_bwd_f32_kernel(const float* __restrict__ xg,
@@ -583,33 +775,29 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ weight,
                        const float* __restrict__ gout, float* __restrict__ dxa,
                        float* __restrict__ doffset, float* __restrict__ dmask,
-                       float* __restrict__ dw_part, Args a, int) {
+                       float* __restrict__ dw_part, float* __restrict__ pdoff,
+                       float* __restrict__ pdmsk, Args a, int) {
   constexpr int NW = kTaps * CP;
-  constexpr int COUT = NOC * 16;
+  constexpr int OCP = NOC * 16;
   constexpr int NI = NW / 16;  // columns a thread: dcol and dW
   extern __shared__ __align__(128) unsigned char smem[];
   const Conv cv = make_conv(a);
-  const int tg = blockIdx.x % a.tap_groups;
-  const int slot = blockIdx.x / a.tap_groups;
-  const int slots = gridDim.x / a.tap_groups;
-  const int k0 = tg * kTaps;
-  const int kt = min(kTaps, cv.K - k0);
-  const F32Layout L = f32_layout(CP, COUT, cv.G * kTaps);
+  const Plan& pl = a.pl;
+  const int work = pl.work;
+  const Item it(blockIdx.x % work, a, cv);
+  const int slot = blockIdx.x / work;
+  const int slots = gridDim.x / work;
+  const F32Layout L = f32_layout(CP, OCP, pl.gpc * kTaps);
   float* w_s = reinterpret_cast<float*>(smem + L.w);      // [o][NW]
   float* g_s = reinterpret_cast<float*>(smem + L.g);      // [o][68]
   float* col_s = reinterpret_cast<float*>(smem + L.col);  // [NW][68]
   float* dcol_s = reinterpret_cast<float*>(smem + L.dcol);
   int4* tab = reinterpret_cast<int4*>(smem + L.tab);
   const int tid = threadIdx.x;
-  const int n_units = build_units(tab, cv, CP, k0, kt);
-  for (int i = tid; i < COUT * NW; i += kThreads) {
-    const int o = i / NW;
-    const int n = i - o * NW;
-    const int kk = n / CP;
-    const int c = n - kk * CP;
-    w_s[i] = kk < kt && c < cv.C
-                 ? weight[((size_t)o * cv.C + c) * cv.K + k0 + kk] : 0.f;
-  }
+  const int n_units = build_units(tab, cv, CP, it);
+  auto put_w = [&](int o, int n, float v) { w_s[o * NW + n] = v; };
+  const bool w_once = pl.n_oc == 1;
+  if (w_once && it.side) stage_w<CP>(weight, a, it, 0, OCP, put_w);
   for (int i = tid; i < NW * kColStride; i += kThreads) col_s[i] = 0.f;
 
   // dcol: 4 pixels (quad) x NI columns n = lane + 16 i a thread;
@@ -631,33 +819,45 @@ __global__ void __launch_bounds__(kThreads)
   const int p = tid % kTilePix;
   const StoreColF32 store{col_s};
 
-  for (int tile = slot; tile < n_tiles; tile += slots) {
-    const Tile t(tile, tiles_per_img, cv);
-    __syncthreads();  // the previous tile's dW loop is done
-    const float* g_b = gout + (size_t)t.b * COUT * HWo + t.p0;
-    for (int i = tid; i < COUT * kTilePix; i += kThreads) {
+  // gout rows o0 .. o0 + OCP of the tile -> g_s [o][68], zero past Cout
+  auto stage_g = [&](const float* g_img, int p0, int o0) {
+    for (int i = tid; i < OCP * kTilePix; i += kThreads) {
       const int o = i / kTilePix;
       const int px = i % kTilePix;
-      g_s[o * kColStride + px] =
-          t.p0 + px < HWo ? g_b[(size_t)o * HWo + px] : 0.f;
+      g_s[o * kColStride + px] = p0 + px < HWo && o0 + o < a.Cout
+                                     ? g_img[(size_t)(o0 + o) * HWo + px]
+                                     : 0.f;
     }
-    __syncthreads();
-    {
+  };
+
+  for (int tile = slot; tile < n_tiles; tile += slots) {
+    const Tile t(tile, tiles_per_img, cv);
+    const float* g_img = gout + (size_t)t.b * a.Cout * HWo + t.p0;
+    __syncthreads();  // the previous tile's dW loop is done
+    if (it.side) {
       float acc[NI][4];
 #pragma unroll
       for (int i = 0; i < NI; ++i)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-      for (int o = 0; o < COUT; ++o) {
-        const float4 gv =
-            *reinterpret_cast<const float4*>(g_s + o * kColStride + quad * 4);
+      // the Cout chunks last to first, so that g_s ends on this block's
+      // (the first) for dW
+      for (int oc = pl.n_oc - 1; oc >= 0; --oc) {
+        if (oc < pl.n_oc - 1) __syncthreads();  // the last chunk is summed
+        if (!w_once) stage_w<CP>(weight, a, it, oc * kChunk, OCP, put_w);
+        stage_g(g_img, t.p0, oc * kChunk);
+        __syncthreads();
+        for (int o = 0; o < OCP; ++o) {
+          const float4 gv =
+              *reinterpret_cast<const float4*>(g_s + o * kColStride + quad * 4);
 #pragma unroll
-        for (int i = 0; i < NI; ++i) {
-          const float wv = w_s[o * NW + lane + 16 * i];
-          acc[i][0] = fmaf(gv.x, wv, acc[i][0]);
-          acc[i][1] = fmaf(gv.y, wv, acc[i][1]);
-          acc[i][2] = fmaf(gv.z, wv, acc[i][2]);
-          acc[i][3] = fmaf(gv.w, wv, acc[i][3]);
+          for (int i = 0; i < NI; ++i) {
+            const float wv = w_s[o * NW + lane + 16 * i];
+            acc[i][0] = fmaf(gv.x, wv, acc[i][0]);
+            acc[i][1] = fmaf(gv.y, wv, acc[i][1]);
+            acc[i][2] = fmaf(gv.z, wv, acc[i][2]);
+            acc[i][3] = fmaf(gv.w, wv, acc[i][3]);
+          }
         }
       }
 #pragma unroll
@@ -665,14 +865,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int q = 0; q < 4; ++q)
           dcol_s[(quad * 4 + q) * (NW + 4) + lane + 16 * i] = acc[i][q];
+    } else {
+      stage_g(g_img, t.p0, it.o0);
     }
     __syncthreads();
     sample_tile<float, VW>(
         xg + t.b * img, dxa + t.b * img, offset + t.b * offs_img + t.pe,
         mask ? mask + t.b * msk_img + t.pe : nullptr,
-        doffset + t.b * offs_img + t.pe,
-        dmask ? dmask + t.b * msk_img + t.pe : nullptr, tab, n_units,
-        dcol_s + p * (NW + 4), p, t.pvalid, t.oy, t.ox, cv, store);
+        side_out(doffset, dmask, pdoff, pdmsk, a, it, t.b, t.pe), tab,
+        n_units, it.nc, it.side, dcol_s + p * (NW + 4), p, t.pvalid, t.oy,
+        t.ox, cv, store);
     __syncthreads();
     for (int q = 0; q < kTilePix / 4; ++q) {
       float4 gv[NOC];
@@ -695,29 +897,38 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  float* part = dw_part + (size_t)blockIdx.x * COUT * kTaps * cv.C;
+  float* part = dw_part + ((size_t)slot * pl.tap_groups + it.tg) * a.Cout *
+                              kTaps * cv.C;
 #pragma unroll
   for (int j = 0; j < NOC; ++j)
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
+      const int o = ol + 16 * j;
       const int n = nl + 16 * i;
       const int kk = n / CP;
       const int c = n - kk * CP;
-      if (kk < kt && c < cv.C)
-        part[((size_t)(ol + 16 * j) * kTaps + kk) * cv.C + c] = acc_dw[j][i];
+      if (o < it.orows && kk < it.kt && c < it.cw)
+        part[((size_t)(it.o0 + o) * kTaps + kk) * cv.C + it.c_lo + c] =
+            acc_dw[j][i];
     }
 }
 
 // dxa (B, G, H, W, Cg) f32 -> dx (B, C, H, W) in T; then dW: for each
-// (o, c, k), 8 lanes sum the partials of the blocks of k's tap group and
-// write dweight (Cout, C, K) in T
+// (o, c, k), 8 lanes sum the partials of the slots of k's tap group and
+// write dweight (Cout, C, K) in T; then, where groups span chunks
+// (n_sub > 1), doffset and dmask as the sums of their slices' partials, in
+// slice order
 template <typename T>
 __global__ void finish_kernel(const float* __restrict__ dxa,
                               T* __restrict__ dx,
                               const float* __restrict__ dw_part,
-                              T* __restrict__ dweight, int B, int G, int Cg,
-                              int HW, int cout, int C, int K, int groups,
-                              int slots, int vec4) {
+                              T* __restrict__ dweight,
+                              const float* __restrict__ pdoff,
+                              const float* __restrict__ pdmsk,
+                              T* __restrict__ doffset, T* __restrict__ dmask,
+                              int B, int G, int Cg, int HW, int cout, int C,
+                              int K, int groups, int slots, int vec4,
+                              long long n_msk, int n_sub) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long total = (long long)B * G * HW;
@@ -754,6 +965,20 @@ __global__ void finish_kernel(const float* __restrict__ dxa,
     s += __shfl_xor_sync(lanes, s, 1);
     if (l8 == 0) dweight[e] = from_f<T>(s);
   }
+  if (n_sub > 1) {
+    for (long long i = start; i < 2 * n_msk; i += stride) {
+      float s = 0.f;
+      for (int q = 0; q < n_sub; ++q) s += pdoff[q * 2 * n_msk + i];
+      doffset[i] = from_f<T>(s);
+    }
+    if (dmask) {
+      for (long long i = start; i < n_msk; i += stride) {
+        float s = 0.f;
+        for (int q = 0; q < n_sub; ++q) s += pdmsk[q * n_msk + i];
+        dmask[i] = from_f<T>(s);
+      }
+    }
+  }
 }
 
 // ---- launches ----------------------------------------------------------------
@@ -762,8 +987,8 @@ bool aligned(const void* p, size_t n) {
   return reinterpret_cast<uintptr_t>(p) % n == 0;
 }
 
-// Sets the kernel's shared memory and returns the grid: tap groups x
-// slots, at most `max_slots` blocks a tap group, no more than there are
+// Sets the kernel's shared memory and returns the grid: work items x
+// slots, at most `max_slots` blocks a work item, no more than there are
 // tiles, as many as fit on the card.
 template <class K>
 cudaError_t persistent_grid(K kernel, size_t smem, const Args& a,
@@ -778,11 +1003,11 @@ cudaError_t persistent_grid(K kernel, size_t smem, const Args& a,
   if (err != cudaSuccess) return err;
   const int n_tiles = a.B * ((a.Ho * a.Wo + kTilePix - 1) / kTilePix);
   int slots = device_attr(cudaDevAttrMultiProcessorCount) *
-              (per_sm > 0 ? per_sm : 1) / a.tap_groups;
+              (per_sm > 0 ? per_sm : 1) / a.pl.work;
   if (slots > n_tiles) slots = n_tiles;
   if (slots > max_slots) slots = max_slots;
   if (slots < 1) slots = 1;
-  *grid = slots * a.tap_groups;
+  *grid = slots * a.pl.work;
   return cudaSuccess;
 }
 
@@ -791,7 +1016,7 @@ struct Bufs {
   const void *xg, *offset, *mask, *weight, *gout;
   float* dxa;
   void *doffset, *dmask;
-  float* dw_part;
+  float *dw_part, *pdoff, *pdmsk;
 };
 
 template <typename T, class K>
@@ -806,51 +1031,55 @@ cudaError_t launch_main(K kernel, size_t smem, const Bufs& p, const Args& a,
       static_cast<const T*>(p.xg), static_cast<const T*>(p.offset),
       static_cast<const T*>(p.mask), static_cast<const T*>(p.weight),
       static_cast<const T*>(p.gout), p.dxa, static_cast<T*>(p.doffset),
-      static_cast<T*>(p.dmask), p.dw_part, a, vec_gout);
+      static_cast<T*>(p.dmask), p.dw_part, p.pdoff, p.pdmsk, a, vec_gout);
   return cudaGetLastError();
+}
+
+template <int CP, bool WIDE>
+cudaError_t launch_bf16_vw(bool vec4, const Bufs& p, const Args& a,
+                           int max_slots, int vec_gout, int* grid,
+                           cudaStream_t s) {
+  const size_t smem = bf16_layout(CP, a.pl.ocp, a.pl.gpc * kTaps).total;
+  return vec4 ? launch_main<bf16>(dcn_bwd_bf16_kernel<CP, 4, WIDE>, smem, p,
+                                  a, max_slots, vec_gout, grid, s)
+              : launch_main<bf16>(dcn_bwd_bf16_kernel<CP, 1, WIDE>, smem, p,
+                                  a, max_slots, vec_gout, grid, s);
 }
 
 template <int CP>
 cudaError_t launch_bf16(bool vec4, const Bufs& p, const Args& a,
                         int max_slots, int vec_gout, int* grid,
                         cudaStream_t s) {
-  const size_t smem = bf16_layout(CP, a.Cout, a.G * kTaps).total;
-  return vec4 ? launch_main<bf16>(dcn_bwd_bf16_kernel<CP, 4>, smem, p, a,
-                                  max_slots, vec_gout, grid, s)
-              : launch_main<bf16>(dcn_bwd_bf16_kernel<CP, 1>, smem, p, a,
-                                  max_slots, vec_gout, grid, s);
+  const bool wide = a.pl.n_oc > 1 || a.pl.n_sub > 1 || a.Cout % 16 != 0;
+  return wide ? launch_bf16_vw<CP, true>(vec4, p, a, max_slots, vec_gout,
+                                         grid, s)
+              : launch_bf16_vw<CP, false>(vec4, p, a, max_slots, vec_gout,
+                                          grid, s);
 }
 
 template <int CP, int NOC>
 cudaError_t launch_f32(bool vec4, const Bufs& p, const Args& a, int max_slots,
                        int* grid, cudaStream_t s) {
-  const size_t smem = f32_layout(CP, NOC * 16, a.G * kTaps).total;
+  const size_t smem = f32_layout(CP, NOC * 16, a.pl.gpc * kTaps).total;
   return vec4 ? launch_main<float>(dcn_bwd_f32_kernel<CP, NOC, 4>, smem, p,
                                    a, max_slots, 0, grid, s)
               : launch_main<float>(dcn_bwd_f32_kernel<CP, NOC, 1>, smem, p,
                                    a, max_slots, 0, grid, s);
 }
 
-template <int CP>
-cudaError_t launch_f32_cout(bool vec4, const Bufs& p, const Args& a,
-                            int max_slots, int* grid, cudaStream_t s) {
-  switch (a.Cout) {
-    case 16: return launch_f32<CP, 1>(vec4, p, a, max_slots, grid, s);
-    case 32: return launch_f32<CP, 2>(vec4, p, a, max_slots, grid, s);
-    case 48: return launch_f32<CP, 3>(vec4, p, a, max_slots, grid, s);
-    default: return launch_f32<CP, 4>(vec4, p, a, max_slots, grid, s);
-  }
-}
-
 template <typename T>
 cudaError_t run_all(const void* x, void* xg, const void* offset,
                     const void* mask, const void* weight, const void* gout,
                     void* dx, void* doffset, void* dmask, void* dweight,
-                    float* dxa, float* dw_part, int max_slots, const Args& a,
-                    cudaStream_t s) {
+                    float* dxa, float* work, const Args& a, cudaStream_t s) {
+  const Plan& pl = a.pl;
   const int Cg = a.C / a.G;
   const int HW = a.H * a.W;
+  const int K = a.kh * a.kw;
   const int sms = device_attr(cudaDevAttrMultiProcessorCount);
+  const int slot_cap = max_slots(pl, sms);
+  const Scratch sc = scratch_floats(pl, slot_cap, a.B, a.C, a.Cout, a.G, K,
+                                    a.Ho * a.Wo);
   // 0. the channels-last copy of x and the zeroed dx accumulator
   const long long items = (long long)a.B * a.G * HW;
   const bool vec4 = Cg % 4 == 0 && aligned(xg, 4 * sizeof(T)) &&
@@ -864,77 +1093,90 @@ cudaError_t run_all(const void* x, void* xg, const void* offset,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  // 1. the main kernel, for C padded to 16, 32, 48 or 64
-  const Bufs p{xg, offset, mask, weight, gout, dxa, doffset, dmask, dw_part};
-  const int cp = (a.C + 15) & ~15;
+  // 1. the main kernel, for chunks padded to 16, 32, 48 or 64 channels
+  float* pdoff = sc.doff ? work + sc.dw : nullptr;
+  float* pdmsk = sc.doff && mask ? work + sc.dw + sc.doff : nullptr;
+  const Bufs p{xg, offset, mask, weight, gout, dxa, doffset, dmask, work,
+               pdoff, pdmsk};
   int grid = 0;
   cudaError_t err = cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 2) {
     const int vg = (a.Ho * a.Wo) % 8 == 0 && aligned(gout, 16);
-    switch (cp) {
-      case 16: err = launch_bf16<16>(vec4, p, a, max_slots, vg, &grid, s); break;
-      case 32: err = launch_bf16<32>(vec4, p, a, max_slots, vg, &grid, s); break;
-      case 48: err = launch_bf16<48>(vec4, p, a, max_slots, vg, &grid, s); break;
-      case 64: err = launch_bf16<64>(vec4, p, a, max_slots, vg, &grid, s); break;
+    switch (pl.cp) {
+      case 16: err = launch_bf16<16>(vec4, p, a, slot_cap, vg, &grid, s); break;
+      case 32: err = launch_bf16<32>(vec4, p, a, slot_cap, vg, &grid, s); break;
+      case 48: err = launch_bf16<48>(vec4, p, a, slot_cap, vg, &grid, s); break;
+      case 64: err = launch_bf16<64>(vec4, p, a, slot_cap, vg, &grid, s); break;
     }
   } else {
-    switch (cp) {
-      case 16: err = launch_f32_cout<16>(vec4, p, a, max_slots, &grid, s); break;
-      case 32: err = launch_f32_cout<32>(vec4, p, a, max_slots, &grid, s); break;
-      case 48: err = launch_f32_cout<48>(vec4, p, a, max_slots, &grid, s); break;
-      case 64: err = launch_f32_cout<64>(vec4, p, a, max_slots, &grid, s); break;
+    switch (pl.cp) {
+      case 16: err = launch_f32<16, 4>(vec4, p, a, slot_cap, &grid, s); break;
+      case 32: err = launch_f32<32, 4>(vec4, p, a, slot_cap, &grid, s); break;
+      case 48: err = launch_f32<48, 4>(vec4, p, a, slot_cap, &grid, s); break;
+      case 64: err = launch_f32<64, 4>(vec4, p, a, slot_cap, &grid, s); break;
     }
   }
   if (err != cudaSuccess) return err;
-  // 2. dx to NCHW in T, the dW partials summed into dweight
-  const long long dw_threads = 8LL * a.Cout * a.C * a.kh * a.kw;
-  const long long need = items > dw_threads ? items : dw_threads;
+  // 2. dx to NCHW in T, the dW partials summed into dweight, the doffset
+  //    and dmask partials summed where groups span chunks
+  const long long n_msk = (long long)a.B * a.G * K * a.Ho * a.Wo;
+  const long long dw_threads = 8LL * a.Cout * a.C * K;
+  long long need = items > dw_threads ? items : dw_threads;
+  if (pl.n_sub > 1 && 2 * n_msk > need) need = 2 * n_msk;
   long long blocks = (need + 255) / 256;
   if (blocks > 16LL * sms) blocks = 16LL * sms;
   if (blocks < 1) blocks = 1;
   finish_kernel<T><<<(unsigned)blocks, 256, 0, s>>>(
-      dxa, static_cast<T*>(dx), dw_part, static_cast<T*>(dweight), a.B, a.G,
-      Cg, HW, a.Cout, a.C, a.kh * a.kw, a.tap_groups, grid / a.tap_groups,
-      Cg == 4 && vec4 ? 1 : 0);
+      dxa, static_cast<T*>(dx), work, static_cast<T*>(dweight), pdoff,
+      pdmsk, static_cast<T*>(doffset), static_cast<T*>(dmask), a.B, a.G, Cg,
+      HW, a.Cout, a.C, K, pl.tap_groups, grid / pl.work,
+      Cg == 4 && vec4 ? 1 : 0, n_msk, pl.n_sub);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// float32 elements of the scratch `work` that fami_dcn_bwd needs for this
+// call on the current device: the dW partials, and the doffset / dmask
+// partials where an offset group has more than 64 channels.
+extern "C" long long fami_dcn_bwd_workspace(int B, int C, int Cout, int Ho,
+                                            int Wo, int kh, int kw,
+                                            int groups) {
+  if (groups < 1 || C < 1 || Cout < 1 || C % groups != 0) return 0;
+  const Plan pl = make_plan(C, Cout, kh * kw, groups);
+  const int slots = max_slots(pl, device_attr(cudaDevAttrMultiProcessorCount));
+  return scratch_floats(pl, slots, B, C, Cout, groups, kh * kw, Ho * Wo).total;
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (x, x_grouped, offset, mask, weight,
 // gout and the four gradients share it). Scratch the caller allocates, none
 // of it initialised: x_grouped of x's size and type; dx_acc, float32 of x's
-// element count; dw_part, float32 of dw_slots * Cout * C * 3 * ceil(K / 3)
-// elements (the kernel uses at most dw_slots blocks a tap group of 3 taps).
-// mask and dmask may be null together (DCNv1). max_offset <= 0: exact, no
-// clamp. Returns a cudaError_t; cudaErrorInvalidValue for a shape the
-// kernels do not take (C > 64, Cout not 16/32/48/64, groups not dividing C,
-// too much shared memory).
+// element count; work, float32 of fami_dcn_bwd_workspace elements. mask and
+// dmask may be null together (DCNv1). max_offset <= 0: exact, no clamp.
+// Returns a cudaError_t; cudaErrorInvalidValue for arguments no kernel
+// takes (groups not dividing C, an unknown dtype, no channels).
 extern "C" int fami_dcn_bwd(const void* x, void* x_grouped,
                             const void* offset, const void* mask,
                             const void* weight, const void* gout, void* dx,
                             void* doffset, void* dmask, void* dweight,
-                            void* dx_acc, void* dw_part, int dw_slots,
-                            int dtype, int B, int C, int H, int W, int Cout,
-                            int Ho, int Wo, int kh, int kw, int pad, int dil,
-                            int groups, float max_offset, void* stream) {
+                            void* dx_acc, void* work, int dtype, int B, int C,
+                            int H, int W, int Cout, int Ho, int Wo, int kh,
+                            int kw, int pad, int dil, int groups,
+                            float max_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (groups < 1 || C % groups != 0 || C > 64 || dw_slots < 1 ||
+  if (groups < 1 || C < 1 || Cout < 1 || C % groups != 0 ||
       (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  if (Cout != 16 && Cout != 32 && Cout != 48 && Cout != 64)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.B = B; a.C = C; a.H = H; a.W = W; a.Ho = Ho; a.Wo = Wo; a.kh = kh;
   a.kw = kw; a.pad = pad; a.dil = dil; a.G = groups; a.Cout = Cout;
-  a.tap_groups = (kh * kw + kTaps - 1) / kTaps; a.dmax = max_offset;
+  a.dmax = max_offset;
+  a.pl = make_plan(C, Cout, kh * kw, groups);
   float* dxa = static_cast<float*>(dx_acc);
-  float* part = static_cast<float*>(dw_part);
+  float* wk = static_cast<float*>(work);
   if (dtype == 0)
     return (int)run_all<float>(x, x_grouped, offset, mask, weight, gout, dx,
-                               doffset, dmask, dweight, dxa, part, dw_slots,
-                               a, s);
+                               doffset, dmask, dweight, dxa, wk, a, s);
   return (int)run_all<bf16>(x, x_grouped, offset, mask, weight, gout, dx,
-                            doffset, dmask, dweight, dxa, part, dw_slots, a,
-                            s);
+                            doffset, dmask, dweight, dxa, wk, a, s);
 }

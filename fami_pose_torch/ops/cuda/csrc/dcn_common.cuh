@@ -1,6 +1,6 @@
 // Device helpers shared by the DCN kernels (dcn_fwd.cu, dcn_bwd.cu) and the
-// int8 conv (int8_conv.cu): bf16 unpacking, the 4-corner vector loads of the
-// grouped channels-last gather, the no-swizzle shared-memory wgmma
+// int8 conv (int8_conv.cu): bf16 unpacking and rounding, the 4-corner vector
+// loads of the grouped channels-last gather, the no-swizzle shared-memory wgmma
 // descriptor, the wgmma fences, the bf16 wgmma instructions of the widths the
 // DCN uses and the s8 ones of the int8 conv's N tiles. Everything is inline
 // in an anonymous namespace, so each source compiles its own copy.
@@ -29,6 +29,14 @@ __device__ __forceinline__ float bf_hi(uint32_t w) {
 }
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // VW consecutive channels of one corner as one load, unpacked to f32
 template <typename T, int VW>

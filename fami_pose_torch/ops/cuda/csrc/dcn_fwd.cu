@@ -9,7 +9,8 @@
 //   s      = bilinear sample of x at p - pad + k_pos * dil + t, zeros outside
 //   col    = s * mask[g][k]            (the raw mask, no sigmoid)
 //   out[o] = sum over (k, c) of W[o][c][k] * col[k][c]
-// No bias inside: the wrapper adds it, as the TPU kernel's caller does.
+// for any C >= 1 with C % G == 0 and any Cout >= 1. No bias inside: the
+// wrapper adds it, as the TPU kernel's caller does.
 //
 // The TPU form (128-lane row staging, group-minor channel permutation, the
 // hat-window sums over every integer shift in [-D, D]) exists because the TPU
@@ -24,37 +25,66 @@
 // SM; the gathers' L1 traffic adds ~15% with i.i.d. random offsets
 // (PERF.md).
 //
-// Design (two launches on the caller's stream, counted as one DCN call):
+// Design (launches on the caller's stream, counted as one DCN call):
 //   0. grouped_channels_last_kernel copies x (B, C, H, W) to a scratch
 //      buffer in (B, G, H, W, Cg) order, so that the Cg channels of one
 //      group at one corner are one vector load (8 bytes for Cg = 4 in
 //      bf16) and the two x-neighbouring corners of a sample share a 32-byte
 //      sector; the samples of one tile and group fall in a ~12 KB window
 //      that L1 keeps while the block walks the group's taps.
-//   1. dcn_fwd_bf16_kernel: persistent blocks of 256 threads, two a SM at
-//      the main-path shape (~109 KB of shared memory each), walk tiles of
-//      64 output pixels of one image. W is staged once per block in bf16 as
-//      the wgmma B operand, [k*C + c] x Cout, K-major in the no-swizzle
-//      core-matrix layout (8 rows x 16 bytes per core matrix), beside a
-//      table of the gather's units (group, tap, 4-channel chunk) so that
-//      the sample loop does no integer division. All 256 threads sample a
-//      tile into the A operand, 64 pixels x (k*C + c) in bf16, the same
-//      layout, zero-padded in k to a multiple of 16: 4 units in flight a
-//      thread, each reading its offsets and mask from device memory, its 4
-//      corners as 8-byte loads, and writing the 4 channels of its column
-//      as one 8-byte store. Each warpgroup then runs ceil(9C / 16)
-//      wgmma.m64n(Cout/2)k16 steps for its half of the output channels
-//      (bf16 x bf16 -> f32 in registers), stages the f32 result in shared
-//      memory [o][64], and all threads write NCHW rows of 64 pixels with
-//      16-byte stores, rounding once to bf16. The other block on the SM
-//      samples while one contracts.
+//   1. dcn_fwd_bf16_kernel, the resident form (bf16, Cout in {16, 32, 48,
+//      64} and the reduction k*C + c at most kResidentRows = 576 rows: the
+//      main path's widths, unchanged since the wgmma redesign): persistent
+//      blocks of 256 threads, two a SM at the main-path shape (~109 KB of
+//      shared memory each), walk tiles of 64 output pixels of one image. W is
+//      staged once per block in bf16 as the wgmma B operand, [k*C + c] x
+//      Cout, K-major in the no-swizzle core-matrix layout (8 rows x 16 bytes
+//      per core matrix), beside a table of the gather's units (group, tap,
+//      4-channel chunk) so that the sample loop does no integer division.
+//      All 256 threads sample a tile into the A operand, 64 pixels x (k*C +
+//      c) in bf16, the same layout, zero-padded in k to a multiple of 16: 4
+//      units in flight a thread, each reading its offsets and mask from
+//      device memory, its 4 corners as 8-byte loads, and writing the 4
+//      channels of its column as one 8-byte store. Each warpgroup then runs
+//      ceil(9C / 16) wgmma.m64n(Cout/2)k16 steps for its half of the output
+//      channels (bf16 x bf16 -> f32 in registers), stages the f32 result in
+//      shared memory [o][64], and all threads write NCHW rows of 64 pixels
+//      with 16-byte stores, rounding once to bf16. The other block on the SM
+//      samples while one contracts. (A form of it that rounded Cout up to
+//      16 and masked its stores was 3.6% slower at B=8 in turns, PERF.md:
+//      other widths take the chunked form instead.)
 //      A 2-stage cp.async ring for the tile's offsets and mask (83 KB) was
 //      measured and dropped: it allows one block a SM, and the kernel was
 //      14% (B=8) and 19% (B=32) slower with it.
-//   2. dcn_fwd_f32_kernel (float32 inputs: the card-vs-CPU checks): the same
-//      gathers, the column kept in f32 [k*C + c][64] and contracted on the
-//      CUDA cores with full-f32 FMAs (each thread 4 pixels x Cout/16
-//      channels); TF32 would miss the 1e-4 tolerance of those checks.
+//   2. Every other width (bf16 with another Cout or more than 576
+//      reduction rows, and every float32 call) takes the chunked form,
+//      whose shared memory does not grow with C or Cout. pack_kernel first
+//      writes W into a workspace, cut into (Cout tile, chunk) blocks of
+//      kChunkRows = 128 consecutive reduction rows by NT columns (bf16:
+//      NT = 64 in the wgmma B layout; f32: NT = Cout rounded up to 16, at
+//      most 64, [r][o]), each block zero past C and Cout, so that a chunk's
+//      W is one straight 16-byte copy; and the table of gather units in
+//      reduction order (r = k*C + c, VW channels a unit), which the kernels
+//      read through L1. A work item is (image, 64-pixel tile, Cout tile):
+//      a block per (pixel tile, Cout tile) samples its tile again for each
+//      Cout tile, which keeps the accumulators at NT / 4 = 16 registers a
+//      thread for any Cout. The other design, a block that keeps a column
+//      chunk and loops over the Cout tiles, holds Cout / 4 accumulators a
+//      thread across the chunks (96 at Cout = 384, beside the ~100 of the
+//      sample loop: past the 128 of two blocks an SM) and still needs a
+//      tile loop past Cout = 1024. Sampling again costs little at the
+//      branch maps: six Cout tiles at C = 384, 12x9 take 1.03x one
+//      (tools/dcn_turns.py, PERF.md).
+//      dcn_fwd_bf16_chunked_kernel (two blocks an SM, 82,944 B): two
+//      column buffers and two W buffers; while the wgmma of chunk q run
+//      asynchronously on one pair, all threads copy W's chunk q + 1 and
+//      sample the column chunk q + 1 into the other, then wait; the
+//      accumulators stay in registers across the chunks.
+//      dcn_fwd_f32_kernel (float32 inputs: the card-vs-CPU checks): the
+//      same chunks, W's chunk and the column chunk [r][64] in f32 shared
+//      memory, contracted on the CUDA cores with full-f32 FMAs (each thread
+//      4 pixels x NT/16 channels); TF32 would miss the 1e-4 tolerance of
+//      those checks.
 // Numerics (bf16): the column s * mask is rounded to bf16 once, the products
 // are exact in the tensor cores and summed in f32, the output rounded once.
 // The column's rounding moves the f32 sum by ~0.3 of the ulp of the largest
@@ -63,9 +93,9 @@
 //
 // Build (nvcc 12.9, -Xptxas -v, sm_90a): dcn_fwd_bf16_kernel<48, 4> 123
 // registers, 0 spills, 111,616 B of dynamic shared memory at the main-path
-// shape (2 blocks a SM), 8 HGMMA.64x24x16.F32.BF16 in its SASS; the other
-// bf16 instances 96-121 registers; dcn_fwd_f32_kernel 74-128 registers and
-// 195,264 B; grouped_channels_last_kernel 40 registers; no spills anywhere.
+// shape (2 blocks a SM), 8 HGMMA.64x24x16.F32.BF16 in its SASS;
+// dcn_fwd_bf16_chunked_kernel 123-128 registers, a 32-byte stack frame, no
+// spills.
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py): 0.0886 ms at B=8, D = 4,
 // against the 0.0139 ms bound.
 
@@ -80,6 +110,9 @@ constexpr int kEpiStride = kTilePix + 4;  // f32 result rows, bank-spread
 constexpr int kPixPerThread = 4;          // f32 contraction: 4 pixels
 constexpr int kPixGroups = kTilePix / kPixPerThread;  // 16
 constexpr int kOcGroups = kThreads / kPixGroups;      // 16
+constexpr int kResidentRows = 576;  // the resident form's widest reduction
+constexpr int kChunkRows = 128;     // reduction rows of one chunk
+constexpr int kChunkNT = 64;        // the bf16 chunked form's Cout tile
 
 // Byte offsets of the bf16 kernel's dynamic shared memory: B operand (W),
 // A operand (the sampled column), the f32 result tile, the table of gather
@@ -88,19 +121,25 @@ struct BfLayout {
   size_t w, a, epi, tab, total;
 };
 
-__host__ __device__ inline BfLayout bf16_layout(int Rp, int cout, int units) {
+__host__ __device__ inline BfLayout bf16_layout(int Rp, int nt, int units) {
   BfLayout l;
   l.w = 0;
-  l.a = align128((size_t)Rp * cout * 2);
+  l.a = align128((size_t)Rp * nt * 2);
   l.epi = l.a + align128((size_t)Rp * kTilePix * 2);
-  l.tab = l.epi + align128((size_t)cout * kEpiStride * 4);
+  l.tab = l.epi + align128((size_t)nt * kEpiStride * 4);
   l.total = l.tab + align128((size_t)units * 16);
   return l;
 }
 
-// f32 kernel: W [R][Cout] and the column [R][64] in f32, then the table
-__host__ __device__ inline size_t f32_smem(int R, int cout, int units) {
-  return (size_t)R * (cout + kTilePix) * 4 + (size_t)units * 16;
+// bf16 chunked kernel: two column buffers, two W buffers, the result tile
+constexpr size_t kChunkA = (size_t)kChunkRows * kTilePix * 2;
+constexpr size_t kChunkW = (size_t)kChunkRows * kChunkNT * 2;
+constexpr size_t kChunkSmem = 2 * kChunkA + 2 * kChunkW +
+                              (size_t)kChunkNT * kEpiStride * 4;
+
+// f32 kernel: W's chunk [r][nt] and the column chunk [r][64] in f32
+__host__ __device__ inline size_t f32_smem(int nt) {
+  return (size_t)kChunkRows * (nt + kTilePix) * 4;
 }
 
 // ---- column stores -----------------------------------------------------------
@@ -143,6 +182,12 @@ struct Conv {
   float dmax;
 };
 
+__host__ __device__ inline int tap_shift(int k, int kw, int dil, int pad) {
+  const int ky = k / kw;
+  const int kx = k - ky * kw;
+  return ((ky * dil - pad) << 16) | ((kx * dil - pad) & 0xffff);
+}
+
 // One unit of the gather: (group, tap, VW-channel chunk). Built once per
 // block, so that the sample loop does no integer division:
 //   x = column index r = k*C + g*Cg + j*VW,  y = offset of the chunk in the
@@ -157,28 +202,24 @@ __device__ __forceinline__ void build_units(int4* tab, const Conv& cv,
     const int j = u - gk * nch;
     const int g = gk / cv.K;
     const int k = gk - g * cv.K;
-    const int ky = k / cv.kw;
-    const int kx = k - ky * cv.kw;
     tab[u] = make_int4(k * cv.C + g * cv.Cg + j * VW,
                        g * cv.H * cv.W * cv.Cg + j * VW, 2 * gk * cv.HWo,
-                       ((ky * cv.dil - cv.pad) << 16) |
-                           ((kx * cv.dil - cv.pad) & 0xffff));
+                       tap_shift(k, cv.kw, cv.dil, cv.pad));
   }
 }
 
-// Samples one tile into the column. Thread t takes pixel t % 64 and the
-// units t / 64, t / 64 + 4, ... in group-major order, kUnroll units at a
-// time: their corner loads are issued together, then blended. off and msk
-// point at this thread's pixel in the image's first offset and mask row;
-// msk null means no mask. A pixel past the image reads the tile's first
-// pixel's offsets and gets weight 0.
+// Samples units [0, n_units) of `tab` for one tile into the column, at row
+// e.x - r0. Thread t takes pixel t % 64 and the units t / 64, t / 64 + 4,
+// ..., kUnroll units at a time: their corner loads are issued together,
+// then blended. off and msk point at this thread's pixel in the image's
+// first offset and mask row; msk null means no mask. A pixel past the image
+// reads the tile's first pixel's offsets and gets weight 0.
 template <typename T, int VW, class Store>
 __device__ __forceinline__ void sample_tile(
     const T* __restrict__ xg, const T* __restrict__ off,
-    const T* __restrict__ msk, const int4* tab, int p, bool pvalid, int oy,
-    int ox, const Conv& cv, const Store& store) {
+    const T* __restrict__ msk, const int4* tab, int n_units, int r0, int p,
+    bool pvalid, int oy, int ox, const Conv& cv, const Store& store) {
   constexpr int kStep = kThreads / kTilePix;
-  const int n_units = cv.GK * (cv.Cg / VW);
   const int wc = cv.W * cv.Cg;
   for (int u0 = threadIdx.x / kTilePix; u0 < n_units; u0 += kStep * kUnroll) {
     Corner<T, VW> v[kUnroll][4];
@@ -204,7 +245,7 @@ __device__ __forceinline__ void sample_tile(
       wt[q][1] = (1.f - ly) * lx * m;
       wt[q][2] = ly * (1.f - lx) * m;
       wt[q][3] = ly * lx * m;
-      rr[q] = e.x;
+      rr[q] = e.x - r0;
       const int y0 = oy + (e.w >> 16) + (int)fy;
       const int x0 = ox + (int)(short)(e.w & 0xffff) + (int)fx;
       const bool vy0 = (unsigned)y0 < (unsigned)cv.H;
@@ -260,7 +301,7 @@ __global__ void grouped_channels_last_kernel(const T* __restrict__ x,
 }
 
 struct Args {
-  int B, C, H, W, Ho, Wo, kh, kw, pad, dil, G;
+  int B, C, H, W, Ho, Wo, kh, kw, pad, dil, G, Cout;
   float dmax;
   int vec_out;  // output rows of 64 pixels are 16-byte aligned
 };
@@ -272,6 +313,155 @@ __device__ __forceinline__ Conv make_conv(const Args& a) {
   cv.K = a.kh * a.kw; cv.pad = a.pad; cv.dil = a.dil; cv.GK = a.G * cv.K;
   cv.Cg = a.C / a.G; cv.dmax = a.dmax;
   return cv;
+}
+
+// The chunked form's plan for one call: Cout tile, tiles, chunks, and the
+// workspace (the unit table, then the packed W).
+struct Plan {
+  int resident, nt, n_ct, n_chunks;
+  size_t units_bytes, w_bytes;
+};
+
+__host__ __device__ inline Plan make_plan(int dtype, int C, int Cout, int K) {
+  Plan pl;
+  const int R = K * C;
+  const int c16 = (Cout + 15) & ~15;
+  pl.resident = dtype == 1 && Cout % 16 == 0 && Cout <= 64 &&
+                ((R + 15) & ~15) <= kResidentRows;
+  pl.nt = pl.resident ? Cout : dtype == 1 ? kChunkNT : (c16 < 64 ? c16 : 64);
+  pl.n_ct = (Cout + pl.nt - 1) / pl.nt;
+  pl.n_chunks = (R + kChunkRows - 1) / kChunkRows;
+  // one unit a reduction row at most (VW = 1)
+  pl.units_bytes = pl.resident ? 0 : align128((size_t)R * 16);
+  pl.w_bytes = pl.resident ? 0
+                           : (size_t)pl.n_ct * pl.n_chunks * kChunkRows *
+                                 pl.nt * (dtype == 1 ? 2 : 4);
+  return pl;
+}
+
+// W (Cout, C, K) -> wp, blocks of (Cout tile ct, chunk q), each kChunkRows
+// x nt: in the wgmma B layout (core = 1: element (r / 8) * nt * 8 + o * 8 +
+// r % 8) or [r][o] (core = 0); zero past R and Cout. Then the unit table in
+// reduction order: unit u is row r = u * VW.
+template <typename T>
+__global__ void pack_kernel(const T* __restrict__ weight, T* __restrict__ wp,
+                            int4* __restrict__ units, Args a, int nt,
+                            int n_ct, int n_chunks, int vw, int core) {
+  const int K = a.kh * a.kw;
+  const int C = a.C;
+  const int R = K * C;
+  const int Cg = C / a.G;
+  const int HWo = a.Ho * a.Wo;
+  const long long blk = (long long)kChunkRows * nt;
+  const long long n_w = (long long)n_ct * n_chunks * blk;
+  const long long n_u = R / vw;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_w + n_u; i += (long long)gridDim.x * blockDim.x) {
+    if (i < n_w) {
+      const long long bi = i / blk;
+      const int e = (int)(i - bi * blk);
+      const int ct = (int)(bi / n_chunks);
+      const int q = (int)(bi - (long long)ct * n_chunks);
+      int rr, o;
+      if (core) {
+        const int r8 = e / (nt * 8);
+        const int rem = e - r8 * nt * 8;
+        o = rem >> 3;
+        rr = r8 * 8 + (rem & 7);
+      } else {
+        rr = e / nt;
+        o = e - rr * nt;
+      }
+      const int r = q * kChunkRows + rr;
+      const int oo = ct * nt + o;
+      float v = 0.f;
+      if (r < R && oo < a.Cout) {
+        const int k = r / C;
+        const int c = r - k * C;
+        v = to_f(weight[((size_t)oo * C + c) * K + k]);
+      }
+      wp[i] = from_f<T>(v);
+    } else {
+      const int u = (int)(i - n_w);
+      const int r = u * vw;
+      const int k = r / C;
+      const int c = r - k * C;
+      const int g = c / Cg;
+      units[u] = make_int4(r, g * a.H * a.W * Cg + (c - g * Cg),
+                           2 * (g * K + k) * HWo,
+                           tap_shift(k, a.kw, a.dil, a.pad));
+    }
+  }
+}
+
+// The geometry of one 64-pixel tile for this thread's pixel
+struct Tile {
+  int b, p0, oy, ox, pe;
+  bool pvalid;
+  __device__ __forceinline__ Tile(int pt, int tiles_per_img, const Conv& cv,
+                                  int p) {
+    b = pt / tiles_per_img;
+    p0 = (pt - b * tiles_per_img) * kTilePix;
+    const int pix = p0 + p;
+    pvalid = pix < cv.HWo;
+    oy = pvalid ? pix / cv.Wo : 0;
+    ox = pvalid ? pix - oy * cv.Wo : 0;
+    pe = p0 + (pvalid ? p : 0);
+  }
+};
+
+// Writes the f32 result tile epi [n][kEpiStride] (n < nt) as bf16 NCHW rows
+// of output channels o0 + n < Cout: 16-byte stores of 8 pixels where the
+// rows allow, else one pixel at a time.
+__device__ __forceinline__ void store_tile(const float* epi, bf16* out_b,
+                                           int nt, int n_valid, int p0,
+                                           int HWo, int vec_out) {
+  const int tid = threadIdx.x;
+  if (vec_out) {  // 8 pixels a thread, one 16-byte store
+    for (int e = tid; e < nt * 8; e += kThreads) {
+      const int n = e >> 3;
+      const int q = (e & 7) * 8;
+      if (p0 + q >= HWo || n >= n_valid) continue;
+      const float4 f0 = *reinterpret_cast<const float4*>(epi + n * kEpiStride + q);
+      const float4 f1 =
+          *reinterpret_cast<const float4*>(epi + n * kEpiStride + q + 4);
+      const __nv_bfloat162 h0 = __floats2bfloat162_rn(f0.x, f0.y);
+      const __nv_bfloat162 h1 = __floats2bfloat162_rn(f0.z, f0.w);
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(f1.x, f1.y);
+      const __nv_bfloat162 h3 = __floats2bfloat162_rn(f1.z, f1.w);
+      uint4 w;
+      w.x = *reinterpret_cast<const uint32_t*>(&h0);
+      w.y = *reinterpret_cast<const uint32_t*>(&h1);
+      w.z = *reinterpret_cast<const uint32_t*>(&h2);
+      w.w = *reinterpret_cast<const uint32_t*>(&h3);
+      *reinterpret_cast<uint4*>(out_b + (size_t)n * HWo + q) = w;
+    }
+  } else {
+    for (int e = tid; e < nt * kTilePix; e += kThreads) {
+      const int n = e / kTilePix;
+      const int q = e % kTilePix;
+      if (p0 + q < HWo && n < n_valid)
+        out_b[(size_t)n * HWo + q] = __float2bfloat16_rn(epi[n * kEpiStride + q]);
+    }
+  }
+}
+
+// A warpgroup's m64n(NT/2) accumulator fragment -> epi [n][kEpiStride]:
+// rows warp*16 + lane/4 (+8), columns 8j + 2*(lane%4) (+1) of its half
+template <int NH>
+__device__ __forceinline__ void acc_to_epi(float* epi, const float (&acc)[NH / 2]) {
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int m0 = ((tid & 127) >> 5) * 16 + ((tid & 31) >> 2);
+  const int n0 = wg * NH + 2 * (tid & 3);
+#pragma unroll
+  for (int j = 0; j < NH / 8; ++j) {
+    const int n = 8 * j + n0;
+    epi[n * kEpiStride + m0] = acc[4 * j];
+    epi[(n + 1) * kEpiStride + m0] = acc[4 * j + 1];
+    epi[n * kEpiStride + m0 + 8] = acc[4 * j + 2];
+    epi[(n + 1) * kEpiStride + m0 + 8] = acc[4 * j + 3];
+  }
 }
 
 template <int COUT, int VW>
@@ -337,7 +527,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     sample_tile<bf16, VW>(xg + b * img,
                           offset + (size_t)b * 2 * cv.GK * HWo + pe,
                           mask ? mask + (size_t)b * cv.GK * HWo + pe : nullptr,
-                          tab, p, pvalid, oy, ox, cv, store);
+                          tab, cv.GK * (cv.Cg / VW), 0, p, pvalid, oy, ox, cv,
+                          store);
     fence_proxy_async();  // the column's stores, visible to wgmma
     __syncthreads();
 
@@ -403,34 +594,119 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// NOC = Cout / 16 output channels per thread (Cout in {16, 32, 48, 64})
+// Every other bf16 width: chunks of kChunkRows reduction rows, a Cout tile
+// of 64 a work item, two buffers (module comment)
+template <int VW>
+__global__ void __launch_bounds__(kThreads, 2)
+    dcn_fwd_bf16_chunked_kernel(const bf16* __restrict__ xg,
+                                const bf16* __restrict__ offset,
+                                const bf16* __restrict__ mask,
+                                const bf16* __restrict__ wp,
+                                const int4* __restrict__ units,
+                                bf16* __restrict__ out, Args a) {
+  constexpr int NT = kChunkNT;
+  constexpr int NH = NT / 2;
+  constexpr int kChunkElems = kChunkRows * NT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Conv cv = make_conv(a);
+  const int R = cv.K * cv.C;
+  const int n_chunks = (R + kChunkRows - 1) / kChunkRows;
+  const int n_ct = (a.Cout + NT - 1) / NT;
+  unsigned char* const a_s[2] = {smem, smem + kChunkA};
+  unsigned char* const w_s[2] = {smem + 2 * kChunkA,
+                                 smem + 2 * kChunkA + kChunkW};
+  float* epi = reinterpret_cast<float*>(smem + 2 * kChunkA + 2 * kChunkW);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int p = tid % kTilePix;
+  const int HWo = cv.HWo;
+  const int tiles_per_img = (HWo + kTilePix - 1) / kTilePix;
+  const int n_tiles = a.B * tiles_per_img * n_ct;
+  const size_t img = (size_t)cv.C * cv.H * cv.W;
+  const bf16 zero = __ushort_as_bfloat16(0);
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int ct = tile % n_ct;
+    const Tile t(tile / n_ct, tiles_per_img, cv, p);
+    const bf16* xb = xg + t.b * img;
+    const bf16* offb = offset + (size_t)t.b * 2 * cv.GK * HWo + t.pe;
+    const bf16* mskb = mask ? mask + (size_t)t.b * cv.GK * HWo + t.pe : nullptr;
+    const bf16* wct = wp + (size_t)ct * n_chunks * kChunkElems;
+
+    // W's chunk q and the column chunk q into buffer `buf`; the rows past
+    // the reduction up to the next 16 zero
+    auto stage = [&](int q, int buf) {
+      const uint4* src = reinterpret_cast<const uint4*>(wct + (size_t)q * kChunkElems);
+      uint4* dst = reinterpret_cast<uint4*>(w_s[buf]);
+      for (int i = tid; i < kChunkElems / 8; i += kThreads) dst[i] = __ldg(src + i);
+      const int r0 = q * kChunkRows;
+      const int rows = min(kChunkRows, R - r0);
+      sample_tile<bf16, VW>(xb, offb, mskb, units + r0 / VW, rows / VW, r0, p,
+                            t.pvalid, t.oy, t.ox, cv, StoreA{a_s[buf]});
+      const int pad = ((rows + 15) & ~15) - rows;
+      for (int i = tid; i < pad * kTilePix; i += kThreads) {
+        const int r = rows + i / kTilePix;
+        *reinterpret_cast<bf16*>(a_s[buf] + (r >> 3) * (kTilePix * 16) +
+                                 (i % kTilePix) * 16 + (r & 7) * 2) = zero;
+      }
+    };
+
+    // the buffers were last read by the previous tile's wgmma, waited for
+    // before the barrier that ended its last chunk
+    stage(0, 0);
+    fence_proxy_async();  // the stores, visible to wgmma
+    __syncthreads();
+    float acc[NH / 2];
+#pragma unroll
+    for (int j = 0; j < NH / 2; ++j) acc[j] = 0.f;
+    for (int q = 0; q < n_chunks; ++q) {
+      const int buf = q & 1;
+      const int steps = (min(kChunkRows, R - q * kChunkRows) + 15) / 16;
+      fence_acc(acc);
+      wgmma_fence();
+      const uint64_t da = make_desc(a_s[buf], kTilePix * 16, 128);
+      const uint64_t db = make_desc(w_s[buf] + wg * NH * 16, NT * 16, 128);
+      for (int s = 0; s < steps; ++s)
+        wgmma_bf16<NH>(acc, da + (uint64_t)(s * 2 * kTilePix),
+                       db + (uint64_t)(s * 2 * NT));
+      wgmma_commit();
+      // the next chunk into the other buffers while these wgmma run
+      if (q + 1 < n_chunks) stage(q + 1, buf ^ 1);
+      wgmma_wait0();
+      fence_acc(acc);
+      fence_proxy_async();
+      __syncthreads();
+    }
+    acc_to_epi<NH>(epi, acc);
+    __syncthreads();
+    const int o0 = ct * NT;
+    store_tile(epi, out + ((size_t)t.b * a.Cout + o0) * HWo + t.p0, NT,
+               a.Cout - o0, t.p0, HWo, a.vec_out);
+  }
+}
+
+// float32, any width: the chunks of the bf16 chunked form, contracted with
+// full-f32 FMAs. NOC = NT / 16 output channels a thread.
 template <int NOC, int VW>
 __global__ void __launch_bounds__(kThreads)
     dcn_fwd_f32_kernel(const float* __restrict__ xg,
                        const float* __restrict__ offset,
                        const float* __restrict__ mask,
-                       const float* __restrict__ weight,
+                       const float* __restrict__ wp,
+                       const int4* __restrict__ units,
                        float* __restrict__ out, Args a) {
-  constexpr int Cout = NOC * kOcGroups;
+  constexpr int NT = NOC * kOcGroups;
+  constexpr int kChunkElems = kChunkRows * NT;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  float* w_s = reinterpret_cast<float*>(smem4);  // [r][NT]
+  float* col = w_s + kChunkElems;                // [r][kTilePix]
   const Conv cv = make_conv(a);
   const int R = cv.K * cv.C;
-  float* w_s = smem;             // [R][Cout]
-  float* col = smem + R * Cout;  // [R][kTilePix]
-  int4* tab = reinterpret_cast<int4*>(col + R * kTilePix);
-  build_units(tab, cv, VW);
-  for (int i = threadIdx.x; i < R * Cout; i += kThreads) {
-    const int o = i % Cout;
-    const int r = i / Cout;
-    const int k = r / cv.C;
-    const int c = r % cv.C;
-    w_s[i] = weight[((size_t)o * cv.C + c) * cv.K + k];
-  }
-
-  const int HWo = a.Ho * a.Wo;
+  const int n_chunks = (R + kChunkRows - 1) / kChunkRows;
+  const int n_ct = (a.Cout + NT - 1) / NT;
+  const int HWo = cv.HWo;
   const int tiles_per_img = (HWo + kTilePix - 1) / kTilePix;
-  const int n_tiles = a.B * tiles_per_img;
+  const int n_tiles = a.B * tiles_per_img * n_ct;
   const size_t img = (size_t)cv.C * cv.H * cv.W;
   const int p = threadIdx.x % kTilePix;
   const int pg = threadIdx.x % kPixGroups;
@@ -438,46 +714,50 @@ __global__ void __launch_bounds__(kThreads)
   const StoreCol store{col};
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int b = tile / tiles_per_img;
-    const int p0 = (tile % tiles_per_img) * kTilePix;
-    __syncthreads();  // weights staged / the last contraction is done
-    const int pix = p0 + p;
-    const bool pvalid = pix < HWo;
-    const int oy = pvalid ? pix / cv.Wo : 0;
-    const int ox = pvalid ? pix - oy * cv.Wo : 0;
-    const int pe = p0 + (pvalid ? p : 0);
-    sample_tile<float, VW>(
-        xg + b * img, offset + (size_t)b * 2 * cv.GK * HWo + pe,
-        mask ? mask + (size_t)b * cv.GK * HWo + pe : nullptr, tab, p, pvalid,
-        oy, ox, cv, store);
-    __syncthreads();
-
+    const int ct = tile % n_ct;
+    const Tile t(tile / n_ct, tiles_per_img, cv, p);
+    const float* wct = wp + (size_t)ct * n_chunks * kChunkElems;
     float acc[NOC][kPixPerThread];
 #pragma unroll
     for (int j = 0; j < NOC; ++j)
 #pragma unroll
       for (int q = 0; q < kPixPerThread; ++q) acc[j][q] = 0.f;
-    const float* colp = col + pg * kPixPerThread;
-    for (int r = 0; r < R; ++r) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(colp + (size_t)r * kTilePix);
-      const float* wr = w_s + r * Cout + og;
+    for (int q = 0; q < n_chunks; ++q) {
+      const int r0 = q * kChunkRows;
+      const int rows = min(kChunkRows, R - r0);
+      __syncthreads();  // the last contraction is done with both buffers
+      const float4* src = reinterpret_cast<const float4*>(wct + (size_t)q * kChunkElems);
+      float4* dst = reinterpret_cast<float4*>(w_s);
+      for (int i = threadIdx.x; i < rows * NT / 4; i += kThreads)
+        dst[i] = __ldg(src + i);
+      sample_tile<float, VW>(
+          xg + t.b * img, offset + (size_t)t.b * 2 * cv.GK * HWo + t.pe,
+          mask ? mask + (size_t)t.b * cv.GK * HWo + t.pe : nullptr,
+          units + r0 / VW, rows / VW, r0, p, t.pvalid, t.oy, t.ox, cv, store);
+      __syncthreads();
+      const float* colp = col + pg * kPixPerThread;
+      for (int r = 0; r < rows; ++r) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(colp + (size_t)r * kTilePix);
+        const float* wr = w_s + r * NT + og;
 #pragma unroll
-      for (int j = 0; j < NOC; ++j) {
-        const float wv = wr[j * kOcGroups];
-        acc[j][0] = fmaf(v.x, wv, acc[j][0]);
-        acc[j][1] = fmaf(v.y, wv, acc[j][1]);
-        acc[j][2] = fmaf(v.z, wv, acc[j][2]);
-        acc[j][3] = fmaf(v.w, wv, acc[j][3]);
+        for (int j = 0; j < NOC; ++j) {
+          const float wv = wr[j * kOcGroups];
+          acc[j][0] = fmaf(v.x, wv, acc[j][0]);
+          acc[j][1] = fmaf(v.y, wv, acc[j][1]);
+          acc[j][2] = fmaf(v.z, wv, acc[j][2]);
+          acc[j][3] = fmaf(v.w, wv, acc[j][3]);
+        }
       }
     }
-    float* out_b = out + (size_t)b * Cout * HWo;
+    float* out_b = out + (size_t)t.b * a.Cout * HWo;
 #pragma unroll
     for (int j = 0; j < NOC; ++j) {
-      const int o = og + j * kOcGroups;
+      const int o = ct * NT + og + j * kOcGroups;
+      if (o >= a.Cout) continue;
 #pragma unroll
       for (int q = 0; q < kPixPerThread; ++q) {
-        const int px = p0 + pg * kPixPerThread + q;
+        const int px = t.p0 + pg * kPixPerThread + q;
         if (px < HWo) out_b[(size_t)o * HWo + px] = acc[j][q];
       }
     }
@@ -486,12 +766,11 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- launches ----------------------------------------------------------------
 
-template <typename T>
-cudaError_t launch_persistent(void (*kernel)(const T*, const T*, const T*,
-                                             const T*, T*, Args),
-                              size_t smem, const void* xg, const void* offset,
-                              const void* mask, const void* weight, void* out,
-                              const Args& a, cudaStream_t stream) {
+// Sets the kernel's shared memory and launches as many persistent blocks as
+// fit on the card, no more than there are work items
+template <class Kern, class... P>
+cudaError_t launch_persistent(Kern kernel, size_t smem, int n_items,
+                              cudaStream_t stream, P... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -499,47 +778,52 @@ cudaError_t launch_persistent(void (*kernel)(const T*, const T*, const T*,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, smem);
   if (err != cudaSuccess) return err;
-  const int n_tiles =
-      a.B * ((a.Ho * a.Wo + kTilePix - 1) / kTilePix);
   int grid = device_attr(cudaDevAttrMultiProcessorCount) *
              (per_sm > 0 ? per_sm : 1);
-  if (grid > n_tiles) grid = n_tiles;
+  if (grid > n_items) grid = n_items;
   if (grid < 1) return cudaSuccess;
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(xg), static_cast<const T*>(offset),
-      static_cast<const T*>(mask), static_cast<const T*>(weight),
-      static_cast<T*>(out), a);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
+int n_pixel_tiles(const Args& a) {
+  return a.B * ((a.Ho * a.Wo + kTilePix - 1) / kTilePix);
+}
+
 template <int COUT>
-cudaError_t launch_bf16(bool vec4, const void* xg, const void* offset,
-                        const void* mask, const void* weight, void* out,
-                        const Args& a, cudaStream_t s) {
+cudaError_t launch_resident(bool vec4, const void* xg, const void* offset,
+                            const void* mask, const void* weight, void* out,
+                            const Args& a, cudaStream_t s) {
   const int K = a.kh * a.kw;
   const int Rp = (K * a.C + 15) & ~15;
   const int units = a.G * K * (vec4 ? a.C / a.G / 4 : a.C / a.G);
   const size_t smem = bf16_layout(Rp, COUT, units).total;
-  if (smem > (size_t)device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin))
-    return cudaErrorInvalidValue;
-  return vec4 ? launch_persistent<bf16>(dcn_fwd_bf16_kernel<COUT, 4>, smem,
-                                        xg, offset, mask, weight, out, a, s)
-              : launch_persistent<bf16>(dcn_fwd_bf16_kernel<COUT, 1>, smem,
-                                        xg, offset, mask, weight, out, a, s);
+  const bf16 *x = static_cast<const bf16*>(xg),
+             *o = static_cast<const bf16*>(offset),
+             *m = static_cast<const bf16*>(mask),
+             *w = static_cast<const bf16*>(weight);
+  bf16* y = static_cast<bf16*>(out);
+  return vec4 ? launch_persistent(dcn_fwd_bf16_kernel<COUT, 4>, smem,
+                                  n_pixel_tiles(a), s, x, o, m, w, y, a)
+              : launch_persistent(dcn_fwd_bf16_kernel<COUT, 1>, smem,
+                                  n_pixel_tiles(a), s, x, o, m, w, y, a);
 }
 
 template <int NOC>
 cudaError_t launch_f32(bool vec4, const void* xg, const void* offset,
-                       const void* mask, const void* weight, void* out,
-                       const Args& a, cudaStream_t s) {
-  const int units = a.G * a.kh * a.kw * (vec4 ? a.C / a.G / 4 : a.C / a.G);
-  const size_t smem = f32_smem(a.kh * a.kw * a.C, NOC * kOcGroups, units);
-  if (smem > (size_t)device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin))
-    return cudaErrorInvalidValue;
-  return vec4 ? launch_persistent<float>(dcn_fwd_f32_kernel<NOC, 4>, smem, xg,
-                                         offset, mask, weight, out, a, s)
-              : launch_persistent<float>(dcn_fwd_f32_kernel<NOC, 1>, smem, xg,
-                                         offset, mask, weight, out, a, s);
+                       const void* mask, const void* wp, const int4* units,
+                       void* out, const Args& a, int n_ct, cudaStream_t s) {
+  const float *x = static_cast<const float*>(xg),
+              *o = static_cast<const float*>(offset),
+              *m = static_cast<const float*>(mask),
+              *w = static_cast<const float*>(wp);
+  float* y = static_cast<float*>(out);
+  const size_t smem = f32_smem(NOC * kOcGroups);
+  const int items = n_pixel_tiles(a) * n_ct;
+  return vec4 ? launch_persistent(dcn_fwd_f32_kernel<NOC, 4>, smem, items, s,
+                                  x, o, m, w, units, y, a)
+              : launch_persistent(dcn_fwd_f32_kernel<NOC, 1>, smem, items, s,
+                                  x, o, m, w, units, y, a);
 }
 
 template <typename T>
@@ -559,51 +843,102 @@ cudaError_t launch_transpose(const void* x, void* xg, const Args& a, int Cg,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_pack(const void* weight, void* work, const Args& a,
+                        const Plan& pl, int vw, cudaStream_t s) {
+  const long long n = (long long)pl.w_bytes / sizeof(T) +
+                      (long long)a.kh * a.kw * a.C / vw;
+  long long blocks = (n + 255) / 256;
+  const long long cap =
+      (long long)device_attr(cudaDevAttrMultiProcessorCount) * 16;
+  if (blocks > cap) blocks = cap;
+  unsigned char* base = static_cast<unsigned char*>(work);
+  pack_kernel<T><<<(unsigned)blocks, 256, 0, s>>>(
+      static_cast<const T*>(weight),
+      reinterpret_cast<T*>(base + pl.units_bytes),
+      reinterpret_cast<int4*>(base), a, pl.nt, pl.n_ct, pl.n_chunks, vw,
+      sizeof(T) == 2 ? 1 : 0);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
+// Bytes of the workspace fami_dcn_fwd needs for these widths (0 where the
+// resident form takes them): the unit table, then W packed in chunks.
+extern "C" long long fami_dcn_fwd_workspace(int dtype, int C, int Cout,
+                                            int kh, int kw) {
+  const Plan pl = make_plan(dtype, C, Cout, kh * kw);
+  return (long long)(pl.units_bytes + pl.w_bytes);
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (x, x_grouped, offset, mask, weight and
 // out share it). x_grouped is scratch of x's size: the kernel writes x there
-// in (B, G, H, W, C/G) order and gathers from it. mask may be null (DCNv1:
-// mask 1). max_offset <= 0: exact, no clamp. Returns a cudaError_t;
-// cudaErrorInvalidValue for a shape the kernels do not take.
+// in (B, G, H, W, C/G) order and gathers from it. work is scratch of
+// fami_dcn_fwd_workspace bytes, 16-byte aligned (null when that is 0). mask
+// may be null (DCNv1: mask 1). max_offset <= 0: exact, no clamp. Returns a
+// cudaError_t; cudaErrorInvalidValue for arguments no kernel takes (groups
+// not dividing C, an unknown dtype, no channels).
 extern "C" int fami_dcn_fwd(const void* x, void* x_grouped, const void* offset,
                             const void* mask, const void* weight, void* out,
-                            int dtype, int B, int C, int H, int W, int Cout,
-                            int Ho, int Wo, int kh, int kw, int pad, int dil,
-                            int groups, float max_offset, void* stream) {
+                            void* work, int dtype, int B, int C, int H, int W,
+                            int Cout, int Ho, int Wo, int kh, int kw, int pad,
+                            int dil, int groups, float max_offset,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (groups < 1 || C % groups != 0 || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  if (Cout != 16 && Cout != 32 && Cout != 48 && Cout != 64)
+  if (groups < 1 || C < 1 || Cout < 1 || C % groups != 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.B = B; a.C = C; a.H = H; a.W = W; a.Ho = Ho; a.Wo = Wo; a.kh = kh;
-  a.kw = kw; a.pad = pad; a.dil = dil; a.G = groups; a.dmax = max_offset;
+  a.kw = kw; a.pad = pad; a.dil = dil; a.G = groups; a.Cout = Cout;
+  a.dmax = max_offset;
   const int HWo = Ho * Wo;
   a.vec_out = HWo % 8 == 0 && aligned16(out);
   const int Cg = C / groups;
   const size_t elem = dtype == 0 ? 4 : 2;
   const bool vec4 =
       Cg % 4 == 0 && reinterpret_cast<uintptr_t>(x_grouped) % (4 * elem) == 0;
+  const Plan pl = make_plan(dtype, C, Cout, kh * kw);
+  if (!pl.resident && !aligned16(work)) return (int)cudaErrorInvalidValue;
   cudaError_t err = dtype == 0 ? launch_transpose<float>(x, x_grouped, a, Cg, s)
                                : launch_transpose<bf16>(x, x_grouped, a, Cg, s);
   if (err != cudaSuccess) return (int)err;
-  if (dtype == 0) {
-    switch (Cout) {
-      case 16: return (int)launch_f32<1>(vec4, x_grouped, offset, mask, weight, out, a, s);
-      case 32: return (int)launch_f32<2>(vec4, x_grouped, offset, mask, weight, out, a, s);
-      case 48: return (int)launch_f32<3>(vec4, x_grouped, offset, mask, weight, out, a, s);
-      default: return (int)launch_f32<4>(vec4, x_grouped, offset, mask, weight, out, a, s);
+  if (pl.resident) {
+    switch (pl.nt) {
+      case 16: return (int)launch_resident<16>(vec4, x_grouped, offset, mask, weight, out, a, s);
+      case 32: return (int)launch_resident<32>(vec4, x_grouped, offset, mask, weight, out, a, s);
+      case 48: return (int)launch_resident<48>(vec4, x_grouped, offset, mask, weight, out, a, s);
+      default: return (int)launch_resident<64>(vec4, x_grouped, offset, mask, weight, out, a, s);
     }
   }
-  switch (Cout) {
-    case 16: return (int)launch_bf16<16>(vec4, x_grouped, offset, mask, weight, out, a, s);
-    case 32: return (int)launch_bf16<32>(vec4, x_grouped, offset, mask, weight, out, a, s);
-    case 48: return (int)launch_bf16<48>(vec4, x_grouped, offset, mask, weight, out, a, s);
-    default: return (int)launch_bf16<64>(vec4, x_grouped, offset, mask, weight, out, a, s);
+  const int vw = vec4 ? 4 : 1;
+  err = dtype == 0 ? launch_pack<float>(weight, work, a, pl, vw, s)
+                   : launch_pack<bf16>(weight, work, a, pl, vw, s);
+  if (err != cudaSuccess) return (int)err;
+  const int4* units = static_cast<const int4*>(work);
+  const void* wp = static_cast<unsigned char*>(work) + pl.units_bytes;
+  if (dtype == 1) {
+    const bf16 *xb = static_cast<const bf16*>(x_grouped),
+               *ob = static_cast<const bf16*>(offset),
+               *mb = static_cast<const bf16*>(mask),
+               *wb = static_cast<const bf16*>(wp);
+    bf16* yb = static_cast<bf16*>(out);
+    const int items = n_pixel_tiles(a) * pl.n_ct;
+    return vec4 ? (int)launch_persistent(dcn_fwd_bf16_chunked_kernel<4>,
+                                         kChunkSmem, items, s, xb, ob, mb, wb,
+                                         units, yb, a)
+                : (int)launch_persistent(dcn_fwd_bf16_chunked_kernel<1>,
+                                         kChunkSmem, items, s, xb, ob, mb, wb,
+                                         units, yb, a);
+  }
+  switch (pl.nt) {
+    case 16: return (int)launch_f32<1>(vec4, x_grouped, offset, mask, wp, units, out, a, pl.n_ct, s);
+    case 32: return (int)launch_f32<2>(vec4, x_grouped, offset, mask, wp, units, out, a, pl.n_ct, s);
+    case 48: return (int)launch_f32<3>(vec4, x_grouped, offset, mask, wp, units, out, a, pl.n_ct, s);
+    default: return (int)launch_f32<4>(vec4, x_grouped, offset, mask, wp, units, out, a, pl.n_ct, s);
   }
 }

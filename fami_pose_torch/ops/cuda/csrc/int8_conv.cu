@@ -97,15 +97,6 @@
 
 namespace {
 
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 // QuantConv's activation quantization of one value, as a byte
 __device__ __forceinline__ uint32_t quant8(float v, float inv) {
   float q = rintf(__fmul_rn(v, inv));  // round half to even

@@ -143,7 +143,10 @@ def deform_conv2d(x, offset, mask, weight, bias=None, *, stride=1, padding=0,
     return out
 
 
-def _check_shapes(x, offset, mask, weight, padding, dilation, groups):
+def _check_kernel_args(x, offset, mask, weight, padding, dilation, groups):
+    """The forward kernel's checks: device, type, rank and shape of every
+    argument and the groups (any C and C_out: ``dcn_fwd_smem`` is bounded
+    whatever they are). Returns (Ho, Wo)."""
     tensors = {"x": x, "offset": offset, "weight": weight}
     if mask is not None:
         tensors["mask"] = mask
@@ -170,43 +173,39 @@ def _check_shapes(x, offset, mask, weight, padding, dilation, groups):
         raise ValueError(
             f"mask {tuple(mask.shape)}, expected {(n, groups * k, ho, wo)}"
         )
-    if c_out not in (16, 32, 48, 64):
-        raise ValueError(f"DCN kernel takes C_out in 16/32/48/64, got {c_out}")
-    return ho, wo
-
-
-def _check_kernel_args(x, offset, mask, weight, padding, dilation, groups):
-    ho, wo = _check_shapes(x, offset, mask, weight, padding, dilation, groups)
-    c, c_out = x.shape[1], weight.shape[0]
-    k = weight.shape[2] * weight.shape[3]
-    smem = dcn_fwd_smem(x.dtype, c, c_out, k, groups)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(
-            f"DCN kernel: weights + column tile need {smem} B of shared "
-            f"memory (C={c}, C_out={c_out}, {x.dtype}); the card has "
-            f"{SMEM_PER_BLOCK}"
-        )
     return ho, wo
 
 
 SMEM_PER_BLOCK = 232448  # an H100 block's dynamic shared memory, opted in
+RESIDENT_ROWS = 576  # dcn_fwd.cu's kResidentRows
+CHUNK_ROWS = 128  # dcn_fwd.cu's kChunkRows
+
+
+def _a128(n):
+    return -(-n // 128) * 128
 
 
 def dcn_fwd_smem(dtype, c, c_out, k, groups):
     """Shared memory of one block of the forward kernel (``dcn_fwd.cu``), in
-    bytes. bfloat16: W and the sampled column as wgmma operands (the
-    reduction ``k * c`` padded to a multiple of 16) and the f32 result
-    tile; float32: W and the column in f32. Both: a table of the gather's
-    units (group, tap, 4-channel chunk), 16 bytes each."""
+    bytes. bfloat16 with C_out of 16, 32, 48 or 64 and the reduction
+    ``k * c`` (padded to a multiple of 16) at most 576 rows, the resident
+    form: W and the sampled column as wgmma operands, the f32 result tile
+    and a table of the gather's units (group, tap, 4-channel chunk), 16
+    bytes each. Every other width, the chunked form,
+    whose size does not depend on C or C_out: bfloat16 two column and two
+    W buffers of 128 reduction rows (64 pixels, 64 output channels) and the
+    result tile; float32 W's chunk (C_out rounded up to 16, at most 64
+    columns) and the column chunk in f32."""
     r = k * c
+    rp = -(-r // 16) * 16
+    if dtype != torch.bfloat16:
+        return CHUNK_ROWS * (min(-(-c_out // 16) * 16, 64) + 64) * 4
+    if c_out not in (16, 32, 48, 64) or rp > RESIDENT_ROWS:
+        return 4 * CHUNK_ROWS * 64 * 2 + 64 * 68 * 4
     cg = c // groups
     units = groups * k * (cg // 4 if cg % 4 == 0 else cg)
-    if dtype != torch.bfloat16:
-        return r * (c_out + 64) * 4 + units * 16
-    rp = -(-r // 16) * 16
-    a128 = lambda n: -(-n // 128) * 128  # noqa: E731
-    return (a128(rp * c_out * 2) + a128(rp * 64 * 2) + a128(c_out * 68 * 4)
-            + a128(units * 16))
+    return (_a128(rp * c_out * 2) + _a128(rp * 64 * 2)
+            + _a128(c_out * 68 * 4) + _a128(units * 16))
 
 
 def _deform_conv_cuda(x, offset, mask, weight, padding, dilation, groups,
@@ -224,14 +223,20 @@ def _deform_conv_cuda(x, offset, mask, weight, padding, dilation, groups,
     n, c, h, w = x.shape
     c_out, _, kh, kw = weight.shape
     out = torch.empty((n, c_out, ho, wo), dtype=x.dtype, device=x.device)
-    # the kernel's copy of x in (N, G, H, W, C/G) order, which it gathers from
+    # the kernel's copy of x in (N, G, H, W, C/G) order, which it gathers
+    # from, and its workspace (W packed in chunks and the unit table, for
+    # the widths the resident form does not take)
     x_grouped = torch.empty_like(x)
     lib = load_library()
+    size = lib.fami_dcn_fwd_workspace(DTYPE_CODES[dtype], c, c_out, kh, kw)
+    work = torch.empty(size, dtype=torch.uint8, device=x.device) \
+        if size else None
     with torch.cuda.device(x.device):  # launches go to the current one
         err = lib.fami_dcn_fwd(
             x.data_ptr(), x_grouped.data_ptr(), offset.data_ptr(),
             None if mask is None else mask.data_ptr(), weight.data_ptr(),
-            out.data_ptr(), DTYPE_CODES[dtype], n, c, h, w, c_out, ho, wo, kh,
+            out.data_ptr(), None if work is None else work.data_ptr(),
+            DTYPE_CODES[dtype], n, c, h, w, c_out, ho, wo, kh,
             kw, padding, dilation, groups,
             float(max_offset) if max_offset is not None else 0.0,
             stream_ptr(x),
@@ -336,52 +341,48 @@ def deform_conv2d_backward_plain(x, offset, mask, weight, gout, *, padding=0,
     )
 
 
-BWD_BLOCKS_PER_SM = 2  # dcn_bwd.cu's bf16 kernel: __launch_bounds__(256, 2)
-
-
 def dcn_bwd_smem(dtype, c, c_out, groups):
     """Shared memory of one block of the backward kernel (``dcn_bwd.cu``), in
-    bytes. A block owns 3 taps: with ``cp`` = C rounded up to 16 and ``nw =
-    3 * cp`` columns, bfloat16 holds W's slice (C_out x nw) and gout
-    transposed (64 x C_out) as the dcol wgmma's operands, gout (64 x 64,
-    rows past C_out zero) and the sampled column (64 x nw) as dW's, dcol in
-    f32 (64 rows of nw + 4); float32 holds W's slice, gout (C_out rows of
-    68) and the column (nw rows of 68) in f32, and the same dcol. Both: a
-    table of 3 * groups gather units, 16 bytes each. Each region is rounded
-    up to 128 bytes."""
-    cp = -(-c // 16) * 16
+    bytes. A block owns 3 taps, a chunk of the channels (the whole groups
+    that fit in 64, or 64 channels of one wider group) and a chunk of 64
+    output channels: with ``cp`` = the chunk's width rounded up to 16, ``nw
+    = 3 * cp`` columns and ``ocp`` = C_out rounded up to 16, at most 64,
+    bfloat16 holds W's slice (ocp x nw) and gout transposed (64 x ocp) as
+    the dcol wgmma's operands, gout (64 x 64, rows past C_out zero) and the
+    sampled column (64 x nw) as dW's, dcol in f32 (64 rows of nw + 4);
+    float32 holds W's slice (64 x nw), gout (64 rows of 68) and the column
+    (nw rows of 68) in f32, and the same dcol. Both: a table of 3 gather units a
+    group of the chunk, 16 bytes each. Each region is rounded up to 128
+    bytes; the total does not grow past C = C_out = 64's."""
+    cg = c // groups
+    if cg <= 64:
+        gpc = min(64 // cg, groups)
+        cc = gpc * cg
+    else:
+        gpc, cc = 1, 64
+    cp = -(-cc // 16) * 16
     nw = 3 * cp
-    a128 = lambda n: -(-n // 128) * 128  # noqa: E731
-    dcol_tab = a128(64 * (nw + 4) * 4) + a128(3 * groups * 16)
+    ocp = min(-(-c_out // 16) * 16, 64)
+    dcol_tab = _a128(64 * (nw + 4) * 4) + _a128(3 * gpc * 16)
     if dtype != torch.bfloat16:
-        return (a128(c_out * nw * 4) + a128(c_out * 68 * 4) + a128(nw * 68 * 4)
-                + dcol_tab)
-    return (a128(c_out * nw * 2) + a128(64 * c_out * 2) + a128(64 * 64 * 2)
-            + a128(64 * nw * 2) + dcol_tab)
+        return (_a128(64 * nw * 4) + _a128(64 * 68 * 4)
+                + _a128(nw * 68 * 4) + dcol_tab)
+    return (_a128(ocp * nw * 2) + _a128(64 * ocp * 2) + _a128(64 * 64 * 2)
+            + _a128(64 * nw * 2) + dcol_tab)
 
 
 def _check_backward_args(x, offset, mask, weight, gout, padding, dilation,
                          groups):
-    """The backward kernel's refusals, as ``_check_kernel_args`` for the
-    forward: the same shape, type and C_out checks, ``gout`` of the output's
-    shape on x's device, the block's shared memory (:func:`dcn_bwd_smem`)
-    and C <= 64 (the kernel is instantiated for C padded to 16, 32, 48 or
-    64). Returns (Ho, Wo)."""
-    ho, wo = _check_shapes(x, offset, mask, weight, padding, dilation, groups)
-    n, c = x.shape[:2]
+    """The backward kernel's checks, as ``_check_kernel_args`` for the
+    forward: the same shape and type checks, and ``gout`` of the output's
+    shape on x's device. Returns (Ho, Wo)."""
+    ho, wo = _check_kernel_args(x, offset, mask, weight, padding, dilation,
+                                groups)
+    n = x.shape[0]
     c_out = weight.shape[0]
     if tuple(gout.shape) != (n, c_out, ho, wo) or gout.device != x.device:
         raise ValueError(f"gout {tuple(gout.shape)} on {gout.device}, expected "
                          f"{(n, c_out, ho, wo)} on {x.device}")
-    smem = dcn_bwd_smem(x.dtype, c, c_out, groups)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(
-            f"DCN backward kernel: W's slice, the gout, column and dcol tiles "
-            f"need {smem} B of shared memory (C={c}, C_out={c_out}, "
-            f"{x.dtype}); the card has {SMEM_PER_BLOCK}"
-        )
-    if c > 64:
-        raise ValueError(f"DCN backward kernel takes C <= 64, got {c}")
     return ho, wo
 
 
@@ -405,23 +406,21 @@ def _deform_conv_backward_cuda(x, offset, mask, weight, gout, padding,
     doffset = torch.empty_like(offset)
     dmask = None if mask is None else torch.empty_like(mask)
     # scratch: x in (N, G, H, W, C/G) order, the f32 dx accumulator of that
-    # order, and a f32 dW partial per block (3 taps a block, at most
-    # BWD_BLOCKS_PER_SM blocks an SM spread over the tap groups)
-    tap_groups = -(-(kh * kw) // 3)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    slots = -(-BWD_BLOCKS_PER_SM * sms // tap_groups)
+    # order, and the f32 workspace: the blocks' dW partials and, where an
+    # offset group has more than 64 channels, the doffset and dmask partials
+    # of its 64-channel slices
     x_grouped = torch.empty_like(x)
     dx_acc = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    dw_part = torch.empty(slots * tap_groups * c_out * 3 * c,
-                          dtype=torch.float32, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):  # launches go to the current one
+        size = lib.fami_dcn_bwd_workspace(n, c, c_out, ho, wo, kh, kw, groups)
+        work = torch.empty(size, dtype=torch.float32, device=x.device)
         err = lib.fami_dcn_bwd(
             x.data_ptr(), x_grouped.data_ptr(), offset.data_ptr(),
             None if mask is None else mask.data_ptr(), weight.data_ptr(),
             gout.data_ptr(), dx.data_ptr(), doffset.data_ptr(),
             None if dmask is None else dmask.data_ptr(), dweight.data_ptr(),
-            dx_acc.data_ptr(), dw_part.data_ptr(), slots, DTYPE_CODES[dtype],
+            dx_acc.data_ptr(), work.data_ptr(), DTYPE_CODES[dtype],
             n, c, h, w, c_out, ho, wo, kh, kw, padding, dilation, groups,
             float(max_offset) if max_offset is not None else 0.0,
             stream_ptr(x),

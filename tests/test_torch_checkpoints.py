@@ -112,3 +112,67 @@ def test_port_checkpoint_round_trips(tmp_path):
     assert set(variables) == set(want)
     for k, v in want.items():
         assert torch.equal(variables[k], v), k
+
+
+DEMO_OPTS = ["MODEL.IMAGE_SIZE", "[32,32]", "MODEL.HEATMAP_SIZE", "[8,8]"]
+
+
+def _demo_frames(tmp_path):
+    import cv2
+
+    rs = np.random.RandomState(4)
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    for i in range(3):
+        cv2.imwrite(str(frames / f"{i:04d}.png"),
+                    rs.randint(0, 256, size=(40, 52, 3)).astype(np.uint8))
+    return str(frames)
+
+
+def _run_demo(frames, out, *flags):
+    import json
+
+    from fami_pose_torch import demo
+
+    demo.main(["--cfg", "configs/posetrack17/fami_pose.yaml", "--frames",
+               frames, "--out", out, "--device", "cpu", *flags, *DEMO_OPTS])
+    with open(osp.join(out, "keypoints.json")) as f:
+        return json.load(f)
+
+
+def test_demo_checkpoint_reads_the_trainers_file(tmp_path):
+    """``demo --checkpoint epoch_N_state.ckpt`` with the file the port's
+    trainer writes (``save_checkpoint`` of its ``TrainState``) gives the
+    keypoints that ``--weights`` gives with that file's ``model``
+    state_dict, which are not the seeded init's."""
+    from fami_pose_torch.config import get_cfg
+    from fami_pose_torch.engine.train_state import TrainState
+    from fami_pose_torch.models.bridge import init_weights
+    from fami_pose_torch.models.fami_pose import FAMIPose
+    from fami_pose_torch.optim import build_optimizer
+
+    cfg = get_cfg(types.SimpleNamespace(
+        cfg="configs/posetrack17/fami_pose.yaml", opts=DEMO_OPTS,
+        root_dir="."))
+    model = init_weights(FAMIPose.from_config(cfg), seed=11)
+    optimizer, scheduler = build_optimizer(cfg, model, steps_per_epoch=1)
+    path = checkpoints.save_checkpoint(str(tmp_path / "ckpt"), 5,
+                                       TrainState(model, optimizer,
+                                                  scheduler))
+    assert osp.basename(path) == "epoch_5_state.ckpt"
+    weights = str(tmp_path / "weights.pt")
+    torch.save(checkpoints.load_variables(path), weights)
+    frames = _demo_frames(tmp_path)
+    by_ckpt = _run_demo(frames, str(tmp_path / "a"), "--checkpoint", path)
+    by_weights = _run_demo(frames, str(tmp_path / "b"), "--weights", weights)
+    seeded = _run_demo(frames, str(tmp_path / "c"))
+    assert len(by_ckpt) == 3 and by_ckpt == by_weights
+    assert by_ckpt != seeded
+
+
+def test_demo_checkpoint_refuses_a_jax_checkpoint(tmp_path):
+    path = _write_jax_checkpoint(str(tmp_path / "ckpt"), epoch=2)
+    frames = _demo_frames(tmp_path)
+    with pytest.raises(ValueError, match=REFUSAL) as err:
+        _run_demo(frames, str(tmp_path / "out"), "--checkpoint", path)
+    assert path in str(err.value)

@@ -131,8 +131,8 @@ def test_dcn_kernel_shapes(gen, dtype, c, c_out, max_offset):
 @pytest.mark.parametrize("c, g", [(48, 48), (12, 4), (24, 3), (64, 16)])
 def test_dcn_kernel_other_groupings(gen, dtype, c, g):
     """Cg = 1 and 3: the scalar gather (432 and 108 units); Cg = 8: two
-    vector loads a corner; C = 64: the bf16 layout takes it, the f32 one
-    (258 KB) is refused."""
+    vector loads a corner; C = 64: the bf16 resident layout's widest, the
+    f32 chunks."""
     for h, w in DCN_SIZES:
         x = torch.randn(2, c, h, w, generator=gen, device="cuda").to(dtype)
         off = _offsets(gen, (2, 2 * g * 9, h, w), 3, dtype)
@@ -140,10 +140,6 @@ def test_dcn_kernel_other_groupings(gen, dtype, c, g):
         wgt = (torch.randn(48, c, 3, 3, generator=gen, device="cuda")
                * 0.05).to(dtype)
         kw = dict(padding=3, dilation=3, offset_groups=g, max_offset=3)
-        if dtype == torch.float32 and c == 64:
-            with pytest.raises(ValueError, match="shared memory"):
-                deform_conv2d_windowed(x, off, msk, wgt, **kw)
-            continue
         got = deform_conv2d_windowed(x, off, msk, wgt, **kw)
         torch.cuda.synchronize()
         _assert_close(got, deform_conv2d(x, off, msk, wgt, **kw), dtype)
@@ -182,21 +178,27 @@ def test_warp_kernel_vector_and_scalar_paths(gen, dtype, shape):
 
 
 def test_kernels_refuse_what_they_do_not_take(gen):
-    """A CUDA tensor goes to the kernel or raises: no plain fallback."""
+    """A CUDA tensor goes to the kernel or raises: no plain fallback. The
+    widths the kernels once refused (C_out = 24, C = 256) now launch them."""
     x = torch.zeros(1, 16, 8, 8, device="cuda")
     off = torch.zeros(1, 72, 8, 8, device="cuda")
     before = deform_conv2d_windowed.launches
-    with pytest.raises(ValueError, match="C_out"):
-        deform_conv2d_windowed(x, off, None, torch.zeros(24, 16, 3, 3,
-                               device="cuda"), padding=3, dilation=3)
+    out = deform_conv2d_windowed(x, off, None, torch.zeros(24, 16, 3, 3,
+                                 device="cuda"), padding=3, dilation=3)
     xb = torch.zeros(1, 256, 8, 8, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="shared memory"):
-        deform_conv2d_windowed(
-            xb, torch.zeros(1, 2 * 16 * 9, 8, 8, device="cuda",
-                            dtype=torch.bfloat16), None,
-            torch.zeros(64, 256, 3, 3, device="cuda", dtype=torch.bfloat16),
-            padding=3, dilation=3, offset_groups=16)
-    assert deform_conv2d_windowed.launches == before
+    outb = deform_conv2d_windowed(
+        xb, torch.zeros(1, 2 * 16 * 9, 8, 8, device="cuda",
+                        dtype=torch.bfloat16), None,
+        torch.zeros(64, 256, 3, 3, device="cuda", dtype=torch.bfloat16),
+        padding=3, dilation=3, offset_groups=16)
+    torch.cuda.synchronize()
+    assert deform_conv2d_windowed.launches == before + 2
+    assert out.shape == (1, 24, 8, 8) and not out.any()
+    assert outb.shape == (1, 64, 8, 8) and not outb.any()
+    with pytest.raises(ValueError, match="bad channels"):
+        deform_conv2d_windowed(x, off, None, torch.zeros(24, 8, 3, 3,
+                               device="cuda"), padding=3, dilation=3)
+    assert deform_conv2d_windowed.launches == before + 2
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         warp_translate(torch.zeros(1, 2, 8, 8, device="cuda",
                                    dtype=torch.float64),
@@ -349,6 +351,8 @@ def test_dcn_backward_kernel_taps_not_a_multiple_of_three(gen, dtype):
 
 
 def test_dcn_backward_refuses_what_it_does_not_take(gen):
+    """C = 80 (once refused) is taken; a gout of the wrong shape raises
+    before any launch."""
     from fami_pose_torch.ops.deform_conv import deform_conv2d_backward
 
     before = deform_conv2d_backward.launches
@@ -356,13 +360,72 @@ def test_dcn_backward_refuses_what_it_does_not_take(gen):
     off = torch.zeros(1, 2 * 16 * 9, 8, 8, device="cuda", dtype=torch.bfloat16)
     wgt = torch.zeros(16, 80, 3, 3, device="cuda", dtype=torch.bfloat16)
     gout = torch.zeros(1, 16, 8, 8, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="C <= 64"):
-        deform_conv2d_backward(x, off, None, wgt, gout, padding=3, dilation=3,
-                               offset_groups=16)
+    grads = deform_conv2d_backward(x, off, None, wgt, gout, padding=3,
+                                   dilation=3, offset_groups=16)
+    torch.cuda.synchronize()
+    assert deform_conv2d_backward.launches == before + 1
+    assert grads[2] is None and not any(g.any() for g in grads if g is not None)
     with pytest.raises(ValueError, match="gout"):
         deform_conv2d_backward(x[:, :64], off, None, wgt[:, :64], gout[..., :4],
                                padding=3, dilation=3, offset_groups=16)
-    assert deform_conv2d_backward.launches == before
+    assert deform_conv2d_backward.launches == before + 1
+
+
+# (C, C_out, G, mask) of the width cases: chip_smoke.py's block rows (the
+# odd widths of the JAX tests, 6 -> 6 and 18 -> 16; C_out = 24; the deform
+# blocks at HRNet-W48's four branches, 48, 96, 192 and 384, one group
+# without a mask, two with one; 64, f32's once refused width) and the
+# chunked forms' edges (a group wider than 64 split in slices, C_out past
+# one tile, 5 groups of 16)
+WIDTH_CASES = [(6, 6, 1, False), (18, 16, 1, False), (16, 24, 2, True),
+               (48, 24, 2, True), (48, 48, 1, False), (48, 48, 2, True),
+               (96, 96, 1, False), (96, 96, 2, True), (192, 192, 1, False),
+               (192, 192, 2, True), (384, 384, 1, False),
+               (384, 384, 2, True), (64, 64, 1, False), (64, 64, 2, True),
+               (80, 72, 5, True), (36, 130, 3, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,c_out,g,with_mask", WIDTH_CASES)
+def test_dcn_kernels_at_every_width(gen, dtype, c, c_out, g, with_mask):
+    """Both kernels at the width cases, exact mode, dilation and padding 1,
+    offsets ~N(0, 8) px, on a ragged plane (13x11: scalar stores) and a
+    whole one (16x24), one launch each, against their plain versions."""
+    for h, w in DCN_SIZES:
+        x = torch.randn(2, c, h, w, generator=gen, device="cuda").to(dtype)
+        off = (torch.randn(2, 18 * g, h, w, generator=gen, device="cuda")
+               * 8).to(dtype)
+        msk = (torch.rand(2, 9 * g, h, w, generator=gen, device="cuda")
+               .to(dtype) if with_mask else None)
+        wgt = (torch.randn(c_out, c, 3, 3, generator=gen, device="cuda")
+               * (0.4 / c ** 0.5)).to(dtype)
+        kw = dict(padding=1, dilation=1, offset_groups=g, max_offset=None)
+        before = deform_conv2d_windowed.launches
+        got = deform_conv2d_windowed(x, off, msk, wgt, **kw)
+        torch.cuda.synchronize()
+        assert deform_conv2d_windowed.launches == before + 1
+        assert got.shape == (2, c_out, h, w)
+        _assert_close(got, deform_conv2d(x, off, msk, wgt, **kw), dtype)
+        _check_backward(gen, x, off, msk, wgt, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dcn_wide_kernels_clamped_and_dilated(gen, dtype):
+    """The chunked forms on the main path's conv settings (D = 4 with
+    integer offsets and offsets at +-D, dilation 3) at C = C_out = 96, 12
+    groups, so that the clamp's zero derivatives cross the channel chunks."""
+    c, g = 96, 12
+    for h, w in DCN_SIZES:
+        x = torch.randn(2, c, h, w, generator=gen, device="cuda").to(dtype)
+        off = _offsets(gen, (2, 2 * g * 9, h, w), 4, dtype)
+        msk = torch.rand(2, g * 9, h, w, generator=gen, device="cuda").to(dtype)
+        wgt = (torch.randn(c, c, 3, 3, generator=gen, device="cuda")
+               * 0.04).to(dtype)
+        kw = dict(padding=3, dilation=3, offset_groups=g, max_offset=4)
+        got = deform_conv2d_windowed(x, off, msk, wgt, **kw)
+        torch.cuda.synchronize()
+        _assert_close(got, deform_conv2d(x, off, msk, wgt, **kw), dtype)
+        _check_backward(gen, x, off, msk, wgt, **kw)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -513,14 +576,15 @@ def test_warp_backward_scalar_path(gen, dtype, layout):
 
 # -- the deform blocks' settings (models/deform_blocks.py) ------------------------
 
-@pytest.mark.parametrize("dtype,c", [(torch.float32, 48), (torch.bfloat16, 64)])
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 48), (torch.float32, 64),
+                                     (torch.bfloat16, 64)])
 @pytest.mark.parametrize("groups,with_mask", [(1, False), (2, True)])
 def test_dcn_kernels_at_the_deform_blocks_settings(gen, dtype, c, groups,
                                                    with_mask):
-    """Exact mode, dilation and padding 1, C = C_out (the f32 forward's
-    widest 48, bf16's 64), one group without a mask (DCNv1: dmask None) or
-    two with one, offsets ~N(0, 8) px (many samples off the image): both
-    kernels against their plain versions."""
+    """Exact mode, dilation and padding 1, C = C_out (f32 at 48 and at 64,
+    which the f32 forward once refused, bf16 at 64), one group without a
+    mask (DCNv1: dmask None) or two with one, offsets ~N(0, 8) px (many
+    samples off the image): both kernels against their plain versions."""
     n, h, w = 2, 23, 17
     x = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
     off = (torch.randn(n, 18 * groups, h, w, generator=gen, device="cuda")
@@ -910,13 +974,19 @@ def test_lane_gathers_stay_inside_their_buffers(guarded, gen, case):
     assert torch.equal(guarded.get(po, x), ref)
 
 
-# (N, C, H, W, G): the main path's plane (8-byte gathers, 16-byte stores,
-# forward and backward), a ragged one (scalar stores), 48 groups (scalar
-# gathers, 432 units), Cg = 3 (scalar gathers, the reduction padded), Cg = 8
-# (two vectors a corner)
-DCN_GUARDED = {"main": (2, 48, 96, 72, 12), "ragged": (2, 16, 13, 11, 4),
-               "groups48": (1, 48, 20, 18, 48), "cg3": (2, 12, 13, 11, 4),
-               "cg8": (2, 24, 13, 11, 3)}
+# (N, C, H, W, G, C_out): the main path's plane (8-byte gathers, 16-byte
+# stores, forward and backward), a ragged one (scalar stores), 48 groups
+# (scalar gathers, 432 units), Cg = 3 (scalar gathers, the reduction
+# padded), Cg = 8 (two vectors a corner); the chunked forms: C = 96 in one
+# group (the backward's two slices and their doffset / dmask partials,
+# C_out past one tile), C = 18 -> C_out = 6 (scalar gathers, a tile mostly
+# zero columns), C = 6 -> 24 in f32 chunks
+DCN_GUARDED = {"main": (2, 48, 96, 72, 12, 48),
+               "ragged": (2, 16, 13, 11, 4, 16),
+               "groups48": (1, 48, 20, 18, 48, 48),
+               "cg3": (2, 12, 13, 11, 4, 16), "cg8": (2, 24, 13, 11, 3, 16),
+               "c96g1": (2, 96, 13, 11, 1, 96), "c18to6": (1, 18, 13, 11, 1, 6),
+               "c6to24": (1, 6, 13, 11, 1, 24)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -928,12 +998,9 @@ def test_dcn_kernels_stay_inside_their_buffers(guarded, gen, dtype,
     (its copy and zeroed accumulator, its main kernel on the vector and the
     scalar atomics, the ragged last tile, the finishing transpose and dW
     sum) on every internal path; results equal to the wrappers'."""
-    from fami_pose_torch.ops.deform_conv import (
-        BWD_BLOCKS_PER_SM, deform_conv2d_backward,
-    )
+    from fami_pose_torch.ops.deform_conv import deform_conv2d_backward
 
-    n, c, h, w, g = DCN_GUARDED[case]
-    c_out = c if c in (16, 32, 48, 64) else 16
+    n, c, h, w, g, c_out = DCN_GUARDED[case]
     code = 0 if dtype == torch.float32 else 1
     x = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
     off = _offsets(gen, (n, 2 * g * 9, h, w), max_offset, dtype)
@@ -945,21 +1012,23 @@ def test_dcn_kernels_stay_inside_their_buffers(guarded, gen, dtype,
     lib = _kernel_library()
     px, pxg, po, pm, pw, pout = (guarded.put(t)
                                  for t in (x, x, off, msk, wgt, ref))
+    size = lib.fami_dcn_fwd_workspace(code, c, c_out, 3, 3)
+    pwork = guarded.put(torch.zeros(size, dtype=torch.uint8,
+                                    device="cuda")) if size else None
     dims = (code, n, c, h, w, c_out, h, w, 3, 3, 3, 3, g, float(max_offset),
             None)
-    assert lib.fami_dcn_fwd(px, pxg, po, pm, pw, pout, *dims) == 0
+    assert lib.fami_dcn_fwd(px, pxg, po, pm, pw, pout, pwork, *dims) == 0
     guarded.sync()
     assert torch.equal(guarded.get(pout, ref), ref)
     gout = torch.randn(ref.shape, generator=gen, device="cuda").to(dtype)
     ref_b = deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    slots = -(-BWD_BLOCKS_PER_SM * sms // 3)
     acc = torch.zeros(x.shape, device="cuda")
-    part = torch.zeros(slots * 3 * c_out * 3 * c, device="cuda")
+    part = torch.zeros(lib.fami_dcn_bwd_workspace(n, c, c_out, h, w, 3, 3, g),
+                       device="cuda")
     pg, pxg2, pdx, pdo, pdm, pdw, pacc, ppart = (
         guarded.put(t) for t in (gout, x, x, off, msk, wgt, acc, part))
     assert lib.fami_dcn_bwd(px, pxg2, po, pm, pw, pg, pdx, pdo, pdm, pdw,
-                            pacc, ppart, slots, *dims) == 0
+                            pacc, ppart, *dims) == 0
     guarded.sync()
     _assert_grad_close("dx", guarded.get(pdx, x), ref_b[0], dtype)
     assert torch.equal(guarded.get(pdo, off), ref_b[1])

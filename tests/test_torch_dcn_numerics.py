@@ -24,9 +24,10 @@ emulation holds every gradient to 2^-7 of its scale against the plain f32
 ~0.2 of that tolerance, and with dW's own rounding ~0.4.
 
 The second half calls ``_check_kernel_args``, ``_check_backward_args`` and
-``_check_warp_args`` on CPU tensors: the kernels' shared-memory limits
-(recomputed for the bf16 wgmma layouts), the C / C_out / group / shape
-refusals and the warp's checks.
+``_check_warp_args`` on CPU tensors: the kernels' shared memory (recomputed
+for the bf16 wgmma layouts and the chunked forms, bounded at any width),
+every width taken, the group / shape / type refusals and the warp's
+checks.
 """
 
 import numpy as np
@@ -184,8 +185,9 @@ def test_forward_smem_at_the_main_path_shape():
     # bf16: W 41,472 B + column 55,296 + result tile 13,056 + 108 gather
     # units 1,792 (1,728 rounded up to 128 B): two blocks fit an SM
     assert dcn_fwd_smem(torch.bfloat16, 48, 48, 9, 12) == 111616
-    # f32: W and the column in f32, as before, and the units
-    assert dcn_fwd_smem(torch.float32, 48, 48, 9, 12) == 195264
+    # f32, the chunked form: W's chunk (128 rows x 48) and the column chunk
+    # (128 rows x 64 pixels) in f32
+    assert dcn_fwd_smem(torch.float32, 48, 48, 9, 12) == 128 * 112 * 4
     # 48 groups: one channel a group, 432 units
     assert dcn_fwd_smem(torch.bfloat16, 48, 48, 9, 48) == 116736
 
@@ -201,8 +203,13 @@ def test_check_kernel_args_takes_the_kernel_shapes(dtype, c_out, mask):
 
 @pytest.mark.parametrize("c_out", [8, 24, 96])
 def test_check_kernel_args_refuses_other_cout(c_out):
-    with pytest.raises(ValueError, match="C_out in 16/32/48/64"):
-        _check_kernel_args(*_dcn_args(c_out=c_out), 3, 3, 12)
+    """C_out outside 16/32/48/64, once refused, is taken: the chunked form
+    tiles it by 64 with its stores masked, within a block's shared
+    memory."""
+    assert _check_kernel_args(*_dcn_args(c_out=c_out), 3, 3, 12) == (10, 9)
+    for dtype in (torch.bfloat16, torch.float32):
+        assert dcn_fwd_smem(dtype, 48, c_out, 9, 12) <= SMEM_PER_BLOCK
+    assert dcn_fwd_smem(torch.bfloat16, 48, c_out, 9, 12) == 82944
 
 
 def test_check_kernel_args_refuses_bad_groups_and_shapes():
@@ -222,16 +229,30 @@ def test_check_kernel_args_refuses_bad_groups_and_shapes():
 
 
 def test_check_kernel_args_shared_memory_limit_per_dtype():
-    # C = 64, C_out = 64: the f32 layout needs 297,216 B and is refused; the
-    # bf16 wgmma layout fits
-    with pytest.raises(ValueError, match="shared memory"):
-        _check_kernel_args(*_dcn_args(c=64, c_out=64, g=16,
-                                      dtype=torch.float32), 3, 3, 16)
+    """C = C_out = 64 in f32 (297,216 B in the whole-W layout, once
+    refused) and C = 256 in bf16 (its operands once exceeded a block) are
+    taken: both run the chunked form, whose shared memory does not depend
+    on C."""
+    assert _check_kernel_args(*_dcn_args(c=64, c_out=64, g=16,
+                                         dtype=torch.float32), 3, 3, 16)
+    assert dcn_fwd_smem(torch.float32, 64, 64, 9, 16) == 128 * 128 * 4
     assert _check_kernel_args(*_dcn_args(c=64, c_out=64, g=16), 3, 3, 16)
     assert dcn_fwd_smem(torch.bfloat16, 64, 64, 9, 16) <= SMEM_PER_BLOCK
-    # C = 256: even the bf16 operands exceed a block's shared memory
-    with pytest.raises(ValueError, match="shared memory"):
-        _check_kernel_args(*_dcn_args(c=256, c_out=64, g=16), 3, 3, 16)
+    assert _check_kernel_args(*_dcn_args(c=256, c_out=64, g=16), 3, 3, 16)
+    assert dcn_fwd_smem(torch.bfloat16, 256, 64, 9, 16) == 82944
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,c_out,g", [(384, 384, 1), (384, 384, 2),
+                                       (1024, 6, 1), (6, 1000, 3)])
+def test_shared_memory_is_bounded_at_any_width(dtype, c, c_out, g):
+    """HRNet-W48's widest branch (C = C_out = 384, one group) and wider:
+    both kernels' blocks fit, and no larger than at C = C_out = 64."""
+    assert dcn_fwd_smem(dtype, c, c_out, 9, g) <= SMEM_PER_BLOCK
+    assert dcn_bwd_smem(dtype, c, c_out, g) <= SMEM_PER_BLOCK
+    assert dcn_bwd_smem(dtype, c, c_out, g) <= dcn_bwd_smem(dtype, 64, 64, 64)
+    assert dcn_fwd_smem(dtype, c, c_out, 9, g) <= max(
+        dcn_fwd_smem(dtype, 64, 64, 9, 64), 82944)
 
 
 def test_backward_smem_at_the_main_path_shape():
@@ -240,9 +261,9 @@ def test_backward_smem_at_the_main_path_shape():
     # 37,888 + 36 units 576 (640 rounded up to 128 B): two blocks an SM
     assert dcn_bwd_smem(torch.bfloat16, 48, 48, 12) == 85120
     assert 2 * 85120 <= 228 * 1024
-    # f32: W's slice 27,648 + gout 48 x 68 13,056 + column 144 x 68 39,168
-    # + dcol 37,888 + units 640
-    assert dcn_bwd_smem(torch.float32, 48, 48, 12) == 118400
+    # f32, a Cout chunk of 64 rows (past C_out zero): W's slice 36,864 +
+    # gout 64 x 68 17,408 + column 144 x 68 39,168 + dcol 37,888 + units 640
+    assert dcn_bwd_smem(torch.float32, 48, 48, 12) == 131968
     # C = 12 is padded to 16 columns a tap; C = 64 the widest slice
     assert dcn_bwd_smem(torch.bfloat16, 12, 16, 4) == (
         1536 + 2048 + 8192 + 6144 + 13312 + 256)
@@ -265,14 +286,15 @@ def test_check_backward_args_takes_the_kernel_shapes(dtype, c, g):
 
 
 def test_check_backward_args_refusals():
-    with pytest.raises(ValueError, match="C <= 64"):
-        _check_backward_args(*_bwd_args(c=80, g=16), 3, 3, 16)
-    with pytest.raises(ValueError, match="C_out in 16/32/48/64"):
-        _check_backward_args(*_bwd_args(c_out=24), 3, 3, 12)
+    """C = 80, C_out = 24 and C = 256, once refused, are taken (bounded
+    shared memory); bad groups, gout and types are still refused."""
+    assert _check_backward_args(*_bwd_args(c=80, g=16), 3, 3, 16) == (10, 9)
+    assert _check_backward_args(*_bwd_args(c_out=24), 3, 3, 12) == (10, 9)
+    assert _check_backward_args(*_bwd_args(c=256, g=16), 3, 3, 16) == (10, 9)
+    for c, c_out, g in ((80, 48, 16), (48, 24, 12), (256, 48, 16)):
+        assert dcn_bwd_smem(torch.bfloat16, c, c_out, g) <= SMEM_PER_BLOCK
     with pytest.raises(ValueError, match="bad channels"):
         _check_backward_args(*_bwd_args(), 3, 3, 5)
-    with pytest.raises(ValueError, match="shared memory"):
-        _check_backward_args(*_bwd_args(c=256, g=16), 3, 3, 16)
     x, off, msk, wgt, gout = _bwd_args()
     with pytest.raises(ValueError, match="gout"):
         _check_backward_args(x, off, msk, wgt, gout[:, :16], 3, 3, 12)

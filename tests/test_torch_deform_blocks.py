@@ -167,23 +167,26 @@ def test_deform_conv_defaults_are_the_models():
 @pytest.mark.parametrize("c,c_out,msg", [
     (64, 6, "C_out in 16/32/48/64"), (96, 64, "C <= 64")])
 def test_widths_outside_the_kernels_are_refused_by_name(c, c_out, msg):
-    """On the card a block's DCN runs the kernels; the checks they run
-    first refuse a width outside their range by name (here on CPU tensors:
-    the same checks, without the launch)."""
+    """On the card a block's DCN runs the kernels. These widths (C_out = 6,
+    C = 96), which the kernels' checks once refused by the name ``msg``, are
+    now taken: the checks they run first (here on CPU tensors: the same
+    checks, without the launch) pass, within a block's shared memory."""
     x = torch.zeros(1, c, 8, 8, dtype=torch.bfloat16)
     w = torch.zeros(c_out, c, 3, 3, dtype=torch.bfloat16)
     off = torch.zeros(1, 18, 8, 8, dtype=torch.bfloat16)
     gout = torch.zeros(1, c_out, 8, 8, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=msg):
-        _check_backward_args(x, off, None, w, gout, 1, 1, 1)
+    assert _check_backward_args(x, off, None, w, gout, 1, 1, 1) == (8, 8)
+    assert _check_kernel_args(x, off, None, w, 1, 1, 1) == (8, 8)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert dcn_fwd_smem(dtype, c, c_out, 9, 1) <= SMEM_PER_BLOCK
+        assert dcn_bwd_smem(dtype, c, c_out, 1) <= SMEM_PER_BLOCK
 
 
 @pytest.mark.parametrize("groups", [1, 2])
 def test_the_blocks_widest_settings_on_the_kernels(groups):
-    """C = C_out = 64, dilation 1, one or two groups: both bf16 kernels and
-    the f32 backward fit a block's shared memory; the f32 forward keeps W
-    and its column in f32 (297,216 B at C = 64) and is refused by name, so
-    an f32 block on the card is at most 48 channels wide (bf16: 64)."""
+    """C = C_out = 64, dilation 1, one or two groups: both kernels fit a
+    block's shared memory in both types; the f32 forward (297,216 B in the
+    whole-W layout, once refused) takes its chunked form, 65,536 B."""
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.zeros(1, 64, 8, 8, dtype=dtype)
         w = torch.zeros(64, 64, 3, 3, dtype=dtype)
@@ -193,11 +196,6 @@ def test_the_blocks_widest_settings_on_the_kernels(groups):
         assert dcn_bwd_smem(dtype, 64, 64, groups) <= SMEM_PER_BLOCK
         assert _check_backward_args(x, off, mask, w, gout, 1, 1, groups) \
             == (8, 8)
-        if dtype == torch.bfloat16:
-            assert _check_kernel_args(x, off, None, w, 1, 1, groups) == (8, 8)
-            continue
-        assert dcn_fwd_smem(dtype, 64, 64, 9, groups) > SMEM_PER_BLOCK
-        with pytest.raises(ValueError, match="shared memory"):
-            _check_kernel_args(x, off, None, w, 1, 1, groups)
-        assert _check_kernel_args(x[:, :48], off, None, w[:48, :48], 1, 1,
-                                  groups) == (8, 8)
+        assert _check_kernel_args(x, off, None, w, 1, 1, groups) == (8, 8)
+        assert dcn_fwd_smem(dtype, 64, 64, 9, groups) <= SMEM_PER_BLOCK
+    assert dcn_fwd_smem(torch.float32, 64, 64, 9, groups) == 65536
