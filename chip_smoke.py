@@ -189,6 +189,34 @@ the card's ``nvidia-smi`` name and power limit, and as the last line
                batch). Phase kernels times the four kernels at this path's
                shapes (the DCN at (8, 48, 64, 64), D = 6; the warp on 16
                and 8 images of 48 x 64 x 64).
+  10d. sustain - training to convergence with a mid-run resume, then the
+               serving levers on the trained checkpoint, in a scratch
+               directory removed at the phase's end:
+               ``fami_pose_torch.tools.sustained_train``'s recipe (the JAX
+               repository's ``tools/sustained_train_w48.py``: HRNet-W48,
+               96x128, bf16, DCN window 4, B=8, LR 1e-3 flat, no
+               augmentation, 150 epochs of 2 steps on the seed-3 fixture
+               with ``--motion articulated --occlude 0.4``, killed at epoch
+               75 and resumed by a fresh ``Trainer`` with
+               ``TRAIN.AUTO_RESUME``; ``TPU.REMAT_BACKBONE`` turned off to
+               save time, the port's remat being bit for bit no remat): 4
+               launches of each train kernel a step, every resumed tensor
+               bit for bit the saved one, the train PCK of the last 5 logs
+               above 0.9 (the script fails otherwise), step ms, a traced
+               step's device-busy ms; ``tools.ab_dcn_bound.run`` on the
+               last checkpoint (the trained |offset| distribution at
+               ``dcn_1..4``; per-joint AP and decoded-keypoint drift for
+               exact, D = 1, 2, 4, 6, the window covering every offset, the
+               auto window, int8 at D = 4 and the serving file's levers
+               together; every window at or past the cover equal to exact
+               joint by joint, or the script fails); ``tools.int8_numerics
+               --ckpt``; every int8 conv geometry of the trained int8 model
+               at 96x128 (down to 4x3 maps) bit for bit against its plain
+               versions and timed; ``dcn_fwd`` and ``dcn_bwd`` on each
+               DCN stage's own inputs (the A/B's eval batch of 4, a train
+               step's batch of 8) with the trained offsets and with them
+               zeroed, against their plain versions, timed; the warps at
+               the run's 8 images of 48x32x24.
   11. distributed - the data-parallel path (``parallel/mesh.py``) in
                processes of their own (``python3 chip_smoke.py
                --distributed-worker ...``): (a) one rank over NCCL:
@@ -657,10 +685,6 @@ def jhmdb_kernel_rows(gen):
         deform_conv2d, deform_conv2d_backward, deform_conv2d_backward_plain,
         deform_conv2d_windowed,
     )
-    from fami_pose_torch.ops.warp import (
-        warp_translate, warp_translate_backward,
-        warp_translate_backward_plain, warp_translate_plain,
-    )
 
     dtype, d, (h, w) = torch.bfloat16, JHMDB_DCN_D, JHMDB_PLANE
     rows = {}
@@ -693,8 +717,30 @@ def jhmdb_kernel_rows(gen):
         library="none: no single PyTorch call computes a deformable conv's "
         "gradients")
     del x, off, msk, wgt, got, got_b, gout
-    for name, n in (("warp_translate", 2 * JHMDB_BATCH),
-                    ("warp_bwd", JHMDB_BATCH)):
+    rows.update(warp_kernel_rows(
+        gen, "jhmdb", {"warp_translate": 2 * JHMDB_BATCH,
+                       "warp_bwd": JHMDB_BATCH}, (h, w)))
+    for (name, _), row in rows.items():
+        emit("kernels", kernel=name, path="Sub-JHMDB", dtype="bfloat16",
+             **row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def warp_kernel_rows(gen, label, images, plane):
+    """``warp_translate`` and ``warp_bwd`` in bf16 on ``images[name]``
+    feature maps of 48 x ``plane`` (h, w), shifts ~U(-40, 40), against
+    their plain versions, timed device-side beside their bounds and the
+    library's ``grid_sample`` calls. Returns the rows keyed (name,
+    ``label``)."""
+    from fami_pose_torch.ops.warp import (
+        warp_translate, warp_translate_backward,
+        warp_translate_backward_plain, warp_translate_plain,
+    )
+
+    dtype, (h, w) = torch.bfloat16, plane
+    rows = {}
+    for name, n in images.items():
         img = torch.randn(n, 48, h, w, generator=gen, device="cuda").to(dtype)
         offs = (torch.rand(n, 2, generator=gen, device="cuda") * 2 - 1) * 40.0
         grid = translation_grid(offs, h, w, dtype)
@@ -704,8 +750,8 @@ def jhmdb_kernel_rows(gen):
             run_l = lambda: torch.nn.functional.grid_sample(
                 img, grid, mode="bilinear", padding_mode="zeros",
                 align_corners=True)
-            got = run_kernel("warp_translate Sub-JHMDB", run_k)
-            err = check_close("warp_translate Sub-JHMDB", got, run_p(),
+            got = run_kernel(f"warp_translate {label}", run_k)
+            err = check_close(f"warp_translate {label}", got, run_p(),
                               dtype)[0]
             bnd, by = bound_ms(nbytes(img, offs, got), 9 * img.numel(), dtype)
             library = ("F.grid_sample(bilinear, zeros, align_corners=True) "
@@ -717,26 +763,22 @@ def jhmdb_kernel_rows(gen):
             run_p = lambda: warp_translate_backward_plain(img, offs, gout, 26)
             run_l = lambda: torch.ops.aten.grid_sampler_2d_backward(
                 gout, img, grid, 0, 0, True, [True, True])
-            got = run_kernel("warp_bwd Sub-JHMDB", run_k)
+            got = run_kernel(f"warp_bwd {label}", run_k)
             ref = run_p()
-            err = max(check_close("warp_bwd d_images Sub-JHMDB", got[0],
+            err = max(check_close(f"warp_bwd d_images {label}", got[0],
                                   ref[0], dtype)[0],
-                      check_close("warp_bwd d_offsets Sub-JHMDB", got[1],
+                      check_close(f"warp_bwd d_offsets {label}", got[1],
                                   ref[1], torch.float32)[0])
             bnd, by = bound_ms(nbytes(img, offs, gout, *got),
                                30 * img.numel(), dtype)
             library = WARP_BWD_LIBRARY
-        rows[name, "jhmdb"] = dict(
+        rows[name, label] = dict(
             shape=[n, 48, h, w], max_shift=26, max_abs_err=err,
             ms=device_ms(run_k), host_paced_ms=time_ms(run_k),
             plain_ms=time_ms(run_p), bound_ms=bnd, bound_by=by,
             library_ms=device_ms(run_l), library=library,
             timing=DEVICE_TIMING)
         del img, offs, grid, got
-    for (name, _), row in rows.items():
-        emit("kernels", kernel=name, path="Sub-JHMDB", dtype="bfloat16",
-             **row)
-    torch.cuda.empty_cache()
     return rows
 
 
@@ -1618,8 +1660,8 @@ def check_gradients(model, exempt=()):
 
 def dcn_bwd_on_model_inputs(trainer, state, batch):
     """``dcn_bwd`` on the model's own inputs and gradient: ``dcn_1``'s (x,
-    offset, mask, weight) captured by a forward hook and the gradient of its
-    output by a tensor hook during one bf16 train step, the kernel held
+    offset, mask, weight) and the gradient of its output captured during
+    one bf16 train step (``dcn_stage_inputs``), the kernel held
     against its plain version on them and timed device-side; the offsets'
     spread and their share past D."""
     from fami_pose_torch.models.fami_pose import DCN_DILATION
@@ -1628,32 +1670,18 @@ def dcn_bwd_on_model_inputs(trainer, state, batch):
     )
 
     module = state.model.dcn_1
-    seen, grads = [], []
-
-    def capture(mod, args, out):
-        if not seen:
-            seen.append(tuple(a.detach().clone() for a in args)
-                        + (mod.weight.detach().clone(),))
-            out.register_hook(lambda g: grads.append(g.detach().clone()))
-
-    hook = module.register_forward_hook(capture)
-    try:
-        trainer.train_step(state, batch)
-        torch.cuda.synchronize()
-    finally:
-        hook.remove()
-    x, off, msk, wgt = seen[0]
+    x, off, msk, wgt, raw_gout = dcn_stage_inputs(trainer, state, batch)[0]
     # as DeformConv.forward hands them to the kernel
     off, msk, wgt = off.to(x.dtype), msk.to(x.dtype), wgt.to(x.dtype)
     # the seeded model's gradient at dcn_1 is tiny (~1e-17): scaled by a
     # power of two to a largest entry in [1, 2), exactly in bf16 (the
     # gradients are linear in it), so that the tolerances, 2^-7 of the
     # larger of 1 and each gradient's scale, bound something
-    raw_max = float(grads[0].float().abs().max())
+    raw_max = float(raw_gout.float().abs().max())
     if not raw_max > 0:
         raise AssertionError(f"dcn_1's output gradient is {raw_max}")
     exponent = -math.floor(math.log2(raw_max))
-    gout = grads[0] * 2.0 ** exponent
+    gout = raw_gout * 2.0 ** exponent
     d = module.max_offset
     kw = dict(padding=DCN_DILATION, dilation=DCN_DILATION,
               offset_groups=module.offset_groups, max_offset=d)
@@ -1682,7 +1710,7 @@ def dcn_bwd_on_model_inputs(trainer, state, batch):
         mask_abs_max=float(msk.float().abs().max()))
 
 
-def phase_train(smi, batch=8, epoch_steps=4, timed_steps=5, split_steps=3,
+def phase_train(smi, batch=8, epoch_steps=4, timed_steps=3, split_steps=3,
                 fixed_steps=8):
     import tempfile
 
@@ -2069,7 +2097,7 @@ def phase_train_card_vs_cpu():
 # people, 4 steps of 8
 LEVERS_TRAIN_IMAGES = 16
 LEVERS_STEPS = 4
-LEVERS_TIMED_STEPS = 4
+LEVERS_TIMED_STEPS = 2
 # the rule for a bf16 gradient tensor against a reference's
 # (tests/test_torch_train_levers.py holds the port against JAX with it, and
 # phase train-levers the card against the port on the CPU): a tensor is held
@@ -2348,7 +2376,7 @@ def bf16_cast_ms(model, reps=10):
     return dict(parameters=len(params), reps=reps, **times)
 
 
-def lever_turns(trainer, raws, rounds=2, steps=2):
+def lever_turns(trainer, raws, rounds=1, steps=2):
     """Host ms of a synchronised train step without a lever and with
     ``BF16_GRADS`` alone, in turns (none, bf16, bf16, none, each
     ``steps`` steps after one warm-up, ``rounds`` times)."""
@@ -2751,7 +2779,6 @@ def phase_train_levers(smi):
             "REMAT_BACKBONE": (True, False, False),
             "BF16_GRADS": (False, True, False),
             "DEVICE_CROP": (False, False, True),
-            "all": (True, True, True),
         }
         readings = {}
         for name, (remat, bf16_grads, crop) in variants.items():
@@ -3607,12 +3634,13 @@ def int8_geometry(key, g):
         bound_by={kk: v[1] for kk, v in bounds.items()})
 
 
-def int8_kernel_rows(geometries):
+def int8_kernel_rows(geometries, shape=None):
     """The two kernels' rows of the kernel table: times, bounds and plain
     times summed over the int8 convs of one forward (each geometry times
     the number of its convs), the whole conv's time and bound likewise, the
     yardsticks (``_int_mm`` on the im2col matrix and cuDNN's bf16 conv) and
-    the largest geometry's own numbers."""
+    the largest geometry's own numbers. ``shape`` describes the forward
+    (default: phase int8's B=8 at 384x288)."""
     def total(part, field):
         return sum(r["convs_per_forward"] * r[field][part]
                    for r in geometries)
@@ -3633,8 +3661,9 @@ def int8_kernel_rows(geometries):
                          ("int8_implicit_gemm", "implicit_gemm")):
         t, bnd = total(part, "ms"), total(part, "bound_ms")
         rows[kernel] = dict(
-            shape=(f"all {INT8_CONVS} int8 convs of one B=8 eval forward "
-                   f"(40 frames of 384x288; {len(geometries)} geometries)"),
+            shape=shape or (
+                f"all {INT8_CONVS} int8 convs of one B=8 eval forward (40 "
+                f"frames of 384x288; {len(geometries)} geometries)"),
             max_abs_err=0.0, bitwise_equal=True, ms=t,
             plain_ms=total(part, "plain_ms"), bound_ms=bnd, bound_by=by(part),
             bound_share=bnd / t, library_ms=None,
@@ -3985,6 +4014,287 @@ def phase_int8(smi, root, dirs, stream_bf16):
          phase_seconds=time.perf_counter() - t0)
     return ({name: serving["launches"][name] for name in INT8_COUNTERS},
             int8_kernel_rows(rows))
+
+
+# -- phase sustain: training to convergence, resumed, then the serving levers --
+
+# the JAX tool's run (tools/sustained_train_w48.py --motion articulated
+# --occlude 0.4): W48 at 96x128, bf16, window 4, B=8, 150 epochs of 2 steps
+# with the kill at the half; remat is turned off to save time (~2,500
+# launches a step): the port's remat is bit for bit no remat
+# (tests/test_torch_train_levers.py); 2 loader threads in place of the
+# fixture config's 1 load the epoch's second batch during its first step
+# (the same batches in the same order)
+SUSTAIN_EPOCHS = 150
+SUSTAIN_FIXTURE = dict(motion="articulated", occlude=0.4)
+SUSTAIN_OPTS = ("TPU.REMAT_BACKBONE", False, "WORKERS", 2)
+SUSTAIN_BOUNDS = (1, 2, 4, 6)
+SUSTAIN_PATH = "sustain (fixture-trained W48, 96x128)"
+# the warp's calls in the sustained run: one a supporting frame of a B=8
+# train step, on 48 x 32 x 24 feature maps
+SUSTAIN_WARP_IMAGES = {"warp_translate": 8, "warp_bwd": 8}
+SUSTAIN_PLANE = (32, 24)
+
+
+def dcn_stage_inputs(trainer, state, batch):
+    """Each of ``dcn_1..4``'s (x, offset, mask, weight) as its forward gets
+    them, and the gradient of its output, captured by hooks during one
+    train step of ``trainer`` on ``state`` (which it updates)."""
+    stages = [getattr(state.model, f"dcn_{i}") for i in range(1, 5)]
+    seen, grads = {}, {}
+
+    def capture(mod, args, out):
+        if mod not in seen:
+            seen[mod] = (args[0].detach().clone(), args[1].detach().clone(),
+                         args[2].detach().clone(), mod.weight.detach().clone())
+            out.register_hook(
+                lambda g, m=mod: grads.setdefault(m, g.detach().clone()))
+
+    hooks = [m.register_forward_hook(capture) for m in stages]
+    try:
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return [seen[m] + (grads[m],) for m in stages]
+
+
+def dcn_trained_vs_zeroed(name, x, off, msk, wgt, d, gout=None):
+    """``dcn_fwd`` (and with ``gout`` ``dcn_bwd``) on a stage's captured
+    inputs, once with its trained offsets and once with them zeroed: each
+    against its plain version, timed device-side, beside its bound. The
+    output gradient is scaled by a power of two to a largest entry in
+    [1, 2), as ``dcn_bwd_on_model_inputs`` does, so that the tolerances
+    bound something."""
+    from fami_pose_torch.models.fami_pose import DCN_DILATION
+    from fami_pose_torch.ops.deform_conv import (
+        deform_conv2d, deform_conv2d_backward, deform_conv2d_backward_plain,
+        deform_conv2d_windowed,
+    )
+
+    # as DeformConv.forward hands them to the kernel
+    off, msk, wgt = off.to(x.dtype), msk.to(x.dtype), wgt.to(x.dtype)
+    groups = off.shape[1] // 18
+    kw = dict(padding=DCN_DILATION, dilation=DCN_DILATION,
+              offset_groups=groups, max_offset=d)
+    out = dict(shape=list(x.shape), D=d, dtype=str(x.dtype)[6:],
+               offsets_abs_max=float(off.float().abs().max()),
+               offsets_past_D=float((off.float().abs() > d).float().mean())
+               if d else 0.0)
+    if gout is not None:
+        raw = float(gout.float().abs().max())
+        if not raw > 0:
+            raise AssertionError(f"{name}: output gradient is {raw}")
+        gout = gout * 2.0 ** -math.floor(math.log2(raw))
+        out["gout_abs_max"] = raw
+    for kind, o in (("trained", off), ("zeroed", torch.zeros_like(off))):
+        tag = f"{name} {kind} offsets"
+        run_k = lambda: deform_conv2d_windowed(x, o, msk, wgt, **kw)
+        got = run_kernel(f"dcn_fwd {tag}", run_k)
+        err, _ = check_close(f"dcn_fwd {tag}", got,
+                             deform_conv2d(x, o, msk, wgt, **kw), x.dtype)
+        bnd, by = dcn_fwd_bound(x, o, msk, wgt, got)
+        row = dict(dcn_fwd=dict(ms=device_ms(run_k, launches=20),
+                                max_abs_err=err, bound_ms=bnd, bound_by=by))
+        if kind == "trained":
+            row["dcn_fwd"]["plain_ms"] = time_ms(
+                lambda: deform_conv2d(x, o, msk, wgt, **kw), iters=3,
+                warmup=1)
+        if gout is not None:
+            run_k = lambda: deform_conv2d_backward(x, o, msk, wgt, gout, **kw)
+            got_b = run_kernel(f"dcn_bwd {tag}", run_k)
+            errs = [check_close(f"dcn_bwd {n} {tag}", a, r, x.dtype)[0]
+                    for n, a, r in zip(
+                        ("dx", "doffset", "dmask", "dweight"), got_b,
+                        deform_conv2d_backward_plain(x, o, msk, wgt, gout,
+                                                     **kw))]
+            bnd, by = dcn_bwd_bound(x, o, msk, wgt, gout, got_b)
+            row["dcn_bwd"] = dict(ms=device_ms(run_k, launches=20),
+                                  max_abs_err=max(errs), bound_ms=bnd,
+                                  bound_by=by)
+            if kind == "trained":
+                row["dcn_bwd"]["plain_ms"] = time_ms(
+                    lambda: deform_conv2d_backward_plain(
+                        x, o, msk, wgt, gout, **kw), iters=3, warmup=1)
+        out[kind] = row
+    return out
+
+
+def sustain_train(root):
+    """Step 1: the sustained run with its resume check; returns
+    ``(summary, trainer, launches)``."""
+    from fami_pose_torch.tools import sustained_train as st
+
+    st.write_fixture(root, **SUSTAIN_FIXTURE)
+    cfg = st.recipe_cfg(root, epochs=SUSTAIN_EPOCHS, opts=SUSTAIN_OPTS)
+    reset_launches()
+    summary, trainer = st.train_with_resume(root, cfg, SUSTAIN_EPOCHS,
+                                            device="cuda")
+    launches = read_launches()
+    passed = st.report(summary)
+    want = {k: 4 * summary["total_steps"] for k in KERNEL_COUNTERS}
+    if launches != want:
+        raise AssertionError(f"sustained run launched {launches}, expected "
+                             f"{want} (4 of each kernel a step)")
+    if summary["resume"]["mismatched"]:
+        raise AssertionError(f"{summary['resume']['mismatched']} resumed "
+                             f"tensors differ: "
+                             f"{summary['resume']['mismatched_names']}")
+    if not passed:
+        raise AssertionError(f"train PCK {summary['pck_last5']} <= "
+                             f"{st.MIN_PCK} over the last 5 logs")
+    return summary, trainer, launches
+
+
+def check_ab(report):
+    """Every row scored with finite AP; the exact row and every row whose
+    window covers every offset (at or above ceil(max |offset|)) equal,
+    joint by joint."""
+    exact = report["rows"][0]["ap"]
+    for r in report["rows"]:
+        if not r["ap"] or not all(math.isfinite(v) for v in r["ap"].values()):
+            raise AssertionError(f"A/B row {r['row']}: AP {r['ap']}")
+        covers = (r["window"] is not None and not r["row"].startswith(
+            ("int8", "serving")) and r["window"] >= report["cover_window"])
+        if covers and r["ap"] != exact:
+            raise AssertionError(
+                f"A/B row {r['row']} (window {r['window']} >= "
+                f"{report['cover_window']}) differs from exact: {r['ap']} "
+                f"against {exact}")
+
+
+def sustain_int8_rows(cfg, ckpt, kf, sup):
+    """The int8 convs of the checkpoint's int8 model at 96x128 (one eval
+    batch's frames; the lowest branch at 3x4): every distinct geometry's
+    kernels bit for bit against their plain versions, timed (the rows of
+    ``int8_kernel_rows``)."""
+    from fami_pose_torch.engine.checkpoints import load_variables
+    from fami_pose_torch.models.build import build_model
+    from fami_pose_torch.models.quant import calibrate
+
+    c = cfg.clone()
+    c.TPU.INT8_EVAL = True
+    q = build_model(c, "validate")
+    q.load_state_dict(load_variables(ckpt))
+    q.cuda().eval()
+    with torch.inference_mode():
+        calibrate(q, [(kf, sup)])
+    geos = conv_geometries(q, kf, sup)
+    rows = [int8_geometry(key, g) for key, g in sorted(geos.items())]
+    del geos, q
+    smallest = min(rows, key=lambda r: r["hw"][0] * r["hw"][1])["hw"]
+    frames = kf.shape[0] * (1 + sup.shape[1] // 3)
+    return int8_kernel_rows(rows, shape=(
+        f"all {sum(r['convs_per_forward'] for r in rows)} int8 convs of one "
+        f"B={kf.shape[0]} eval forward ({frames} frames of 96x128; "
+        f"{len(rows)} geometries; smallest map {smallest[0]}x"
+        f"{smallest[1]})")), smallest
+
+
+def phase_sustain(smi):
+    """Training to convergence with a mid-run resume, then the serving
+    levers on the trained checkpoint; see the module docstring. Returns
+    the path's launches by kernel (train, A/B and numerics) and the rows
+    of the kernel table keyed (kernel, "sustain")."""
+    from fami_pose_torch.engine.checkpoints import get_latest_checkpoint
+    from fami_pose_torch.tools import ab_dcn_bound
+    from fami_pose_torch.tools.int8_numerics import report as numerics
+    from fami_pose_torch.tools.sustained_train import output_dirs
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sustain_") as root:
+        summary, trainer, train_launches = sustain_train(root)
+        t_train = time.perf_counter() - t0
+        batch = trainer.prepare(next(iter(trainer.loader)))
+        traced = profile_call(lambda: trainer.train_step(trainer.state,
+                                                         batch))
+        emit("sustain", card=smi, config="fami_pose_torch.tools."
+             "sustained_train recipe, --motion articulated --occlude 0.4",
+             model="FAMIPose HRNet-W48 96x128 bf16 D=4, B=8 (the recipe's "
+             "remat off: bit for bit no remat)",
+             epochs=SUSTAIN_EPOCHS, **{k: v for k, v in summary.items()
+                                       if k != "step_ms"},
+             step_ms=summary["step_ms"], traced_step=traced,
+             launches=train_launches, seconds=t_train)
+
+        ckpt = get_latest_checkpoint(output_dirs(root)["checkpoints"])
+        t1 = time.perf_counter()
+        reset_launches()
+        report, extras = ab_dcn_bound.run(
+            ckpt, bounds=SUSTAIN_BOUNDS, device="cuda",
+            root=os.path.join(root, "ab"), **SUSTAIN_FIXTURE)
+        ab_launches = read_launches(KERNEL_COUNTERS + INT8_COUNTERS)
+        ab_dcn_bound.print_tables(report)
+        emit("sustain-ab", card=smi, seconds=time.perf_counter() - t1,
+             launches=ab_launches, **report)
+        check_ab(report)
+        if ab_launches["dcn_bwd"] or ab_launches["warp_bwd"] or not all(
+                ab_launches[k] for k in ("dcn_fwd", "warp_translate")
+                + INT8_COUNTERS):
+            raise AssertionError(f"A/B launches {ab_launches}")
+
+        reset_launches()
+        num = numerics(batch=16, device="cuda", ckpt=ckpt, **SUSTAIN_FIXTURE)
+        num_launches = read_launches(KERNEL_COUNTERS + INT8_COUNTERS)
+        emit("sustain-int8-numerics", **num)
+
+        # comparisons and timing from here on: their launches are not the
+        # path's
+        kf, sup = extras["eval_batch"]
+        int8_rows, smallest = sustain_int8_rows(trainer.cfg, ckpt, kf, sup)
+        # clones made here are ordinary tensors (the A/B captured them
+        # under inference mode)
+        eval_rows = {
+            name: dcn_trained_vs_zeroed(f"{name} eval",
+                                        *(t.clone() for t in inputs), d=4)
+            for name, inputs in extras["dcn_inputs"].items()}
+        del extras, kf, sup
+        train_rows = {
+            f"dcn_{i}": dcn_trained_vs_zeroed(f"dcn_{i} train", x, o, m, w,
+                                              d=4, gout=g)
+            for i, (x, o, m, w, g) in enumerate(
+                dcn_stage_inputs(trainer, trainer.state, batch), 1)}
+        emit("sustain-dcn", card=smi, timing=DCN_TIMING,
+             note="each stage's own inputs from the trained checkpoint "
+             "(eval: the exact A/B row's first batch, D = 4 applied here; "
+             "train: one train step after the run), with its trained "
+             "offsets and with them zeroed", eval=eval_rows,
+             train=train_rows)
+        del trainer, batch
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = warp_kernel_rows(gen, "sustain", SUSTAIN_WARP_IMAGES,
+                            SUSTAIN_PLANE)
+    first = eval_rows["dcn_1"]["trained"]["dcn_fwd"]
+    rows["dcn_fwd", "sustain"] = dict(
+        shape=eval_rows["dcn_1"]["shape"], D=4, max_abs_err=first[
+            "max_abs_err"], ms=first["ms"], bound_ms=first["bound_ms"],
+        bound_by=first["bound_by"],
+        ms_zeroed_offsets=eval_rows["dcn_1"]["zeroed"]["dcn_fwd"]["ms"],
+        plain_ms=first["plain_ms"], library_ms=None, library=DCN_NO_LIBRARY, timing=DCN_TIMING,
+        inputs="dcn_1's trained inputs in the A/B's exact row, B=4")
+    first = train_rows["dcn_1"]["trained"]["dcn_bwd"]
+    rows["dcn_bwd", "sustain"] = dict(
+        shape=train_rows["dcn_1"]["shape"], D=4,
+        max_abs_err=first["max_abs_err"], ms=first["ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+        ms_zeroed_offsets=train_rows["dcn_1"]["zeroed"]["dcn_bwd"]["ms"],
+        plain_ms=first["plain_ms"], library_ms=None,
+        library="none: no single PyTorch call computes a deformable conv's "
+        "gradients", timing=DCN_TIMING,
+        inputs="dcn_1's inputs and output gradient in a train step of the "
+        "trained model, B=8")
+    for name, row in int8_rows.items():
+        rows[name, "sustain"] = dict(row, int8_smallest_map=smallest)
+    for (name, _), row in rows.items():
+        emit("kernels", kernel=name, path=SUSTAIN_PATH, **row)
+    launches = {k: train_launches.get(k, 0) + ab_launches[k]
+                + num_launches[k] for k in KERNEL_COUNTERS + INT8_COUNTERS}
+    emit("sustain-launches", train=train_launches, ab=ab_launches,
+         int8_numerics=num_launches, total=launches,
+         phase_seconds=time.perf_counter() - t0)
+    return launches, rows
 
 
 # -- phase distributed: the data-parallel path on the one card ----------------------
@@ -5218,6 +5528,8 @@ def main():
         torch.cuda.empty_cache()
         jhmdb = timed("jhmdb", phase_jhmdb, smi, root)
         torch.cuda.empty_cache()
+        sustain, sustain_rows = timed("sustain", phase_sustain, smi)
+        torch.cuda.empty_cache()
         distributed = timed("distributed", phase_distributed, smi, root,
                             dirs)
     emit("timeline", seconds_by_phase=timeline,
@@ -5312,6 +5624,10 @@ def main():
         kernels.append(dict(
             common, path="Sub-JHMDB (configs/jhmdb/fami_pose.yaml)",
             launches=jhmdb[name], **rows[name, "jhmdb"]))
+        # the sustained run, its A/B and int8 numerics (phase sustain)
+        kernels.append(dict(common, path=SUSTAIN_PATH,
+                            launches=sustain[name],
+                            **sustain_rows[name, "sustain"]))
     for name in INT8_COUNTERS:
         kernels.append(dict(
             name=name, route="cuda", source=csrc + "int8_conv.cu",
@@ -5319,6 +5635,11 @@ def main():
             "(TPU.INT8_EVAL), one process and two ranks",
             launches=int8[name] + distributed[name],
             launches_distributed=distributed[name], **int8_rows[name]))
+        kernels.append(dict(
+            name=name, route="cuda", source=csrc + "int8_conv.cu",
+            replaces=INT8_REPLACES, path=SUSTAIN_PATH + ": the A/B's int8 "
+            "rows and int8_numerics --ckpt", launches=sustain[name],
+            **sustain_rows[name, "sustain"]))
     for name, (_, _, line, _) in PROBES.items():
         kernels.append(dict(
             name=name, route="cuda", source=csrc + "probes.cu",

@@ -1,13 +1,28 @@
 """Default configuration tree (a copy of ``fami_pose_tpu/config/defaults.py``).
 
 The key surface is the JAX package's, so every YAML under ``configs/`` merges
-unchanged. Of the ``TPU`` sub-tree the port reads only the knobs that change
-what the model computes: ``COMPUTE_DTYPE``, ``DCN_MAX_OFFSET`` (<= 0 or null
-selects the exact, unclamped DCN), ``DCN_OFFSET_GROUPS``, ``WARP_IMPL`` (where a
-bf16 warp rounds, as the JAX warp of that name, and the warp clamp: 32 for
-``"slice"``, else ``WARP_MAX_SHIFT``) and
-``WARP_MAX_SHIFT``. The other ``TPU`` keys (mesh, Pallas, remat, int8, device
-crop, ...) are accepted and ignored.
+unchanged. Of the ``TPU`` sub-tree the port reads:
+
+  * what the model computes: ``COMPUTE_DTYPE``, ``DCN_MAX_OFFSET`` (<= 0 or
+    null selects the exact, unclamped DCN), ``DCN_OFFSET_GROUPS``,
+    ``WARP_IMPL`` (where a bf16 warp rounds, as the JAX warp of that name,
+    and the warp clamp: 32 for ``"slice"``, else ``WARP_MAX_SHIFT``) and
+    ``WARP_MAX_SHIFT``;
+  * int8 serving (``models/quant.py``, ``engine/evaluator.py``):
+    ``INT8_EVAL``, ``INT8_CALIB_BATCHES``, ``INT8_CALIB_MARGIN``, and the
+    evaluator's window choice ``DCN_AUTO_WINDOW``, ``DCN_AUTO_WINDOW_EPS``,
+    ``DCN_AUTO_WINDOW_MAX``;
+  * the train-time levers (``engine/trainer.py``, ``engine/steps.py``,
+    ``engine/checkpoints.py``): ``REMAT_BACKBONE``, ``BF16_GRADS``,
+    ``DEVICE_CROP``, ``DEVICE_CROP_CANVAS``, ``PROFILE_DIR``,
+    ``PROFILE_STEPS``, ``ASYNC_CHECKPOINT``;
+  * the data-parallel mesh (``parallel/mesh.py``): ``MESH_SHAPE``.
+
+``MESH_AXES``, ``PARAM_DTYPE``, ``PREFETCH_DEPTH``, ``DONATE_TRAIN_STATE``,
+``USE_PALLAS_DCN`` and ``DCN_AUX_CHANNEL_FIRST`` are accepted and ignored:
+the port's mesh names its axes itself, keeps float32 parameters, has no
+prefetch depth or buffer donation to set, and has one DCN kernel with one
+channel order.
 """
 
 from .node import CfgNode

@@ -91,6 +91,10 @@ def test_port_files_found():
                  "utils/io_utils.py", "utils/logging_utils.py",
                  "tools/convert_poseval.py"):
         assert name in rel, name
+    # and the sustained-training slice's tools
+    for name in ("tools/synthetic_fixture.py", "tools/sustained_train.py",
+                 "tools/ab_dcn_bound.py"):
+        assert name in rel, name
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -156,6 +160,16 @@ def test_entry_points_default_to_cuda():
     # python -m fami_pose_torch.tools.validate_real_checkpoint
     source = inspect.getsource(validate_real_checkpoint.main)
     assert '"--device", default="cuda"' in source
+    # the sustained run, its A/B and the int8 numerics, with or without a
+    # checkpoint
+    from fami_pose_torch.tools import (
+        ab_dcn_bound, int8_numerics, sustained_train,
+    )
+
+    assert sustained_train.parse_args([]).device == "cuda"
+    assert ab_dcn_bound.parse_args(["--ckpt", "c"]).device == "cuda"
+    assert int8_numerics.parse_args([]).device == "cuda"
+    assert int8_numerics.parse_args(["--ckpt", "c"]).device == "cuda"
 
 
 def test_cuda_tensor_never_reaches_a_plain_version():

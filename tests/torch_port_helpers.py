@@ -52,26 +52,10 @@ def nhwc(t):
 
 def make_port_cfg(json_dir, img_dir, posetrack18=False, distance=3):
     """The port's twin of ``fixtures.make_cfg``: the same settings on a
-    ``fami_pose_torch`` config."""
-    from fami_pose_torch.config import get_cfg
+    ``fami_pose_torch`` config (``tools/synthetic_fixture.py``)."""
+    from fami_pose_torch.tools.synthetic_fixture import make_cfg
 
-    cfg = get_cfg()
-    cfg.DISTANCE = distance
-    cfg.MODEL.NUM_JOINTS = 17
-    cfg.MODEL.IMAGE_SIZE = [96, 128]
-    cfg.MODEL.HEATMAP_SIZE = [24, 32]
-    cfg.MODEL.SIGMA = 2
-    cfg.DATASET.NAME = "PoseTrack"
-    cfg.DATASET.JSON_DIR = json_dir
-    cfg.DATASET.IMG_DIR = img_dir
-    cfg.DATASET.TEST_IMG_DIR = img_dir
-    cfg.DATASET.IS_POSETRACK18 = posetrack18
-    cfg.DATASET.COLOR_RGB = True
-    cfg.DATASET.BBOX_ENLARGE_FACTOR = 1.25
-    cfg.TRAIN.PROB_HALF_BODY = 0.0
-    cfg.VAL.USE_GT_BBOX = True
-    cfg.WORKERS = 1
-    return cfg
+    return make_cfg(json_dir, img_dir, posetrack18, distance)
 
 
 def tiny_model_cfg(cfg, out_dir):
