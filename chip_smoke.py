@@ -210,13 +210,39 @@ the card's ``nvidia-smi`` name and power limit, and as the last line
                auto window, int8 at D = 4 and the serving file's levers
                together; every window at or past the cover equal to exact
                joint by joint, or the script fails); ``tools.int8_numerics
-               --ckpt``; every int8 conv geometry of the trained int8 model
-               at 96x128 (down to 4x3 maps) bit for bit against its plain
+               --ckpt``; ``tools.ablate_dcn_bound`` with the checkpoint's
+               offsets (2 ``dcn_fwd`` a row); every int8 conv geometry of
+               the trained int8 model at 96x128 (down to 4x3 maps) bit for
+               bit against its plain
                versions and timed; ``dcn_fwd`` and ``dcn_bwd`` on each
                DCN stage's own inputs (the A/B's eval batch of 4, a train
                step's batch of 8) with the trained offsets and with them
                zeroed, against their plain versions, timed; the warps at
                the run's 8 images of 48x32x24.
+  10e. serving-ab - the JAX repository's last trained-weights A/Bs, in a
+               scratch directory removed at the phase's end: (A) the same
+               recipe with ``--flip --motion drift --occlude 0.4`` for 47
+               epochs (the JAX flip reading's epoch 46), killed and resumed
+               at 23 (bit for bit, 4 launches of each train kernel a step);
+               (B) ``tools.flip_ab.run --int8`` on its last checkpoint
+               (flip-test off and on, bf16 and int8: every AP finite, each
+               row's DCN and warp launches counted exactly, the int8
+               kernels in the int8 rows only, no backward); (C)
+               ``tools.streaming_ab.run`` (the batch protocol, crop-locked
+               streaming, the auto re-prime policy at IoU 0.9 / 0.7 / 0.5:
+               14 / 8 / 4 re-primes of 20 emissions or the script fails;
+               4 DCN + 1 warp a forward or a streamed step, no backward);
+               (D) ``tools.ablate_dcn_bound.run`` with the trained offsets
+               (2 ``dcn_fwd`` a row: the window and the exact mode); (E)
+               the ``BF16_GRADS`` step at full W48 depth on the checkpoint,
+               B=2 at 96x128, card against the port on the CPU by
+               ``bf16_rule`` (planted faults in the held ``BF16_HELD``
+               tensors caught, or the script fails; the held count, the
+               broken tensors beside the rule's verdict on the CPU against
+               itself with its frames rounded otherwise, the tensors whose
+               own gap is past ``BF16_TAME`` by name); then
+               ``dcn_fwd`` / ``dcn_bwd`` on ``dcn_1``'s trained inputs and
+               the warps at the path's shapes, timed.
   11. distributed - the data-parallel path (``parallel/mesh.py``) in
                processes of their own (``python3 chip_smoke.py
                --distributed-worker ...``): (a) one rank over NCCL:
@@ -1559,18 +1585,10 @@ INT8_COUNTERS = ("int8_quant_nhwc", "int8_implicit_gemm")
 def kernel_counters():
     """The wrappers that hold a launch count, by kernel name: the four of
     the float paths, then the int8 conv's two."""
-    from fami_pose_torch.ops.deform_conv import (
-        deform_conv2d_backward, deform_conv2d_windowed,
-    )
-    from fami_pose_torch.ops.int8_conv import implicit_gemm, quant_nhwc
-    from fami_pose_torch.ops.warp import (
-        warp_translate, warp_translate_backward,
-    )
+    from fami_pose_torch.ops import kernel_wrappers
 
-    return dict(zip(KERNEL_COUNTERS + INT8_COUNTERS, (
-        deform_conv2d_windowed, deform_conv2d_backward, warp_translate,
-        warp_translate_backward, quant_nhwc, implicit_gemm,
-    )))
+    wrappers = kernel_wrappers()
+    return {k: wrappers[k] for k in KERNEL_COUNTERS + INT8_COUNTERS}
 
 
 def reset_launches():
@@ -4034,6 +4052,8 @@ SUSTAIN_PATH = "sustain (fixture-trained W48, 96x128)"
 # train step, on 48 x 32 x 24 feature maps
 SUSTAIN_WARP_IMAGES = {"warp_translate": 8, "warp_bwd": 8}
 SUSTAIN_PLANE = (32, 24)
+DCN_BWD_NO_LIBRARY = ("none: no single PyTorch call computes a deformable "
+                      "conv's gradients")
 
 
 def dcn_stage_inputs(trainer, state, batch):
@@ -4195,10 +4215,10 @@ def sustain_int8_rows(cfg, ckpt, kf, sup):
 def phase_sustain(smi):
     """Training to convergence with a mid-run resume, then the serving
     levers on the trained checkpoint; see the module docstring. Returns
-    the path's launches by kernel (train, A/B and numerics) and the rows
-    of the kernel table keyed (kernel, "sustain")."""
+    the path's launches by kernel (train, A/B, numerics and the ablation)
+    and the rows of the kernel table keyed (kernel, "sustain")."""
     from fami_pose_torch.engine.checkpoints import get_latest_checkpoint
-    from fami_pose_torch.tools import ab_dcn_bound
+    from fami_pose_torch.tools import ab_dcn_bound, ablate_dcn_bound
     from fami_pose_torch.tools.int8_numerics import report as numerics
     from fami_pose_torch.tools.sustained_train import output_dirs
 
@@ -4238,6 +4258,19 @@ def phase_sustain(smi):
         num = numerics(batch=16, device="cuda", ckpt=ckpt, **SUSTAIN_FIXTURE)
         num_launches = read_launches(KERNEL_COUNTERS + INT8_COUNTERS)
         emit("sustain-int8-numerics", **num)
+
+        # the window's op-level deviation on this checkpoint's offsets, the
+        # trained distribution of the longest run
+        t1 = time.perf_counter()
+        ablation, _ = ablate_dcn_bound.run(
+            ckpt, device="cuda", root=os.path.join(root, "ablate"),
+            **SUSTAIN_FIXTURE)
+        ablate_dcn_bound.print_tables(ablation)
+        ablate_launches = {k: ablation["capture_launches"][k] + sum(
+            r["launches"][k] for r in ablation["rows"]) for k in num_launches}
+        emit("sustain-ablate", card=smi, seconds=time.perf_counter() - t1,
+             launches=ablate_launches, **ablation)
+        check_ablation(ablation)
 
         # comparisons and timing from here on: their launches are not the
         # path's
@@ -4281,8 +4314,7 @@ def phase_sustain(smi):
         bound_ms=first["bound_ms"], bound_by=first["bound_by"],
         ms_zeroed_offsets=train_rows["dcn_1"]["zeroed"]["dcn_bwd"]["ms"],
         plain_ms=first["plain_ms"], library_ms=None,
-        library="none: no single PyTorch call computes a deformable conv's "
-        "gradients", timing=DCN_TIMING,
+        library=DCN_BWD_NO_LIBRARY, timing=DCN_TIMING,
         inputs="dcn_1's inputs and output gradient in a train step of the "
         "trained model, B=8")
     for name, row in int8_rows.items():
@@ -4290,11 +4322,336 @@ def phase_sustain(smi):
     for (name, _), row in rows.items():
         emit("kernels", kernel=name, path=SUSTAIN_PATH, **row)
     launches = {k: train_launches.get(k, 0) + ab_launches[k]
-                + num_launches[k] for k in KERNEL_COUNTERS + INT8_COUNTERS}
+                + num_launches[k] + ablate_launches[k]
+                for k in KERNEL_COUNTERS + INT8_COUNTERS}
     emit("sustain-launches", train=train_launches, ab=ab_launches,
-         int8_numerics=num_launches, total=launches,
+         int8_numerics=num_launches, ablate=ablate_launches, total=launches,
          phase_seconds=time.perf_counter() - t0)
     return launches, rows
+
+
+# -- phase serving-ab: the JAX repository's last trained-weights A/Bs --------
+
+# the recipe of the JAX repository's flip reading (docs/SERVING.md:156-180:
+# tools/sustained_train_w48.py --flip --motion drift --occlude 0.4, read at
+# epoch 46, below saturation): 47 epochs of 2 steps, killed and resumed at
+# 23, the last checkpoint epoch_46_state; the sustain phase's remat-off and
+# loader settings
+SERVING_AB_EPOCHS = 47
+SERVING_AB_FIXTURE = dict(motion="drift", occlude=0.4)
+SERVING_AB_PATH = "serving-ab (flip-trained W48, 96x128)"
+# re-primes of 20 emissions at each IoU on the drift fixture: a property of
+# its boxes (the JAX repository's docs/STREAMING_AB.md:56-62)
+REPRIME_COUNTS = {0.9: 14, 0.7: 8, 0.5: 4}
+# one eval forward of the fixture's batch of 4 (20 samples, 5 batches):
+# 4 DCN stages and one warp of the folded supporting frames
+EVAL_BATCHES, CALIB_BATCHES = 5, 2
+BF16_DEPTH_BATCH = 2
+
+
+def only(launches, want):
+    """``launches`` (every kernel's) equal ``want`` on its kernels and 0 on
+    the others."""
+    return all(launches[k] == want.get(k, 0) for k in launches)
+
+
+def flip_row_launches(row):
+    """What a flip_ab row must launch: each eval batch's forward (two with
+    flip-test), plus the int8 rows' calibration forwards."""
+    fwd = EVAL_BATCHES * (2 if row["flip"] else 1) + (
+        CALIB_BATCHES if row["int8"] else 0)
+    return dict(dcn_fwd=4 * fwd, warp_translate=fwd)
+
+
+def check_flip_ab(report):
+    for r in report["rows"]:
+        if not all(math.isfinite(v) for v in r["ap"].values()):
+            raise AssertionError(f"flip_ab row {r['row']}: AP {r['ap']}")
+        want = flip_row_launches(r)
+        got = r["launches"]
+        int8_ok = (all(got[k] > 0 for k in INT8_COUNTERS) if r["int8"]
+                   else not any(got[k] for k in INT8_COUNTERS))
+        if not int8_ok or not only(
+                {k: v for k, v in got.items() if k not in INT8_COUNTERS},
+                want):
+            raise AssertionError(f"flip_ab row {r['row']} launched {got}, "
+                                 f"expected {want} and int8 "
+                                 f"{'on' if r['int8'] else 'off'}")
+
+
+def check_streaming_ab(report):
+    from fami_pose_torch.tools.streaming_ab import reprime_counts
+
+    counts = reprime_counts(report)
+    if counts != REPRIME_COUNTS or report["emissions"] != 20:
+        raise AssertionError(f"re-primes {counts} of {report['emissions']} "
+                             f"emissions, expected {REPRIME_COUNTS} of 20")
+    steps = 5 + 2  # 5 frames, then 2 more to emit the last key frames
+    for r in report["rows"]:
+        if not all(math.isfinite(v) for v in r["ap"].values()):
+            raise AssertionError(f"streaming_ab {r['variant']}: AP {r['ap']}")
+        fwd = 1 if r["variant"] == "batch" else steps
+        if not only(r["launches"], dict(dcn_fwd=4 * fwd,
+                                        warp_translate=fwd)):
+            raise AssertionError(f"streaming_ab {r['variant']} launched "
+                                 f"{r['launches']}, expected {4 * fwd} DCN "
+                                 f"+ {fwd} warp")
+
+
+def check_ablation(report):
+    if not only(report["capture_launches"], dict(dcn_fwd=4,
+                                                  warp_translate=1)):
+        raise AssertionError(f"ablation capture launched "
+                             f"{report['capture_launches']}")
+    for r in report["rows"]:
+        if not only(r["launches"], dict(dcn_fwd=2)) or not all(
+                math.isfinite(r[k]) for k in ("max_dev", "rel_err")):
+            raise AssertionError(f"ablation row {r['sigma']} D={r['D']}: "
+                                 f"{r}")
+
+
+def bf16_full_depth(trainer, ckpt):
+    """Step E: the ``BF16_GRADS`` step at full W48 depth on the trained
+    checkpoint, B = 2 at 96x128, one fixed batch of the fixture, train-mode
+    BatchNorm: the card against the port on the CPU by ``bf16_rule``, the
+    CPU's f32 step for scale, with planted faults in the held
+    ``BF16_HELD`` tensors, beside the rule's verdict on the CPU against
+    itself with the frames rounded otherwise (``cpu_vs_nudged_cpu``).
+
+    Fails on an uncaught planted fault, a gradient that is not a bf16 value
+    or not finite, or launches other than 4 of each train kernel. A held
+    tensor that breaks the rule is reported, not failed: at full depth the
+    step is chaotic on trained weights too (train-mode BatchNorm uses the
+    batch's statistics, not the trained running ones), and the rule then
+    misfires on the port against itself: the control breaks it on some
+    flip-trained checkpoints where the card does not (PERF.md)."""
+    from fami_pose_torch.data.loader import prepare_train_batch
+    from fami_pose_torch.engine.checkpoints import load_variables
+    from fami_pose_torch.models.fami_pose import FAMIPose
+
+    cfg16, cfg32 = trainer.cfg.clone(), trainer.cfg.clone()
+    cfg16.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    base = FAMIPose.from_config(cfg32)
+    base.load_state_dict(load_variables(ckpt))
+    raw = next(iter(trainer.loader))
+    n = BF16_DEPTH_BATCH
+    host_batch = prepare_train_batch(
+        raw["kf"][:n], raw["sup"][:n], raw["joints"][:n],
+        raw["joints_vis"][:n], int(cfg32.MODEL.SIGMA),
+        tuple(int(v) for v in cfg32.MODEL.IMAGE_SIZE),
+        tuple(int(v) for v in cfg32.MODEL.HEATMAP_SIZE), device="cpu")
+    t0 = time.perf_counter()
+    t32, g32, _ = one_lever_step(base, cfg32, host_batch, "cpu")
+    t_cpu, g_cpu, _ = one_lever_step(base, cfg16, host_batch, "cpu",
+                                     bf16_grads=True)
+    cpu_s = time.perf_counter() - t0
+    # the rule's false alarms at this depth: the port on the CPU against
+    # itself, with its frames scaled by 1 + 2^-9 (half a bf16 ulp, so that
+    # about half of them round to the neighbouring bf16 value: the change
+    # another rounding of the input cast would make)
+    nudged = dict(host_batch, **{k: host_batch[k] * (1 + 2.0 ** -9)
+                                 for k in ("kf", "sup")})
+    _, g_nudged, _ = one_lever_step(base, cfg16, nudged, "cpu",
+                                    bf16_grads=True)
+    reset_launches()
+    t_card, g_card, _ = one_lever_step(base, cfg16, host_batch, "cuda",
+                                       bf16_grads=True)
+    torch.cuda.synchronize()
+    launches = read_launches(KERNEL_COUNTERS + INT8_COUNTERS)
+    not_bf16 = [k for g in (g_card, g_cpu) for k, t in g.items()
+                if not torch.equal(t, t.bfloat16().float())]
+    bad = [k for k, t in g_card.items() if not bool(torch.isfinite(t).all())]
+    held, broken, ratios = bf16_rule(g_card, g_cpu, g32)
+    # a fault is caught where it breaks the rule at its tensor (another
+    # tensor may break it already at this depth: see the docstring)
+    faults = planted_faults(g_card, g_cpu, g32)[0]
+    missed = [k for k, r in faults.items() if not r > 1.0]
+    c_held, c_broken, c_ratios = bf16_rule(g_nudged, g_cpu, g32)
+
+    def own_gap(name):
+        size = float(g32[name].double().norm())
+        gap = float((g_cpu[name].double() - g32[name].double()).norm())
+        return gap / size if size else None
+
+    # the tensors of the cut model (one module of one block a branch) that
+    # phase train-levers holds on tame weights
+    cut = trainer.cfg.clone()
+    extra = copy.deepcopy(dict(cut.MODEL.EXTRA))
+    for stage in ("STAGE2", "STAGE3", "STAGE4"):
+        extra[stage] = dict(extra[stage], NUM_MODULES=1, NUM_BLOCKS=[1] * len(
+            extra[stage]["NUM_BLOCKS"]))
+    cut.MODEL.EXTRA = extra
+    cut_names = [k for k, _ in FAMIPose.from_config(cut).named_parameters()]
+    over_tame = {k: own_gap(k) for k in g32 if k not in held
+                 and own_gap(k) is not None}
+    quantiles = (0.5, 0.9, 1.0)
+    out = dict(
+        model="FAMIPose HRNet-W48 at full depth, 96x128, D=4, B=2 of the "
+        "fixture (train-mode BatchNorm), the trained checkpoint",
+        rule=f"bf16_rule: held where the CPU's own bf16 gap to its f32 step "
+        f"is at most {BF16_TAME} of the f32 gradient (L2); there |card - "
+        f"cpu| <= {BF16_CROSS} |cpu - cpu_f32| + 2^-6 |cpu_f32|",
+        held=len(held), of=len(g32), broken=broken,
+        cut_model_tensors=len(cut_names),
+        cut_model_tensors_held=sum(k in held for k in cut_names),
+        named_held=[k for k in BF16_HELD if k in held],
+        named_not_held={k: own_gap(k) for k in BF16_HELD if k not in held},
+        over_tame=dict(sorted(over_tame.items(), key=lambda kv: -kv[1])),
+        ratio_quantiles=dict(zip(quantiles, (
+            float(np.quantile(list(ratios.values()), q)) for q in quantiles)))
+        if ratios else None,
+        worst_tensors={k: dict(
+            ratio=ratios[k],
+            **{tag: float((a[k].double() - b[k].double()).norm())
+               / float(g32[k].double().norm())
+               for tag, a, b in (("own_cpu", g_cpu, g32),
+                                 ("own_card", g_card, g32),
+                                 ("cross", g_card, g_cpu))})
+            for k in sorted(ratios, key=ratios.get)[-3:]},
+        planted_fault_ratio_min=min(faults.values(), default=None),
+        faults_missed=missed,
+        cpu_vs_nudged_cpu=dict(
+            held=len(c_held), broken=c_broken,
+            ratio_max=max(c_ratios.values(), default=None),
+            note="bf16_rule on the CPU's step with its frames scaled by "
+            "1 + 2^-9 against the CPU's own step: the rule's verdict on two "
+            "equally valid bf16 roundings of the port"),
+        loss_terms={k: dict(card=t_card[k], cpu=t_cpu[k], cpu_f32=t32[k])
+                    for k in t32 if k.startswith("loss")},
+        launches=launches, cpu_s=cpu_s)
+    if not_bf16 or bad or missed or not only(
+            launches, {k: 4 for k in KERNEL_COUNTERS}):
+        raise AssertionError(f"BF16_GRADS at full depth: {out}; not bf16 "
+                             f"values {not_bf16[:5]}, non-finite {bad[:5]}")
+    return out
+
+
+def phase_serving_ab(smi, sustain_rows):
+    """The JAX repository's last trained-weights A/Bs on the card (see the
+    module docstring): A trains the flip checkpoint, B runs
+    ``tools/flip_ab.py`` (bf16 and int8), C ``tools/streaming_ab.py``, D
+    ``tools/ablate_dcn_bound.py`` on its trained offsets, E the
+    ``BF16_GRADS`` step at full depth on it. Returns the path's launches by
+    kernel and the rows of the kernel table keyed (kernel, "serving-ab")."""
+    from fami_pose_torch.engine.checkpoints import get_latest_checkpoint
+    from fami_pose_torch.tools import (
+        ablate_dcn_bound, flip_ab, streaming_ab, sustained_train as st,
+    )
+
+    t0 = time.perf_counter()
+    steps = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_ab_") as root:
+        # A: the flip-trained checkpoint, killed and resumed at the half
+        st.write_fixture(root, **SERVING_AB_FIXTURE)
+        cfg = st.recipe_cfg(root, flip=True, epochs=SERVING_AB_EPOCHS,
+                            opts=SUSTAIN_OPTS)
+        reset_launches()
+        t1 = time.perf_counter()
+        summary, trainer = st.train_with_resume(root, cfg, SERVING_AB_EPOCHS,
+                                                device="cuda")
+        launches = read_launches(KERNEL_COUNTERS + INT8_COUNTERS)
+        ckpt = get_latest_checkpoint(st.output_dirs(root)["checkpoints"])
+        steps["train"] = launches
+        emit("serving-ab-train", card=smi, seconds=time.perf_counter() - t1,
+             config="fami_pose_torch.tools.sustained_train --flip --motion "
+             f"drift --occlude 0.4 --epochs {SERVING_AB_EPOCHS} (remat off)",
+             checkpoint=os.path.basename(ckpt), launches=launches,
+             **{k: v for k, v in summary.items()})
+        if summary["resume"]["mismatched"] or not only(
+                launches, {k: 4 * summary["total_steps"]
+                           for k in KERNEL_COUNTERS}) or not ckpt.endswith(
+                f"epoch_{SERVING_AB_EPOCHS - 1}_state.ckpt"):
+            raise AssertionError(f"flip-trained run: resume {summary['resume']}"
+                                 f", launches {launches}, checkpoint {ckpt}")
+
+        # B: flip-test off and on, bf16 and int8
+        t1 = time.perf_counter()
+        flip = flip_ab.run(ckpt, int8=True, device="cuda",
+                           root=os.path.join(root, "flip"),
+                           **SERVING_AB_FIXTURE)
+        flip_ab.print_tables(flip)
+        steps["flip"] = {k: sum(r["launches"][k] for r in flip["rows"])
+                         for k in launches}
+        emit("serving-ab-flip", card=smi, seconds=time.perf_counter() - t1,
+             launches=steps["flip"], **flip)
+        check_flip_ab(flip)
+
+        # C: the batch protocol, crop-locked streaming, the re-prime policy
+        t1 = time.perf_counter()
+        stream, _ = streaming_ab.run(ckpt, device="cuda",
+                                     root=os.path.join(root, "stream"),
+                                     **SERVING_AB_FIXTURE)
+        streaming_ab.print_tables(stream)
+        steps["streaming"] = {k: sum(r["launches"][k] for r in stream["rows"])
+                              for k in launches}
+        emit("serving-ab-streaming", card=smi,
+             seconds=time.perf_counter() - t1, launches=steps["streaming"],
+             **stream)
+        check_streaming_ab(stream)
+
+        # D: the window's op-level deviation, with the trained offsets
+        t1 = time.perf_counter()
+        ablation, stages = ablate_dcn_bound.run(
+            ckpt, device="cuda", root=os.path.join(root, "ablate"),
+            **SERVING_AB_FIXTURE)
+        ablate_dcn_bound.print_tables(ablation)
+        steps["ablate"] = {k: ablation["capture_launches"][k] + sum(
+            r["launches"][k] for r in ablation["rows"]) for k in launches}
+        emit("serving-ab-ablate", card=smi, seconds=time.perf_counter() - t1,
+             launches=steps["ablate"], **ablation)
+        check_ablation(ablation)
+
+        # E: BF16_GRADS at full depth on the trained checkpoint
+        t1 = time.perf_counter()
+        bf16 = bf16_full_depth(trainer, ckpt)
+        steps["bf16"] = bf16["launches"]
+        emit("serving-ab-bf16", card=smi, seconds=time.perf_counter() - t1,
+             **bf16)
+
+        # comparisons and timing from here on: their launches are not the
+        # path's
+        batch = trainer.prepare(next(iter(trainer.loader)))
+        x, o, m, w, g = dcn_stage_inputs(trainer, trainer.state, batch)[0]
+        eval_row = dcn_trained_vs_zeroed(
+            "dcn_1 serving-ab eval", *(t.clone() for t in stages["dcn_1"]),
+            d=4)
+        train_row = dcn_trained_vs_zeroed("dcn_1 serving-ab train", x, o, m,
+                                          w, d=4, gout=g)
+        del trainer, batch, stages, x, o, m, w, g
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    # the eval forward warps the 4 supporting frames of a batch of 4 in one
+    # call; the train step each supporting frame of its batch of 8
+    rows = warp_kernel_rows(gen, "serving-ab",
+                            {"warp_translate": 16, "warp_bwd": 8},
+                            SUSTAIN_PLANE)
+    for name, r, library, inputs in (
+            ("dcn_fwd", eval_row, DCN_NO_LIBRARY, "dcn_1's trained inputs in "
+             "the ablation's first eval batch (exact DCN), B=4"),
+            ("dcn_bwd", train_row, DCN_BWD_NO_LIBRARY, "dcn_1's inputs and "
+             "output gradient in a train step of the trained model, B=8")):
+        k = r["trained"][name]
+        rows[name, "serving-ab"] = dict(
+            shape=r["shape"], D=4, max_abs_err=k["max_abs_err"], ms=k["ms"],
+            bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+            ms_zeroed_offsets=r["zeroed"][name]["ms"],
+            plain_ms=k["plain_ms"], library_ms=None, library=library,
+            timing=DCN_TIMING, inputs=inputs)
+    for name in INT8_COUNTERS:
+        # the same 32 geometries (a B=4 eval forward at 96x128) that phase
+        # sustain timed on its checkpoint in this run
+        rows[name, "serving-ab"] = dict(
+            sustain_rows[name, "sustain"],
+            timing_from="phase sustain's rows: the same int8 conv geometries "
+            "(B=4 eval forward at 96x128), timed on that checkpoint")
+    total = {k: sum(s[k] for s in steps.values()) for k in launches}
+    for (name, _), row in rows.items():
+        emit("kernels", kernel=name, path=SERVING_AB_PATH, launches=total[name],
+             **row)
+    emit("serving-ab-launches", **steps, total=total,
+         phase_seconds=time.perf_counter() - t0)
+    return total, rows
 
 
 # -- phase distributed: the data-parallel path on the one card ----------------------
@@ -5530,6 +5887,9 @@ def main():
         torch.cuda.empty_cache()
         sustain, sustain_rows = timed("sustain", phase_sustain, smi)
         torch.cuda.empty_cache()
+        serving_ab, serving_ab_rows = timed(
+            "serving-ab", phase_serving_ab, smi, sustain_rows)
+        torch.cuda.empty_cache()
         distributed = timed("distributed", phase_distributed, smi, root,
                             dirs)
     emit("timeline", seconds_by_phase=timeline,
@@ -5628,6 +5988,10 @@ def main():
         kernels.append(dict(common, path=SUSTAIN_PATH,
                             launches=sustain[name],
                             **sustain_rows[name, "sustain"]))
+        # the flip-trained run and its A/Bs (phase serving-ab)
+        kernels.append(dict(common, path=SERVING_AB_PATH,
+                            launches=serving_ab[name],
+                            **serving_ab_rows[name, "serving-ab"]))
     for name in INT8_COUNTERS:
         kernels.append(dict(
             name=name, route="cuda", source=csrc + "int8_conv.cu",
@@ -5640,6 +6004,11 @@ def main():
             replaces=INT8_REPLACES, path=SUSTAIN_PATH + ": the A/B's int8 "
             "rows and int8_numerics --ckpt", launches=sustain[name],
             **sustain_rows[name, "sustain"]))
+        kernels.append(dict(
+            name=name, route="cuda", source=csrc + "int8_conv.cu",
+            replaces=INT8_REPLACES, path=SERVING_AB_PATH + ": flip_ab's "
+            "int8 rows", launches=serving_ab[name],
+            **serving_ab_rows[name, "serving-ab"]))
     for name, (_, _, line, _) in PROBES.items():
         kernels.append(dict(
             name=name, route="cuda", source=csrc + "probes.cu",

@@ -95,6 +95,10 @@ def test_port_files_found():
     for name in ("tools/synthetic_fixture.py", "tools/sustained_train.py",
                  "tools/ab_dcn_bound.py"):
         assert name in rel, name
+    # and the last trained-weights A/B tools
+    for name in ("tools/flip_ab.py", "tools/streaming_ab.py",
+                 "tools/ablate_dcn_bound.py"):
+        assert name in rel, name
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -170,6 +174,16 @@ def test_entry_points_default_to_cuda():
     assert ab_dcn_bound.parse_args(["--ckpt", "c"]).device == "cuda"
     assert int8_numerics.parse_args([]).device == "cuda"
     assert int8_numerics.parse_args(["--ckpt", "c"]).device == "cuda"
+    # the flip-test, streaming and DCN-window A/Bs, from the command line
+    # and from Python
+    from fami_pose_torch.tools import ablate_dcn_bound, flip_ab, streaming_ab
+
+    assert flip_ab.parse_args(["--ckpt", "c"]).device == "cuda"
+    assert streaming_ab.parse_args(["--ckpt", "c"]).device == "cuda"
+    assert ablate_dcn_bound.parse_args([]).device == "cuda"
+    for run in (flip_ab.run, streaming_ab.run, ablate_dcn_bound.run):
+        assert inspect.signature(run).parameters["device"].default == \
+            "cuda", run.__module__
 
 
 def test_cuda_tensor_never_reaches_a_plain_version():
