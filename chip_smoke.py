@@ -37,7 +37,13 @@ the card's ``nvidia-smi`` name and power limit, and as the last line
                counts each bf16 DCN instance's ``HGMMA`` instructions with
                ``cuobjdump -sass``. The warp backward is also timed with
                the L2 flushed between launches (``device_ms_cold``) and
-               called twice for bitwise equal outputs. Then the four
+               called twice for bitwise equal outputs. Every windowed DCN
+               backward row (B=8 at D = 4 and 1 in both types, B=32 at D =
+               4 in bf16, and in the Sub-JHMDB, sustain and serving-ab rows)
+               also makes 20 calls on its inputs: the elements of each
+               output that differ from the first call's, limit 0
+               (``repeat_differences``; dx is the fixed-order gather). Then
+               the four
                on-chip gather / rotate probes (``ops/probes.py``) at the TPU
                probes' shapes, bitwise against ``torch.gather`` /
                ``torch.roll``, beside the floor of one empty kernel node in
@@ -72,7 +78,9 @@ the card's ``nvidia-smi`` name and power limit, and as the last line
                synchronisation to synchronisation, a forward / backward /
                optimizer split by CUDA events as a per-layer reading, then 8
                steps on one fixed batch (finite loss terms and gradients,
-               ``loss_mse`` falling), one more step traced with
+               ``loss_mse`` falling), two runs of 3 steps on it from one
+               state, every state tensor bit for bit
+               (``repeat_train_steps``), one more step traced with
                torch.profiler, and one in which ``dcn_1``'s inputs and the
                gradient of its output are captured by hooks: ``dcn_bwd`` on
                them against its plain version, timed device-side.
@@ -99,7 +107,9 @@ the card's ``nvidia-smi`` name and power limit, and as the last line
                of a traced step, peak memory, the largest batch of a remat
                step by arithmetic), ``BF16_GRADS`` against none in turns and
                its casts alone; at 256x192, B=2, remat against none on the
-               card (f32) and, on tame weights at one block a stage branch,
+               card (f32; the gradients and running statistics bit for bit,
+               and two plain steps bit for bit) and, on tame weights at one
+               block a stage branch,
                the ``BF16_GRADS`` step on the card against the CPU by
                ``bf16_rule`` (the rule ``tests/test_torch_train_levers.py``
                holds the port to against JAX), with planted faults; and
@@ -249,10 +259,8 @@ the card's ``nvidia-smi`` name and power limit, and as the last line
                ``Trainer`` of ``TPU.MESH_SHAPE [-1, 1]`` at W48, 384x288,
                bf16, B=8, three steps, against the plain trainer on the
                same seed and batches (no collective; the first step's
-               metrics bit for bit; the state bit for bit when the plain
-               trainer repeats itself bit for bit, else within
-               ``DIST_STATE_RTOL`` of the 3 steps' move: the DCN backward
-               sums dx with atomics),
+               metrics and the state bit for bit, and two plain runs bit
+               for bit: every kernel of the step sums in a fixed order),
                and each collective helper once on CUDA tensors; two NCCL
                ranks on the one card, whose answer is recorded (NCCL
                refuses two ranks on one GPU); (b) two ranks on the one card
@@ -415,6 +423,31 @@ def run_kernel(name, fn):
         raise RuntimeError(f"{name}: CUDA fault during the kernel: {err}") \
             from err
     return out
+
+
+REPEAT_CALLS = 20
+DCN_GRAD_NAMES = ("dx", "doffset", "dmask", "dweight")
+
+
+def repeat_differences(name, run_k, calls=REPEAT_CALLS):
+    """``calls`` calls of the DCN backward's wrapper on the same inputs: the
+    elements of each output that differ from the first call's in any later
+    call. In windowed mode the backward sums every output in a fixed order
+    (dx by the gather, dweight from per-block partials), so the limit is 0
+    and anything else raises."""
+    first = [None if t is None else t.clone() for t in run_kernel(name, run_k)]
+    differ = [None if t is None else torch.zeros_like(t, dtype=torch.bool)
+              for t in first]
+    for _ in range(calls - 1):
+        for d, a, b in zip(differ, run_k(), first):
+            if d is not None:
+                d |= a != b
+    counts = {n: int(d.sum()) for n, d in zip(DCN_GRAD_NAMES, differ)
+              if d is not None}
+    if any(counts.values()):
+        raise AssertionError(f"{name}: {calls} calls differ from the first "
+                             f"at {counts} elements (limit 0)")
+    return counts
 
 
 def check_close(name, got, ref, dtype):
@@ -730,6 +763,7 @@ def jhmdb_kernel_rows(gen):
     run_k = lambda: deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
     run_p = lambda: deform_conv2d_backward_plain(x, off, msk, wgt, gout, **kw)
     got_b = run_kernel("dcn_bwd Sub-JHMDB", run_k)
+    repeats = repeat_differences("dcn_bwd Sub-JHMDB", run_k)
     errs = {n: check_close(f"dcn_bwd {n} Sub-JHMDB", a, r, dtype)[0]
             for n, a, r in zip(("dx", "doffset", "dmask", "dweight"), got_b,
                                run_p())}
@@ -741,7 +775,7 @@ def jhmdb_kernel_rows(gen):
         plain_ms=time_ms(run_p, iters=3, warmup=1), bound_ms=bnd,
         bound_by=by, library_ms=None,
         library="none: no single PyTorch call computes a deformable conv's "
-        "gradients")
+        "gradients", differing_in_20_calls=repeats)
     del x, off, msk, wgt, got, got_b, gout
     rows.update(warp_kernel_rows(
         gen, "jhmdb", {"warp_translate": 2 * JHMDB_BATCH,
@@ -859,7 +893,8 @@ def phase_kernels(hgmma):
                                        library=DCN_NO_LIBRARY)
 
             # the backward on the same inputs; every output against the plain
-            # backward (dx is summed with atomics: its last bits vary)
+            # backward; in windowed mode 20 calls bit for bit (the exact
+            # mode's dx is summed with atomics: its last bits vary)
             gout = torch.randn(got.shape, generator=gen,
                                device="cuda").to(dtype)
             run_k = lambda: deform_conv2d_backward(x, off, msk, wgt, gout,
@@ -867,6 +902,8 @@ def phase_kernels(hgmma):
             run_p = lambda: deform_conv2d_backward_plain(
                 x, off, msk, wgt, gout, max_offset=d, **kw)
             got_b = run_kernel(f"dcn_bwd D={d} {dtype}", run_k)
+            repeats = (repeat_differences(f"dcn_bwd D={d} {dtype}", run_k)
+                       if d else "exact mode: dx summed with atomics")
             ref_b = run_p()
             errs = {}
             for name, a, r in zip(("dx", "doffset", "dmask", "dweight"),
@@ -887,14 +924,16 @@ def phase_kernels(hgmma):
                  host_paced_ms=host_ms, timing=DCN_TIMING,
                  plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None,
                  library="none: no single PyTorch call computes a modulated "
-                 "DCN's gradients")
+                 "DCN's gradients",
+                 differing_in_20_calls=repeats)
             if dtype == torch.bfloat16 and d == 4:
                 rows["dcn_bwd"] = dict(shape=list(x.shape), max_abs_err=worst,
                                        ms=k_ms, host_paced_ms=host_ms,
                                        timing=DCN_TIMING, plain_ms=p_ms,
                                        bound_ms=bnd, bound_by=by,
                                        library_ms=None,
-                                       hgmma=hgmma["dcn_bwd"])
+                                       hgmma=hgmma["dcn_bwd"],
+                                       differing_in_20_calls=repeats)
 
     # the DCN forward at the val path's shape (VAL.BATCH_SIZE_PER_GPU 32):
     # the configured window, one the auto-window picks, and the exact mode
@@ -922,6 +961,32 @@ def phase_kernels(hgmma):
                                        bound_ms=bnd, bound_by=by,
                                        library_ms=None,
                                        library=DCN_NO_LIBRARY)
+            # the backward at B=32: against its plain version, 20 calls bit
+            # for bit, timed
+            gout = torch.randn(got.shape, generator=gen,
+                               device="cuda").to(dtype)
+            run_k = lambda: deform_conv2d_backward(x, off, msk, wgt, gout,
+                                                   max_offset=d, **kw)
+            got_b = run_kernel("dcn_bwd B=32 D=4", run_k)
+            repeats = repeat_differences("dcn_bwd B=32 D=4", run_k)
+            errs = {n: check_close(f"dcn_bwd {n} B=32 D=4", a, r, dtype)[0]
+                    for n, a, r in zip(DCN_GRAD_NAMES, got_b,
+                                       deform_conv2d_backward_plain(
+                                           x, off, msk, wgt, gout,
+                                           max_offset=d, **kw))}
+            bnd, by = dcn_bwd_bound(x, off, msk, wgt, gout, got_b)
+            rows["dcn_bwd", 32] = dict(
+                shape=list(x.shape), max_abs_err=max(errs.values()),
+                max_abs_err_by_output=errs, ms=device_ms(run_k, launches=20),
+                host_paced_ms=time_ms(run_k), timing=DCN_TIMING,
+                plain_ms=time_ms(lambda: deform_conv2d_backward_plain(
+                    x, off, msk, wgt, gout, max_offset=d, **kw), iters=3,
+                    warmup=1),
+                bound_ms=bnd, bound_by=by, library_ms=None,
+                library=DCN_BWD_NO_LIBRARY, differing_in_20_calls=repeats)
+            emit("kernels", kernel="dcn_bwd", dtype="bfloat16", D=d,
+                 **rows["dcn_bwd", 32])
+            del gout, got_b
         del x, off, msk, got
     torch.cuda.empty_cache()
     rows.update(block_kernel_rows(gen))
@@ -1379,7 +1444,7 @@ def stream_clip(model, crops, span, calls=None, **kw):
     return torch.stack(out[span:])
 
 
-def steady_stream(model, crops, span, steps=20):
+def steady_stream(model, crops, span, steps=14):
     """A flip-tested stream in its steady state: primed and fed 3 frames,
     then ``steps`` steps each synchronised before and after (ms), and one
     traced step (``profile_call``). Returns the predictor, the ms and the
@@ -1429,7 +1494,7 @@ def phase_streaming(pred, batch):
     amplifies a rounding, so the heatmaps are held within the batch
     protocol's own gap between bf16 and f32 (the 1e-3 of the scale that
     card-vs-cpu allows in f32 is printed beside it). Then ms a step
-    (synchronised, 20 steps), key frames/s, device-busy ms of one traced
+    (synchronised, 14 steps), key frames/s, device-busy ms of one traced
     step and peak memory, beside the batch protocol's on the same crops
     and phase main's."""
     from fami_pose_torch.engine.steps import make_eval_step
@@ -1728,7 +1793,35 @@ def dcn_bwd_on_model_inputs(trainer, state, batch):
         mask_abs_max=float(msk.float().abs().max()))
 
 
-def phase_train(smi, batch=8, epoch_steps=4, timed_steps=3, split_steps=3,
+def repeat_train_steps(trainer, state, batch, steps=3):
+    """``steps`` train steps on ``batch``, twice from one state (its host
+    copy loaded again in between): every tensor of the state after them
+    (parameters, BatchNorm statistics, Adam moments and steps, the
+    scheduler) must be equal bit for bit in the two runs: the step's
+    kernels sum in a fixed order, and it pins cuDNN's deterministic
+    algorithms."""
+    from fami_pose_torch.engine.checkpoints import _to_host
+
+    start = _to_host(state.state_dict())
+    ends = []
+    for _ in range(2):
+        # a fresh copy each time: the optimizer keeps the loaded step
+        # tensors (on the host) as they are and counts them up in place
+        state.load_state_dict(_to_host(start))
+        for _ in range(steps):
+            trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        ends.append(_to_host(state.state_dict()))
+    l2, differ, n = state_distance(ends[0], ends[1])
+    moved = state_distance(ends[0]["model"], start["model"])[0]
+    out = dict(steps=steps, state_tensors=n, differing=differ, l2=l2,
+               steps_move_l2=moved, rule="bit for bit")
+    if differ or not moved > 0:
+        raise AssertionError(f"two {steps}-step runs from one state: {out}")
+    return out
+
+
+def phase_train(smi, batch=8, epoch_steps=4, timed_steps=2, split_steps=2,
                 fixed_steps=8):
     import tempfile
 
@@ -1844,6 +1937,7 @@ def phase_train(smi, batch=8, epoch_steps=4, timed_steps=3, split_steps=3,
             if bad:
                 raise AssertionError(f"step {i}: non-finite {bad}")
         norms = check_gradients(model)
+        repeat = repeat_train_steps(trainer, state, fixed)
         trace = profile_call(lambda: trainer.train_step(state, fixed))
         model_dcn_bwd = dcn_bwd_on_model_inputs(trainer, state, fixed)
         emit("kernels", kernel="dcn_bwd", inputs="the model's own",
@@ -1880,7 +1974,8 @@ def phase_train(smi, batch=8, epoch_steps=4, timed_steps=3, split_steps=3,
              fixed_batch_loss_mse=[r["loss_mse"] for r in history],
              fixed_batch_loss=[r["loss"] for r in history],
              last_step_terms=history[-1], grad_norms=norms, trace=trace,
-             checkpoint=resumed_note)
+             checkpoint=resumed_note,
+             two_three_step_runs_from_one_state=repeat)
     return launches, model_dcn_bwd
 
 
@@ -1952,8 +2047,8 @@ def phase_train_card_vs_cpu():
       absolute: the MI terms are ~1e-4 and pass through a temperature-0.05
       softmax); every gradient, the features' included, within 1% of its
       own largest entry or 1e-4 of the largest gradient of all (sums in
-      another order, atomics, BatchNorm over as few as 8 values in the
-      offset head);
+      another order, BatchNorm over as few as 8 values in the offset
+      head);
     * the backbone alone in float64 on both devices, under one seeded
       cotangent on its two outputs: every gradient within 1e-6 of its own
       largest entry. In float64 the two devices' rounding (1e-16) stays far
@@ -2115,7 +2210,7 @@ def phase_train_card_vs_cpu():
 # people, 4 steps of 8
 LEVERS_TRAIN_IMAGES = 16
 LEVERS_STEPS = 4
-LEVERS_TIMED_STEPS = 2
+LEVERS_TIMED_STEPS = 1
 # the rule for a bf16 gradient tensor against a reference's
 # (tests/test_torch_train_levers.py holds the port against JAX with it, and
 # phase train-levers the card against the port on the CPU): a tensor is held
@@ -2352,7 +2447,7 @@ def offset_gradient_cause(trainer, batch):
     return out
 
 
-def bf16_cast_ms(model, reps=10):
+def bf16_cast_ms(model, reps=5):
     """Host ms, synchronised, of ``BF16_GRADS``'s casts alone at the
     model's parameters: ``params_cast``'s entry and exit (the copies cast
     at once, and the swap), the gradients cast back (``set_grads``, with
@@ -2394,7 +2489,7 @@ def bf16_cast_ms(model, reps=10):
     return dict(parameters=len(params), reps=reps, **times)
 
 
-def lever_turns(trainer, raws, rounds=1, steps=2):
+def lever_turns(trainer, raws, rounds=1, steps=1):
     """Host ms of a synchronised train step without a lever and with
     ``BF16_GRADS`` alone, in turns (none, bf16, bf16, none, each
     ``steps`` steps after one warm-up, ``rounds`` times)."""
@@ -2517,27 +2612,31 @@ def levers_card_vs_cpu():
         heatmap_size, device="cpu")
 
     # remat on the card: the running statistics come from the first pass,
-    # bit for bit; the gradients within the card's own run-to-run spread
-    # (the DCN backward's dx is summed with atomics)
+    # and the gradients, bit for bit (the step's kernels sum in a fixed
+    # order and it pins cuDNN's deterministic algorithms, without which
+    # 946 of these 984 float32 gradients varied: two plain steps agree bit
+    # for bit too)
     _, g_a, s_a = one_lever_step(base, cfg32, host_batch, "cuda")
     _, g_b, _ = one_lever_step(base, cfg32, host_batch, "cuda")
     reset_launches()
     _, g_r, s_r = one_lever_step(base, cfg32, host_batch, "cuda", remat=True)
     torch.cuda.synchronize()
     remat_launches = read_launches()
-    spread = grad_errors(g_b, g_a)[1]
-    remat_l2 = grad_errors(g_r, g_a)[1]
+    plain_differ = [k for k in g_a if not torch.equal(g_a[k], g_b[k])]
+    grads_differ = [k for k in g_a if not torch.equal(g_a[k], g_r[k])]
     stats_differ = [k for k in s_a if not torch.equal(s_a[k], s_r[k])]
-    remat_tol = max(4 * spread, 1e-6)
-    remat = dict(grad_rel_l2_vs_plain=remat_l2,
-                 plain_run_to_run_grad_rel_l2=spread,
-                 tol=f"max(4 x the run-to-run spread, 1e-6) = {remat_tol}",
+    remat = dict(grads_differing_from_plain=len(grads_differ),
+                 grad_rel_l2_vs_plain=grad_errors(g_r, g_a)[1],
+                 plain_run_to_run_grads_differing=len(plain_differ),
+                 grads=len(g_a), tol="bit for bit",
                  running_stats_bitwise_equal=not stats_differ,
                  launches=remat_launches)
-    if stats_differ or not remat_l2 <= remat_tol \
+    if stats_differ or grads_differ or plain_differ \
             or any(c != 4 for c in remat_launches.values()):
-        raise AssertionError(f"remat on the card: {remat}, running "
-                             f"statistics differ at {stats_differ[:5]}")
+        raise AssertionError(
+            f"remat on the card: {remat}, running statistics differ at "
+            f"{stats_differ[:5]}, gradients at "
+            f"{(grads_differ + plain_differ)[:5]}")
 
     # BF16_GRADS: the card against the CPU, by the CPU's own gap to its
     # f32 step. At full depth the bf16 step stayed chaotic on tame weights
@@ -3230,7 +3329,7 @@ JHMDB_CFG = "configs/jhmdb/fami_pose.yaml"
 # labelled; the same clips are the train and the val split
 JHMDB_CLIPS, JHMDB_FRAMES = 2, 16
 JHMDB_BATCH = 8  # the file's TRAIN / VAL.BATCH_SIZE_PER_GPU 32, cut to 8
-JHMDB_TIMED = 5  # synchronised eval and train steps timed
+JHMDB_TIMED = 3  # synchronised eval and train steps timed
 
 
 def write_jhmdb_fixture(root, seed=0, w=320, h=240):
@@ -4124,6 +4223,7 @@ def dcn_trained_vs_zeroed(name, x, off, msk, wgt, d, gout=None):
         if gout is not None:
             run_k = lambda: deform_conv2d_backward(x, o, msk, wgt, gout, **kw)
             got_b = run_kernel(f"dcn_bwd {tag}", run_k)
+            repeats = repeat_differences(f"dcn_bwd {tag}", run_k)
             errs = [check_close(f"dcn_bwd {n} {tag}", a, r, x.dtype)[0]
                     for n, a, r in zip(
                         ("dx", "doffset", "dmask", "dweight"), got_b,
@@ -4132,7 +4232,7 @@ def dcn_trained_vs_zeroed(name, x, off, msk, wgt, d, gout=None):
             bnd, by = dcn_bwd_bound(x, o, msk, wgt, gout, got_b)
             row["dcn_bwd"] = dict(ms=device_ms(run_k, launches=20),
                                   max_abs_err=max(errs), bound_ms=bnd,
-                                  bound_by=by)
+                                  bound_by=by, differing_in_20_calls=repeats)
             if kind == "trained":
                 row["dcn_bwd"]["plain_ms"] = time_ms(
                     lambda: deform_conv2d_backward_plain(
@@ -4316,7 +4416,9 @@ def phase_sustain(smi):
         plain_ms=first["plain_ms"], library_ms=None,
         library=DCN_BWD_NO_LIBRARY, timing=DCN_TIMING,
         inputs="dcn_1's inputs and output gradient in a train step of the "
-        "trained model, B=8")
+        "trained model, B=8",
+        differing_in_20_calls={kind: train_rows["dcn_1"][kind]["dcn_bwd"][
+            "differing_in_20_calls"] for kind in ("trained", "zeroed")})
     for name, row in int8_rows.items():
         rows[name, "sustain"] = dict(row, int8_smallest_map=smallest)
     for (name, _), row in rows.items():
@@ -4638,6 +4740,10 @@ def phase_serving_ab(smi, sustain_rows):
             ms_zeroed_offsets=r["zeroed"][name]["ms"],
             plain_ms=k["plain_ms"], library_ms=None, library=library,
             timing=DCN_TIMING, inputs=inputs)
+        if name == "dcn_bwd":
+            rows[name, "serving-ab"]["differing_in_20_calls"] = {
+                kind: r[kind][name]["differing_in_20_calls"]
+                for kind in ("trained", "zeroed")}
     for name in INT8_COUNTERS:
         # the same 32 geometries (a B=4 eval forward at 96x128) that phase
         # sustain timed on its checkpoint in this run
@@ -4663,9 +4769,9 @@ REMAINDER_BLOCKS = (("AdaptBlock", {}), ("AdaptBlockV2",
                     ("DeformBlock", {}))
 # a block on the card against the port on the CPU, f32 with TF32 off: the
 # output, the input gradient and every parameter gradient, each within this
-# share of its largest magnitude (the DCN backward sums dx with atomics;
-# the DCN's bias, whose gradient a train-mode BatchNorm cancels, within it
-# of the largest parameter gradient)
+# share of its largest magnitude (the blocks' exact-mode DCN backward sums
+# dx with atomics; the DCN's bias, whose gradient a train-mode BatchNorm
+# cancels, within it of the largest parameter gradient)
 BLOCK_F32_TOL = 1e-4
 BLOCK_F32_BATCH = 2  # the CPU side's plain DCN is the slow part
 
@@ -5063,14 +5169,11 @@ DIST_SAMPLES = 24  # 3 steps of a global batch of 8
 DIST_STREAMS, DIST_STREAM_FRAMES = 8, 6
 DIST_TIMEOUT_S = 600
 # the two-rank f32 step against one process's, as one vector of gradients
-# and per loss term, relative; the one process's run-to-run spread (the DCN
-# backward's atomics) is printed beside it
+# and per loss term, relative (the ranks' BatchNorms and gradients sum in
+# another order)
 DIST_GRAD_L2_LIMIT = 1e-4
 DIST_LOSS_RTOL = 1e-5
 DIST_PX_TOL = 1e-3  # decoded keypoints, f32 val: two ranks against one
-# one rank over NCCL against the plain trainer: the states' distance after 3
-# steps over the distance the 3 steps moved the state (each as one vector)
-DIST_STATE_RTOL = 1e-9
 DIST_NOTE = ("gloo through one card: two processes share one H100 and every "
              "collective goes through host memory; not a multi-GPU reading")
 
@@ -5271,14 +5374,10 @@ def dist_nccl_one_rank(ctx):
     spread, spread_differ, _ = state_distance(again, plain)
     dist_m, differ, _ = state_distance(meshed, plain)
     dist_again, differ_again, _ = state_distance(meshed, again)
-    if min(differ, differ_again) == 0:
-        rule = "bit for bit one of the two plain runs"
-        ok = True
-    else:
-        rule = (f"within {DIST_STATE_RTOL} of the three steps' move, as one "
-                f"vector (the DCN backward sums dx with atomics, so the "
-                f"plain trainer need not repeat itself bit for bit)")
-        ok = min(dist_m, dist_again) <= DIST_STATE_RTOL * moved
+    rule = ("bit for bit both plain runs, which agree bit for bit (the "
+            "step's kernels sum in a fixed order; cuDNN is pinned to its "
+            "deterministic algorithms)")
+    ok = differ == differ_again == spread_differ == 0
     report = dict(
         mesh=dict(mesh.shape), plain_mesh=dict(plain_mesh.shape),
         collectives_in_three_steps=calls.calls, launches=launches,
@@ -5362,12 +5461,12 @@ def dist_two_ranks(ctx):
     out["checkpoints"] = sorted(os.listdir(trainer.checkpoints_dir))
     del resumed
 
-    # readings: step ms (synchronised, 3 steps on one batch), the
+    # readings: step ms (synchronised, 2 steps on one batch), the
     # collectives of one step, the gradient bucket and its all-reduce
     raw = next(iter(trainer.loader))
     batch = trainer.prepare(raw)
     step_ms = []
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         trainer.state, _ = trainer.train_step(trainer.state, batch)
         torch.cuda.synchronize()
@@ -5381,7 +5480,7 @@ def dist_two_ranks(ctx):
     pm.all_reduce_mean_(bucket)
     torch.cuda.synchronize()
     reduce_ms = []
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         pm.all_reduce_mean_(bucket)
         torch.cuda.synchronize()
@@ -5693,12 +5792,11 @@ def phase_distributed(smi, root, dirs):
         refusal = "no answer within 120 s; both ranks killed"
     emit("distributed-nccl-two-ranks-one-card", card=smi, ranks=refusal)
 
-    # the one-process references of (b), computed here; the f32 step twice
-    # for its run-to-run spread
+    # the one-process references of (b), computed here (the f32 step once:
+    # phase train-levers holds two such steps bit for bit)
     cfg32, host = cut_depth_step_inputs()
-    ref = [one_lever_step(cut_depth_model(cfg32), cfg32, host, "cuda")
-           for _ in range(2)]
-    ref_metrics, ref_grads, _ = ref[0]
+    ref_metrics, ref_grads, _ = one_lever_step(cut_depth_model(cfg32), cfg32,
+                                               host, "cuda")
     f32_runner, _ = val_pass(root, dirs, VAL_VIDEOS * VAL_FRAMES * VAL_PEOPLE,
                              "TPU.COMPUTE_DTYPE", "float32")
     ref_preds = (f32_runner.evaluator.all_preds.copy(),
@@ -5745,7 +5843,6 @@ def phase_distributed(smi, root, dirs):
         return num / den
 
     f32_l2 = rel_l2(grads, ref_grads)
-    spread = rel_l2(ref[1][1], ref_grads)
     loss_rel = {k: abs(r0["f32_metrics"][k] - v) / max(abs(v), 1e-12)
                 for k, v in ref_metrics.items() if k.startswith("loss")}
     need(f32_l2 <= DIST_GRAD_L2_LIMIT, f"f32 gradient rel L2 {f32_l2}")
@@ -5813,7 +5910,6 @@ def phase_distributed(smi, root, dirs):
             model="W48 at one module of one block a stage branch, 256x192, "
             "tame seeded weights, global batch 4 (2 a rank), TF32 off",
             grad_rel_l2_vs_one_process=f32_l2,
-            one_process_run_to_run_rel_l2=spread,
             limit=DIST_GRAD_L2_LIMIT, loss_rel_vs_one_process=loss_rel,
             loss_rtol=DIST_LOSS_RTOL),
         val=val,
@@ -5965,6 +6061,9 @@ def main():
                 launches_train_levers=levers[name],
                 launches_distributed=distributed[name],
                 model_inputs=model_dcn_bwd, **rows[name]))
+            kernels.append(dict(common, path="none: the val path's batch of "
+                                "32, timed and repeated for comparison",
+                                launches=0, **rows[name, 32]))
         if name in ("dcn_fwd", "dcn_bwd"):
             # the deform blocks (phase remainder): exact, dilation 1, one
             # group without a mask (DeformBlock) or two with one

@@ -170,7 +170,12 @@ def make_train_step(mse_weight=1.0, mi_alpha=0.5, mi_beta=0.1,
     loss is the mean over its equal slice, so that average is the gradient
     of the global batch's loss. The loss terms are averaged across ranks
     and the PCK accuracies computed from the global batch's counts, in one
-    more all-reduce."""
+    more all-reduce.
+
+    The step runs with cuDNN's deterministic algorithms
+    (``torch.backends.cudnn.deterministic``, restored afterwards): with
+    the DCN backward's fixed-order sums, two steps from one state on one
+    card give the same bits."""
     sync = is_distributed(mesh)
     synced = []
 
@@ -183,6 +188,19 @@ def make_train_step(mse_weight=1.0, mi_alpha=0.5, mi_beta=0.1,
         return total, (aux, final, sup_hms, kf_bb)
 
     def step(state, batch):
+        # cuDNN's deterministic algorithms for the step: its float32 weight
+        # gradients otherwise vary from run to run; in bfloat16 the main
+        # path's step took the same device time with them (PERF.md).
+        # The one attribute, not ``torch.backends.cudnn.flags``, which would
+        # reset the others.
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            return _step(state, batch)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+
+    def _step(state, batch):
         model = state.model
         if sync and not any(m is model for m in synced):
             sync_batch_norm(model, mesh)

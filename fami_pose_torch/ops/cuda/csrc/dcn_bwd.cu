@@ -20,14 +20,23 @@
 // for any C >= 1 with C % G == 0 and any Cout >= 1. No bias: its gradient is
 // a plain sum of gout outside the kernel, as on the TPU.
 //
-// The TPU form (128-lane rows, group-minor channels, a loop over the (2D+1)^2
-// integer shifts of the hat window, rolls for the dx adjoint, two kernels) is
-// not carried over. Here the offset is clamped and the 4 corners are touched
-// directly, so the work does not grow with D. The dx adjoint is a scatter
-// with atomics into a float32 buffer, the only form that also serves the
-// exact (unclamped) mode, where the adjoint has no bounded gather window; a
-// gather form would test (2D+1)^2 = 81 candidate pixels at D = 4 for every
-// (input pixel, group, tap), ~20x the scatter's instructions.
+// The TPU form of dW / dmask / doffset (128-lane rows, group-minor channels,
+// a loop over the (2D+1)^2 integer shifts of the hat window) is not carried
+// over: here the offset is clamped and the 4 corners are touched directly,
+// so that work does not grow with D. dx is _bwd_dx_kernel's gather (the
+// owner computes): in windowed mode (D > 0) each dx element is the sum, in
+// one fixed order, of the sources in its window,
+//   dx(q) = sum over taps k, then d in [-R, R]^2 (row by row) of
+//           [w_y w_x m dcol]_k(q - s_k - d),   s_k = k_pos * dil - pad,
+// R = ceil(D); a source p contributes where q - (p + s_k) - floor(t) is a
+// corner, in {0, 1}^2. The window is exact: floor(t) lies in [-R, R], and
+// the corner at d = R + 1 needs t = D exactly, where its weight is 0
+// (fami_pose_tpu/ops/pallas/dcn_bwd.py:47-55). No float atomics: every run
+// gives the same dx, bit for bit, as the TPU kernel does. Windows up to
+// kMaxGatherR = 31 px are taken; a wider one is refused
+// (cudaErrorInvalidValue). The exact mode (no clamp: the adjoint has no
+// bounded window) keeps a scatter with float atomics into a float32 buffer,
+// whose sum order varies from run to run.
 //
 // What bounds it on an H100. At the main-path shape (B=8, 96x72, C=Cout=48,
 // G=12, bf16) one call must move ~88 MB (offsets and doffset ~24 MB each,
@@ -35,14 +44,16 @@
 // 3.35 TB/s; its two contractions are ~4.6 GFLOP, ~5 us at the bf16
 // tensor-core rate. So the bytes set the least time. What sets this
 // kernel's time (PERF.md) is the issue of the sample loop's instructions
-// (~1.9x the forward's a unit of 4 channels) and the L2's rate of atomic
-// operations (~190 G a second, a float4 atomic counting as one).
+// (~1.9x the forward's a unit of 4 channels) and, for dx, the gather's
+// staging of its halos and its float32 scratch of m * dcol (B * 9C * HWo
+// floats: 95.6 MB at the main path, written once and read back).
 //
-// Design (three launches on the caller's stream, counted as one call):
+// Design (four launches on the caller's stream, counted as one call):
 //   0. prep_kernel copies x (B, C, H, W) to a scratch buffer in grouped
 //      channels-last order (B, G, H, W, Cg), as the forward does, so that
-//      the Cg channels of one group at one corner are one vector load, and
-//      zeroes the float32 dx accumulator of the same order.
+//      the Cg channels of one group at one corner are one vector load (and
+//      in the exact mode zeroes the float32 dx accumulator of the same
+//      order).
 //   1. dcn_bwd_bf16_kernel: persistent blocks of 256 threads, two an SM at
 //      the main-path shape. A block owns one work item (tap group, channel
 //      chunk, Cout chunk) and walks 64-pixel tiles with it:
@@ -72,28 +83,43 @@
 //           gathers the 4 corners (one 8-byte load each for Cg = 4 in bf16),
 //           reads dcol (one 16-byte shared load), writes m * S to the column
 //           in bf16 (the wgmma B operand of dW), writes doffset and dmask,
-//           and adds m * w_corner * dcol into the dx accumulator with one
-//           float4 atomic a corner (vector atomics exist for global memory
-//           on compute capability 9.x; corners of weight 0 are skipped; Cg
-//           not a multiple of 4 takes scalar atomics). A tile's dx summed in
-//           shared memory first was 3x slower: a float atomicAdd to shared
-//           memory is a compare-and-swap loop on this card. Where a group
-//           spans several chunks (more than 64 channels), doffset and dmask
-//           are sums over the chunks: each chunk writes its f32 partial to
-//           scratch, and the finish kernel sums them in a fixed order, so
-//           that they stay deterministic (no float atomics there);
+//           and writes m * dcol to the float32 scratch (B, G, K, HWo, Cg)
+//           that the dx gather reads (one 16-byte store for 4 channels). In
+//           the exact mode it adds m * w_corner * dcol into the dx
+//           accumulator instead, one float4 atomic a corner (corners of
+//           weight 0 skipped; Cg not a multiple of 4 takes scalar atomics).
+//           Where a group spans several chunks (more than 64 channels),
+//           doffset and dmask are sums over the chunks: each chunk writes
+//           its f32 partial to scratch, and the finish kernel sums them in a
+//           fixed order (no float atomics there);
 //        d. dW[o][3CP] += gout . column on the tensor cores (M = the Cout
 //           chunk padded to 64, K = the 64 pixels), the f32 accumulators
 //           held in registers across all the block's tiles.
 //      At the end each block writes its dW slice to a float32 partial of
-//      its own (no atomics: dW is deterministic).
-//   2. finish_kernel turns the dx accumulator into NCHW in x's type, sums
-//      the blocks' dW partials into (Cout, C, kh, kw) in W's type, and,
-//      where groups span chunks, the doffset and dmask partials.
+//      its own (no atomics: dW is deterministic; a block's tiles are fixed
+//      by its index, none is taken dynamically).
+//   2. dx_gather_kernel (windowed mode): a block owns a 16 x 16 tile of dx
+//      and one group's channels (4 at a time where Cg % 4 == 0, else 1).
+//      For each tap it stages its halo of (16 + 2R)^2 sources in shared
+//      memory (floor(t) of both axes packed in one int, the fractions,
+//      m * dcol), and each source sets, for each corner of non-zero weight
+//      that lands on the tile, the bit of its displacement d in that
+//      pixel's mask (2R + 1 words of 2R + 1 bits: 32-bit words up to R =
+//      15, 64-bit ones up to 31; atomicOr, whose result does not depend on
+//      the threads' order). Each thread then walks its
+//      pixel's set bits, dy then dx ascending (the order of a scan of all
+//      (2R+1)^2 candidates, whose 81 tests a pixel and tap made the whole
+//      call 0.72 ms at B=8, D = 4 against 0.43 with the masks, PERF.md),
+//      and sums the products; the sum is rounded once into x's type and
+//      written NCHW.
+//   3. finish_kernel sums the blocks' dW partials into (Cout, C, kh, kw) in
+//      W's type, and, where groups span chunks, the doffset and dmask
+//      partials; in the exact mode it also turns the dx accumulator
+//      into NCHW in x's type.
 //   dcn_bwd_f32_kernel (float32 inputs: the card-vs-CPU checks) has the
-//   same work items, gathers and atomics with the column and W in f32 and
-//   both contractions as full-f32 FMA loops on the CUDA cores over 64-row
-//   Cout chunks; TF32 would miss the 1e-4 tolerance of those checks.
+//   same work items, gathers and dx outputs with the column and W in f32
+//   and both contractions as full-f32 FMA loops on the CUDA cores over
+//   64-row Cout chunks; TF32 would miss the 1e-4 tolerance of those checks.
 // A block's shared memory is bounded by the widest chunk (CP = 64, a Cout
 // chunk of 64) whatever C and Cout are. The bf16 kernel is compiled twice:
 // the main path's calls (one Cout chunk, no group split in slices, Cout a
@@ -109,9 +135,10 @@
 // width: dcn_bwd_bf16_kernel<48, 4> 127 registers, no spills, 85,120 B of
 // dynamic shared memory at the main-path shape (2 blocks an SM); 33
 // HGMMA.64x24x16.F32.BF16 in the SASS of each C = 48 instance.
-// On an H100 80GB HBM3 at 700 W (chip_smoke.py, device-side): 0.2440-0.2461
-// ms at B=8, D = 4 (the previous scalar-atomic design 0.9871) against the
-// 0.0262 ms bound.
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py, device-side), with the dx
+// scatter of float4 atomics: 0.2440-0.2461 ms at B=8, D = 4 (the scalar-
+// atomic design before it 0.9871) against the 0.0262 ms bound; with the dx
+// gather 0.4259-0.4268 ms, of which the gather kernel takes ~0.24 (PERF.md).
 
 #include "dcn_common.cuh"
 
@@ -123,6 +150,39 @@ constexpr int kTaps = 3;       // taps of one block's slice
 constexpr int kColStride = kTilePix + 4;  // f32 rows of 64 pixels, padded
 constexpr int kChunk = 64;     // channels of a chunk, rows of a Cout chunk
 constexpr int kBlocksPerSm = 2;  // the bf16 kernel's __launch_bounds__
+constexpr int kDxTile = 16;    // the dx gather's tile: 16 x 16 input pixels
+// the gather's window radii: a window row of 2R + 1 candidates is one
+// 32-bit mask word up to kMaxGatherR32, one 64-bit word up to kMaxGatherR
+constexpr int kMaxGatherR32 = 15;
+constexpr int kMaxGatherR = 31;
+
+// The gather's window radius, ceil(D); 0 in the exact mode (the scatter);
+// -1 for a window wider than kMaxGatherR, which is refused
+int gather_radius(float dmax) {
+  if (!(dmax > 0.f)) return 0;
+  const float r = ceilf(dmax);
+  return r <= (float)kMaxGatherR ? (int)r : -1;
+}
+
+// Byte offsets of the dx gather's shared memory, for radius r, cw channels
+// a pass and mask words of wb bytes: for each of the (16 + 2r)^2 halo
+// sources its packed floors (int), fractions (float2) and m * dcol (cw
+// floats); then the hit masks, 2r + 1 rows (dy) of one word (dx) for each
+// of the tile's 256 pixels
+struct DxLayout {
+  size_t code, frac, md, mask, total;
+};
+
+__host__ __device__ inline DxLayout dx_layout(int r, int cw, int wb) {
+  const size_t n = (size_t)(kDxTile + 2 * r) * (kDxTile + 2 * r);
+  DxLayout l;
+  l.code = 0;
+  l.frac = align128(n * 4);
+  l.md = l.frac + align128(n * 8);
+  l.mask = l.md + align128(n * cw * 4);
+  l.total = l.mask + align128((size_t)(2 * r + 1) * kThreads * wb);
+  return l;
+}
 
 // Byte offsets of the bf16 kernel's dynamic shared memory, for the padded
 // chunk width cp and nw = 3 * cp slice columns, ocp = the Cout chunk's rows
@@ -204,25 +264,29 @@ int max_slots(const Plan& pl, int sms) {
 
 // float32 scratch: the dW partials (a slot's copy of dW for each of its tap
 // groups), then, where groups span chunks, the doffset and dmask partials
-// of each slice
+// of each slice, then, for the dx gather, m * dcol in (B, G, K, HWo, Cg)
+// order from the 16-byte aligned element `md`
 struct Scratch {
-  long long dw, doff, dmsk, total;
+  long long dw, doff, dmsk, md, total;
 };
 
 Scratch scratch_floats(const Plan& pl, int slots, int B, int C, int Cout,
-                       int G, int K, int HWo) {
+                       int G, int K, int HWo, bool gather) {
   Scratch s;
   s.dw = (long long)slots * pl.tap_groups * Cout * kTaps * C;
   const long long n_msk = (long long)B * G * K * HWo;
   s.doff = pl.n_sub > 1 ? pl.n_sub * 2 * n_msk : 0;
   s.dmsk = pl.n_sub > 1 ? pl.n_sub * n_msk : 0;
-  s.total = s.dw + s.doff + s.dmsk;
+  s.md = (s.dw + s.doff + s.dmsk + 3) & ~3LL;
+  s.total = gather ? s.md + (long long)B * K * C * HWo
+                   : s.dw + s.doff + s.dmsk;
   return s;
 }
 
-// ---- atomics ---------------------------------------------------------------------
+// ---- dx outputs of the sampling side ----------------------------------------
 
-// dx[p .. p + VW) += s * md[0 .. VW): one 16-byte atomic for VW = 4
+// the scatter: dx[p .. p + VW) += s * md[0 .. VW), one 16-byte atomic for
+// VW = 4
 template <int VW>
 __device__ __forceinline__ void add_corner(float* p, float s,
                                            const float (&md)[VW]) {
@@ -231,6 +295,16 @@ __device__ __forceinline__ void add_corner(float* p, float s,
               make_float4(s * md[0], s * md[1], s * md[2], s * md[3]));
   } else {
     atomicAdd(p, s * md[0]);
+  }
+}
+
+// the gather's scratch: m * dcol of VW channels, one 16-byte store for 4
+template <int VW>
+__device__ __forceinline__ void put_md(float* p, const float (&md)[VW]) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(md[0], md[1], md[2], md[3]);
+  } else {
+    *p = md[0];
   }
 }
 
@@ -364,15 +438,18 @@ struct SideOut {
 // two blocks an SM), nc channels each. off / msk point at the pixel in the
 // image's first offset and mask row (a pixel past the image points at the
 // tile's first pixel and neither gathers nor writes); xg and dxa at the
-// image's (G, H, W, Cg) arrays; dcol_p at the pixel's dcol row. Without
+// image's (G, H, W, Cg) arrays; dcol_p at the pixel's dcol row. md_out,
+// where not null (the gather), points at the image's m * dcol scratch at
+// this pixel and the chunk's first channel of its group (the unit's (g, k)
+// rows are e.z * Cg further); else dx is scattered into dxa. Without
 // `side` a unit only writes its column (a block of a later Cout chunk).
 template <typename T, int VW, class Store>
 __device__ __forceinline__ void sample_tile(
     const T* __restrict__ xg, float* __restrict__ dxa,
-    const T* __restrict__ off, const T* __restrict__ msk,
-    const SideOut<T>& so, const int4* tab, int n_units, int nc, bool side,
-    const float* dcol_p, int p, bool pvalid, int oy, int ox, const Conv& cv,
-    const Store& store) {
+    float* __restrict__ md_out, const T* __restrict__ off,
+    const T* __restrict__ msk, const SideOut<T>& so, const int4* tab,
+    int n_units, int nc, bool side, const float* dcol_p, int p, bool pvalid,
+    int oy, int ox, const Conv& cv, const Store& store) {
   const int wc = cv.W * cv.Cg;
   const int corner[4] = {0, cv.Cg, wc, wc + cv.Cg};  // 00, 01, 10, 11
   for (int u = threadIdx.x / kTilePix; u < n_units;
@@ -440,7 +517,9 @@ __device__ __forceinline__ void sample_tile(
         }
       }
       store.template put<VW>(n, p, col);
-      if (side) {
+      if (side && md_out) {
+        if (pvalid) put_md<VW>(md_out + (size_t)e.z * cv.Cg + j, md);
+      } else if (side) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           if (ok[c] && w[c] != 0.f)
@@ -485,7 +564,8 @@ __device__ __forceinline__ void wgmma_rows(float (&d)[NH / 2], uint64_t da,
 
 // ---- kernels -----------------------------------------------------------------
 
-// x (B, C, H, W) -> xg (B, G, H, W, Cg); dxa, of xg's size in f32, zeroed
+// x (B, C, H, W) -> xg (B, G, H, W, Cg); dxa (the exact mode), of
+// xg's size in f32, zeroed
 template <typename T>
 __global__ void prep_kernel(const T* __restrict__ x, T* __restrict__ xg,
                             float* __restrict__ dxa, int B, int G, int Cg,
@@ -496,7 +576,6 @@ __global__ void prep_kernel(const T* __restrict__ x, T* __restrict__ xg,
     const long long bg = i / HW;
     const T* src = x + bg * Cg * HW + (i - bg * HW);
     T* dst = xg + i * Cg;
-    float* acc = dxa + i * Cg;
     if (vec4) {  // Cg == 4: one 8-byte (bf16) or 16-byte (f32) store each
       if constexpr (sizeof(T) == 2) {
         const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
@@ -507,12 +586,13 @@ __global__ void prep_kernel(const T* __restrict__ x, T* __restrict__ xg,
         *reinterpret_cast<float4*>(dst) = make_float4(
             src[0], src[HW], src[2 * (size_t)HW], src[3 * (size_t)HW]);
       }
-      *reinterpret_cast<float4*>(acc) = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (dxa)
+        *reinterpret_cast<float4*>(dxa + i * Cg) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
     } else {
-      for (int c = 0; c < Cg; ++c) {
-        dst[c] = src[(size_t)c * HW];
-        acc[c] = 0.f;
-      }
+      for (int c = 0; c < Cg; ++c) dst[c] = src[(size_t)c * HW];
+      if (dxa)
+        for (int c = 0; c < Cg; ++c) dxa[i * Cg + c] = 0.f;
     }
   }
 }
@@ -584,6 +664,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                         const bf16* __restrict__ mask,
                         const bf16* __restrict__ weight,
                         const bf16* __restrict__ gout, float* __restrict__ dxa,
+                        float* __restrict__ mdc,
                         bf16* __restrict__ doffset, bf16* __restrict__ dmask,
                         float* __restrict__ dw_part, float* __restrict__ pdoff,
                         float* __restrict__ pdmsk, Args a, int vec_gout) {
@@ -634,6 +715,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   const size_t img = (size_t)cv.C * cv.H * cv.W;
   const size_t offs_img = (size_t)2 * cv.G * cv.K * HWo;
   const size_t msk_img = (size_t)cv.G * cv.K * HWo;
+  const size_t md_img = (size_t)cv.K * cv.C * HWo;
   const int p = tid % kTilePix;
   const int wg = tid >> 7;
   const StoreColBf16 store{col_s, NW * 16};
@@ -722,7 +804,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 
     // c. the sampling side
     sample_tile<bf16, VW>(
-        xg + t.b * img, dxa + t.b * img, offset + t.b * offs_img + t.pe,
+        xg + t.b * img, dxa ? dxa + t.b * img : nullptr,
+        mdc ? mdc + t.b * md_img + (size_t)t.pe * cv.Cg + it.j0 : nullptr,
+        offset + t.b * offs_img + t.pe,
         mask ? mask + t.b * msk_img + t.pe : nullptr,
         side_out(doffset, dmask, WIDE ? pdoff : nullptr, pdmsk, a, it, t.b,
                  t.pe),
@@ -764,7 +848,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   }
 }
 
-// float32: the same work items, gathers and atomics; both contractions as
+// float32: the same work items, gathers and dx outputs; both contractions as
 // full-f32 FMA loops over Cout chunks of 64 rows (rows past Cout zero: one
 // instance a chunk width, NOC = 4, for the check path's few calls)
 template <int CP, int NOC, int VW>
@@ -774,6 +858,7 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ mask,
                        const float* __restrict__ weight,
                        const float* __restrict__ gout, float* __restrict__ dxa,
+                       float* __restrict__ mdc,
                        float* __restrict__ doffset, float* __restrict__ dmask,
                        float* __restrict__ dw_part, float* __restrict__ pdoff,
                        float* __restrict__ pdmsk, Args a, int) {
@@ -816,6 +901,7 @@ __global__ void __launch_bounds__(kThreads)
   const size_t img = (size_t)cv.C * cv.H * cv.W;
   const size_t offs_img = (size_t)2 * cv.G * cv.K * HWo;
   const size_t msk_img = (size_t)cv.G * cv.K * HWo;
+  const size_t md_img = (size_t)cv.K * cv.C * HWo;
   const int p = tid % kTilePix;
   const StoreColF32 store{col_s};
 
@@ -870,7 +956,9 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     sample_tile<float, VW>(
-        xg + t.b * img, dxa + t.b * img, offset + t.b * offs_img + t.pe,
+        xg + t.b * img, dxa ? dxa + t.b * img : nullptr,
+        mdc ? mdc + t.b * md_img + (size_t)t.pe * cv.Cg + it.j0 : nullptr,
+        offset + t.b * offs_img + t.pe,
         mask ? mask + t.b * msk_img + t.pe : nullptr,
         side_out(doffset, dmask, pdoff, pdmsk, a, it, t.b, t.pe), tab,
         n_units, it.nc, it.side, dcol_s + p * (NW + 4), p, t.pvalid, t.oy,
@@ -913,11 +1001,153 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-// dxa (B, G, H, W, Cg) f32 -> dx (B, C, H, W) in T; then dW: for each
-// (o, c, k), 8 lanes sum the partials of the slots of k's tap group and
-// write dweight (Cout, C, K) in T; then, where groups span chunks
-// (n_sub > 1), doffset and dmask as the sums of their slices' partials, in
-// slice order
+// dx by the gather (windowed mode): dx(q) = sum over taps k, then d in
+// [-R, R]^2 row by row, of w_y w_x * md_k(q - s_k - d), md = m * dcol from
+// the main kernel's scratch (B, G, K, HWo, Cg); rounded once into T and
+// written NCHW. Block: a 16 x 16 tile of q, one group g, channels c0 ..
+// c0 + CW of it; grid (tiles, G * Cg / CW, B). For each tap the block
+// stages the halo of sources that can reach the tile, (16 + 2R)^2 cells
+// from (qy0 - sy - R, qx0 - sx - R), and each source marks the (up to 4)
+// pixels of the tile its corners of non-zero weight land on: bit dx + R of
+// the word (q, dy + R), d = q - s - p, by a shared-memory atomicOr. An OR
+// does not depend on the order of the threads, so the masks are the same
+// in every run; each pixel then walks its set bits, dy then dx ascending,
+// the order in which it would test the (2R+1)^2 candidates, and sums the
+// products in that order. Mask words M: unsigned up to R = 15, unsigned
+// long long up to 31 (64-bit words at R <= 15 made the whole call 19-32%
+// slower in turns: twice the mask bytes, fewer blocks an SM; PERF.md).
+template <typename T, int CW, typename M>
+__global__ void __launch_bounds__(kThreads)
+    dx_gather_kernel(const T* __restrict__ offset,
+                     const float* __restrict__ mdc, T* __restrict__ dx,
+                     Args a, int R) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const DxLayout L = dx_layout(R, CW, sizeof(M));
+  int* code_s = reinterpret_cast<int*>(smem + L.code);
+  float2* frac_s = reinterpret_cast<float2*>(smem + L.frac);
+  float* md_s = reinterpret_cast<float*>(smem + L.md);
+  M* mask_s = reinterpret_cast<M*>(smem + L.mask);
+  const int Cg = a.C / a.G;
+  const int K = a.kh * a.kw;
+  const int HWo = a.Ho * a.Wo;
+  const int tiles_x = (a.W + kDxTile - 1) / kDxTile;
+  const int qx0 = (blockIdx.x % tiles_x) * kDxTile;
+  const int qy0 = (blockIdx.x / tiles_x) * kDxTile;
+  const int passes = Cg / CW;
+  const int g = blockIdx.y / passes;
+  const int c0 = (blockIdx.y - g * passes) * CW;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lx = tid % kDxTile;
+  const int ly = tid / kDxTile;
+  const bool qvalid = qy0 + ly < a.H && qx0 + lx < a.W;
+  const int qh = min(kDxTile, a.H - qy0);  // the tile's pixels in the image
+  const int qw = min(kDxTile, a.W - qx0);
+  const int side = kDxTile + 2 * R;  // the halo's rows and columns
+  const T* off_b = offset + (size_t)b * 2 * a.G * K * HWo;
+  const float* md_b = mdc + (size_t)b * K * a.C * HWo;
+  float acc[CW];
+#pragma unroll
+  for (int j = 0; j < CW; ++j) acc[j] = 0.f;
+  // each pixel's masks start empty; its owner clears what it has read
+  for (int r = 0; r <= 2 * R; ++r) mask_s[r * kThreads + tid] = 0;
+
+  for (int k = 0; k < K; ++k) {
+    const int ky = k / a.kw;
+    const int sy = ky * a.dil - a.pad;
+    const int sx = (k - ky * a.kw) * a.dil - a.pad;
+    // halo cell (hy, hx) is the source p = (qy0 - sy - R + hy,
+    // qx0 - sx - R + hx); its corner (cy, cx) lands on the tile's pixel
+    // (hy - R + dy, hx - R + dx), dy = floor(ty) + cy, dx = floor(tx) + cx
+    const int py0 = qy0 - sy - R;
+    const int px0 = qx0 - sx - R;
+    const size_t plane = (size_t)(g * K + k) * HWo;
+    __syncthreads();  // the previous tap's halo has been read
+    for (int h = tid; h < side * side; h += kThreads) {
+      const int hy = h / side;
+      const int hx = h - hy * side;
+      const int py = py0 + hy;
+      const int px = px0 + hx;
+      if ((unsigned)py >= (unsigned)a.Ho || (unsigned)px >= (unsigned)a.Wo)
+        continue;  // off the output plane: no source, nothing marked
+      const int p = py * a.Wo + px;
+      // the clamp and floor of sample_tile
+      const float ty =
+          fminf(fmaxf(to_f(__ldg(off_b + 2 * plane + p)), -a.dmax), a.dmax);
+      const float tx = fminf(
+          fmaxf(to_f(__ldg(off_b + 2 * plane + HWo + p)), -a.dmax), a.dmax);
+      const int fy = (int)floorf(ty);
+      const int fx = (int)floorf(tx);
+      const float2 fr = make_float2(ty - (float)fy, tx - (float)fx);
+      code_s[h] = ((fy + R) << 16) | (fx + R);
+      frac_s[h] = fr;
+      const float* src = md_b + (plane + p) * Cg + c0;
+      if constexpr (CW == 4) {
+        *reinterpret_cast<float4*>(md_s + h * 4) =
+            __ldg(reinterpret_cast<const float4*>(src));
+      } else {
+        md_s[h] = __ldg(src);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int cy = c >> 1, cx = c & 1;
+        const int dy = fy + cy, ddx = fx + cx;  // in [-R, R + 1]
+        const int y = hy - R + dy, x = hx - R + ddx;
+        const float w = (cy ? fr.x : 1.f - fr.x) * (cx ? fr.y : 1.f - fr.y);
+        // d = R + 1 needs t = D, where that corner's weight is 0
+        if ((unsigned)y < (unsigned)qh && (unsigned)x < (unsigned)qw &&
+            dy <= R && ddx <= R && w != 0.f)
+          atomicOr(mask_s + (dy + R) * kThreads + y * kDxTile + x,
+                   (M)1 << (ddx + R));
+      }
+    }
+    __syncthreads();
+    if (!qvalid) continue;
+    for (int r = 0; r <= 2 * R; ++r) {
+      M bits = mask_s[r * kThreads + tid];
+      if (!bits) continue;
+      mask_s[r * kThreads + tid] = 0;
+      const int row = (ly + 2 * R - r) * side + lx + R;  // dy = r - R
+      while (bits) {
+        int bit;
+        if constexpr (sizeof(M) == 8) {
+          bit = __ffsll((long long)bits) - 1;
+        } else {
+          bit = __ffs((int)bits) - 1;
+        }
+        bits &= bits - 1;
+        const int h = row + R - bit;  // dx = bit - R
+        // the corner: d - floor(t)
+        const int e = ((r << 16) | bit) - code_s[h];
+        const float2 fr = frac_s[h];
+        const float w = ((e >> 16) ? fr.x : 1.f - fr.x) *
+                        ((e & 1) ? fr.y : 1.f - fr.y);
+        if constexpr (CW == 4) {
+          const float4 m4 = *reinterpret_cast<const float4*>(md_s + h * 4);
+          acc[0] = fmaf(w, m4.x, acc[0]);
+          acc[1] = fmaf(w, m4.y, acc[1]);
+          acc[2] = fmaf(w, m4.z, acc[2]);
+          acc[3] = fmaf(w, m4.w, acc[3]);
+        } else {
+          acc[0] = fmaf(w, md_s[h], acc[0]);
+        }
+      }
+    }
+  }
+  if (qvalid) {
+    const size_t hw = (size_t)a.H * a.W;
+    T* out = dx + ((size_t)b * a.C + g * Cg + c0) * hw +
+             (size_t)(qy0 + ly) * a.W + qx0 + lx;
+#pragma unroll
+    for (int j = 0; j < CW; ++j) out[j * hw] = from_f<T>(acc[j]);
+  }
+}
+
+// dxa (B, G, H, W, Cg) f32 -> dx (B, C, H, W) in T (the exact mode:
+// dxa not null); then dW: for each (o, c, k), 8 lanes sum the partials of
+// the slots of k's tap group and write dweight (Cout, C, K) in T; then,
+// where groups span chunks (n_sub > 1), doffset and dmask as the sums of
+// their slices' partials, in slice order
 template <typename T>
 __global__ void finish_kernel(const float* __restrict__ dxa,
                               T* __restrict__ dx,
@@ -931,7 +1161,7 @@ __global__ void finish_kernel(const float* __restrict__ dxa,
                               long long n_msk, int n_sub) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = (long long)B * G * HW;
+  const long long total = dxa ? (long long)B * G * HW : 0;
   for (long long i = start; i < total; i += stride) {
     const long long bg = i / HW;
     T* dst = dx + bg * Cg * HW + (i - bg * HW);
@@ -1014,7 +1244,7 @@ cudaError_t persistent_grid(K kernel, size_t smem, const Args& a,
 // The main kernels' pointer arguments
 struct Bufs {
   const void *xg, *offset, *mask, *weight, *gout;
-  float* dxa;
+  float *dxa, *mdc;
   void *doffset, *dmask;
   float *dw_part, *pdoff, *pdmsk;
 };
@@ -1030,7 +1260,7 @@ cudaError_t launch_main(K kernel, size_t smem, const Bufs& p, const Args& a,
   kernel<<<*grid, kThreads, smem, s>>>(
       static_cast<const T*>(p.xg), static_cast<const T*>(p.offset),
       static_cast<const T*>(p.mask), static_cast<const T*>(p.weight),
-      static_cast<const T*>(p.gout), p.dxa, static_cast<T*>(p.doffset),
+      static_cast<const T*>(p.gout), p.dxa, p.mdc, static_cast<T*>(p.doffset),
       static_cast<T*>(p.dmask), p.dw_part, p.pdoff, p.pdmsk, a, vec_gout);
   return cudaGetLastError();
 }
@@ -1067,6 +1297,40 @@ cudaError_t launch_f32(bool vec4, const Bufs& p, const Args& a, int max_slots,
                                    a, max_slots, 0, grid, s);
 }
 
+template <typename T, int CW, typename M>
+cudaError_t launch_gather_m(const void* offset, const float* mdc, void* dx,
+                            const Args& a, int R, cudaStream_t s) {
+  auto kernel = dx_gather_kernel<T, CW, M>;
+  const size_t smem = dx_layout(R, CW, sizeof(M)).total;
+  if (smem > (size_t)device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((a.H + kDxTile - 1) / kDxTile) *
+                    ((a.W + kDxTile - 1) / kDxTile);
+  const dim3 grid(tiles, a.C / CW, a.B);
+  kernel<<<grid, kThreads, smem, s>>>(static_cast<const T*>(offset), mdc,
+                                      static_cast<T*>(dx), a, R);
+  return cudaGetLastError();
+}
+
+// The gather at radius R: 4 channels a pass where Cg allows it (vec4) and
+// the halo's m * dcol fits in shared memory (R <= 25 with 64-bit words),
+// else one
+template <typename T>
+cudaError_t launch_gather(bool vec4, const void* offset, const float* mdc,
+                          void* dx, const Args& a, int R, cudaStream_t s) {
+  const size_t optin = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  if (R <= kMaxGatherR32)
+    return vec4 ? launch_gather_m<T, 4, unsigned>(offset, mdc, dx, a, R, s)
+                : launch_gather_m<T, 1, unsigned>(offset, mdc, dx, a, R, s);
+  using u64 = unsigned long long;
+  return vec4 && dx_layout(R, 4, sizeof(u64)).total <= optin
+             ? launch_gather_m<T, 4, u64>(offset, mdc, dx, a, R, s)
+             : launch_gather_m<T, 1, u64>(offset, mdc, dx, a, R, s);
+}
+
 template <typename T>
 cudaError_t run_all(const void* x, void* xg, const void* offset,
                     const void* mask, const void* weight, const void* gout,
@@ -1078,12 +1342,18 @@ cudaError_t run_all(const void* x, void* xg, const void* offset,
   const int K = a.kh * a.kw;
   const int sms = device_attr(cudaDevAttrMultiProcessorCount);
   const int slot_cap = max_slots(pl, sms);
+  // the dx gather's window radius, or 0 for the scatter into dxa
+  const int R = gather_radius(a.dmax);
+  if (R < 0 || (R == 0 && dxa == nullptr)) return cudaErrorInvalidValue;
+  if (R > 0) dxa = nullptr;
   const Scratch sc = scratch_floats(pl, slot_cap, a.B, a.C, a.Cout, a.G, K,
-                                    a.Ho * a.Wo);
-  // 0. the channels-last copy of x and the zeroed dx accumulator
+                                    a.Ho * a.Wo, R > 0);
+  float* mdc = R > 0 ? work + sc.md : nullptr;
+  // 0. the channels-last copy of x (and the scatter's zeroed accumulator)
   const long long items = (long long)a.B * a.G * HW;
   const bool vec4 = Cg % 4 == 0 && aligned(xg, 4 * sizeof(T)) &&
-                    aligned(dxa, 16);
+                    (dxa == nullptr || aligned(dxa, 16)) &&
+                    (mdc == nullptr || aligned(mdc, 16));
   if (items > 0) {
     long long blocks = (items + 255) / 256;
     if (blocks > 16LL * sms) blocks = 16LL * sms;
@@ -1096,8 +1366,8 @@ cudaError_t run_all(const void* x, void* xg, const void* offset,
   // 1. the main kernel, for chunks padded to 16, 32, 48 or 64 channels
   float* pdoff = sc.doff ? work + sc.dw : nullptr;
   float* pdmsk = sc.doff && mask ? work + sc.dw + sc.doff : nullptr;
-  const Bufs p{xg, offset, mask, weight, gout, dxa, doffset, dmask, work,
-               pdoff, pdmsk};
+  const Bufs p{xg, offset, mask, weight, gout, dxa, mdc, doffset, dmask,
+               work, pdoff, pdmsk};
   int grid = 0;
   cudaError_t err = cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 2) {
@@ -1117,11 +1387,16 @@ cudaError_t run_all(const void* x, void* xg, const void* offset,
     }
   }
   if (err != cudaSuccess) return err;
-  // 2. dx to NCHW in T, the dW partials summed into dweight, the doffset
-  //    and dmask partials summed where groups span chunks
+  // 2. dx by the gather, in windowed mode
+  if (R > 0 && HW > 0) {
+    err = launch_gather<T>(vec4, offset, mdc, dx, a, R, s);
+    if (err != cudaSuccess) return err;
+  }
+  // 3. the dW partials summed into dweight, the doffset and dmask partials
+  //    summed where groups span chunks, and the scatter's dx to NCHW in T
   const long long n_msk = (long long)a.B * a.G * K * a.Ho * a.Wo;
   const long long dw_threads = 8LL * a.Cout * a.C * K;
-  long long need = items > dw_threads ? items : dw_threads;
+  long long need = dxa && items > dw_threads ? items : dw_threads;
   if (pl.n_sub > 1 && 2 * n_msk > need) need = 2 * n_msk;
   long long blocks = (need + 255) / 256;
   if (blocks > 16LL * sms) blocks = 16LL * sms;
@@ -1137,24 +1412,28 @@ cudaError_t run_all(const void* x, void* xg, const void* offset,
 }  // namespace
 
 // float32 elements of the scratch `work` that fami_dcn_bwd needs for this
-// call on the current device: the dW partials, and the doffset / dmask
-// partials where an offset group has more than 64 channels.
+// call on the current device: the dW partials, the doffset / dmask partials
+// where an offset group has more than 64 channels, and in windowed mode
+// (max_offset > 0) the dx gather's m * dcol.
 extern "C" long long fami_dcn_bwd_workspace(int B, int C, int Cout, int Ho,
                                             int Wo, int kh, int kw,
-                                            int groups) {
+                                            int groups, float max_offset) {
   if (groups < 1 || C < 1 || Cout < 1 || C % groups != 0) return 0;
   const Plan pl = make_plan(C, Cout, kh * kw, groups);
   const int slots = max_slots(pl, device_attr(cudaDevAttrMultiProcessorCount));
-  return scratch_floats(pl, slots, B, C, Cout, groups, kh * kw, Ho * Wo).total;
+  return scratch_floats(pl, slots, B, C, Cout, groups, kh * kw, Ho * Wo,
+                        gather_radius(max_offset) != 0).total;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, x_grouped, offset, mask, weight,
 // gout and the four gradients share it). Scratch the caller allocates, none
-// of it initialised: x_grouped of x's size and type; dx_acc, float32 of x's
-// element count; work, float32 of fami_dcn_bwd_workspace elements. mask and
-// dmask may be null together (DCNv1). max_offset <= 0: exact, no clamp.
-// Returns a cudaError_t; cudaErrorInvalidValue for arguments no kernel
-// takes (groups not dividing C, an unknown dtype, no channels).
+// of it initialised: x_grouped of x's size and type; dx_acc, in the exact
+// mode (max_offset <= 0: no clamp) float32 of x's element count, the
+// scatter's accumulator, else null (the gather reads none); work, float32
+// of fami_dcn_bwd_workspace elements. mask and dmask may be null together
+// (DCNv1). Returns a cudaError_t; cudaErrorInvalidValue for arguments no
+// kernel takes (groups not dividing C, an unknown dtype, no channels, a
+// window over kMaxGatherR = 31 px, no dx_acc in the exact mode).
 extern "C" int fami_dcn_bwd(const void* x, void* x_grouped,
                             const void* offset, const void* mask,
                             const void* weight, const void* gout, void* dx,

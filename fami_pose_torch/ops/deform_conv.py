@@ -22,7 +22,12 @@ the latter. On a CUDA tensor the wrapper launches the hand-written kernel
 The backward is ``ops/cuda/csrc/dcn_bwd.cu`` on a CUDA tensor (it replaces
 ``fami_pose_tpu/ops/pallas/dcn_bwd.py::deform_conv2d_windowed_bwd_pallas``)
 and :func:`deform_conv2d_backward_plain` on a CPU tensor; one
-``torch.autograd.Function`` routes both devices. The derivative with respect
+``torch.autograd.Function`` routes both devices. In windowed mode the
+kernel forms dx as the TPU's ``_bwd_dx_kernel`` does, by a gather summed in
+a fixed order (:func:`deform_conv2d_dx_gather_plain` is its plain version),
+so that two runs give the same gradients bit for bit.
+
+The derivative with respect
 to an offset follows the TPU kernel, the one the configured train path runs:
 per axis it is the slope of the bilinear blend between the two neighbouring
 samples, **zero where the clamped offset is an integer** (the hat weight's
@@ -33,6 +38,8 @@ would give the right-hand difference at an integer instead, and
 ``jax.vjp`` of the XLA form the central one; with bfloat16 offsets integers
 are common, so the backward is written out in closed form here.
 """
+
+import math
 
 import torch
 
@@ -341,6 +348,77 @@ def deform_conv2d_backward_plain(x, offset, mask, weight, gout, *, padding=0,
     )
 
 
+def deform_conv2d_dx_gather_plain(x, offset, mask, weight, gout, *,
+                                  padding=0, dilation=1, offset_groups=None,
+                                  max_offset=4):
+    """dx of the stride-1 windowed :func:`deform_conv2d` in the gather form
+    of the card's kernel (``dcn_bwd.cu::dx_gather_kernel``) and of the TPU's
+    ``_bwd_dx_kernel``: each input pixel q sums, over the taps k and then
+    the window's displacements d in ``[-R, R]^2`` row by row (R =
+    ``ceil(max_offset)``), ``w_y * w_x * m * dcol`` of the source output
+    pixel ``p = q - s_k - d`` (``s_k = k_pos * dilation - padding``) where
+    ``q - (p + s_k) - floor(t)`` is a bilinear corner, in ``{0, 1}^2``.
+    The window is exact: ``floor(t)`` lies in ``[-R, R]`` and the corner at
+    ``d = R + 1`` needs ``t = max_offset``, where its weight is 0. The same
+    products as :func:`deform_conv2d_backward_plain`'s scatter, summed in
+    this fixed order in float32 (float64 for float64 inputs), rounded once
+    into ``x``'s dtype. Windowed mode only (``max_offset`` > 0); slow (a
+    pass a tap and displacement): a reference for the kernel, not a path of
+    the model."""
+    d = float(max_offset) if max_offset is not None else 0.0
+    if not d > 0:
+        raise ValueError("the dx gather needs a window: max_offset > 0")
+    n, c, h, w = x.shape
+    c_out, _, kh, kw = weight.shape
+    k = kh * kw
+    ph, pw = _pair(padding)
+    dh, dw = _pair(dilation)
+    g = offset_groups or offset.shape[1] // (2 * k)
+    cg = c // g
+    ho, wo = offset.shape[2], offset.shape[3]
+    r = math.ceil(d)
+    f32 = _work_dtype(x)
+    dev = x.device
+
+    off = offset.to(f32).reshape(n, g, k, 2, ho, wo).clamp(-d, d)
+    fl = torch.floor(off)
+    frac = off - fl
+    fl = fl.long()
+    msk = None if mask is None else mask.to(f32).reshape(n, g, k, ho, wo)
+    go = gout.to(f32).reshape(n, c_out, ho * wo)
+    w_k = weight.to(f32).reshape(c_out, c, k)
+    qy = torch.arange(h, device=dev)
+    qx = torch.arange(w, device=dev)
+    acc = torch.zeros(n, g, cg, h, w, dtype=f32, device=dev)
+    for t in range(k):
+        sy = (t // kw) * dh - ph
+        sx = (t % kw) * dw - pw
+        md = torch.einsum("oc,nop->ncp", w_k[:, :, t], go)
+        md = md.reshape(n, g, cg, ho, wo)
+        if msk is not None:
+            md = msk[:, :, t].unsqueeze(2) * md
+        for dy in range(-r, r + 1):
+            py = qy - sy - dy
+            vy = ((py >= 0) & (py < ho)).view(h, 1)
+            py = py.clamp(0, ho - 1)
+            fy_r, ly_r = fl[:, :, t, 0][:, :, py], frac[:, :, t, 0][:, :, py]
+            fx_r, lx_r = fl[:, :, t, 1][:, :, py], frac[:, :, t, 1][:, :, py]
+            md_r = md[:, :, :, py]
+            for dx_ in range(-r, r + 1):
+                px = qx - sx - dx_
+                vx = ((px >= 0) & (px < wo)).view(1, w)
+                px = px.clamp(0, wo - 1)
+                cy = dy - fy_r[..., px]
+                cx = dx_ - fx_r[..., px]
+                ly, lx = ly_r[..., px], lx_r[..., px]
+                hit = vy & vx & (cy >= 0) & (cy <= 1) & (cx >= 0) & (cx <= 1)
+                wt = (torch.where(cy == 1, ly, 1 - ly)
+                      * torch.where(cx == 1, lx, 1 - lx))
+                wt = torch.where(hit, wt, torch.zeros_like(wt))
+                acc = acc + wt.unsqueeze(2) * md_r[..., px]
+    return acc.reshape(n, c, h, w).to(x.dtype)
+
+
 def dcn_bwd_smem(dtype, c, c_out, groups):
     """Shared memory of one block of the backward kernel (``dcn_bwd.cu``), in
     bytes. A block owns 3 taps, a chunk of the channels (the whole groups
@@ -371,11 +449,18 @@ def dcn_bwd_smem(dtype, c, c_out, groups):
             + _a128(64 * nw * 2) + dcol_tab)
 
 
+# the widest window the backward kernel's dx gather takes, ceil(max_offset)
+# (``dcn_bwd.cu``'s ``kMaxGatherR``: a window row of 2R + 1 candidates is one
+# 64-bit mask word)
+MAX_GATHER_OFFSET = 31
+
+
 def _check_backward_args(x, offset, mask, weight, gout, padding, dilation,
-                         groups):
+                         groups, max_offset=None):
     """The backward kernel's checks, as ``_check_kernel_args`` for the
-    forward: the same shape and type checks, and ``gout`` of the output's
-    shape on x's device. Returns (Ho, Wo)."""
+    forward: the same shape and type checks, ``gout`` of the output's
+    shape on x's device, and a window (``max_offset`` > 0) of at most
+    ``MAX_GATHER_OFFSET`` px. Returns (Ho, Wo)."""
     ho, wo = _check_kernel_args(x, offset, mask, weight, padding, dilation,
                                 groups)
     n = x.shape[0]
@@ -383,6 +468,12 @@ def _check_backward_args(x, offset, mask, weight, gout, padding, dilation,
     if tuple(gout.shape) != (n, c_out, ho, wo) or gout.device != x.device:
         raise ValueError(f"gout {tuple(gout.shape)} on {gout.device}, expected "
                          f"{(n, c_out, ho, wo)} on {x.device}")
+    d = float(max_offset) if max_offset is not None else 0.0
+    if d > 0 and not math.ceil(d) <= MAX_GATHER_OFFSET:
+        raise ValueError(
+            f"max_offset {d}: the DCN backward kernel gathers dx over windows "
+            f"of at most {MAX_GATHER_OFFSET} px; use the exact mode "
+            f"(max_offset None) for wider offsets")
     return ho, wo
 
 
@@ -394,7 +485,7 @@ def _deform_conv_backward_cuda(x, offset, mask, weight, gout, padding,
     if dtype not in DTYPE_CODES:
         raise TypeError(f"DCN kernel takes float32 or bfloat16, got {dtype}")
     ho, wo = _check_backward_args(
-        x, offset, mask, weight, gout, padding, dilation, groups
+        x, offset, mask, weight, gout, padding, dilation, groups, max_offset
     )
     n, c, h, w = x.shape
     c_out, _, kh, kw = weight.shape
@@ -405,24 +496,27 @@ def _deform_conv_backward_cuda(x, offset, mask, weight, gout, padding,
     dweight = torch.empty_like(weight)
     doffset = torch.empty_like(offset)
     dmask = None if mask is None else torch.empty_like(mask)
-    # scratch: x in (N, G, H, W, C/G) order, the f32 dx accumulator of that
-    # order, and the f32 workspace: the blocks' dW partials and, where an
-    # offset group has more than 64 channels, the doffset and dmask partials
-    # of its 64-channel slices
+    # scratch: x in (N, G, H, W, C/G) order, in the exact mode the f32 dx
+    # accumulator of that order (its scatter), and the f32 workspace: the
+    # blocks' dW partials, where an offset group has more than 64 channels
+    # the doffset and dmask partials of its 64-channel slices, and in
+    # windowed mode m * dcol for the dx gather (N * 9C * Ho * Wo floats)
+    d = float(max_offset) if max_offset is not None else 0.0
     x_grouped = torch.empty_like(x)
-    dx_acc = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    dx_acc = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
+              if not d > 0 else None)
     lib = load_library()
     with torch.cuda.device(x.device):  # launches go to the current one
-        size = lib.fami_dcn_bwd_workspace(n, c, c_out, ho, wo, kh, kw, groups)
+        size = lib.fami_dcn_bwd_workspace(n, c, c_out, ho, wo, kh, kw, groups,
+                                          d)
         work = torch.empty(size, dtype=torch.float32, device=x.device)
         err = lib.fami_dcn_bwd(
             x.data_ptr(), x_grouped.data_ptr(), offset.data_ptr(),
             None if mask is None else mask.data_ptr(), weight.data_ptr(),
             gout.data_ptr(), dx.data_ptr(), doffset.data_ptr(),
             None if dmask is None else dmask.data_ptr(), dweight.data_ptr(),
-            dx_acc.data_ptr(), work.data_ptr(), DTYPE_CODES[dtype],
-            n, c, h, w, c_out, ho, wo, kh, kw, padding, dilation, groups,
-            float(max_offset) if max_offset is not None else 0.0,
+            None if dx_acc is None else dx_acc.data_ptr(), work.data_ptr(), DTYPE_CODES[dtype], n, c, h,
+            w, c_out, ho, wo, kh, kw, padding, dilation, groups, d,
             stream_ptr(x),
         )
         check(lib, err, "fami_dcn_bwd")
@@ -435,8 +529,14 @@ def deform_conv2d_backward(x, offset, mask, weight, gout, *, padding=0,
     """Gradients ``(dx, doffset, dmask, dweight)`` of the model's DCN: the
     plain version for CPU tensors, the CUDA kernel (counted in
     ``deform_conv2d_backward.launches``) for CUDA tensors, or an error.
-    dx is summed with atomics on the card, so its last bits vary from run to
-    run; dweight is summed from per-block partials in a fixed order."""
+    On the card, in windowed mode, every output is summed in a fixed
+    order, so two calls on the same inputs agree bit for bit: dweight from
+    per-block partials, dx by the gather of
+    :func:`deform_conv2d_dx_gather_plain`, for windows up to
+    ``MAX_GATHER_OFFSET`` px (a wider one raises ``ValueError``). The exact
+    mode (``max_offset`` None or <= 0) keeps a scatter of dx with float
+    atomics, whose last bits vary from run to run: the exact adjoint has no
+    bounded window to gather from."""
     k = weight.shape[2] * weight.shape[3]
     groups = int(offset_groups or offset.shape[1] // (2 * k))
     if x.device.type == "cpu":

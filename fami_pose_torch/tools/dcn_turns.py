@@ -12,13 +12,20 @@ into a library of their own and calls each library's ``fami_dcn_fwd`` /
 ``fami_dcn_bwd`` through ``ctypes`` on the same buffers: an old library
 without ``fami_dcn_fwd_workspace`` has the entries of before the kernels
 took every width (no workspace; the backward's ``dw_part`` and
-``dw_slots``). For the main path's calls (B=8 and the val path's B=32,
-96x72, C = C_out = 48, 12 groups, D = 4) and the deform blocks' C = 64
-(exact, dilation 1, one group):
+``dw_slots``); one whose ``fami_dcn_bwd_workspace`` does not take
+``max_offset`` (before the dx gather) is called without it. For the main
+path's calls (B=8 and the val path's B=32, 96x72, C = C_out = 48, 12
+groups, D = 4; B=8 at D = 8, the auto window's widest), Sub-JHMDB's (B=8,
+64x64, D = 6), the deform blocks' C = 64 (exact, dilation 1, one group)
+and, with ``--trained FILE``, one DCN's captured inputs (a ``torch.save``
+of ``{"x", "offset", "mask", "weight", "gout", "max_offset"}``, 3x3,
+dilation and padding 3) with their trained offsets and with them zeroed:
 
   * compares the outputs (the forward bit for bit where the arithmetic is
-    the same; the backward's largest difference: dx is summed with
-    atomics);
+    the same; the backward's largest difference: the libraries sum dx in
+    other orders);
+  * counts the elements of each backward output that differ between two
+    calls of the same library (0 where it sums in a fixed order);
   * times each device-side (``chip_smoke.device_ms``: 20 launches in one
     replayed CUDA graph), in the order old, tree, tree, old (``--rounds``
     times).
@@ -53,7 +60,8 @@ OLD_ABI = {"fami_dcn_fwd": [P] * 6 + [I] * 13 + [F, P],
 
 def load_old(old_dir, workdir):
     """Build the old DCN sources into one shared library and load it;
-    returns it and whether it has this tree's entries."""
+    returns it, whether it has this tree's entries and whether its
+    backward's workspace takes ``max_offset``."""
     so = os.path.join(workdir, "libold_dcn.so")
     subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared",
                     os.path.join(old_dir, "dcn_fwd.cu"),
@@ -65,12 +73,14 @@ def load_old(old_dir, workdir):
         fn = getattr(lib, name)
         fn.argtypes = build.SIGNATURES[name] if current else OLD_ABI[name]
         fn.restype = ctypes.c_int
+    with open(os.path.join(old_dir, "dcn_bwd.cu")) as f:
+        gather = "kMaxGatherR" in f.read()
     if current:
-        for name, n in (("fami_dcn_fwd_workspace", 5),
-                        ("fami_dcn_bwd_workspace", 8)):
-            getattr(lib, name).argtypes = [I] * n
+        lib.fami_dcn_fwd_workspace.argtypes = [I] * 5
+        lib.fami_dcn_bwd_workspace.argtypes = [I] * 8 + [F] * gather
+        for name in ("fami_dcn_fwd_workspace", "fami_dcn_bwd_workspace"):
             getattr(lib, name).restype = ctypes.c_longlong
-    return lib, current
+    return lib, current, gather
 
 
 def ptr(t):
@@ -85,9 +95,10 @@ def stream():
 
 class Calls:
     """The forward and backward of one library on one case's buffers.
-    ``current``: the library has this tree's entries (a workspace each)."""
+    ``current``: the library has this tree's entries (a workspace each);
+    ``gather``: its backward's workspace takes ``max_offset``."""
 
-    def __init__(self, lib, current, inputs, conv):
+    def __init__(self, lib, current, inputs, conv, gather=True):
         x, off, msk, wgt = inputs
         b, c, h, w = x.shape
         cout = wgt.shape[0]
@@ -104,8 +115,9 @@ class Calls:
             size = lib.fami_dcn_fwd_workspace(1, c, cout, 3, 3)
             self.work = torch.empty(max(size, 16), dtype=torch.uint8,
                                     device="cuda") if size else None
+            d = (conv[3],) if gather else ()  # max_offset, where taken
             self.part = torch.empty(lib.fami_dcn_bwd_workspace(
-                b, c, cout, h, w, 3, 3, conv[2]), device="cuda")
+                b, c, cout, h, w, 3, 3, conv[2], *d), device="cuda")
         else:  # the kernels of before: 3 taps a block, 2 blocks an SM
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             self.slots = -(-2 * sms // 3)
@@ -141,11 +153,17 @@ def main(argv=None):
     p.add_argument("--out", default="")
     p.add_argument("--rounds", type=int, default=1,
                    help="times the order old, tree, tree, old is run")
+    p.add_argument("--trained", default="",
+                   help="a torch.save of one DCN's captured inputs (x, "
+                   "offset, mask, weight, gout, max_offset)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("dcn_turns: needs a CUDA device")
     sys.path.insert(0, ROOT)
-    from chip_smoke import block_dcn_inputs, dcn_inputs, device_ms
+    from chip_smoke import (
+        JHMDB_BATCH, JHMDB_DCN_D, JHMDB_PLANE, block_dcn_inputs, dcn_inputs,
+        device_ms,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16 = torch.bfloat16
@@ -153,37 +171,65 @@ def main(argv=None):
         "main B=8 D=4": (lambda: dcn_inputs(gen, bf16, 4), (3, 3, 12, 4.0)),
         "val B=32 D=4": (lambda: dcn_inputs(gen, bf16, 4, b=32),
                          (3, 3, 12, 4.0)),
+        "Sub-JHMDB B=8 D=6": (
+            lambda: dcn_inputs(gen, bf16, JHMDB_DCN_D, b=JHMDB_BATCH,
+                               h=JHMDB_PLANE[0], w=JHMDB_PLANE[1]),
+            (3, 3, 12, float(JHMDB_DCN_D))),
+        "main B=8 D=8": (lambda: dcn_inputs(gen, bf16, 8), (3, 3, 12, 8.0)),
         "blocks C=64 G=1 exact": (
             lambda: block_dcn_inputs(gen, bf16, 64, 64, 1, (96, 72)),
             (1, 1, 1, 0.0)),
     }
+    gouts = {}
+    if args.trained:
+        saved = torch.load(args.trained, map_location="cuda")
+        d = float(saved["max_offset"])
+        conv = (3, 3, saved["offset"].shape[1] // 18, d)
+        inputs = (saved["x"], saved["offset"], saved["mask"],
+                  saved["weight"])
+        for kind, off in (("trained", inputs[1]),
+                          ("zeroed", torch.zeros_like(inputs[1]))):
+            name = f"captured inputs, {kind} offsets"
+            cases[name] = ((lambda i=inputs, o=off: (i[0], o, *i[2:])), conv)
+            gouts[name] = saved["gout"]
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
-        old, current = load_old(os.path.abspath(args.old_dir), tmp)
+        old, current, gather = load_old(os.path.abspath(args.old_dir), tmp)
         tree = build.load_library()
         for name, (make, conv) in cases.items():
             inputs = make()
-            calls = {"old": Calls(old, current, inputs, conv),
+            calls = {"old": Calls(old, current, inputs, conv, gather),
                      "tree": Calls(tree, True, inputs, conv)}
-            gout = torch.randn(calls["old"].out.shape, generator=gen,
-                               device="cuda").to(bf16)
+            gout = gouts.get(name)
+            if gout is None:
+                gout = torch.randn(calls["old"].out.shape, generator=gen,
+                                   device="cuda").to(inputs[0].dtype)
             for c in calls.values():
                 c.gout = gout
                 c.fwd()
                 c.bwd()
             torch.cuda.synchronize()
+            names = ("dx", "doffset", "dmask", "dweight")
             diff = {k: float((a.float() - b.float()).abs().max())
-                    for k, a, b in zip(("dx", "doffset", "dmask", "dweight"),
-                                       calls["tree"].grads,
+                    for k, a, b in zip(names, calls["tree"].grads,
                                        calls["old"].grads) if b is not None}
+            repeat = {}
+            for which, c in calls.items():
+                first = [None if g is None else g.clone() for g in c.grads]
+                c.bwd()
+                torch.cuda.synchronize()
+                repeat[which] = {k: int((a != b).sum()) for k, a, b in zip(
+                    names, c.grads, first) if b is not None}
             for kernel, what in (("dcn_fwd", "fwd"), ("dcn_bwd", "bwd")):
                 row = {"case": name, "kernel": kernel,
-                       "shape": list(inputs[0].shape), "dtype": "bfloat16"}
+                       "shape": list(inputs[0].shape), "D": conv[3],
+                       "dtype": str(inputs[0].dtype)[6:]}
                 if kernel == "dcn_fwd":
                     row["bitwise_equal"] = bool(torch.equal(
                         calls["old"].out, calls["tree"].out))
                 else:
                     row["max_abs_diff"] = diff
+                    row["differing_in_a_second_call"] = repeat
                 for which in ("old", "tree", "tree", "old") * args.rounds:
                     row.setdefault(f"{which}_ms", []).append(device_ms(
                         getattr(calls[which], what), launches=20))

@@ -33,8 +33,12 @@ in seconds an epoch; trailing ``KEY VALUE`` pairs override the config.
 It exits non-zero unless the PCK exceeds 0.9 (``--tiny``: 0.08, the JAX
 package's test threshold for the tiny model) and no resumed tensor
 differs. The resume check compares the saved state with the
-loaded one, not two runs: on the card ``dcn_bwd`` sums dx with float
-atomics, so two runs of phase 2 are not bitwise equal.
+loaded one, not two runs: the augmentations draw from the process-global
+numpy RNG in the loader's threads (``WORKERS`` > 1, as the JAX loader
+does), in an order that varies from run to run. With ``WORKERS 1`` and
+numpy's RNG seeded before each run, two runs on the card end bit for bit
+equal: the train step's own kernels, ``dcn_bwd`` included, sum in a fixed
+order, and it pins cuDNN's deterministic algorithms.
 
 Checkpoints go to ``<root>/ckpt`` and ``metrics.jsonl`` to ``<root>/log``,
 ``<root>`` a new directory under ``--out`` (default: the system's

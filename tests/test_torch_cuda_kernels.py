@@ -6,9 +6,11 @@ These tests need an NVIDIA GPU with ``nvcc`` (they build the kernels from
     python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda
 
 Tolerances: f32 1e-4 of the output's scale (the kernel sums the 9*C products
-in another order than the plain matmul, the backward's dx is summed with
-atomics and its dweight from per-block partials); bf16 one bf16 ulp of the
-largest output (both sides round one f32 sum to bf16).
+in another order than the plain matmul, the backward's dweight from
+per-block partials, its dx by a gather in windowed mode and with atomics in
+the exact mode); bf16 one bf16 ulp of the largest output (both sides round
+one f32 sum to bf16). In windowed mode every output of the backward repeats
+bit for bit from call to call.
 
 The last group runs every kernel on buffers placed between unmapped pages,
 so that a read or write outside an argument faults: a check that needs no
@@ -218,9 +220,9 @@ def _offsets(gen, shape, d, dtype):
 
 
 def _assert_grad_close(name, got, ref, dtype):
-    """f32: 1e-4 of the gradient's scale (other sum order, atomics); bf16
-    outputs: one bf16 ulp (2^-7) of the scale, both sides rounding an f32
-    sum once."""
+    """f32: 1e-4 of the gradient's scale (other sum orders: the gather, or
+    the exact mode's atomics); bf16 outputs: one bf16 ulp (2^-7) of the
+    scale, both sides rounding an f32 sum once."""
     assert got.dtype == ref.dtype and got.shape == ref.shape, name
     scale = max(1.0, float(ref.float().abs().max()))
     tol = (2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-4) * scale
@@ -286,8 +288,9 @@ def _check_backward(gen, x, off, msk, wgt, **kw):
 @pytest.mark.parametrize("c_out", [16, 32, 48, 64])
 @pytest.mark.parametrize("max_offset", [4, 1, 0])
 def test_dcn_backward_kernel_shapes(gen, dtype, c, c_out, max_offset):
-    """The forward's shape cases for the backward: C in {16, 48} (G = C/4,
-    the float4 atomics), every C_out, D in {4, 1, exact} with integer
+    """The forward's shape cases for the backward: C in {16, 48} (G = C/4:
+    the 4-channel dx gather, the exact mode's float4 atomics), every C_out,
+    D in {4, 1, exact} with integer
     offsets, offsets exactly at +-D and past D, with and without a mask,
     whole and ragged tiles."""
     g = c // 4
@@ -305,8 +308,9 @@ def test_dcn_backward_kernel_shapes(gen, dtype, c, c_out, max_offset):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c, g", [(48, 48), (12, 4), (24, 3), (64, 16)])
 def test_dcn_backward_kernel_other_groupings(gen, dtype, c, g):
-    """Cg = 1 and 3: scalar gathers and scalar atomics; Cg = 8: two float4
-    atomics a corner; C = 64: the widest slice (both types)."""
+    """Cg = 1 and 3: scalar gathers and the dx gather a channel at a time;
+    Cg = 8: two 4-channel passes of the dx gather; C = 64: the widest slice
+    (both types)."""
     for h, w in DCN_SIZES:
         x = torch.randn(2, c, h, w, generator=gen, device="cuda").to(dtype)
         off = _offsets(gen, (2, 2 * g * 9, h, w), 3, dtype)
@@ -321,8 +325,9 @@ def test_dcn_backward_kernel_other_groupings(gen, dtype, c, g):
 @pytest.mark.parametrize("max_offset", [4, 0])
 def test_dcn_backward_kernel_smooth_offsets(gen, dtype, max_offset):
     """A smooth field of small offsets (|t| < 1.5 px), as a trained model
-    gives: neighbouring pixels scatter into the same corners, so the dx
-    atomics collide; at the main path's channels and plane size."""
+    gives: neighbouring pixels feed the same corners (the exact mode's dx
+    atomics collide; the gather's candidates hit together); at the main
+    path's channels and plane size."""
     n, c, h, w, g = 2, 48, 96, 72, 12
     x = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
     yy = torch.arange(h, device="cuda").view(1, 1, h, 1).float()
@@ -348,6 +353,55 @@ def test_dcn_backward_kernel_taps_not_a_multiple_of_three(gen, dtype):
            * 0.1).to(dtype)
     _check_backward(gen, x, off, msk, wgt, padding=1, dilation=1,
                     offset_groups=4, max_offset=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("max_offset", [4, 8, 16, 31])
+def test_dcn_backward_repeats_bit_for_bit(gen, dtype, max_offset):
+    """Windowed mode: 10 calls on one input give the same dx, doffset,
+    dmask and dweight bit for bit (no float atomics: dx by the fixed-order
+    gather, dweight from per-block partials summed in a fixed order), at
+    the main path's groups and plane, a third of the offsets past D. D = 16
+    and 31 take the gather's 64-bit hit masks (31: one channel a pass, its
+    halo's shared memory at the card's limit)."""
+    from fami_pose_torch.ops.deform_conv import (
+        deform_conv2d_backward, deform_conv2d_dx_gather_plain,
+    )
+
+    n, c, h, w, g = 2, 48, 96, 72, 12
+    x = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
+    off = _offsets(gen, (n, 2 * g * 9, h, w), max_offset, dtype)
+    msk = torch.rand(n, g * 9, h, w, generator=gen, device="cuda").to(dtype)
+    wgt = (torch.randn(48, c, 3, 3, generator=gen, device="cuda")
+           * 0.05).to(dtype)
+    gout = torch.randn(n, 48, h, w, generator=gen, device="cuda").to(dtype)
+    kw = dict(padding=3, dilation=3, offset_groups=g, max_offset=max_offset)
+    first = deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
+    for _ in range(9):
+        again = deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
+        for name, a, b in zip(("dx", "doffset", "dmask", "dweight"), again,
+                              first):
+            assert torch.equal(a, b), name
+    # the gather's plain version walks the same window in the same order
+    _assert_grad_close("dx", first[0], deform_conv2d_dx_gather_plain(
+        x, off, msk, wgt, gout, **kw), dtype)
+
+
+def test_dcn_backward_refuses_a_window_past_31_px(gen):
+    """A window wider than the gather's 31 px raises before any launch,
+    instead of falling back to the exact mode's atomic scatter."""
+    from fami_pose_torch.ops.deform_conv import deform_conv2d_backward
+
+    before = deform_conv2d_backward.launches
+    x = torch.zeros(1, 48, 8, 8, device="cuda", dtype=torch.bfloat16)
+    off = torch.zeros(1, 2 * 12 * 9, 8, 8, device="cuda", dtype=torch.bfloat16)
+    wgt = torch.zeros(48, 48, 3, 3, device="cuda", dtype=torch.bfloat16)
+    gout = torch.zeros(1, 48, 8, 8, device="cuda", dtype=torch.bfloat16)
+    for d in (31.5, 32, 64):
+        with pytest.raises(ValueError, match="at most 31 px"):
+            deform_conv2d_backward(x, off, None, wgt, gout, padding=3,
+                                   dilation=3, offset_groups=12, max_offset=d)
+    assert deform_conv2d_backward.launches == before
 
 
 def test_dcn_backward_refuses_what_it_does_not_take(gen):
@@ -607,7 +661,7 @@ def test_deform_blocks_on_the_card_launch_the_kernels(gen, name):
     """Each block at C = 48 on the card (f32, TF32 off) against the port on
     the CPU with the same weights, by ``chip_smoke.block_card_vs_cpu``: one
     ``dcn_fwd`` and one ``dcn_bwd`` launch, the output and every gradient
-    within 1e-4 of its scale (the backward's dx is summed with atomics;
+    within 1e-4 of its scale (the blocks' exact mode sums dx with atomics;
     the DCN's bias feeds a train-mode BatchNorm, which makes its gradient
     zero up to rounding: it is held to 1e-4 of the largest gradient)."""
     from chip_smoke import block_card_vs_cpu
@@ -995,9 +1049,11 @@ DCN_GUARDED = {"main": (2, 48, 96, 72, 12, 48),
 def test_dcn_kernels_stay_inside_their_buffers(guarded, gen, dtype,
                                                max_offset, case):
     """The forward (its channels-last copy of x included) and the backward
-    (its copy and zeroed accumulator, its main kernel on the vector and the
-    scalar atomics, the ragged last tile, the finishing transpose and dW
-    sum) on every internal path; results equal to the wrappers'."""
+    (its copy, its main kernel on the vector and scalar paths, the ragged
+    last tile, the dW sum; at D = 4 the m * dcol scratch and the dx gather,
+    in the exact mode the zeroed accumulator, the vector and scalar atomics
+    and the finishing transpose) on every internal path; results equal to
+    the wrappers' (dx bit for bit at D = 4)."""
     from fami_pose_torch.ops.deform_conv import deform_conv2d_backward
 
     n, c, h, w, g, c_out = DCN_GUARDED[case]
@@ -1023,14 +1079,20 @@ def test_dcn_kernels_stay_inside_their_buffers(guarded, gen, dtype,
     gout = torch.randn(ref.shape, generator=gen, device="cuda").to(dtype)
     ref_b = deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
     acc = torch.zeros(x.shape, device="cuda")
-    part = torch.zeros(lib.fami_dcn_bwd_workspace(n, c, c_out, h, w, 3, 3, g),
+    part = torch.zeros(lib.fami_dcn_bwd_workspace(n, c, c_out, h, w, 3, 3, g,
+                                                  float(max_offset)),
                        device="cuda")
     pg, pxg2, pdx, pdo, pdm, pdw, pacc, ppart = (
         guarded.put(t) for t in (gout, x, x, off, msk, wgt, acc, part))
+    if max_offset:
+        pacc = None  # the gather takes no dx accumulator
     assert lib.fami_dcn_bwd(px, pxg2, po, pm, pw, pg, pdx, pdo, pdm, pdw,
                             pacc, ppart, *dims) == 0
     guarded.sync()
-    _assert_grad_close("dx", guarded.get(pdx, x), ref_b[0], dtype)
+    if max_offset:
+        assert torch.equal(guarded.get(pdx, x), ref_b[0])
+    else:
+        _assert_grad_close("dx", guarded.get(pdx, x), ref_b[0], dtype)
     assert torch.equal(guarded.get(pdo, off), ref_b[1])
     assert torch.equal(guarded.get(pdm, msk), ref_b[2])
     _assert_grad_close("dweight", guarded.get(pdw, wgt), ref_b[3], dtype)
