@@ -45,8 +45,13 @@
 // tensor-core rate. So the bytes set the least time. What sets this
 // kernel's time (PERF.md) is the issue of the sample loop's instructions
 // (~1.9x the forward's a unit of 4 channels) and, for dx, the gather's
-// staging of its halos and its float32 scratch of m * dcol (B * 9C * HWo
-// floats: 95.6 MB at the main path, written once and read back).
+// hit-mask atomics and its walk's chains of shared-memory loads. Its
+// float32 scratch of m * dcol (B * 9C * HWo floats: 95.6 MB at the main
+// path, written once and read back) does not set its time: a image the
+// gather gets cheaper from B = 4 (the scratch in L2) to B = 16 (through
+// device memory). Forming dcol inside the gather instead, from gout's
+// window staged in shared memory, was 1.6-5x slower: the copies and
+// products it adds cost more than the scratch they replace (PERF.md).
 //
 // Design (four launches on the caller's stream, counted as one call):
 //   0. prep_kernel copies x (B, C, H, W) to a scratch buffer in grouped

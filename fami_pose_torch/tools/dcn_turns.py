@@ -2,7 +2,7 @@
 on one card.
 
     python -m fami_pose_torch.tools.dcn_turns --old-dir OLD_CSRC \\
-        [--rounds N] [--out dcn_turns.json]
+        [--rounds N] [--trained FILE] [--out dcn_turns.json]
 
 ``OLD_CSRC`` holds another version's ``dcn_fwd.cu``, ``dcn_bwd.cu`` and the
 ``dcn_common.cuh`` they were written against (for example ``git show
@@ -13,7 +13,9 @@ into a library of their own and calls each library's ``fami_dcn_fwd`` /
 without ``fami_dcn_fwd_workspace`` has the entries of before the kernels
 took every width (no workspace; the backward's ``dw_part`` and
 ``dw_slots``); one whose ``fami_dcn_bwd_workspace`` does not take
-``max_offset`` (before the dx gather) is called without it. For the main
+``max_offset`` (before the dx gather) is called without it, and one whose
+source names ``kDcol`` (a dx form chosen by type) with ``dtype`` after it.
+For the main
 path's calls (B=8 and the val path's B=32, 96x72, C = C_out = 48, 12
 groups, D = 4; B=8 at D = 8, the auto window's widest), Sub-JHMDB's (B=8,
 64x64, D = 6), the deform blocks' C = 64 (exact, dilation 1, one group)
@@ -28,7 +30,10 @@ dilation and padding 3) with their trained offsets and with them zeroed:
     calls of the same library (0 where it sums in a fixed order);
   * times each device-side (``chip_smoke.device_ms``: 20 launches in one
     replayed CUDA graph), in the order old, tree, tree, old (``--rounds``
-    times).
+    times), then the backward with its inputs outside the L2
+    (``chip_smoke.device_ms_cold``: a 96 MB read before each call, less
+    the read alone), old, tree, tree, old;
+  * records each library's backward workspace, in float32 elements.
 
 Then, this tree alone, the chunked forward's cost of sampling a pixel tile
 again for each C_out tile of 64: C = 384 at 12x9, B = 8, exact, C_out 64
@@ -58,10 +63,19 @@ OLD_ABI = {"fami_dcn_fwd": [P] * 6 + [I] * 13 + [F, P],
            "fami_dcn_bwd": [P] * 12 + [I] * 14 + [F, P]}
 
 
+def workspace_args(csrc_dir):
+    """The arguments past ``groups`` that the backward's workspace entry of
+    the sources in ``csrc_dir`` takes: ``max_offset`` (since the dx
+    gather), ``dtype`` (where the source chooses a dx form by type)."""
+    with open(os.path.join(csrc_dir, "dcn_bwd.cu")) as f:
+        text = f.read()
+    return {"max_offset": "kMaxGatherR" in text, "dtype": "kDcol" in text}
+
+
 def load_old(old_dir, workdir):
     """Build the old DCN sources into one shared library and load it;
-    returns it, whether it has this tree's entries and whether its
-    backward's workspace takes ``max_offset``."""
+    returns it and its entries: ``current``, this tree's entries (a
+    workspace each), and :func:`workspace_args`."""
     so = os.path.join(workdir, "libold_dcn.so")
     subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared",
                     os.path.join(old_dir, "dcn_fwd.cu"),
@@ -73,14 +87,14 @@ def load_old(old_dir, workdir):
         fn = getattr(lib, name)
         fn.argtypes = build.SIGNATURES[name] if current else OLD_ABI[name]
         fn.restype = ctypes.c_int
-    with open(os.path.join(old_dir, "dcn_bwd.cu")) as f:
-        gather = "kMaxGatherR" in f.read()
+    abi = dict(workspace_args(old_dir), current=current)
     if current:
         lib.fami_dcn_fwd_workspace.argtypes = [I] * 5
-        lib.fami_dcn_bwd_workspace.argtypes = [I] * 8 + [F] * gather
+        lib.fami_dcn_bwd_workspace.argtypes = (
+            [I] * 8 + [F] * abi["max_offset"] + [I] * abi["dtype"])
         for name in ("fami_dcn_fwd_workspace", "fami_dcn_bwd_workspace"):
             getattr(lib, name).restype = ctypes.c_longlong
-    return lib, current, gather
+    return lib, abi
 
 
 def ptr(t):
@@ -94,15 +108,15 @@ def stream():
 
 
 class Calls:
-    """The forward and backward of one library on one case's buffers.
-    ``current``: the library has this tree's entries (a workspace each);
-    ``gather``: its backward's workspace takes ``max_offset``."""
+    """The forward and backward of one library on one case's buffers;
+    ``abi`` as :func:`load_old` returns it."""
 
-    def __init__(self, lib, current, inputs, conv, gather=True):
+    def __init__(self, lib, abi, inputs, conv):
         x, off, msk, wgt = inputs
         b, c, h, w = x.shape
         cout = wgt.shape[0]
         self.x, self.off, self.msk, self.wgt = x, off, msk, wgt
+        current = abi["current"]
         self.lib, self.current = lib, current
         self.dims = (1, b, c, h, w, cout, h, w, 3, 3, *conv)
         self.out = torch.empty(b, cout, h, w, device="cuda", dtype=x.dtype)
@@ -115,14 +129,16 @@ class Calls:
             size = lib.fami_dcn_fwd_workspace(1, c, cout, 3, 3)
             self.work = torch.empty(max(size, 16), dtype=torch.uint8,
                                     device="cuda") if size else None
-            d = (conv[3],) if gather else ()  # max_offset, where taken
-            self.part = torch.empty(lib.fami_dcn_bwd_workspace(
-                b, c, cout, h, w, 3, 3, conv[2], *d), device="cuda")
+            d = (conv[3],) if abi["max_offset"] else ()  # where taken
+            d += (1 if x.dtype == torch.bfloat16 else 0,) * abi["dtype"]
+            self.workspace = lib.fami_dcn_bwd_workspace(
+                b, c, cout, h, w, 3, 3, conv[2], *d)
+            self.part = torch.empty(self.workspace, device="cuda")
         else:  # the kernels of before: 3 taps a block, 2 blocks an SM
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             self.slots = -(-2 * sms // 3)
-            self.part = torch.empty(self.slots * 3 * cout * 3 * c,
-                                    device="cuda")
+            self.workspace = self.slots * 3 * cout * 3 * c
+            self.part = torch.empty(self.workspace, device="cuda")
         self.gout = None
 
     def fwd(self):
@@ -162,7 +178,7 @@ def main(argv=None):
     sys.path.insert(0, ROOT)
     from chip_smoke import (
         JHMDB_BATCH, JHMDB_DCN_D, JHMDB_PLANE, block_dcn_inputs, dcn_inputs,
-        device_ms,
+        device_ms, device_ms_cold,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -194,12 +210,13 @@ def main(argv=None):
             gouts[name] = saved["gout"]
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
-        old, current, gather = load_old(os.path.abspath(args.old_dir), tmp)
+        old, abi = load_old(os.path.abspath(args.old_dir), tmp)
         tree = build.load_library()
+        tree_abi = dict(workspace_args(build.CSRC), current=True)
         for name, (make, conv) in cases.items():
             inputs = make()
-            calls = {"old": Calls(old, current, inputs, conv, gather),
-                     "tree": Calls(tree, True, inputs, conv)}
+            calls = {"old": Calls(old, abi, inputs, conv),
+                     "tree": Calls(tree, tree_abi, inputs, conv)}
             gout = gouts.get(name)
             if gout is None:
                 gout = torch.randn(calls["old"].out.shape, generator=gen,
@@ -229,10 +246,19 @@ def main(argv=None):
                         calls["old"].out, calls["tree"].out))
                 else:
                     row["max_abs_diff"] = diff
+                    row["dx_elements_differing"] = int(
+                        (calls["tree"].grads[0] != calls["old"].grads[0])
+                        .sum())
                     row["differing_in_a_second_call"] = repeat
+                    row["workspace_floats"] = {
+                        k: c.workspace for k, c in calls.items()}
                 for which in ("old", "tree", "tree", "old") * args.rounds:
                     row.setdefault(f"{which}_ms", []).append(device_ms(
                         getattr(calls[which], what), launches=20))
+                if kernel == "dcn_bwd":
+                    for which in ("old", "tree", "tree", "old"):
+                        row.setdefault(f"{which}_cold_ms", []).append(
+                            device_ms_cold(calls[which].bwd, launches=20))
                 rows.append(row)
                 print(json.dumps(row), flush=True)
             del calls, inputs, gout
@@ -241,7 +267,7 @@ def main(argv=None):
                "kernel": "dcn_fwd"}
         for cout in (64, 384):
             inputs = block_dcn_inputs(gen, bf16, 384, cout, 1, (12, 9))
-            c = Calls(tree, True, inputs, (1, 1, 1, 0.0))
+            c = Calls(tree, tree_abi, inputs, (1, 1, 1, 0.0))
             row[f"c_out_{cout}_ms"] = device_ms(c.fwd, launches=20)
             del c, inputs
         rows.append(row)
