@@ -159,7 +159,10 @@ the card's ``nvidia-smi`` name and power limit, and as the last line
                bit for bit, in f32 and bf16, each timed device-side beside
                its bound, with ``torch._int_mm`` on the conv's im2col
                matrix and cuDNN's bf16 conv on the same shapes, summed over
-               the forward; and ``fami_pose_torch.tools.int8_numerics`` at
+               the forward, each row naming the kernel instance that took
+               it (``int8_instance``: the width of ``ops.int8_conv.
+               n_tiling`` and its N tiles) with that instance's registers
+               and spills; and ``fami_pose_torch.tools.int8_numerics`` at
                W48, 384x288. The build phase counts the implicit GEMM's
                ``IGMMA`` instructions and reads its registers and spills
                from ``-Xptxas -v``.
@@ -538,6 +541,11 @@ def ptxas_usage(log):
     return out
 
 
+# -Xptxas -v of the int8 kernels' instances: {instance: [registers, spill
+# stores, spill loads]} (phase build, where it built the library)
+INT8_USAGE = {}
+
+
 def phase_build():
     """Builds the kernels; returns the wgmma kernels' HGMMA / IGMMA
     counts."""
@@ -556,6 +564,7 @@ def phase_build():
             not hgmma.get("int8_implicit_gemm"):
         raise AssertionError(f"implicit GEMM without IGMMA: {hgmma}")
     usage = ptxas_usage("\n".join(logs))
+    INT8_USAGE.update(usage)
     emit("build", seconds=round(seconds, 3),
          library=os.path.relpath(so, ROOT), sources=list(build.SOURCES),
          hgmma=hgmma, int8_registers_spill_stores_spill_loads=usage or
@@ -3661,6 +3670,17 @@ def im2col_s8(x, act_scale, mod):
     return a.to(torch.int8), F.pad(mod.weight_q, (0, kp - k))
 
 
+def int8_instance(mod):
+    """The implicit GEMM's kernel instance that takes the conv in bf16
+    (``igemm_kernel<bf16, width>``, the width of ``ops.int8_conv.
+    n_tiling``) and its number of N tiles."""
+    from fami_pose_torch.ops.int8_conv import n_tiling
+
+    width, tiles = n_tiling(mod.weight_q.shape[0],
+                            mod.weight_packed.shape[1])
+    return f"igemm_kernel<bf16, {width}>", tiles
+
+
 def int8_geometry(key, g):
     """The int8 conv at one geometry. The quantize pass and the implicit
     GEMM (with a bias in f32) against their plain versions, and the card
@@ -3742,9 +3762,12 @@ def int8_geometry(key, g):
         int_mm=s8_bound(nbytes(a, wq8) + acc_bytes, 2 * m_rows * a.shape[1]
                         * n),
         cudnn_bf16_conv=bound_ms(nbytes(x, w16, whole), ops, torch.bfloat16))
+    instance, n_tiles = int8_instance(mod)
     return dict(
         conv=name, c_in=key[0], c_out=key[1], hw=[key[2], key[3]],
-        kernel=key[4], stride=key[5], frames=key[6], rows=m_rows, k=k,
+        kernel=key[4], stride=key[5], frames=key[6], instance=instance,
+        n_tiles=n_tiles, registers_spill_stores_spill_loads=INT8_USAGE.get(
+            instance, "not rebuilt in this process"), rows=m_rows, k=k,
         kp=wp.shape[1], np=wp.shape[0], cp=xq.shape[3],
         convs_per_forward=g["count"], bitwise_equal=True, ms=ms,
         plain_ms=plain_ms, bound_ms={kk: v[0] for kk, v in bounds.items()},

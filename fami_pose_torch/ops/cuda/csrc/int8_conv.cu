@@ -74,7 +74,15 @@
 //   division (25.1), the tiled quantize pass (24.4) and the table-offset
 //   addressing through the L1 (20.0) each bought 3-23%; 4 ring stages
 //   beat 6 by 3% (more blocks a SM), and a shared-memory-staged epilogue
-//   with 4- and 8-byte stores lost 4%.
+//   with 4- and 8-byte stores lost 4%. A later form for the stride-1 convs
+//   (each channel chunk's halo box loaded once by TMA, each tap's A read
+//   in place by wgmma from a descriptor start 16 bytes apart, the weights
+//   streamed by TMA, a loader warp and two consumer warpgroups on
+//   mbarriers) gave the same bits and, in turns with this kernel
+//   (tools/int8_turns.py), 13.15 ms a forward against 14.38: 2.3x faster
+//   at the 12x9 branch, 1.2x at 24x18, slower at 96x72 and at every 1x1.
+//   Its epilogue, these same NCHW stores from the accumulators, took the
+//   largest share of its time. Not kept (PERF.md).
 //
 // Measured (chip_smoke.py phase int8, the same card): over the 307 int8
 // convs of a B=8 W48 forward, the quantize pass 4.75 ms (bound 2.34,

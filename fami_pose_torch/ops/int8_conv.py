@@ -37,6 +37,9 @@ QMAX = 127
 # the most shared memory one N tile's packed weights (at least 32 rows of
 # Kp) may take in the implicit GEMM (csrc/int8_conv.cu::kWeightBudget)
 WEIGHT_BUDGET = 112 * 1024
+# the s8 wgmma widths the implicit GEMM cuts N into (csrc/int8_conv.cu::
+# kWidths)
+WIDTHS = (32, 48, 64, 96, 128, 192, 256)
 
 
 def _pair(v):
@@ -56,6 +59,21 @@ def packed_shape(n, c, kernel_size):
     to a multiple of 32 (one s8 wgmma step)."""
     kh, kw = _pair(kernel_size)
     return -(-int(n) // 16) * 16, -(-kh * kw * padded_c(c) // 32) * 32
+
+
+def n_tiling(n, kp):
+    """The implicit GEMM's N tiles for ``n`` outputs and a packed K of
+    ``kp``: ``(width, tiles)`` as ``csrc/int8_conv.cu::tile_n`` chooses
+    them (the widest of :data:`WIDTHS` whose weight tile, width x Kp
+    bytes, fits :data:`WEIGHT_BUDGET`, then the narrowest that covers N in
+    as many tiles), or ``(0, 0)`` where none fits. Names the kernel
+    instance a conv runs on (``igemm_kernel<T, width>``); change both
+    together."""
+    fit = [v for v in WIDTHS if v * kp <= WEIGHT_BUDGET]
+    if n <= 0 or not fit:
+        return 0, 0
+    tiles = -(-n // fit[-1])
+    return min(v for v in WIDTHS if v >= -(-n // tiles)), tiles
 
 
 def quantize_weight(weight):

@@ -1176,22 +1176,35 @@ def test_probe_kernels_stay_inside_their_buffers(guarded, gen):
 # -- the int8 conv: the quantize pass and the s8 implicit GEMM --------------
 #
 # (B, C, H, W, C_out, kernel, stride, padding, dilation): the stem's 3
-# channels (Cp 16, K = 144 padded to 160), a branch 3x3, a strided 3x3 (a
-# fuse chain's), a 1x1 at 256 channels (layer1's), layer1's 1x1 to 256 (one
-# N tile of 256), the 12x9 branch's 384 (K = 3456: twelve N tiles of 32, so
-# that each tile's weights fit in shared memory), a dilated 3x3, and a
-# ragged 1x1 (rows not a multiple of the kernel's 64, C = 40 -> Cp 48,
-# C_out = 24 -> Np 32, one N tile of 32), and N = 300 (Np 304: two N tiles
-# of 192, the second's rows past Np zero-filled)
+# channels (Cp 16, K = 144 padded to 160), a branch 3x3 at Cp 48, a strided
+# 3x3 (a fuse chain's), a 1x1 at 256 channels (layer1's), layer1's 1x1 to
+# 256 at B=2 and at B=8 (one N tile of 256), the 12x9 branch's 384 (K =
+# 3456: twelve N tiles of 32, so that each tile's weights fit in shared
+# memory) at B=2 and at the main path's B=40 (rows not a multiple of a
+# tile's 128), a dilated 3x3, a ragged 1x1 (rows not a multiple of the
+# kernel's 64, C = 40 -> Cp 48, C_out = 24 -> Np 32, one N tile of 32), N =
+# 300 (Np 304: two N tiles of 192, the second's rows past Np zero-filled),
+# 18- and 36-wide maps and 12 rows, Cp 48 at 96x72 and Cp 96 at 48x36 (the
+# main path's branch geometries at small batch), a 4x3 map (3x3, and a 1x1
+# at B=40), and a 1x1 at Cp 48 (three K chunks)
 INT8_CASES = {"stem": (2, 3, 37, 29, 64, 3, 2, 1, 1),
               "3x3": (2, 48, 24, 18, 48, 3, 1, 1, 1),
               "3x3s2": (2, 48, 24, 18, 96, 3, 2, 1, 1),
               "1x1": (2, 256, 24, 18, 64, 1, 1, 0, 1),
               "1x1to256": (2, 64, 24, 18, 256, 1, 1, 0, 1),
+              "to256b8": (8, 64, 96, 72, 256, 1, 1, 0, 1),
               "n384": (2, 384, 12, 9, 384, 3, 1, 1, 1),
+              "n384b40": (40, 384, 12, 9, 384, 3, 1, 1, 1),
               "dilated": (2, 16, 20, 17, 32, 3, 1, 3, 3),
               "ragged": (3, 40, 7, 5, 24, 1, 1, 0, 1),
-              "n300": (2, 16, 9, 7, 300, 1, 1, 0, 1)}
+              "n300": (2, 16, 9, 7, 300, 1, 1, 0, 1),
+              "w18": (8, 192, 24, 18, 192, 3, 1, 1, 1),
+              "w36": (4, 96, 12, 36, 96, 3, 1, 1, 1),
+              "c48": (4, 48, 96, 72, 48, 3, 1, 1, 1),
+              "c96": (8, 96, 48, 36, 96, 3, 1, 1, 1),
+              "map4x3": (8, 384, 4, 3, 384, 3, 1, 1, 1),
+              "1x1map4x3": (40, 384, 4, 3, 192, 1, 1, 0, 1),
+              "c48x1": (3, 48, 13, 11, 40, 1, 1, 0, 1)}
 
 
 def _int8_inputs(gen, case, dtype):
@@ -1284,13 +1297,14 @@ def test_int8_conv_refuses_what_it_does_not_take(gen):
         64, wp.shape[1], None) != 0
 
 
-@pytest.mark.parametrize("case", ["stem", "ragged", "3x3s2", "n384", "n300"])
+@pytest.mark.parametrize("case", ["stem", "ragged", "3x3s2", "n384", "n300",
+                                  "n384b40", "map4x3", "1x1map4x3", "c48x1"])
 def test_int8_kernels_stay_inside_their_buffers(guarded, gen, case):
     """The quantize pass (a last task of fewer pixels, padded channels) and
     the implicit GEMM (border taps, whose zero fill copies 0 bytes from the
     copy's first byte; the padded K chunks; a last tile of fewer rows; an N
-    tile past Np, also zero-filled) on guarded buffers; results equal to the
-    wrappers'."""
+    tile past Np, also zero-filled; twelve N tiles at K = 3456 and B=40;
+    a 4x3 map) on guarded buffers; results equal to the wrappers'."""
     from fami_pose_torch.ops.int8_conv import implicit_gemm, quant_nhwc
 
     for dtype in (torch.float32, torch.bfloat16):
