@@ -37,12 +37,14 @@ the card's ``nvidia-smi`` name and power limit, and as the last line
                counts each bf16 DCN instance's ``HGMMA`` instructions with
                ``cuobjdump -sass``. The warp backward is also timed with
                the L2 flushed between launches (``device_ms_cold``) and
-               called twice for bitwise equal outputs. Every windowed DCN
-               backward row (B=8 at D = 4 and 1 in both types, B=32 at D =
-               4 in bf16, and in the Sub-JHMDB, sustain and serving-ab rows)
-               also makes 20 calls on its inputs: the elements of each
-               output that differ from the first call's, limit 0
-               (``repeat_differences``; dx is the fixed-order gather). Then
+               called twice for bitwise equal outputs. Every DCN backward
+               row (B=8 at D = 4, 1 and exact in both types, B=32 at D = 4
+               in bf16, every ``BLOCK_DCN_CASES`` row, and in the
+               Sub-JHMDB, sustain and serving-ab rows) also makes 20 calls
+               on its inputs: the elements of each output that differ from
+               the first call's, limit 0 (``repeat_differences``; dx is the
+               window's fixed-order gather, in the exact mode the gather
+               from sources sorted by target pixel). Then
                the four
                on-chip gather / rotate probes (``ops/probes.py``) at the TPU
                probes' shapes, bitwise against ``torch.gather`` /
@@ -80,7 +82,9 @@ the card's ``nvidia-smi`` name and power limit, and as the last line
                steps on one fixed batch (finite loss terms and gradients,
                ``loss_mse`` falling), two runs of 3 steps on it from one
                state, every state tensor bit for bit
-               (``repeat_train_steps``), one more step traced with
+               (``repeat_train_steps``), the same two runs of a trainer with
+               ``TPU.DCN_MAX_OFFSET 0`` (the exact DCN; its launches are
+               the kernel line's exact-mode ``dcn_bwd`` row), one more step traced with
                torch.profiler, and one in which ``dcn_1``'s inputs and the
                gradient of its output are captured by hooks: ``dcn_bwd`` on
                them against its plain version, timed device-side.
@@ -435,9 +439,10 @@ DCN_GRAD_NAMES = ("dx", "doffset", "dmask", "dweight")
 def repeat_differences(name, run_k, calls=REPEAT_CALLS):
     """``calls`` calls of the DCN backward's wrapper on the same inputs: the
     elements of each output that differ from the first call's in any later
-    call. In windowed mode the backward sums every output in a fixed order
-    (dx by the gather, dweight from per-block partials), so the limit is 0
-    and anything else raises."""
+    call. The backward sums every output in a fixed order (dx by the
+    window's gather, or in the exact mode from sources sorted by target
+    pixel; dweight from per-block partials), so the limit is 0 and anything
+    else raises."""
     first = [None if t is None else t.clone() for t in run_kernel(name, run_k)]
     differ = [None if t is None else torch.zeros_like(t, dtype=torch.bool)
               for t in first]
@@ -513,21 +518,45 @@ def hgmma_counts(sass):
     return counts
 
 
-def ptxas_usage(log):
-    """Registers and spill bytes of each int8 conv kernel instance, from
-    ``-Xptxas -v`` output: {"igemm_kernel<bf16, 48>" ...: [registers,
-    spill stores, spill loads]}."""
+DCN_KERNEL_NAMES = (
+    "dcn_fwd_bf16_kernel", "dcn_fwd_bf16_chunked_kernel",
+    "dcn_fwd_bf16_staged_kernel", "dcn_fwd_f32_kernel", "sum_kernel",
+    "pack_kernel", "grouped_channels_last_kernel", "dcn_bwd_bf16_kernel",
+    "dcn_bwd_f32_kernel", "dx_gather_kernel", "dx_sorted_kernel",
+    "sort_count_kernel", "sort_scan_kernel", "sort_place_kernel",
+    "sort_lists_kernel", "prep_kernel", "finish_kernel", "dw_split_kernel")
+
+
+def kernel_instance(mangled, names):
+    """``name<args>`` of a mangled kernel whose name is one of ``names``
+    (template arguments: numbers, true / false, bf16, float, unsigned,
+    u64, int2, int4), or None."""
+    import re
+
+    m = re.search(r"\d+(" + "|".join(names) + r")(I((?:Li\d+E|Lb[01]E|"
+                  r"13__nv_bfloat16|4int[24]|[fjy])+)E)?E", mangled)
+    if not m:
+        return None
+    words = {"13__nv_bfloat16": "bf16", "f": "float", "j": "unsigned",
+             "y": "u64", "Lb1E": "true", "Lb0E": "false", "4int2": "int2",
+             "4int4": "int4"}
+    args = [words.get(t) or t[2:-1] for t in re.findall(
+        r"Li\d+E|Lb[01]E|13__nv_bfloat16|4int[24]|[fjy]", m.group(3) or "")]
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
+
+
+def ptxas_usage(log, names=("igemm_kernel", "quant_nhwc_kernel")):
+    """Registers and spill bytes of each instance of the kernels ``names``
+    (by default the int8 conv's), from ``-Xptxas -v`` output:
+    {"igemm_kernel<bf16, 48>" ...: [registers, spill stores, spill
+    loads]}."""
     import re
 
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            g = re.search(r"(igemm_kernel|quant_nhwc_kernel)I(13__nv_bfloat16"
-                          r"|f)(?:Li(\d+)E)?", m.group(1))
-            name = g and (f"{g.group(1)}<"
-                          f"{'float' if g.group(2) == 'f' else 'bf16'}"
-                          + (f", {g.group(3)}>" if g.group(3) else ">"))
+            name = kernel_instance(m.group(1), names)
             if name:
                 out[name] = [None, None, None]
         elif name:
@@ -565,10 +594,15 @@ def phase_build():
         raise AssertionError(f"implicit GEMM without IGMMA: {hgmma}")
     usage = ptxas_usage("\n".join(logs))
     INT8_USAGE.update(usage)
+    dcn_usage = ptxas_usage("\n".join(logs), DCN_KERNEL_NAMES)
+    spilled = {k: v for k, v in dcn_usage.items() if v[1] or v[2]}
     emit("build", seconds=round(seconds, 3),
          library=os.path.relpath(so, ROOT), sources=list(build.SOURCES),
          hgmma=hgmma, int8_registers_spill_stores_spill_loads=usage or
-         "not rebuilt in this process (the library was cached)")
+         "not rebuilt in this process (the library was cached)",
+         dcn_registers_spill_stores_spill_loads=dcn_usage or
+         "not rebuilt in this process (the library was cached)",
+         dcn_instances_that_spill=spilled)
     return hgmma
 
 
@@ -666,7 +700,8 @@ def off_image_share(off, groups):
 def block_kernel_rows(gen):
     """``dcn_fwd`` and ``dcn_bwd`` at the deform blocks' settings
     (``BLOCK_DCN_CASES``), each against its plain version through
-    ``run_kernel``, timed device-side beside its bound. Returns the rows of
+    ``run_kernel``, the backward 20 calls bit for bit
+    (``repeat_differences``), timed device-side beside its bound. Returns the rows of
     the kernels line, keyed ("dcn_fwd" / "dcn_bwd", "blocks", case key)."""
     from fami_pose_torch.ops.deform_conv import (
         deform_conv2d, deform_conv2d_backward, deform_conv2d_backward_plain,
@@ -706,6 +741,7 @@ def block_kernel_rows(gen):
         run_p = lambda: deform_conv2d_backward_plain(
             x, off, msk, wgt, gout, offset_groups=groups, **kw)
         got_b = run_kernel(f"dcn_bwd blocks {tag}", run_k)
+        repeats = repeat_differences(f"dcn_bwd blocks {tag}", run_k)
         ref_b = run_p()
         errs = {}
         for name, a, r in zip(("dx", "doffset", "dmask", "dweight"), got_b,
@@ -727,7 +763,8 @@ def block_kernel_rows(gen):
                    host_paced_ms=host_ms, timing=DCN_TIMING, plain_ms=p_ms,
                    bound_ms=bnd, bound_by=by, library_ms=None,
                    library="none: no single PyTorch call computes a "
-                   "deformable conv's gradients")
+                   "deformable conv's gradients",
+                   differing_in_20_calls=repeats)
         emit("kernels", kernel="dcn_bwd", path="deform blocks", **bwd)
         rows["dcn_fwd", "blocks", key] = fwd
         rows["dcn_bwd", "blocks", key] = bwd
@@ -902,8 +939,8 @@ def phase_kernels(hgmma):
                                        library=DCN_NO_LIBRARY)
 
             # the backward on the same inputs; every output against the plain
-            # backward; in windowed mode 20 calls bit for bit (the exact
-            # mode's dx is summed with atomics: its last bits vary)
+            # backward; 20 calls bit for bit in both modes (dx by the
+            # window's gather, or in the exact mode from sorted lists)
             gout = torch.randn(got.shape, generator=gen,
                                device="cuda").to(dtype)
             run_k = lambda: deform_conv2d_backward(x, off, msk, wgt, gout,
@@ -911,8 +948,7 @@ def phase_kernels(hgmma):
             run_p = lambda: deform_conv2d_backward_plain(
                 x, off, msk, wgt, gout, max_offset=d, **kw)
             got_b = run_kernel(f"dcn_bwd D={d} {dtype}", run_k)
-            repeats = (repeat_differences(f"dcn_bwd D={d} {dtype}", run_k)
-                       if d else "exact mode: dx summed with atomics")
+            repeats = repeat_differences(f"dcn_bwd D={d} {dtype}", run_k)
             ref_b = run_p()
             errs = {}
             for name, a, r in zip(("dx", "doffset", "dmask", "dweight"),
@@ -935,14 +971,12 @@ def phase_kernels(hgmma):
                  library="none: no single PyTorch call computes a modulated "
                  "DCN's gradients",
                  differing_in_20_calls=repeats)
-            if dtype == torch.bfloat16 and d == 4:
-                rows["dcn_bwd"] = dict(shape=list(x.shape), max_abs_err=worst,
-                                       ms=k_ms, host_paced_ms=host_ms,
-                                       timing=DCN_TIMING, plain_ms=p_ms,
-                                       bound_ms=bnd, bound_by=by,
-                                       library_ms=None,
-                                       hgmma=hgmma["dcn_bwd"],
-                                       differing_in_20_calls=repeats)
+            if dtype == torch.bfloat16 and d in (4, 0):
+                rows["dcn_bwd", d] = dict(
+                    shape=list(x.shape), max_abs_err=worst, ms=k_ms,
+                    host_paced_ms=host_ms, timing=DCN_TIMING, plain_ms=p_ms,
+                    bound_ms=bnd, bound_by=by, library_ms=None,
+                    hgmma=hgmma["dcn_bwd"], differing_in_20_calls=repeats)
 
     # the DCN forward at the val path's shape (VAL.BATCH_SIZE_PER_GPU 32):
     # the configured window, one the auto-window picks, and the exact mode
@@ -1947,6 +1981,29 @@ def phase_train(smi, batch=8, epoch_steps=4, timed_steps=2, split_steps=2,
                 raise AssertionError(f"step {i}: non-finite {bad}")
         norms = check_gradients(model)
         repeat = repeat_train_steps(trainer, state, fixed)
+        # the same two runs with the exact DCN (TPU.DCN_MAX_OFFSET 0: no
+        # clamp, dx from the sources sorted by target pixel), a trainer of
+        # its own on the same batch
+        exact_trainer = Trainer(
+            train_cfg(os.path.join(out_dir, "exact"),
+                      "TRAIN.BATCH_SIZE_PER_GPU", batch, "TRAIN.END_EPOCH",
+                      1, "PRINT_FREQ", 1, "WORKERS", 4, "TPU.DCN_MAX_OFFSET",
+                      0), dataset=dataset, device="cuda")
+        windows = {getattr(exact_trainer.state.model, f"dcn_{i}").max_offset
+                   for i in range(1, 5)}
+        if windows != {None}:
+            raise AssertionError(f"TPU.DCN_MAX_OFFSET 0 built windows "
+                                 f"{windows}")
+        reset_launches()
+        repeat_exact = repeat_train_steps(
+            exact_trainer, exact_trainer.state, exact_trainer.prepare(raws[0]))
+        torch.cuda.synchronize()
+        exact_launches = read_launches()
+        if any(c != 4 * 2 * repeat_exact["steps"]
+               for c in exact_launches.values()):
+            raise AssertionError(f"exact-mode launches {exact_launches}")
+        del exact_trainer
+        torch.cuda.empty_cache()
         trace = profile_call(lambda: trainer.train_step(state, fixed))
         model_dcn_bwd = dcn_bwd_on_model_inputs(trainer, state, fixed)
         emit("kernels", kernel="dcn_bwd", inputs="the model's own",
@@ -1984,8 +2041,10 @@ def phase_train(smi, batch=8, epoch_steps=4, timed_steps=2, split_steps=2,
              fixed_batch_loss=[r["loss"] for r in history],
              last_step_terms=history[-1], grad_norms=norms, trace=trace,
              checkpoint=resumed_note,
-             two_three_step_runs_from_one_state=repeat)
-    return launches, model_dcn_bwd
+             two_three_step_runs_from_one_state=repeat,
+             two_three_step_runs_exact_dcn=dict(
+                 repeat_exact, launches=exact_launches))
+    return launches, model_dcn_bwd, exact_launches
 
 
 def train_grads(model, batch, feat=None):
@@ -3615,7 +3674,7 @@ INT8_BACKBONE_CONVS, INT8_CONVS = 292, 307
 INT8_REPLACES = ("none: XLA's s8 conv_general_dilated "
                  "(fami_pose_tpu/models/quant.py:102-111)")
 INT8_TIMING = ("ms: 20 launches in one CUDA graph, fastest of 3 replays; "
-               "plain_ms: 3 calls made one by one")
+               "plain_ms: 1 call after 1 warm-up")
 H100_INT8_OPS = 1979e12  # dense int8 tensor-core operations a second
 INT8_NOISE_FACTOR = 2.0  # card vs CPU: this many times the CPU's own
 # int8 move under one-ulp noise at every int8 conv's input
@@ -3740,11 +3799,11 @@ def int8_geometry(key, g):
         cudnn_bf16_conv=device_ms(lambda: F.conv2d(
             x, w16, None, mod.stride, mod.padding, mod.dilation), **dev))
     plain_ms = dict(
-        quant_nhwc=time_ms(lambda: quant_nhwc_plain(x, act), iters=3,
+        quant_nhwc=time_ms(lambda: quant_nhwc_plain(x, act), iters=1,
                            warmup=1),
         implicit_gemm=time_ms(lambda: implicit_gemm_plain(
             xq, wp, ws, act, None, out_dtype=torch.bfloat16, **geo),
-            iters=3, warmup=1))
+            iters=1, warmup=1))
     m_rows, n = a.shape[0], wq.shape[0]
     k = wq.shape[1]  # C * kh * kw: the products the conv needs
     ops = 2 * m_rows * k * n
@@ -3901,7 +3960,7 @@ def int8_eval_step_traces(ev):
     out = {}
     for tag, step in (("int8", ev.eval_step),
                       ("bf16", make_eval_step(bf16, flip_test=True))):
-        ms = time_ms(lambda: step(kf, sup), iters=5, warmup=2)
+        ms = time_ms(lambda: step(kf, sup), iters=3, warmup=1)
         trace = profile_call(lambda: step(kf, sup))
         out[tag] = dict(eval_step_ms=ms, device_busy_ms=trace["device_busy_ms"],
                         device_busy_share=trace["device_busy_share"],
@@ -4793,7 +4852,8 @@ REMAINDER_BLOCKS = (("AdaptBlock", {}), ("AdaptBlockV2",
 # a block on the card against the port on the CPU, f32 with TF32 off: the
 # output, the input gradient and every parameter gradient, each within this
 # share of its largest magnitude (the blocks' exact-mode DCN backward sums
-# dx with atomics; the DCN's bias, whose gradient a train-mode BatchNorm
+# dx from sorted lists, in another order than the CPU's scatter; the DCN's
+# bias, whose gradient a train-mode BatchNorm
 # cancels, within it of the largest parameter gradient)
 BLOCK_F32_TOL = 1e-4
 BLOCK_F32_BATCH = 2  # the CPU side's plain DCN is the slow part
@@ -5484,12 +5544,12 @@ def dist_two_ranks(ctx):
     out["checkpoints"] = sorted(os.listdir(trainer.checkpoints_dir))
     del resumed
 
-    # readings: step ms (synchronised, 2 steps on one batch), the
+    # readings: step ms (synchronised, one step on one batch), the
     # collectives of one step, the gradient bucket and its all-reduce
     raw = next(iter(trainer.loader))
     batch = trainer.prepare(raw)
     step_ms = []
-    for _ in range(2):
+    for _ in range(1):
         t0 = time.perf_counter()
         trainer.state, _ = trainer.train_step(trainer.state, batch)
         torch.cuda.synchronize()
@@ -5503,7 +5563,7 @@ def dist_two_ranks(ctx):
     pm.all_reduce_mean_(bucket)
     torch.cuda.synchronize()
     reduce_ms = []
-    for _ in range(2):
+    for _ in range(1):
         t0 = time.perf_counter()
         pm.all_reduce_mean_(bucket)
         torch.cuda.synchronize()
@@ -5987,7 +6047,7 @@ def main():
     streaming, stream_bf16 = timed("streaming", phase_streaming, pred, batch)
     del pred
     torch.cuda.empty_cache()
-    train, model_dcn_bwd = timed("train", phase_train, smi)
+    train, model_dcn_bwd, train_exact = timed("train", phase_train, smi)
     timed("train-card-vs-cpu", phase_train_card_vs_cpu)
     torch.cuda.empty_cache()
     levers, validate_exact, validate_d4 = timed(
@@ -6083,7 +6143,13 @@ def main():
                 launches_train=train[name],
                 launches_train_levers=levers[name],
                 launches_distributed=distributed[name],
-                model_inputs=model_dcn_bwd, **rows[name]))
+                model_inputs=model_dcn_bwd, **rows[name, 4]))
+            # the exact mode (TPU.DCN_MAX_OFFSET 0): phase train's two
+            # 3-step runs of the W48 model, the kernel timed at the main
+            # path's shape with |t| up to 6 px
+            kernels.append(dict(
+                common, path="train with TPU.DCN_MAX_OFFSET 0 (exact DCN)",
+                launches=train_exact[name], **rows[name, 0]))
             kernels.append(dict(common, path="none: the val path's batch of "
                                 "32, timed and repeated for comparison",
                                 launches=0, **rows[name, 32]))

@@ -45,10 +45,9 @@ SIGNATURES = {
     # Wo, kh, kw, pad, dil, groups, max_offset, stream
     "fami_dcn_fwd": [c_ptr] * 7 + [c_int] * 13 + [c_float, c_ptr],
     # x, x_grouped, offset, mask, weight, gout, dx, doffset, dmask, dweight,
-    # dx_acc (f32 of x's size in the exact mode, its scatter; else null), work
-    # (f32 scratch of fami_dcn_bwd_workspace elements), dtype, B, C, H, W,
-    # Cout, Ho, Wo, kh, kw, pad, dil, groups, max_offset, stream
-    "fami_dcn_bwd": [c_ptr] * 12 + [c_int] * 13 + [c_float, c_ptr],
+    # work (f32 scratch of fami_dcn_bwd_workspace elements), dtype, B, C, H,
+    # W, Cout, Ho, Wo, kh, kw, pad, dil, groups, max_offset, stream
+    "fami_dcn_bwd": [c_ptr] * 11 + [c_int] * 13 + [c_float, c_ptr],
     # images, offsets, out, dtype, blend, N, C, H, W, max_shift, stream
     "fami_warp_translate": [c_ptr] * 3 + [c_int] * 6 + [c_float, c_ptr],
     # images, offsets, gout, d_images, d_offsets, partials (scratch), dtype,
@@ -160,13 +159,14 @@ def load_library():
     # dtype, C, H, W -> blocks a warp_bwd launch gives each image
     lib.fami_warp_translate_bwd_blocks.argtypes = [c_int] * 4
     lib.fami_warp_translate_bwd_blocks.restype = ctypes.c_longlong
-    # dtype, C, Cout, kh, kw -> bytes of the DCN forward's workspace
-    lib.fami_dcn_fwd_workspace.argtypes = [c_int] * 5
+    # dtype, B, C, Cout, Ho, Wo, kh, kw -> bytes of the DCN forward's
+    # workspace on the current device
+    lib.fami_dcn_fwd_workspace.argtypes = [c_int] * 8
     lib.fami_dcn_fwd_workspace.restype = ctypes.c_longlong
-    # B, C, Cout, Ho, Wo, kh, kw, groups, max_offset -> float32 elements
-    # of the DCN backward's workspace on the current device (in windowed
-    # mode it holds the dx gather's m * dcol)
-    lib.fami_dcn_bwd_workspace.argtypes = [c_int] * 8 + [c_float]
+    # B, C, Cout, H, W, Ho, Wo, kh, kw, groups, max_offset -> float32
+    # elements of the DCN backward's workspace on the current device (the
+    # dx gathers' m * dcol, in the exact mode the sort's arrays too)
+    lib.fami_dcn_bwd_workspace.argtypes = [c_int] * 10 + [c_float]
     lib.fami_dcn_bwd_workspace.restype = ctypes.c_longlong
     return lib
 

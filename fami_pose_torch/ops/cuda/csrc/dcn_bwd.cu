@@ -34,9 +34,17 @@
 // (fami_pose_tpu/ops/pallas/dcn_bwd.py:47-55). No float atomics: every run
 // gives the same dx, bit for bit, as the TPU kernel does. Windows up to
 // kMaxGatherR = 31 px are taken; a wider one is refused
-// (cudaErrorInvalidValue). The exact mode (no clamp: the adjoint has no
-// bounded window) keeps a scatter with float atomics into a float32 buffer,
-// whose sum order varies from run to run.
+// (cudaErrorInvalidValue). The exact mode (no clamp) has no bounded window,
+// so it gathers from lists: every source (group, tap, pixel) is keyed by the
+// floor corner (y0, x0) of its sample, keys in [-1, H-1] x [-1, W-1] (the
+// others cannot touch the image), and a counting sort written here (ranks
+// claimed by integer atomics, a scan, the placement, then each list sorted
+// by source index k * HWo + p) gives every key one order whatever the
+// threads' order. dx(q) sums the lists of its four candidate keys,
+// (qy-1, qx-1), (qy-1, qx), (qy, qx-1), (qy, qx), in that order, each by
+// ascending source index (ops/deform_conv.py::deform_conv2d_dx_sorted_plain
+// is this order in PyTorch). No float atomics in either mode, and no
+// library sort: both give the same dx on every run.
 //
 // What bounds it on an H100. At the main-path shape (B=8, 96x72, C=Cout=48,
 // G=12, bf16) one call must move ~88 MB (offsets and doffset ~24 MB each,
@@ -53,12 +61,19 @@
 // window staged in shared memory, was 1.6-5x slower: the copies and
 // products it adds cost more than the scratch they replace (PERF.md).
 //
-// Design (four launches on the caller's stream, counted as one call):
+// Design (launches on the caller's stream, counted as one call):
 //   0. prep_kernel copies x (B, C, H, W) to a scratch buffer in grouped
 //      channels-last order (B, G, H, W, Cg), as the forward does, so that
-//      the Cg channels of one group at one corner are one vector load (and
-//      in the exact mode zeroes the float32 dx accumulator of the same
-//      order).
+//      the Cg channels of one group at one corner are one vector load. In
+//      the exact mode the sort's four passes follow (they read the
+//      offsets alone): sort_count_kernel gives each source the next rank of
+//      its key (an integer atomic), sort_scan_kernel turns each (image,
+//      group) plane's counts into list starts, sort_place_kernel writes
+//      each source's index and offsets at its start + rank,
+//      sort_lists_kernel sorts each key's list by source index (a thread a
+//      key, a bitonic network in registers up to 16 entries, insertion in
+//      place past that: O(L^2), which only offsets that send many sources
+//      to one corner reach).
 //   1. dcn_bwd_bf16_kernel: persistent blocks of 256 threads, two an SM at
 //      the main-path shape. A block owns one work item (tap group, channel
 //      chunk, Cout chunk) and walks 64-pixel tiles with it:
@@ -69,9 +84,17 @@
 //          at most 64 channels (C = 48, G = 12 on the main path is one
 //          chunk), else 64-channel slices of one group;
 //        - the output channels into chunks of 64 (one on the main path),
-//          the M of the dW tile. Only the block of the first Cout chunk
-//          forms dcol (all of Cout) and writes the sampling side's outputs;
-//          the others sample their column for their rows of dW alone.
+//          the M of the dW tile. In float32 an item also owns one Cout
+//          chunk: only the block of the first forms dcol (all of Cout) and
+//          writes the sampling side's outputs, the others sample their
+//          column for their rows of dW alone. In bf16 with more than one
+//          Cout chunk (the split form: C_out past 64, the deform blocks at
+//          HRNet-W48's narrower branches) an item owns them all: its block
+//          forms dcol, samples the column once and stores it (the 64 x 3CP
+//          bf16 tile as it lies in shared memory), and dw_split_kernel
+//          contracts each Cout chunk's dW from the stored columns. Its two
+//          gout buffers are one (107,648 B a block at CP = 64, not 115,840:
+//          two blocks an SM).
 //      Where Cout <= 64 the block stages its slice of W (3 taps: Cout x
 //      3CP, bf16) once as the wgmma B operand, else one 64-row chunk of it
 //      at a time, beside a table of its gather units (group, tap). For each
@@ -89,20 +112,25 @@
 //           reads dcol (one 16-byte shared load), writes m * S to the column
 //           in bf16 (the wgmma B operand of dW), writes doffset and dmask,
 //           and writes m * dcol to the float32 scratch (B, G, K, HWo, Cg)
-//           that the dx gather reads (one 16-byte store for 4 channels). In
-//           the exact mode it adds m * w_corner * dcol into the dx
-//           accumulator instead, one float4 atomic a corner (corners of
-//           weight 0 skipped; Cg not a multiple of 4 takes scalar atomics).
-//           Where a group spans several chunks (more than 64 channels),
-//           doffset and dmask are sums over the chunks: each chunk writes
-//           its f32 partial to scratch, and the finish kernel sums them in a
-//           fixed order (no float atomics there);
+//           that the dx gathers read (one 16-byte store for 4 channels), in
+//           both modes. Where a group spans several chunks (more than 64
+//           channels), doffset and dmask are sums over the chunks: each
+//           chunk writes its f32 partial to scratch, and the finish kernel
+//           sums them in a fixed order (no float atomics there);
 //        d. dW[o][3CP] += gout . column on the tensor cores (M = the Cout
 //           chunk padded to 64, K = the 64 pixels), the f32 accumulators
 //           held in registers across all the block's tiles.
 //      At the end each block writes its dW slice to a float32 partial of
 //      its own (no atomics: dW is deterministic; a block's tiles are fixed
 //      by its index, none is taken dynamically).
+//      dw_split_kernel (the split form): a block a (item, Cout chunk,
+//      split of the tiles), enough splits for ~4 blocks an SM; for each
+//      tile of its split it copies the stored column and stages gout's
+//      rows, dW += gout . column in registers; it writes its split's
+//      partial, which finish_kernel sums with the others in a fixed order.
+//      The form it replaced sampled every (tile, tap group, channel chunk)
+//      once a Cout chunk, and at 12x9 its 108 items had one block each (of
+//      115,840 B: one an SM) walking all 16 tiles.
 //   2. dx_gather_kernel (windowed mode): a block owns a 16 x 16 tile of dx
 //      and one group's channels (4 at a time where Cg % 4 == 0, else 1).
 //      For each tap it stages its halo of (16 + 2R)^2 sources in shared
@@ -117,10 +145,22 @@
 //      call 0.72 ms at B=8, D = 4 against 0.43 with the masks, PERF.md),
 //      and sums the products; the sum is rounded once into x's type and
 //      written NCHW.
+//      dx_sorted_kernel (the exact mode): a thread owns one input pixel
+//      and 4 channels of its group (1 where Cg % 4 != 0), the threads of
+//      one pixel side by side, and walks its four lists in order, 4
+//      entries' loads in flight at a time, each source's m * dcol read
+//      from the scratch at its index, its corner weight from its entry's
+//      offsets (their fractions, as the main kernel takes them); rounded
+//      once, NCHW. Forms measured before this one
+//      (PERF.md, B=8 main path): the lists sorted by insertion in global
+//      memory (0.37 ms of a 1.18 ms call); the count, scan, placement and
+//      sort in one block a plane with shared-memory counters (0.97 ms of
+//      1.42: a block a plane leaves SMs idle, 8 blocks at G = 1, and its
+//      sort ran in local memory); each list sorted in registers by every
+//      gather thread that reads it (the gather 0.69 ms of 1.19).
 //   3. finish_kernel sums the blocks' dW partials into (Cout, C, kh, kw) in
 //      W's type, and, where groups span chunks, the doffset and dmask
-//      partials; in the exact mode it also turns the dx accumulator
-//      into NCHW in x's type.
+//      partials.
 //   dcn_bwd_f32_kernel (float32 inputs: the card-vs-CPU checks) has the
 //   same work items, gathers and dx outputs with the column and W in f32
 //   and both contractions as full-f32 FMA loops on the CUDA cores over
@@ -140,10 +180,23 @@
 // width: dcn_bwd_bf16_kernel<48, 4> 127 registers, no spills, 85,120 B of
 // dynamic shared memory at the main-path shape (2 blocks an SM); 33
 // HGMMA.64x24x16.F32.BF16 in the SASS of each C = 48 instance.
-// On an H100 80GB HBM3 at 700 W (chip_smoke.py, device-side), with the dx
-// scatter of float4 atomics: 0.2440-0.2461 ms at B=8, D = 4 (the scalar-
-// atomic design before it 0.9871) against the 0.0262 ms bound; with the dx
-// gather 0.4259-0.4268 ms, of which the gather kernel takes ~0.24 (PERF.md).
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py, device-side), with a dx
+// scatter of float4 atomics (before the gather): 0.2440-0.2461 ms at B=8,
+// D = 4 (the scalar-atomic design before it 0.9871) against the 0.0262 ms
+// bound; with the dx gather 0.4259-0.4268 ms, of which the gather kernel
+// takes ~0.24 (PERF.md). In turns with the form of before the sorted lists
+// and the split form (tools/dcn_turns.py, PERF.md): the exact mode at the
+// main-path shape 0.6710-0.6737 ms against its atomics' 0.2992-0.3014 (the
+// sort's count 0.095, placement 0.101 and list sort 0.073, the sorted
+// gather 0.199); the deform blocks' six branch calls (C = 96 / 192 / 384,
+// G = 1 and 2, 48x36 / 24x18 / 12x9, B = 8) 1.9620-1.9660 ms against
+// 5.3567-5.4027. Registers of every instance of this form (-Xptxas -v,
+// chip_smoke.py phase build): dcn_bwd_bf16_kernel 114-128, spilling only in
+// the wide CP = 64 instances (<64, 1, true> 28 bytes stored, 32 loaded;
+// <64, 4, true> 24 and 24: the split form's and a group past 64 channels'
+// calls); dcn_bwd_f32_kernel 128-232, dw_split_kernel 64-118,
+// dx_gather_kernel 43-48, dx_sorted_kernel 40-52, the sort's kernels
+// 28-94, no spills.
 
 #include "dcn_common.cuh"
 
@@ -161,7 +214,7 @@ constexpr int kDxTile = 16;    // the dx gather's tile: 16 x 16 input pixels
 constexpr int kMaxGatherR32 = 15;
 constexpr int kMaxGatherR = 31;
 
-// The gather's window radius, ceil(D); 0 in the exact mode (the scatter);
+// The gather's window radius, ceil(D); 0 in the exact mode (sorted lists);
 // -1 for a window wider than kMaxGatherR, which is refused
 int gather_radius(float dmax) {
   if (!(dmax > 0.f)) return 0;
@@ -194,17 +247,20 @@ __host__ __device__ inline DxLayout dx_layout(int r, int cw, int wb) {
 // (Cout rounded up to 16, at most 64): W slice (B of dcol, ocp x nw), gout^T
 // (A of dcol, 64 x ocp), gout (A of dW, 64 x 64, rows past Cout zero), the
 // column (B of dW, 64 x nw), dcol (f32, 64 rows of nw + 4), the unit table
-// (16 bytes a unit).
+// (16 bytes a unit). The split form (below) contracts dW in another kernel,
+// so its gout buffers are one: at cp = 64 a block takes 107,648 bytes, not
+// 115,840, and two fit an SM.
 struct BfLayout {
   size_t w, ga, gb, col, dcol, tab, total;
 };
 
-__host__ __device__ inline BfLayout bf16_layout(int cp, int ocp, int units) {
+__host__ __device__ inline BfLayout bf16_layout(int cp, int ocp, int units,
+                                                bool split) {
   const int nw = kTaps * cp;
   BfLayout l;
   l.w = 0;
   l.ga = align128((size_t)ocp * nw * 2);
-  l.gb = l.ga + align128((size_t)kTilePix * ocp * 2);
+  l.gb = split ? l.ga : l.ga + align128((size_t)kTilePix * ocp * 2);
   l.col = l.gb + align128((size_t)64 * kTilePix * 2);
   l.dcol = l.col + align128((size_t)kTilePix * nw * 2);
   l.tab = l.dcol + align128((size_t)kTilePix * (nw + 4) * 4);
@@ -233,12 +289,19 @@ __host__ __device__ inline F32Layout f32_layout(int cp, int ocp, int units) {
 // ---- the plan: work items and scratch ----------------------------------------
 
 // How a call is cut: channel chunks (cc channels of whole groups, or n_sub
-// 64-channel slices of each group), Cout chunks of 64, tap groups of 3.
+// 64-channel slices of each group), Cout chunks of 64, tap groups of 3. A
+// work item is (tap group, channel chunk, Cout chunk), except in the split
+// form (bf16 with more than one Cout chunk): there an item is (tap group,
+// channel chunk), whose block forms dcol over every Cout chunk, samples
+// the column once and stores it, and dw_split_kernel contracts each Cout
+// chunk's dW from the stored columns.
 struct Plan {
-  int cc, n_sub, n_ci, n_oc, cp, ocp, gpc, tap_groups, work;
+  int cc, n_sub, n_ci, n_oc, n_oc_items, cp, ocp, gpc, tap_groups, work;
+  bool split;
 };
 
-__host__ __device__ inline Plan make_plan(int C, int Cout, int K, int G) {
+__host__ __device__ inline Plan make_plan(int C, int Cout, int K, int G,
+                                          bool bf16) {
   Plan pl;
   const int Cg = C / G;
   if (Cg <= kChunk) {
@@ -257,8 +320,10 @@ __host__ __device__ inline Plan make_plan(int C, int Cout, int K, int G) {
   const int c16 = (Cout + 15) & ~15;
   pl.ocp = c16 < kChunk ? c16 : kChunk;
   pl.n_oc = (Cout + kChunk - 1) / kChunk;
+  pl.split = bf16 && pl.n_oc > 1;
+  pl.n_oc_items = pl.split ? 1 : pl.n_oc;
   pl.tap_groups = (K + kTaps - 1) / kTaps;
-  pl.work = pl.tap_groups * pl.n_ci * pl.n_oc;
+  pl.work = pl.tap_groups * pl.n_ci * pl.n_oc_items;
   return pl;
 }
 
@@ -269,39 +334,45 @@ int max_slots(const Plan& pl, int sms) {
 
 // float32 scratch: the dW partials (a slot's copy of dW for each of its tap
 // groups), then, where groups span chunks, the doffset and dmask partials
-// of each slice, then, for the dx gather, m * dcol in (B, G, K, HWo, Cg)
-// order from the 16-byte aligned element `md`
+// of each slice, then m * dcol in (B, G, K, HWo, Cg) order from the 16-byte
+// aligned element `md`, which the dx gathers read; in the split form the
+// stored columns (`col`). In the exact mode the sort's int32 arrays
+// follow, each 16-byte aligned: `keys`, a row of NK + 1
+// entries for each (image, group) plane (NK = (H + 1)(W + 1) keys), whose
+// entry key holds the key's count, after the scan its list's start (entry
+// NK: the plane's total, so key's list is [row[key], row[key + 1])); `ent`,
+// K * HWo entries a plane, each list's entries (the source index s and its
+// offsets: 8 bytes in bf16, 16 in f32; room for 16); `rank`, each source's
+// place in its key's list, in source order.
 struct Scratch {
-  long long dw, doff, dmsk, md, total;
+  long long dw, doff, dmsk, md, col, keys, ent, rank, total;
 };
 
+inline long long align4(long long n) { return (n + 3) & ~3LL; }
+
 Scratch scratch_floats(const Plan& pl, int slots, int B, int C, int Cout,
-                       int G, int K, int HWo, bool gather) {
+                       int H, int W, int G, int K, int HWo, bool sorted) {
   Scratch s;
   s.dw = (long long)slots * pl.tap_groups * Cout * kTaps * C;
   const long long n_msk = (long long)B * G * K * HWo;
   s.doff = pl.n_sub > 1 ? pl.n_sub * 2 * n_msk : 0;
   s.dmsk = pl.n_sub > 1 ? pl.n_sub * n_msk : 0;
-  s.md = (s.dw + s.doff + s.dmsk + 3) & ~3LL;
-  s.total = gather ? s.md + (long long)B * K * C * HWo
-                   : s.dw + s.doff + s.dmsk;
+  s.md = align4(s.dw + s.doff + s.dmsk);
+  // the split form's stored columns: a 64 x 3cp bf16 block a (tile, item)
+  const long long tiles = (long long)B * ((HWo + kTilePix - 1) / kTilePix);
+  s.col = align4(s.md + (long long)B * K * C * HWo);
+  s.keys = s.col + (pl.split ? tiles * pl.tap_groups * pl.n_ci *
+                                   kTilePix * kTaps * pl.cp / 2
+                             : 0);
+  s.ent = align4(s.keys + (long long)B * G * ((long long)(H + 1) * (W + 1) + 1));
+  s.rank = align4(s.ent + 4 * n_msk);
+  // the regions from `col` on start at a 16-byte aligned base, 3 floats
+  // of slack
+  s.total = (sorted ? s.rank + n_msk : s.keys) + 3;
   return s;
 }
 
 // ---- dx outputs of the sampling side ----------------------------------------
-
-// the scatter: dx[p .. p + VW) += s * md[0 .. VW), one 16-byte atomic for
-// VW = 4
-template <int VW>
-__device__ __forceinline__ void add_corner(float* p, float s,
-                                           const float (&md)[VW]) {
-  if constexpr (VW == 4) {
-    atomicAdd(reinterpret_cast<float4*>(p),
-              make_float4(s * md[0], s * md[1], s * md[2], s * md[3]));
-  } else {
-    atomicAdd(p, s * md[0]);
-  }
-}
 
 // the gather's scratch: m * dcol of VW channels, one 16-byte store for 4
 template <int VW>
@@ -367,14 +438,14 @@ __device__ __forceinline__ Conv make_conv(const Args& a) {
 // o0 + orows), the slice sub of its group where groups span chunks, and
 // whether it forms dcol and the sampling side's outputs (side: oi == 0).
 struct Item {
-  int tg, k0, kt, g_lo, gpc, j0, nc, c_lo, cw, sub, oi, o0, orows;
+  int tg, ci, k0, kt, g_lo, gpc, j0, nc, c_lo, cw, sub, oi, o0, orows;
   bool side;
   __device__ __forceinline__ Item(int w, const Args& a, const Conv& cv) {
     const Plan& pl = a.pl;
-    tg = w / (pl.n_ci * pl.n_oc);
-    const int rem = w - tg * pl.n_ci * pl.n_oc;
-    const int ci = rem / pl.n_oc;
-    oi = rem - ci * pl.n_oc;
+    tg = w / (pl.n_ci * pl.n_oc_items);
+    const int rem = w - tg * pl.n_ci * pl.n_oc_items;
+    ci = rem / pl.n_oc_items;
+    oi = rem - ci * pl.n_oc_items;
     k0 = tg * kTaps;
     kt = min(kTaps, cv.K - k0);
     if (pl.n_sub == 1) {
@@ -442,16 +513,16 @@ struct SideOut {
 // loads issued together, measured 2-4% slower at the 128-register cap of
 // two blocks an SM), nc channels each. off / msk point at the pixel in the
 // image's first offset and mask row (a pixel past the image points at the
-// tile's first pixel and neither gathers nor writes); xg and dxa at the
-// image's (G, H, W, Cg) arrays; dcol_p at the pixel's dcol row. md_out,
-// where not null (the gather), points at the image's m * dcol scratch at
-// this pixel and the chunk's first channel of its group (the unit's (g, k)
-// rows are e.z * Cg further); else dx is scattered into dxa. Without
-// `side` a unit only writes its column (a block of a later Cout chunk).
+// tile's first pixel and neither gathers nor writes); xg at the image's
+// (G, H, W, Cg) array; dcol_p at the pixel's dcol row. md_out points at the
+// image's m * dcol scratch at this pixel and the chunk's first channel of
+// its group (the unit's (g, k) rows are e.z * Cg further), which the dx
+// gathers read. Without `side` a unit only writes its column (a block of a
+// later Cout chunk).
 template <typename T, int VW, class Store>
 __device__ __forceinline__ void sample_tile(
-    const T* __restrict__ xg, float* __restrict__ dxa,
-    float* __restrict__ md_out, const T* __restrict__ off,
+    const T* __restrict__ xg, float* __restrict__ md_out,
+    const T* __restrict__ off,
     const T* __restrict__ msk, const SideOut<T>& so, const int4* tab,
     int n_units, int nc, bool side, const float* dcol_p, int p, bool pvalid,
     int oy, int ox, const Conv& cv, const Store& store) {
@@ -475,8 +546,6 @@ __device__ __forceinline__ void sample_tile(
     const float fx = floorf(tx);
     const float ly = ty - fy;
     const float lx = tx - fx;
-    const float w[4] = {(1.f - ly) * (1.f - lx), (1.f - ly) * lx,
-                        ly * (1.f - lx), ly * lx};
     const int y0 = oy + (e.w >> 16) + (int)fy;
     const int x0 = ox + (int)(short)(e.w & 0xffff) + (int)fx;
     const bool vy0 = pvalid && (unsigned)y0 < (unsigned)cv.H;
@@ -522,15 +591,7 @@ __device__ __forceinline__ void sample_tile(
         }
       }
       store.template put<VW>(n, p, col);
-      if (side && md_out) {
-        if (pvalid) put_md<VW>(md_out + (size_t)e.z * cv.Cg + j, md);
-      } else if (side) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (ok[c] && w[c] != 0.f)
-            add_corner<VW>(dxa + cb + j + corner[c], w[c], md);
-        }
-      }
+      if (side && pvalid) put_md<VW>(md_out + (size_t)e.z * cv.Cg + j, md);
     }
     if (side && pvalid) {
       const float oy_v = pass_y && ly != 0.f ? m * gy : 0.f;
@@ -569,35 +630,38 @@ __device__ __forceinline__ void wgmma_rows(float (&d)[NH / 2], uint64_t da,
 
 // ---- kernels -----------------------------------------------------------------
 
-// x (B, C, H, W) -> xg (B, G, H, W, Cg); dxa (the exact mode), of
-// xg's size in f32, zeroed
+// x (B, C, H, W) -> xg (B, G, H, W, Cg): 4 channels a thread where Cg is 4,
+// else one element a thread (a thread a pixel with Cg channels took 135 us
+// at C = 384, 12x9, B = 8: 864 threads; PERF.md)
 template <typename T>
 __global__ void prep_kernel(const T* __restrict__ x, T* __restrict__ xg,
-                            float* __restrict__ dxa, int B, int G, int Cg,
-                            int HW, int vec4) {
+                            int B, int G, int Cg, int HW, int vec4) {
+  if (!vec4) {  // one element a thread, the stores consecutive in c
+    const long long n = (long long)B * G * HW * Cg;
+    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         e < n; e += (long long)gridDim.x * blockDim.x) {
+      const long long i = e / Cg;  // (b, g, pixel)
+      const int c = (int)(e - i * Cg);
+      const long long bg = i / HW;
+      xg[e] = x[(bg * Cg + c) * HW + (i - bg * HW)];
+    }
+    return;
+  }
   const long long total = (long long)B * G * HW;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x) {
     const long long bg = i / HW;
     const T* src = x + bg * Cg * HW + (i - bg * HW);
     T* dst = xg + i * Cg;
-    if (vec4) {  // Cg == 4: one 8-byte (bf16) or 16-byte (f32) store each
-      if constexpr (sizeof(T) == 2) {
-        const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
-        *reinterpret_cast<uint2*>(dst) = make_uint2(
-            (uint32_t)s16[0] | ((uint32_t)s16[HW] << 16),
-            (uint32_t)s16[2 * (size_t)HW] | ((uint32_t)s16[3 * (size_t)HW] << 16));
-      } else {
-        *reinterpret_cast<float4*>(dst) = make_float4(
-            src[0], src[HW], src[2 * (size_t)HW], src[3 * (size_t)HW]);
-      }
-      if (dxa)
-        *reinterpret_cast<float4*>(dxa + i * Cg) =
-            make_float4(0.f, 0.f, 0.f, 0.f);
+    // Cg == 4: one 8-byte (bf16) or 16-byte (f32) store each
+    if constexpr (sizeof(T) == 2) {
+      const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
+      *reinterpret_cast<uint2*>(dst) = make_uint2(
+          (uint32_t)s16[0] | ((uint32_t)s16[HW] << 16),
+          (uint32_t)s16[2 * (size_t)HW] | ((uint32_t)s16[3 * (size_t)HW] << 16));
     } else {
-      for (int c = 0; c < Cg; ++c) dst[c] = src[(size_t)c * HW];
-      if (dxa)
-        for (int c = 0; c < Cg; ++c) dxa[i * Cg + c] = 0.f;
+      *reinterpret_cast<float4*>(dst) = make_float4(
+          src[0], src[HW], src[2 * (size_t)HW], src[3 * (size_t)HW]);
     }
   }
 }
@@ -668,11 +732,12 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                         const bf16* __restrict__ offset,
                         const bf16* __restrict__ mask,
                         const bf16* __restrict__ weight,
-                        const bf16* __restrict__ gout, float* __restrict__ dxa,
+                        const bf16* __restrict__ gout,
                         float* __restrict__ mdc,
                         bf16* __restrict__ doffset, bf16* __restrict__ dmask,
                         float* __restrict__ dw_part, float* __restrict__ pdoff,
-                        float* __restrict__ pdmsk, Args a, int vec_gout) {
+                        float* __restrict__ pdmsk, uint4* __restrict__ colbuf,
+                        Args a, int vec_gout) {
   constexpr int NW = kTaps * CP;
   constexpr int NH = NW / 2;  // columns a warpgroup
   extern __shared__ __align__(128) unsigned char smem[];
@@ -681,11 +746,15 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   const int ocp = pl.ocp;
   const int work = pl.work;
   const Item it(blockIdx.x % work, a, cv);
-  const bool side = !WIDE || it.side;
+  // a bf16 item owns every Cout chunk (make_plan): it forms dcol and
+  // writes the sampling side's outputs
+  constexpr bool side = true;
   const int n_oc = WIDE ? pl.n_oc : 1;
+  // the split form: the column stored for dw_split_kernel, no dW here
+  const bool split = WIDE && pl.split;
   const int slot = blockIdx.x / work;
   const int slots = gridDim.x / work;
-  const BfLayout L = bf16_layout(CP, ocp, pl.gpc * kTaps);
+  const BfLayout L = bf16_layout(CP, ocp, pl.gpc * kTaps, split);
   unsigned char* w_s = smem + L.w;
   unsigned char* ga_s = smem + L.ga;
   unsigned char* gb_s = smem + L.gb;
@@ -702,7 +771,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                              (o & 7) * 2) = v;
   };
   const bool w_once = n_oc == 1;
-  if (w_once && side) stage_w<CP>(weight, a, it, 0, ocp, put_w);
+  if (w_once) stage_w<CP>(weight, a, it, 0, ocp, put_w);
   // gout's rows past the block's Cout chunk and the column's padding stay
   // zero
   for (int i = tid; i < 64 * kTilePix / 8; i += kThreads)
@@ -732,7 +801,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     __syncthreads();
     // gout rows o0 .. o0 + orows -> gb_s [o][px] (byte (px/8)*1024 + o*16 +
     // (px%8)*2): the A operand of this block's dW rows
-    for (int i = tid; i < it.orows * 8; i += kThreads) {
+    for (int i = tid; i < (split ? 0 : it.orows * 8); i += kThreads) {
       const int pc = i & 7;
       const int o = i >> 3;
       const bf16* src = g_img + (size_t)(it.o0 + o) * HWo + pc * 8;
@@ -751,7 +820,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       *reinterpret_cast<uint4*>(gb_s + pc * 1024 + o * 16) = v;
     }
 
-    if (side) {
+    {
       // dcol[px][n] = sum_o gout[o][px] * W[o][n], this warpgroup's half,
       // summed over the Cout chunks
       float acc[NH / 2];
@@ -809,8 +878,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 
     // c. the sampling side
     sample_tile<bf16, VW>(
-        xg + t.b * img, dxa ? dxa + t.b * img : nullptr,
-        mdc ? mdc + t.b * md_img + (size_t)t.pe * cv.Cg + it.j0 : nullptr,
+        xg + t.b * img, mdc + t.b * md_img + (size_t)t.pe * cv.Cg + it.j0,
         offset + t.b * offs_img + t.pe,
         mask ? mask + t.b * msk_img + t.pe : nullptr,
         side_out(doffset, dmask, WIDE ? pdoff : nullptr, pdmsk, a, it, t.b,
@@ -820,6 +888,13 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     fence_proxy_async();  // the column's stores, visible to wgmma
     __syncthreads();
 
+    if (split) {  // the column, as it lies in shared memory, for dW's kernel
+      uint4* dst = colbuf + (((size_t)tile * pl.tap_groups + it.tg) * pl.n_ci +
+                             it.ci) * (kTilePix * NW / 8);
+      for (int i = tid; i < kTilePix * NW / 8; i += kThreads)
+        dst[i] = reinterpret_cast<const uint4*>(col_s)[i];
+      continue;
+    }
     // d. dW[o][n] += sum_px gout[o][px] * col[px][n], this warpgroup's half
     fence_acc(acc_dw);
     wgmma_fence();
@@ -834,6 +909,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   // this block's dW slice -> its slot's partial [o][kk][c] (o in its Cout
   // chunk, kk < kt, c in its channel chunk); the finish kernel sums the
   // slots' partials
+  if (split) return;
   float* part = dw_part + ((size_t)slot * pl.tap_groups + it.tg) * a.Cout *
                               kTaps * cv.C;
   const int m0 = ((tid & 127) >> 5) * 16 + ((tid & 31) >> 2);
@@ -853,6 +929,101 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   }
 }
 
+// The split form's dW: block (item (tap group, channel chunk), Cout chunk
+// oc, split sp) contracts dW's rows oc * 64 .. + 64 over the tiles of its
+// split, [sp * per, (sp + 1) * per), from the stored columns, the product
+// of each tile added in registers, and stores them as split sp's partial
+// (the finish kernel sums the splits'). Each column is sampled once and
+// read n_oc times here, where the items of a Cout chunk each sampled it.
+template <int CP>
+__global__ void __launch_bounds__(kThreads)
+    dw_split_kernel(const bf16* __restrict__ gout,
+                    const uint4* __restrict__ colbuf,
+                    float* __restrict__ dw_part, Args a, int splits,
+                    int vec_gout) {
+  constexpr int NW = kTaps * CP;
+  constexpr int NH = NW / 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* col_s = smem;                     // 64 x NW, B of dW
+  unsigned char* gb_s = smem + kTilePix * NW * 2;  // 64 x 64, A of dW
+  const Conv cv = make_conv(a);
+  const Plan& pl = a.pl;
+  const Item it(blockIdx.x % pl.work, a, cv);
+  const int rest = blockIdx.x / pl.work;
+  const int oc = rest % pl.n_oc;
+  const int sp = rest / pl.n_oc;
+  const int o0 = oc * kChunk;
+  const int rows = min(kChunk, a.Cout - o0);
+  const int HWo = cv.HWo;
+  const int tiles_per_img = (HWo + kTilePix - 1) / kTilePix;
+  const int n_tiles = a.B * tiles_per_img;
+  const int per = (n_tiles + splits - 1) / splits;
+  const int t_end = min(n_tiles, (sp + 1) * per);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  float acc[NH / 2];
+#pragma unroll
+  for (int j = 0; j < NH / 2; ++j) acc[j] = 0.f;
+  for (int tile = sp * per; tile < t_end; ++tile) {
+    const int b = tile / tiles_per_img;
+    const int p0 = (tile - b * tiles_per_img) * kTilePix;
+    const bf16* g_img = gout + (size_t)b * a.Cout * HWo + p0;
+    __syncthreads();  // the last tile's wgmma are done with both buffers
+    const uint4* src = colbuf + (((size_t)tile * pl.tap_groups + it.tg) *
+                                     pl.n_ci + it.ci) * (kTilePix * NW / 8);
+    for (int i = tid; i < kTilePix * NW / 8; i += kThreads)
+      reinterpret_cast<uint4*>(col_s)[i] = __ldg(src + i);
+    // gout rows o0 .. o0 + 64 -> gb_s [o][px], zero past Cout and the image
+    for (int i = tid; i < kChunk * 8; i += kThreads) {
+      const int pc = i & 7;
+      const int o = i >> 3;
+      const bf16* g = g_img + (size_t)(o0 + o) * HWo + pc * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (o < rows) {
+        if (vec_gout && p0 + pc * 8 + 8 <= HWo) {
+          v = __ldg(reinterpret_cast<const uint4*>(g));
+        } else {
+          uint32_t h[8];
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+            h[r] = p0 + pc * 8 + r < HWo
+                       ? (uint32_t)__bfloat16_as_ushort(g[r]) : 0u;
+          v = make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16,
+                         h[4] | h[5] << 16, h[6] | h[7] << 16);
+        }
+      }
+      *reinterpret_cast<uint4*>(gb_s + pc * 1024 + o * 16) = v;
+    }
+    fence_proxy_async();
+    __syncthreads();
+    fence_acc(acc);
+    wgmma_fence();
+    wgmma_rows<NH>(acc, make_desc(gb_s, kTilePix * 16, 128),
+                   make_desc(col_s + wg * NH * 16, NW * 16, 128),
+                   kTilePix / 16, 2 * kTilePix, 2 * NW);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc(acc);
+  }
+  float* part = dw_part + ((size_t)sp * pl.tap_groups + it.tg) * a.Cout *
+                              kTaps * cv.C;
+  const int m0 = ((tid & 127) >> 5) * 16 + ((tid & 31) >> 2);
+  const int n0 = wg * NH + 2 * (tid & 3);
+#pragma unroll
+  for (int j = 0; j < NH / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = m0 + (e >> 1) * 8;
+      const int n = 8 * j + n0 + (e & 1);
+      const int kk = n / CP;
+      const int c = n - kk * CP;
+      if (o < rows && kk < it.kt && c < it.cw)
+        part[((size_t)(o0 + o) * kTaps + kk) * cv.C + it.c_lo + c] =
+            acc[4 * j + e];
+    }
+  }
+}
+
 // float32: the same work items, gathers and dx outputs; both contractions as
 // full-f32 FMA loops over Cout chunks of 64 rows (rows past Cout zero: one
 // instance a chunk width, NOC = 4, for the check path's few calls)
@@ -862,11 +1033,12 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ offset,
                        const float* __restrict__ mask,
                        const float* __restrict__ weight,
-                       const float* __restrict__ gout, float* __restrict__ dxa,
+                       const float* __restrict__ gout,
                        float* __restrict__ mdc,
                        float* __restrict__ doffset, float* __restrict__ dmask,
                        float* __restrict__ dw_part, float* __restrict__ pdoff,
-                       float* __restrict__ pdmsk, Args a, int) {
+                       float* __restrict__ pdmsk, uint4* __restrict__, Args a,
+                       int) {
   constexpr int NW = kTaps * CP;
   constexpr int OCP = NOC * 16;
   constexpr int NI = NW / 16;  // columns a thread: dcol and dW
@@ -961,8 +1133,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     sample_tile<float, VW>(
-        xg + t.b * img, dxa ? dxa + t.b * img : nullptr,
-        mdc ? mdc + t.b * md_img + (size_t)t.pe * cv.Cg + it.j0 : nullptr,
+        xg + t.b * img, mdc + t.b * md_img + (size_t)t.pe * cv.Cg + it.j0,
         offset + t.b * offs_img + t.pe,
         mask ? mask + t.b * msk_img + t.pe : nullptr,
         side_out(doffset, dmask, pdoff, pdmsk, a, it, t.b, t.pe), tab,
@@ -1148,39 +1319,338 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// dxa (B, G, H, W, Cg) f32 -> dx (B, C, H, W) in T (the exact mode:
-// dxa not null); then dW: for each (o, c, k), 8 lanes sum the partials of
-// the slots of k's tap group and write dweight (Cout, C, K) in T; then,
-// where groups span chunks (n_sub > 1), doffset and dmask as the sums of
-// their slices' partials, in slice order
+// ---- the exact mode: sources sorted by key -----------------------------------
+
+// The key of a source whose sample lies at (oy + sy + ty, ox + sx + tx):
+// its floor corner (y0, x0) as (y0 + 1) * (W + 1) + x0 + 1, or -1 where the
+// corner lies outside [-1, H-1] x [-1, W-1] (no corner of it touches the
+// image; NaN offsets too). The sum is taken in float, exact for the
+// integers it holds, so a huge offset never reaches an int conversion.
+__device__ __forceinline__ int source_key(float ty, float tx, int py, int px,
+                                          int H, int W) {
+  const float yf = (float)py + floorf(ty);
+  const float xf = (float)px + floorf(tx);
+  if (!(yf >= -1.f && yf <= (float)(H - 1) && xf >= -1.f &&
+        xf <= (float)(W - 1)))
+    return -1;
+  return ((int)yf + 1) * (W + 1) + (int)xf + 1;
+}
+
+// Source i of all B * G * K * HWo, ordered (plane = b * G + g, k, p): its
+// plane, its index s = k * HWo + p in the plane, its offsets and key
+struct Source {
+  int plane, s, key;
+  float ty, tx;
+  template <typename T>
+  __device__ __forceinline__ Source(long long i, const T* __restrict__ off,
+                                    const Args& a, int K, int HWo) {
+    const long long row = i / HWo;  // plane * K + k
+    const int p = (int)(i - row * HWo);
+    const int k = (int)(row % K);
+    plane = (int)(row / K);
+    s = k * HWo + p;
+    ty = to_f(__ldg(off + 2 * row * HWo + p));
+    tx = to_f(__ldg(off + (2 * row + 1) * HWo + p));
+    const int ky = k / a.kw;
+    const int oy = p / a.Wo;
+    key = source_key(ty, tx, oy + ky * a.dil - a.pad,
+                     p - oy * a.Wo + (k - ky * a.kw) * a.dil - a.pad, a.H,
+                     a.W);
+  }
+};
+
+// The lists, in four passes over the call's sources (plane = (image,
+// group), a row of NK + 1 entries of `keys` a plane, zeroed first):
+//   1. sort_count_kernel: each source claims the next rank of its key
+//      (an integer atomic on entry key) and stores it (`rank`, in source
+//      order); the ranks' order within a key follows the atomics;
+//   2. sort_scan_kernel: each row's counts -> the exclusive prefix sums,
+//      the lists' starts (entry NK: the plane's total), a block a plane;
+//   3. sort_place_kernel: each source's entry (its index s = k * HWo + p
+//      and its offsets ty, tx as given: one 8-byte store in bf16, 16 in
+//      f32) at start + rank of its key's list, [row[key], row[key + 1]), in
+//      the order of the ranks;
+//   4. sort_lists_kernel: each list in ascending source index.
 template <typename T>
-__global__ void finish_kernel(const float* __restrict__ dxa,
-                              T* __restrict__ dx,
-                              const float* __restrict__ dw_part,
+__global__ void sort_count_kernel(const T* __restrict__ offset,
+                                  int* __restrict__ keys,
+                                  int* __restrict__ rank, Args a,
+                                  long long n_src) {
+  const int K = a.kh * a.kw, HWo = a.Ho * a.Wo;
+  const long long nk1 = (long long)(a.H + 1) * (a.W + 1) + 1;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_src; i += (long long)gridDim.x * blockDim.x) {
+    const Source src(i, offset, a, K, HWo);
+    rank[i] = src.key >= 0 ? atomicAdd(keys + src.plane * nk1 + src.key, 1)
+                           : -1;
+  }
+}
+
+constexpr int kScanThreads = 1024;
+
+// One row: entries [0, NK] -> their exclusive prefix sums, 4 entries a
+// thread and 4096 a step, the carry between steps
+__global__ void __launch_bounds__(kScanThreads)
+    sort_scan_kernel(int* __restrict__ keys, int n) {
+  __shared__ int warp_sum[kScanThreads / 32];
+  __shared__ int step_total;
+  int* row = keys + (size_t)blockIdx.x * n;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int carry = 0;
+  for (int base = 0; base < n; base += 4 * kScanThreads) {
+    int v[4], sum = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = base + 4 * tid + j;
+      v[j] = i < n ? row[i] : 0;
+      sum += v[j];
+    }
+    int incl = sum;  // inclusive over the warp's threads
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += t;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      const int own = warp_sum[lane];
+      int w_incl = own;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, w_incl, d);
+        if (lane >= d) w_incl += t;
+      }
+      warp_sum[lane] = w_incl - own;
+      if (lane == 31) step_total = w_incl;
+    }
+    __syncthreads();
+    int run = carry + warp_sum[warp] + incl - sum;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = base + 4 * tid + j;
+      if (i < n) row[i] = run;
+      run += v[j];
+    }
+    carry += step_total;
+    __syncthreads();  // warp_sum and step_total are rewritten next step
+  }
+}
+
+// A list entry: the source index and its offsets as given, from which the
+// gather takes the fractions ty - floor(ty), tx - floor(tx) as the main
+// kernel does. bf16: int2 (s, the two offsets' bits); f32: int4.
+template <typename T>
+struct Entry;
+template <>
+struct Entry<bf16> {
+  using V = int2;
+  static __device__ __forceinline__ V make(int s, float ty, float tx) {
+    // ty, tx came from bf16: the conversion back is exact
+    return make_int2(s, (int)((uint32_t)__bfloat16_as_ushort(
+                                  __float2bfloat16_rn(ty)) |
+                              ((uint32_t)__bfloat16_as_ushort(
+                                   __float2bfloat16_rn(tx)) << 16)));
+  }
+  static __device__ __forceinline__ V none() { return make_int2(0, 0); }
+  static __device__ __forceinline__ float ty(V e) {
+    return __bfloat162float(__ushort_as_bfloat16((uint16_t)(e.y & 0xffff)));
+  }
+  static __device__ __forceinline__ float tx(V e) {
+    return __bfloat162float(__ushort_as_bfloat16((uint16_t)((uint32_t)e.y >> 16)));
+  }
+};
+template <>
+struct Entry<float> {
+  using V = int4;
+  static __device__ __forceinline__ V make(int s, float ty, float tx) {
+    return make_int4(s, __float_as_int(ty), __float_as_int(tx), 0);
+  }
+  static __device__ __forceinline__ V none() { return make_int4(0, 0, 0, 0); }
+  static __device__ __forceinline__ float ty(V e) { return __int_as_float(e.y); }
+  static __device__ __forceinline__ float tx(V e) { return __int_as_float(e.z); }
+};
+
+template <typename T>
+__global__ void sort_place_kernel(const T* __restrict__ offset,
+                                  const int* __restrict__ keys,
+                                  const int* __restrict__ rank,
+                                  typename Entry<T>::V* __restrict__ ent,
+                                  Args a, long long n_src) {
+  const int K = a.kh * a.kw, HWo = a.Ho * a.Wo;
+  const long long nk1 = (long long)(a.H + 1) * (a.W + 1) + 1;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_src; i += (long long)gridDim.x * blockDim.x) {
+    const int r = rank[i];
+    if (r < 0) continue;
+    const Source src(i, offset, a, K, HWo);
+    const size_t at = (size_t)src.plane * K * HWo +
+                      __ldg(keys + src.plane * nk1 + src.key) + r;
+    ent[at] = Entry<T>::make(src.s, src.ty, src.tx);
+  }
+}
+
+// n <= N entries e[0 .. n) in ascending source index: Batcher's bitonic
+// network over registers (every index a constant once unrolled), each
+// entry moved whole
+template <int N, typename V>
+__device__ __forceinline__ void sort_entries(V* __restrict__ e, int n) {
+  V v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i < n) {
+      v[i] = e[i];
+    } else {
+      v[i] = e[0];
+      v[i].x = 0x7fffffff;  // past every index: sorts last
+    }
+  }
+#pragma unroll
+  for (int k = 2; k <= N; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int l = i ^ j;
+        if (l > i) {
+          const bool swap = (v[i].x > v[l].x) == ((i & k) == 0);
+          const V a = v[i], b = v[l];
+          v[i] = swap ? b : a;
+          v[l] = swap ? a : b;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (i < n) e[i] = v[i];
+}
+
+// Each key's list sorted by source index, a thread a key: up to 16
+// entries in registers, a longer list by insertion in place (O(L^2), only
+// where offsets send many sources to one corner)
+template <typename V>
+__global__ void sort_lists_kernel(const int* __restrict__ keys,
+                                  V* __restrict__ ent, int nk,
+                                  int per_plane, long long n_keys) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_keys; i += (long long)gridDim.x * blockDim.x) {
+    const long long plane = i / nk;
+    const int* row = keys + plane * (nk + 1) + (i - plane * nk);
+    const int lo = row[0], n = row[1] - lo;
+    V* e = ent + plane * per_plane + lo;
+    if (n <= 1) {
+      continue;
+    } else if (n <= 4) {
+      sort_entries<4>(e, n);
+    } else if (n <= 8) {
+      sort_entries<8>(e, n);
+    } else if (n <= 16) {
+      sort_entries<16>(e, n);
+    } else {
+      for (int j = 1; j < n; ++j) {
+        const V r = e[j];
+        int at = j;
+        while (at > 0 && e[at - 1].x > r.x) {
+          e[at] = e[at - 1];
+          --at;
+        }
+        e[at] = r;
+      }
+    }
+  }
+}
+
+constexpr int kGatherIlp = 4;  // list entries a gather thread loads together
+
+// dx by the sorted lists (the exact mode): thread (plane, q, chunk of CW
+// channels), the chunks of one pixel side by side; the pixel's four
+// candidate keys (qy - 1 + ry, qx - 1 + rx) in ascending order, each of the
+// sources' corner (1 - ry, 1 - rx), each list in its (sorted) order, 4
+// entries' loads in flight at a time; the sum rounded once into T, written
+// NCHW. (A thread for a 2 x 2 block of pixels, which reads each entry once
+// for four of them, was slower at B=8: 0.37 against 0.34 ms, PERF.md.)
+template <typename T, int CW>
+__global__ void __launch_bounds__(kThreads)
+    dx_sorted_kernel(const int* __restrict__ keys,
+                     const typename Entry<T>::V* __restrict__ ent,
+                     const float* __restrict__ mdc, T* __restrict__ dx,
+                     Args a, long long n_threads) {
+  const int Cg = a.C / a.G;
+  const int chunks = Cg / CW;
+  const int HW = a.H * a.W;
+  const int per_plane = a.kh * a.kw * a.Ho * a.Wo;
+  const int nk1 = (a.H + 1) * (a.W + 1) + 1;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_threads; i += (long long)gridDim.x * blockDim.x) {
+    const long long pq = i / chunks;
+    const int c0 = (int)(i - pq * chunks) * CW;
+    const int plane = (int)(pq / HW);
+    const int q = (int)(pq - (long long)plane * HW);
+    const int qy = q / a.W;
+    const int qx = q - qy * a.W;
+    const int* row = keys + (size_t)plane * nk1 + qy * (a.W + 1) + qx;
+    using V = typename Entry<T>::V;
+    const V* e = ent + (size_t)plane * per_plane;
+    const float* md = mdc + (size_t)plane * per_plane * Cg + c0;
+    float acc[CW];
+#pragma unroll
+    for (int j = 0; j < CW; ++j) acc[j] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int key = (r >> 1) * (a.W + 1) + (r & 1);
+      const int lo = row[key], hi = row[key + 1];
+      for (int e0 = lo; e0 < hi; e0 += kGatherIlp) {
+        const int n = min(kGatherIlp, hi - e0);
+        V ev[kGatherIlp];
+        float mv[kGatherIlp][CW];
+#pragma unroll
+        for (int u = 0; u < kGatherIlp; ++u)
+          ev[u] = u < n ? __ldg(e + e0 + u) : Entry<T>::none();
+#pragma unroll
+        for (int u = 0; u < kGatherIlp; ++u) {
+          const float* src = md + (size_t)ev[u].x * Cg;
+          if constexpr (CW == 4) {
+            const float4 m4 = __ldg(reinterpret_cast<const float4*>(src));
+            mv[u][0] = m4.x; mv[u][1] = m4.y; mv[u][2] = m4.z; mv[u][3] = m4.w;
+          } else {
+            mv[u][0] = __ldg(src);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kGatherIlp; ++u) {
+          const float ty = Entry<T>::ty(ev[u]), tx = Entry<T>::tx(ev[u]);
+          const float ly = ty - floorf(ty), lx = tx - floorf(tx);
+          const float w = ((r >> 1) ? 1.f - ly : ly) * ((r & 1) ? 1.f - lx : lx);
+          if (u < n && w != 0.f) {
+#pragma unroll
+            for (int j = 0; j < CW; ++j) acc[j] = fmaf(w, mv[u][j], acc[j]);
+          }
+        }
+      }
+    }
+    const int b = plane / a.G;
+    const int g = plane - b * a.G;
+    T* out = dx + ((size_t)b * a.C + g * Cg + c0) * HW + q;
+#pragma unroll
+    for (int j = 0; j < CW; ++j) out[(size_t)j * HW] = from_f<T>(acc[j]);
+  }
+}
+
+// dW: for each (o, c, k), 8 lanes sum the partials of the slots of k's tap
+// group and write dweight (Cout, C, K) in T; then, where groups span chunks
+// (n_sub > 1), doffset and dmask as the sums of their slices' partials, in
+// slice order
+template <typename T>
+__global__ void finish_kernel(const float* __restrict__ dw_part,
                               T* __restrict__ dweight,
                               const float* __restrict__ pdoff,
                               const float* __restrict__ pdmsk,
                               T* __restrict__ doffset, T* __restrict__ dmask,
-                              int B, int G, int Cg, int HW, int cout, int C,
-                              int K, int groups, int slots, int vec4,
+                              int cout, int C, int K, int groups, int slots,
                               long long n_msk, int n_sub) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = dxa ? (long long)B * G * HW : 0;
-  for (long long i = start; i < total; i += stride) {
-    const long long bg = i / HW;
-    T* dst = dx + bg * Cg * HW + (i - bg * HW);
-    const float* src = dxa + i * Cg;
-    if (vec4) {
-      const float4 v = *reinterpret_cast<const float4*>(src);
-      dst[0] = from_f<T>(v.x);
-      dst[HW] = from_f<T>(v.y);
-      dst[2 * (size_t)HW] = from_f<T>(v.z);
-      dst[3 * (size_t)HW] = from_f<T>(v.w);
-    } else {
-      for (int c = 0; c < Cg; ++c) dst[(size_t)c * HW] = from_f<T>(src[c]);
-    }
-  }
   const long long n_dw = (long long)cout * C * K;
   const int l8 = threadIdx.x & 7;
   const unsigned lanes = 0xffu << (threadIdx.x & 24);
@@ -1249,9 +1719,10 @@ cudaError_t persistent_grid(K kernel, size_t smem, const Args& a,
 // The main kernels' pointer arguments
 struct Bufs {
   const void *xg, *offset, *mask, *weight, *gout;
-  float *dxa, *mdc;
+  float* mdc;
   void *doffset, *dmask;
   float *dw_part, *pdoff, *pdmsk;
+  uint4* colbuf;
 };
 
 template <typename T, class K>
@@ -1265,8 +1736,9 @@ cudaError_t launch_main(K kernel, size_t smem, const Bufs& p, const Args& a,
   kernel<<<*grid, kThreads, smem, s>>>(
       static_cast<const T*>(p.xg), static_cast<const T*>(p.offset),
       static_cast<const T*>(p.mask), static_cast<const T*>(p.weight),
-      static_cast<const T*>(p.gout), p.dxa, p.mdc, static_cast<T*>(p.doffset),
-      static_cast<T*>(p.dmask), p.dw_part, p.pdoff, p.pdmsk, a, vec_gout);
+      static_cast<const T*>(p.gout), p.mdc, static_cast<T*>(p.doffset),
+      static_cast<T*>(p.dmask), p.dw_part, p.pdoff, p.pdmsk, p.colbuf, a,
+      vec_gout);
   return cudaGetLastError();
 }
 
@@ -1274,11 +1746,31 @@ template <int CP, bool WIDE>
 cudaError_t launch_bf16_vw(bool vec4, const Bufs& p, const Args& a,
                            int max_slots, int vec_gout, int* grid,
                            cudaStream_t s) {
-  const size_t smem = bf16_layout(CP, a.pl.ocp, a.pl.gpc * kTaps).total;
+  const size_t smem =
+      bf16_layout(CP, a.pl.ocp, a.pl.gpc * kTaps, WIDE && a.pl.split).total;
   return vec4 ? launch_main<bf16>(dcn_bwd_bf16_kernel<CP, 4, WIDE>, smem, p,
                                   a, max_slots, vec_gout, grid, s)
               : launch_main<bf16>(dcn_bwd_bf16_kernel<CP, 1, WIDE>, smem, p,
                                   a, max_slots, vec_gout, grid, s);
+}
+
+// The split form's dW kernel: as many splits of the tiles as make ~4
+// blocks an SM, at most the slots the dW partials have room for
+template <int CP>
+cudaError_t launch_dw_split(const Bufs& p, const Args& a, int max_slots,
+                            int vec_gout, int* splits, cudaStream_t s) {
+  const int n_tiles = a.B * ((a.Ho * a.Wo + kTilePix - 1) / kTilePix);
+  const int blocks_a_split = a.pl.work * a.pl.n_oc;
+  int sp = (4 * device_attr(cudaDevAttrMultiProcessorCount) +
+            blocks_a_split - 1) / blocks_a_split;
+  if (sp > n_tiles) sp = n_tiles;
+  if (sp > max_slots) sp = max_slots;
+  if (sp < 1) sp = 1;
+  *splits = sp;
+  const size_t smem = (size_t)kTilePix * kTaps * CP * 2 + 64 * kTilePix * 2;
+  dw_split_kernel<CP><<<blocks_a_split * sp, kThreads, smem, s>>>(
+      static_cast<const bf16*>(p.gout), p.colbuf, p.dw_part, a, sp, vec_gout);
+  return cudaGetLastError();
 }
 
 template <int CP>
@@ -1336,34 +1828,86 @@ cudaError_t launch_gather(bool vec4, const void* offset, const float* mdc,
              : launch_gather_m<T, 1, u64>(offset, mdc, dx, a, R, s);
 }
 
+// The exact mode's dx: the sort's four passes over the offsets, then the
+// sorted gather from the m * dcol scratch
+template <typename T>
+cudaError_t sorted_dx(const void* offset, const float* mdc, void* dx,
+                      float* work, const Scratch& sc, bool vec4,
+                      const Args& a, int sms, cudaStream_t s) {
+  const int K = a.kh * a.kw;
+  const int HWo = a.Ho * a.Wo;
+  const int nk = (a.H + 1) * (a.W + 1);
+  const int planes = a.B * a.G;
+  const long long n_src = (long long)planes * K * HWo;
+  // the sort's arrays from a 16-byte aligned base (the entries are int4;
+  // the workspace holds 3 floats of slack for it)
+  float* base = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(work) + 15) & ~uintptr_t(15));
+  int* keys = reinterpret_cast<int*>(base + sc.keys);
+  using V = typename Entry<T>::V;
+  V* ent = reinterpret_cast<V*>(base + sc.ent);
+  int* rank = reinterpret_cast<int*>(base + sc.rank);
+  const T* off = static_cast<const T*>(offset);
+  auto blocks = [&](long long n) {
+    long long b = (n + 255) / 256;
+    if (b > 64LL * sms) b = 64LL * sms;
+    return (unsigned)(b < 1 ? 1 : b);
+  };
+  cudaError_t err = cudaMemsetAsync(
+      keys, 0, (size_t)planes * (nk + 1) * sizeof(int), s);
+  if (err != cudaSuccess) return err;
+  if (n_src > 0) {
+    sort_count_kernel<T><<<blocks(n_src), 256, 0, s>>>(off, keys, rank, a,
+                                                       n_src);
+    sort_scan_kernel<<<planes, kScanThreads, 0, s>>>(keys, nk + 1);
+    sort_place_kernel<T><<<blocks(n_src), 256, 0, s>>>(off, keys, rank, ent,
+                                                       a, n_src);
+    const long long n_keys = (long long)planes * nk;
+    sort_lists_kernel<V><<<blocks(n_keys), 256, 0, s>>>(keys, ent, nk,
+                                                        K * HWo, n_keys);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int Cg = a.C / a.G;
+  const int cw = vec4 ? 4 : 1;
+  const long long n_threads = (long long)planes * a.H * a.W * (Cg / cw);
+  if (n_threads == 0) return cudaSuccess;
+  if (vec4)
+    dx_sorted_kernel<T, 4><<<blocks(n_threads), kThreads, 0, s>>>(
+        keys, ent, mdc, static_cast<T*>(dx), a, n_threads);
+  else
+    dx_sorted_kernel<T, 1><<<blocks(n_threads), kThreads, 0, s>>>(
+        keys, ent, mdc, static_cast<T*>(dx), a, n_threads);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t run_all(const void* x, void* xg, const void* offset,
                     const void* mask, const void* weight, const void* gout,
                     void* dx, void* doffset, void* dmask, void* dweight,
-                    float* dxa, float* work, const Args& a, cudaStream_t s) {
+                    float* work, const Args& a, cudaStream_t s) {
   const Plan& pl = a.pl;
   const int Cg = a.C / a.G;
   const int HW = a.H * a.W;
   const int K = a.kh * a.kw;
   const int sms = device_attr(cudaDevAttrMultiProcessorCount);
   const int slot_cap = max_slots(pl, sms);
-  // the dx gather's window radius, or 0 for the scatter into dxa
+  // the dx gather's window radius, or 0 for the exact mode's sorted lists
   const int R = gather_radius(a.dmax);
-  if (R < 0 || (R == 0 && dxa == nullptr)) return cudaErrorInvalidValue;
-  if (R > 0) dxa = nullptr;
-  const Scratch sc = scratch_floats(pl, slot_cap, a.B, a.C, a.Cout, a.G, K,
-                                    a.Ho * a.Wo, R > 0);
-  float* mdc = R > 0 ? work + sc.md : nullptr;
-  // 0. the channels-last copy of x (and the scatter's zeroed accumulator)
+  if (R < 0) return cudaErrorInvalidValue;
+  const Scratch sc = scratch_floats(pl, slot_cap, a.B, a.C, a.Cout, a.H, a.W,
+                                    a.G, K, a.Ho * a.Wo, R == 0);
+  float* mdc = work + sc.md;
+  // 0. the channels-last copy of x
   const long long items = (long long)a.B * a.G * HW;
   const bool vec4 = Cg % 4 == 0 && aligned(xg, 4 * sizeof(T)) &&
-                    (dxa == nullptr || aligned(dxa, 16)) &&
-                    (mdc == nullptr || aligned(mdc, 16));
+                    aligned(mdc, 16);
   if (items > 0) {
-    long long blocks = (items + 255) / 256;
+    // a thread (b, g, pixel) for Cg = 4, else a thread an element
+    long long blocks = (items * (Cg == 4 && vec4 ? 1 : Cg) + 255) / 256;
     if (blocks > 16LL * sms) blocks = 16LL * sms;
     prep_kernel<T><<<(unsigned)blocks, 256, 0, s>>>(
-        static_cast<const T*>(x), static_cast<T*>(xg), dxa, a.B, a.G, Cg, HW,
+        static_cast<const T*>(x), static_cast<T*>(xg), a.B, a.G, Cg, HW,
         Cg == 4 && vec4 ? 1 : 0);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -1371,9 +1915,14 @@ cudaError_t run_all(const void* x, void* xg, const void* offset,
   // 1. the main kernel, for chunks padded to 16, 32, 48 or 64 channels
   float* pdoff = sc.doff ? work + sc.dw : nullptr;
   float* pdmsk = sc.doff && mask ? work + sc.dw + sc.doff : nullptr;
-  const Bufs p{xg, offset, mask, weight, gout, dxa, mdc, doffset, dmask,
-               work, pdoff, pdmsk};
+  // the stored columns of the split form, from the 16-byte aligned base
+  float* base = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(work) + 15) & ~uintptr_t(15));
+  const Bufs p{xg, offset, mask, weight, gout, mdc, doffset, dmask,
+               work, pdoff, pdmsk,
+               pl.split ? reinterpret_cast<uint4*>(base + sc.col) : nullptr};
   int grid = 0;
+  int dw_slots = 0;  // the dW partials the finish kernel sums
   cudaError_t err = cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 2) {
     const int vg = (a.Ho * a.Wo) % 8 == 0 && aligned(gout, 16);
@@ -1382,6 +1931,14 @@ cudaError_t run_all(const void* x, void* xg, const void* offset,
       case 32: err = launch_bf16<32>(vec4, p, a, slot_cap, vg, &grid, s); break;
       case 48: err = launch_bf16<48>(vec4, p, a, slot_cap, vg, &grid, s); break;
       case 64: err = launch_bf16<64>(vec4, p, a, slot_cap, vg, &grid, s); break;
+    }
+    if (err == cudaSuccess && pl.split) {
+      switch (pl.cp) {
+        case 16: err = launch_dw_split<16>(p, a, slot_cap, vg, &dw_slots, s); break;
+        case 32: err = launch_dw_split<32>(p, a, slot_cap, vg, &dw_slots, s); break;
+        case 48: err = launch_dw_split<48>(p, a, slot_cap, vg, &dw_slots, s); break;
+        case 64: err = launch_dw_split<64>(p, a, slot_cap, vg, &dw_slots, s); break;
+      }
     }
   } else {
     switch (pl.cp) {
@@ -1392,25 +1949,25 @@ cudaError_t run_all(const void* x, void* xg, const void* offset,
     }
   }
   if (err != cudaSuccess) return err;
-  // 2. dx by the gather, in windowed mode
-  if (R > 0 && HW > 0) {
-    err = launch_gather<T>(vec4, offset, mdc, dx, a, R, s);
+  if (!pl.split) dw_slots = grid / pl.work;
+  // 2. dx: the gather in windowed mode, the sorted lists in the exact mode
+  if (HW > 0) {
+    err = R > 0 ? launch_gather<T>(vec4, offset, mdc, dx, a, R, s)
+                : sorted_dx<T>(offset, mdc, dx, work, sc, vec4, a, sms, s);
     if (err != cudaSuccess) return err;
   }
   // 3. the dW partials summed into dweight, the doffset and dmask partials
-  //    summed where groups span chunks, and the scatter's dx to NCHW in T
+  //    summed where groups span chunks
   const long long n_msk = (long long)a.B * a.G * K * a.Ho * a.Wo;
-  const long long dw_threads = 8LL * a.Cout * a.C * K;
-  long long need = dxa && items > dw_threads ? items : dw_threads;
+  long long need = 8LL * a.Cout * a.C * K;
   if (pl.n_sub > 1 && 2 * n_msk > need) need = 2 * n_msk;
   long long blocks = (need + 255) / 256;
   if (blocks > 16LL * sms) blocks = 16LL * sms;
   if (blocks < 1) blocks = 1;
   finish_kernel<T><<<(unsigned)blocks, 256, 0, s>>>(
-      dxa, static_cast<T*>(dx), work, static_cast<T*>(dweight), pdoff,
-      pdmsk, static_cast<T*>(doffset), static_cast<T*>(dmask), a.B, a.G, Cg,
-      HW, a.Cout, a.C, K, pl.tap_groups, grid / pl.work,
-      Cg == 4 && vec4 ? 1 : 0, n_msk, pl.n_sub);
+      work, static_cast<T*>(dweight), pdoff, pdmsk, static_cast<T*>(doffset),
+      static_cast<T*>(dmask), a.Cout, a.C, K, pl.tap_groups, dw_slots,
+      n_msk, pl.n_sub);
   return cudaGetLastError();
 }
 
@@ -1418,35 +1975,44 @@ cudaError_t run_all(const void* x, void* xg, const void* offset,
 
 // float32 elements of the scratch `work` that fami_dcn_bwd needs for this
 // call on the current device: the dW partials, the doffset / dmask partials
-// where an offset group has more than 64 channels, and in windowed mode
-// (max_offset > 0) the dx gather's m * dcol.
-extern "C" long long fami_dcn_bwd_workspace(int B, int C, int Cout, int Ho,
-                                            int Wo, int kh, int kw,
-                                            int groups, float max_offset) {
+// where an offset group has more than 64 channels, the dx gathers' m *
+// dcol, and in the exact mode (max_offset <= 0) the sort's arrays, whose
+// size depends on the input plane H x W.
+extern "C" long long fami_dcn_bwd_workspace(int B, int C, int Cout, int H,
+                                            int W, int Ho, int Wo, int kh,
+                                            int kw, int groups,
+                                            float max_offset) {
   if (groups < 1 || C < 1 || Cout < 1 || C % groups != 0) return 0;
-  const Plan pl = make_plan(C, Cout, kh * kw, groups);
-  const int slots = max_slots(pl, device_attr(cudaDevAttrMultiProcessorCount));
-  return scratch_floats(pl, slots, B, C, Cout, groups, kh * kw, Ho * Wo,
-                        gather_radius(max_offset) != 0).total;
+  // the larger of the two types' plans (the bf16 split form has more
+  // slots and stores its columns)
+  const int sms = device_attr(cudaDevAttrMultiProcessorCount);
+  long long most = 0;
+  for (int bf = 0; bf < 2; ++bf) {
+    const Plan pl = make_plan(C, Cout, kh * kw, groups, bf == 1);
+    const long long n =
+        scratch_floats(pl, max_slots(pl, sms), B, C, Cout, H, W, groups,
+                       kh * kw, Ho * Wo, gather_radius(max_offset) == 0)
+            .total;
+    if (n > most) most = n;
+  }
+  return most;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, x_grouped, offset, mask, weight,
 // gout and the four gradients share it). Scratch the caller allocates, none
-// of it initialised: x_grouped of x's size and type; dx_acc, in the exact
-// mode (max_offset <= 0: no clamp) float32 of x's element count, the
-// scatter's accumulator, else null (the gather reads none); work, float32
-// of fami_dcn_bwd_workspace elements. mask and dmask may be null together
+// of it initialised: x_grouped of x's size and type; work, float32 of
+// fami_dcn_bwd_workspace elements. mask and dmask may be null together
 // (DCNv1). Returns a cudaError_t; cudaErrorInvalidValue for arguments no
 // kernel takes (groups not dividing C, an unknown dtype, no channels, a
-// window over kMaxGatherR = 31 px, no dx_acc in the exact mode).
+// window over kMaxGatherR = 31 px).
 extern "C" int fami_dcn_bwd(const void* x, void* x_grouped,
                             const void* offset, const void* mask,
                             const void* weight, const void* gout, void* dx,
                             void* doffset, void* dmask, void* dweight,
-                            void* dx_acc, void* work, int dtype, int B, int C,
-                            int H, int W, int Cout, int Ho, int Wo, int kh,
-                            int kw, int pad, int dil, int groups,
-                            float max_offset, void* stream) {
+                            void* work, int dtype, int B, int C, int H, int W,
+                            int Cout, int Ho, int Wo, int kh, int kw, int pad,
+                            int dil, int groups, float max_offset,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (groups < 1 || C < 1 || Cout < 1 || C % groups != 0 ||
       (dtype != 0 && dtype != 1))
@@ -1455,12 +2021,11 @@ extern "C" int fami_dcn_bwd(const void* x, void* x_grouped,
   a.B = B; a.C = C; a.H = H; a.W = W; a.Ho = Ho; a.Wo = Wo; a.kh = kh;
   a.kw = kw; a.pad = pad; a.dil = dil; a.G = groups; a.Cout = Cout;
   a.dmax = max_offset;
-  a.pl = make_plan(C, Cout, kh * kw, groups);
-  float* dxa = static_cast<float*>(dx_acc);
+  a.pl = make_plan(C, Cout, kh * kw, groups, dtype == 1);
   float* wk = static_cast<float*>(work);
   if (dtype == 0)
     return (int)run_all<float>(x, x_grouped, offset, mask, weight, gout, dx,
-                               doffset, dmask, dweight, dxa, wk, a, s);
+                               doffset, dmask, dweight, wk, a, s);
   return (int)run_all<bf16>(x, x_grouped, offset, mask, weight, gout, dx,
-                            doffset, dmask, dweight, dxa, wk, a, s);
+                            doffset, dmask, dweight, wk, a, s);
 }

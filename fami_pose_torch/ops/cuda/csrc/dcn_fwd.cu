@@ -57,7 +57,7 @@
 //      measured and dropped: it allows one block a SM, and the kernel was
 //      14% (B=8) and 19% (B=32) slower with it.
 //   2. Every other width (bf16 with another Cout or more than 576
-//      reduction rows, and every float32 call) takes the chunked form,
+//      reduction rows, and every float32 call) takes the chunked forms,
 //      whose shared memory does not grow with C or Cout. pack_kernel first
 //      writes W into a workspace, cut into (Cout tile, chunk) blocks of
 //      kChunkRows = 128 consecutive reduction rows by NT columns (bf16:
@@ -65,39 +65,52 @@
 //      most 64, [r][o]), each block zero past C and Cout, so that a chunk's
 //      W is one straight 16-byte copy; and the table of gather units in
 //      reduction order (r = k*C + c, VW channels a unit), which the kernels
-//      read through L1. A work item is (image, 64-pixel tile, Cout tile):
-//      a block per (pixel tile, Cout tile) samples its tile again for each
-//      Cout tile, which keeps the accumulators at NT / 4 = 16 registers a
-//      thread for any Cout. The other design, a block that keeps a column
-//      chunk and loops over the Cout tiles, holds Cout / 4 accumulators a
-//      thread across the chunks (96 at Cout = 384, beside the ~100 of the
-//      sample loop: past the 128 of two blocks an SM) and still needs a
-//      tile loop past Cout = 1024. Sampling again costs little at the
-//      branch maps: six Cout tiles at C = 384, 12x9 take 1.03x one
-//      (tools/dcn_turns.py, PERF.md).
-//      dcn_fwd_bf16_chunked_kernel (two blocks an SM, 82,944 B): two
-//      column buffers and two W buffers; while the wgmma of chunk q run
-//      asynchronously on one pair, all threads copy W's chunk q + 1 and
-//      sample the column chunk q + 1 into the other, then wait; the
-//      accumulators stay in registers across the chunks.
+//      read through L1. A work item is (image, 64-pixel tile, split): the
+//      split's chunks of the reduction. Where pixel tiles are few (the
+//      branch maps: 16 tiles at 12x9, B = 8), the reduction is cut into as
+//      many splits as fill two waves of two blocks an SM (make_plan); each
+//      split writes an f32 partial of the output and sum_kernel adds the
+//      splits' partials in split order and rounds once (no float
+//      atomics). Before, an item was (tile, Cout tile) walking every chunk
+//      in sequence: 96 items for 264 block slots at C = 384, 12x9, each a
+//      chain of 27 chunks, and each Cout tile sampled the column again.
+//      dcn_fwd_bf16_chunked_kernel (one Cout tile; two blocks an SM,
+//      82,944 B): two column and two W buffers; while the wgmma of chunk q
+//      run asynchronously on one pair, all threads copy W's chunk q + 1
+//      and sample the column chunk q + 1 into the other, then wait; the
+//      accumulators stay in registers across the split's chunks.
+//      dcn_fwd_bf16_staged_kernel (more than one Cout tile, the same
+//      82,944 B): the item's chunks, at most kStagedChunks = 2, are
+//      sampled once into the two column buffers, then every Cout tile is
+//      contracted from them, W's blocks streaming through the two W
+//      buffers (the next copied while the wgmma of this one run), so a
+//      pixel is sampled once whatever Cout is.
 //      dcn_fwd_f32_kernel (float32 inputs: the card-vs-CPU checks): the
-//      same chunks, W's chunk and the column chunk [r][64] in f32 shared
+//      same items, W's chunk and the column chunk [r][64] in f32 shared
 //      memory, contracted on the CUDA cores with full-f32 FMAs (each thread
-//      4 pixels x NT/16 channels); TF32 would miss the 1e-4 tolerance of
-//      those checks.
+//      4 pixels x NT/16 channels); with more than one Cout tile an item
+//      holds one chunk, sampled once for every Cout tile; TF32 would miss
+//      the 1e-4 tolerance of those checks.
+//   The copy of x for Cg != 4 runs a thread an element (a thread a pixel
+//   looping over Cg channels left 864 threads at C = 384, 12x9, B = 8).
 // Numerics (bf16): the column s * mask is rounded to bf16 once, the products
 // are exact in the tensor cores and summed in f32, the output rounded once.
 // The column's rounding moves the f32 sum by ~0.3 of the ulp of the largest
 // output (tests/test_torch_dcn_numerics.py), so one bf16 column (no hi/lo
 // pair) keeps the kernel within one output ulp of the plain version.
 //
-// Build (nvcc 12.9, -Xptxas -v, sm_90a): dcn_fwd_bf16_kernel<48, 4> 123
-// registers, 0 spills, 111,616 B of dynamic shared memory at the main-path
-// shape (2 blocks a SM), 8 HGMMA.64x24x16.F32.BF16 in its SASS;
-// dcn_fwd_bf16_chunked_kernel 123-128 registers, a 32-byte stack frame, no
-// spills.
+// Build (-Xptxas -v, sm_90a): dcn_fwd_bf16_kernel<48, 4> 123 registers, 0
+// spills, 111,616 B of dynamic shared memory at the main-path shape (2
+// blocks a SM), 8 HGMMA.64x24x16.F32.BF16 in its SASS. Every instance of
+// this form (chip_smoke.py phase build): the resident form 96-123
+// registers, the chunked and staged bf16 forms 112-128, sum_kernel 32, the
+// f32 forms 63-162, no spills but dcn_fwd_f32_kernel<3, 4> (128 registers,
+// 24 bytes stored and loaded; the f32 check path's C_out 33-48).
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py): 0.0886 ms at B=8, D = 4,
-// against the 0.0139 ms bound.
+// against the 0.0139 ms bound; the branch maps' chunked forms in turns
+// with the form before the cut (tools/dcn_turns.py, PERF.md): at B=8,
+// exact, C = 96 / 192 / 384 on 48x36 / 24x18 / 12x9 maps, one and two
+// groups, the six calls took 0.4755-0.4772 ms against 0.9875-0.9918.
 
 #include "dcn_common.cuh"
 
@@ -273,29 +286,39 @@ __device__ __forceinline__ void sample_tile(
 
 // ---- kernels -----------------------------------------------------------------
 
-// x (B, C, H, W) -> xg (B, G, H, W, Cg)
+// x (B, C, H, W) -> xg (B, G, H, W, Cg): 4 channels a thread where Cg is 4,
+// else one element a thread (in dcn_bwd.cu's copy, a thread a pixel with Cg
+// channels took 135 us at C = 384, 12x9, B = 8: 864 threads; PERF.md)
 template <typename T>
 __global__ void grouped_channels_last_kernel(const T* __restrict__ x,
                                              T* __restrict__ xg, int B, int G,
                                              int Cg, int HW, int vec4) {
+  if (!vec4) {  // one element a thread, the stores consecutive in c
+    const long long n = (long long)B * G * HW * Cg;
+    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         e < n; e += (long long)gridDim.x * blockDim.x) {
+      const long long i = e / Cg;  // (b, g, pixel)
+      const int c = (int)(e - i * Cg);
+      const long long bg = i / HW;
+      xg[e] = x[(bg * Cg + c) * HW + (i - bg * HW)];
+    }
+    return;
+  }
   const long long total = (long long)B * G * HW;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x) {
     const long long bg = i / HW;
     const T* src = x + bg * Cg * HW + (i - bg * HW);
     T* dst = xg + i * Cg;
-    if (vec4) {  // Cg == 4: one 8-byte (bf16) or 16-byte (f32) store
-      if constexpr (sizeof(T) == 2) {
-        const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
-        *reinterpret_cast<uint2*>(dst) = make_uint2(
-            (uint32_t)s16[0] | ((uint32_t)s16[HW] << 16),
-            (uint32_t)s16[2 * (size_t)HW] | ((uint32_t)s16[3 * (size_t)HW] << 16));
-      } else {
-        *reinterpret_cast<float4*>(dst) = make_float4(
-            src[0], src[HW], src[2 * (size_t)HW], src[3 * (size_t)HW]);
-      }
+    // Cg == 4: one 8-byte (bf16) or 16-byte (f32) store
+    if constexpr (sizeof(T) == 2) {
+      const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
+      *reinterpret_cast<uint2*>(dst) = make_uint2(
+          (uint32_t)s16[0] | ((uint32_t)s16[HW] << 16),
+          (uint32_t)s16[2 * (size_t)HW] | ((uint32_t)s16[3 * (size_t)HW] << 16));
     } else {
-      for (int c = 0; c < Cg; ++c) dst[c] = src[(size_t)c * HW];
+      *reinterpret_cast<float4*>(dst) = make_float4(
+          src[0], src[HW], src[2 * (size_t)HW], src[3 * (size_t)HW]);
     }
   }
 }
@@ -315,14 +338,28 @@ __device__ __forceinline__ Conv make_conv(const Args& a) {
   return cv;
 }
 
-// The chunked form's plan for one call: Cout tile, tiles, chunks, and the
-// workspace (the unit table, then the packed W).
+// The chunked form's plan for one call: Cout tile, tiles, chunks, how the
+// reduction is cut across work items, and the workspace (the unit table,
+// the packed W, then the f32 partial sums of the cut). A work item is
+// (64-pixel tile, split): the split's chunks q0 .. q0 + cpi. With one Cout
+// tile (n_ct == 1) an item streams its chunks; with more (staged) it
+// samples its chunks once, at most kStagedChunks (bf16) or 1 (f32), and
+// contracts every Cout tile from them. The splits are as many as it takes
+// for the items to fill kItemWaves waves of two blocks an SM (a serial
+// chain of chunks a tile left most SMs idle at the branch maps, PERF.md),
+// no fewer than the staged chunks need; with more than one split each
+// writes its f32 partial of the output and sum_kernel adds them in split
+// order.
 struct Plan {
-  int resident, nt, n_ct, n_chunks;
-  size_t units_bytes, w_bytes;
+  int resident, nt, n_ct, n_chunks, splits, cpi;
+  size_t units_bytes, w_bytes, part_bytes;
 };
 
-__host__ __device__ inline Plan make_plan(int dtype, int C, int Cout, int K) {
+constexpr int kStagedChunks = 2;  // the bf16 staged item's column buffers
+constexpr int kItemWaves = 2;
+
+__host__ __device__ inline Plan make_plan(int dtype, int B, int C, int Cout,
+                                          int HWo, int K, int sms) {
   Plan pl;
   const int R = K * C;
   const int c16 = (Cout + 15) & ~15;
@@ -331,11 +368,26 @@ __host__ __device__ inline Plan make_plan(int dtype, int C, int Cout, int K) {
   pl.nt = pl.resident ? Cout : dtype == 1 ? kChunkNT : (c16 < 64 ? c16 : 64);
   pl.n_ct = (Cout + pl.nt - 1) / pl.nt;
   pl.n_chunks = (R + kChunkRows - 1) / kChunkRows;
+  const long long tiles = (long long)B * ((HWo + kTilePix - 1) / kTilePix);
+  const long long want = (long long)kItemWaves * 2 * sms;
+  long long splits = tiles > 0 ? (want + tiles - 1) / tiles : 1;
+  if (pl.n_ct > 1) {
+    const int most = dtype == 1 ? kStagedChunks : 1;
+    const long long fewest = (pl.n_chunks + most - 1) / most;
+    if (splits < fewest) splits = fewest;
+  }
+  if (splits > pl.n_chunks) splits = pl.n_chunks;
+  if (splits < 1) splits = 1;
+  pl.cpi = (pl.n_chunks + (int)splits - 1) / (int)splits;
+  pl.splits = pl.resident ? 1 : (pl.n_chunks + pl.cpi - 1) / pl.cpi;
   // one unit a reduction row at most (VW = 1)
   pl.units_bytes = pl.resident ? 0 : align128((size_t)R * 16);
   pl.w_bytes = pl.resident ? 0
-                           : (size_t)pl.n_ct * pl.n_chunks * kChunkRows *
-                                 pl.nt * (dtype == 1 ? 2 : 4);
+                           : align128((size_t)pl.n_ct * pl.n_chunks *
+                                      kChunkRows * pl.nt *
+                                      (dtype == 1 ? 2 : 4));
+  pl.part_bytes =
+      pl.splits > 1 ? align128((size_t)pl.splits * B * Cout * HWo * 4) : 0;
   return pl;
 }
 
@@ -594,8 +646,42 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// Every other bf16 width: chunks of kChunkRows reduction rows, a Cout tile
-// of 64 a work item, two buffers (module comment)
+// A f32 result tile epi [n][kEpiStride] (n < n_valid) -> a split's f32
+// partial of the output, rows of 64 pixels
+__device__ __forceinline__ void store_part(const float* epi, float* part_b,
+                                           int nt, int n_valid, int p0,
+                                           int HWo) {
+  for (int e = threadIdx.x; e < nt * kTilePix; e += kThreads) {
+    const int n = e / kTilePix;
+    const int q = e % kTilePix;
+    if (p0 + q < HWo && n < n_valid)
+      part_b[(size_t)n * HWo + q] = epi[n * kEpiStride + q];
+  }
+}
+
+// The reduction's cut as the kernels see it: splits of cpi chunks; part
+// holds the splits' f32 partials (null with one split)
+struct Cut {
+  int splits, cpi;
+  float* part;
+};
+
+// The output tile of Cout tile ct: bf16 rows of out with one split, else
+// this split's partial
+__device__ __forceinline__ void put_tile(const float* epi, bf16* out,
+                                         const Cut& cut, int sp, const Args& a,
+                                         const Tile& t, int ct, int nt) {
+  const int HWo = a.Ho * a.Wo;
+  const size_t at = ((size_t)t.b * a.Cout + ct * nt) * HWo + t.p0;
+  if (cut.splits == 1)
+    store_tile(epi, out + at, nt, a.Cout - ct * nt, t.p0, HWo, a.vec_out);
+  else
+    store_part(epi, cut.part + (size_t)sp * a.B * a.Cout * HWo + at, nt,
+               a.Cout - ct * nt, t.p0, HWo);
+}
+
+// Every other bf16 width with one Cout tile: chunks of kChunkRows reduction
+// rows, a work item a (pixel tile, split), two buffers (module comment)
 template <int VW>
 __global__ void __launch_bounds__(kThreads, 2)
     dcn_fwd_bf16_chunked_kernel(const bf16* __restrict__ xg,
@@ -603,7 +689,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                                 const bf16* __restrict__ mask,
                                 const bf16* __restrict__ wp,
                                 const int4* __restrict__ units,
-                                bf16* __restrict__ out, Args a) {
+                                bf16* __restrict__ out, Args a, Cut cut) {
   constexpr int NT = kChunkNT;
   constexpr int NH = NT / 2;
   constexpr int kChunkElems = kChunkRows * NT;
@@ -611,7 +697,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   const Conv cv = make_conv(a);
   const int R = cv.K * cv.C;
   const int n_chunks = (R + kChunkRows - 1) / kChunkRows;
-  const int n_ct = (a.Cout + NT - 1) / NT;
   unsigned char* const a_s[2] = {smem, smem + kChunkA};
   unsigned char* const w_s[2] = {smem + 2 * kChunkA,
                                  smem + 2 * kChunkA + kChunkW};
@@ -621,13 +706,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int p = tid % kTilePix;
   const int HWo = cv.HWo;
   const int tiles_per_img = (HWo + kTilePix - 1) / kTilePix;
-  const int n_tiles = a.B * tiles_per_img * n_ct;
+  const int n_items = a.B * tiles_per_img * cut.splits;
   const size_t img = (size_t)cv.C * cv.H * cv.W;
   const bf16 zero = __ushort_as_bfloat16(0);
+  constexpr int ct = 0;  // one Cout tile
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int ct = tile % n_ct;
-    const Tile t(tile / n_ct, tiles_per_img, cv, p);
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int sp = item % cut.splits;
+    const int q0 = sp * cut.cpi;
+    const int q1 = min(q0 + cut.cpi, n_chunks);
+    const Tile t(item / cut.splits, tiles_per_img, cv, p);
     const bf16* xb = xg + t.b * img;
     const bf16* offb = offset + (size_t)t.b * 2 * cv.GK * HWo + t.pe;
     const bf16* mskb = mask ? mask + (size_t)t.b * cv.GK * HWo + t.pe : nullptr;
@@ -653,14 +741,14 @@ __global__ void __launch_bounds__(kThreads, 2)
 
     // the buffers were last read by the previous tile's wgmma, waited for
     // before the barrier that ended its last chunk
-    stage(0, 0);
+    stage(q0, 0);
     fence_proxy_async();  // the stores, visible to wgmma
     __syncthreads();
     float acc[NH / 2];
 #pragma unroll
     for (int j = 0; j < NH / 2; ++j) acc[j] = 0.f;
-    for (int q = 0; q < n_chunks; ++q) {
-      const int buf = q & 1;
+    for (int q = q0; q < q1; ++q) {
+      const int buf = (q - q0) & 1;
       const int steps = (min(kChunkRows, R - q * kChunkRows) + 15) / 16;
       fence_acc(acc);
       wgmma_fence();
@@ -671,7 +759,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                        db + (uint64_t)(s * 2 * NT));
       wgmma_commit();
       // the next chunk into the other buffers while these wgmma run
-      if (q + 1 < n_chunks) stage(q + 1, buf ^ 1);
+      if (q + 1 < q1) stage(q + 1, buf ^ 1);
       wgmma_wait0();
       fence_acc(acc);
       fence_proxy_async();
@@ -679,14 +767,127 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     acc_to_epi<NH>(epi, acc);
     __syncthreads();
-    const int o0 = ct * NT;
-    store_tile(epi, out + ((size_t)t.b * a.Cout + o0) * HWo + t.p0, NT,
-               a.Cout - o0, t.p0, HWo, a.vec_out);
+    put_tile(epi, out, cut, sp, a, t, ct, NT);
   }
 }
 
-// float32, any width: the chunks of the bf16 chunked form, contracted with
-// full-f32 FMAs. NOC = NT / 16 output channels a thread.
+// bf16 with more than one Cout tile: a work item (pixel tile, split) samples
+// its (at most kStagedChunks) chunks once into the column buffers, then for
+// each Cout tile contracts them against W's blocks, which stream through
+// the two W buffers (the next one copied while the wgmma of this one run),
+// and writes the tile
+template <int VW>
+__global__ void __launch_bounds__(kThreads, 2)
+    dcn_fwd_bf16_staged_kernel(const bf16* __restrict__ xg,
+                               const bf16* __restrict__ offset,
+                               const bf16* __restrict__ mask,
+                               const bf16* __restrict__ wp,
+                               const int4* __restrict__ units,
+                               bf16* __restrict__ out, Args a, Cut cut) {
+  constexpr int NT = kChunkNT;
+  constexpr int NH = NT / 2;
+  constexpr int kChunkElems = kChunkRows * NT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Conv cv = make_conv(a);
+  const int R = cv.K * cv.C;
+  const int n_chunks = (R + kChunkRows - 1) / kChunkRows;
+  const int n_ct = (a.Cout + NT - 1) / NT;
+  unsigned char* const a_s[kStagedChunks] = {smem, smem + kChunkA};
+  unsigned char* const w_s[2] = {smem + 2 * kChunkA,
+                                 smem + 2 * kChunkA + kChunkW};
+  float* epi = reinterpret_cast<float*>(smem + 2 * kChunkA + 2 * kChunkW);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int p = tid % kTilePix;
+  const int HWo = cv.HWo;
+  const int tiles_per_img = (HWo + kTilePix - 1) / kTilePix;
+  const int n_items = a.B * tiles_per_img * cut.splits;
+  const size_t img = (size_t)cv.C * cv.H * cv.W;
+  const bf16 zero = __ushort_as_bfloat16(0);
+
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int sp = item % cut.splits;
+    const int q0 = sp * cut.cpi;
+    const int nq = min(cut.cpi, n_chunks - q0);
+    const Tile t(item / cut.splits, tiles_per_img, cv, p);
+    const bf16* xb = xg + t.b * img;
+    const bf16* offb = offset + (size_t)t.b * 2 * cv.GK * HWo + t.pe;
+    const bf16* mskb = mask ? mask + (size_t)t.b * cv.GK * HWo + t.pe : nullptr;
+    // W's block (Cout tile ct, chunk q0 + j) into W buffer `buf`
+    auto copy_w = [&](int i, int buf) {
+      const int ct = i / nq;
+      const int q = q0 + i - ct * nq;
+      const uint4* src = reinterpret_cast<const uint4*>(
+          wp + ((size_t)ct * n_chunks + q) * kChunkElems);
+      uint4* dst = reinterpret_cast<uint4*>(w_s[buf]);
+      for (int e = tid; e < kChunkElems / 8; e += kThreads) dst[e] = __ldg(src + e);
+    };
+    // the previous item's wgmma and epilogue are done with every buffer
+    __syncthreads();
+    for (int j = 0; j < nq; ++j) {
+      const int r0 = (q0 + j) * kChunkRows;
+      const int rows = min(kChunkRows, R - r0);
+      sample_tile<bf16, VW>(xb, offb, mskb, units + r0 / VW, rows / VW, r0, p,
+                            t.pvalid, t.oy, t.ox, cv, StoreA{a_s[j]});
+      const int pad = ((rows + 15) & ~15) - rows;
+      for (int i = tid; i < pad * kTilePix; i += kThreads) {
+        const int r = rows + i / kTilePix;
+        *reinterpret_cast<bf16*>(a_s[j] + (r >> 3) * (kTilePix * 16) +
+                                 (i % kTilePix) * 16 + (r & 7) * 2) = zero;
+      }
+    }
+    copy_w(0, 0);
+    fence_proxy_async();  // the stores, visible to wgmma
+    __syncthreads();
+    const int n_steps = n_ct * nq;
+    for (int ct = 0, i = 0; ct < n_ct; ++ct) {
+      float acc[NH / 2];
+#pragma unroll
+      for (int e = 0; e < NH / 2; ++e) acc[e] = 0.f;
+      for (int j = 0; j < nq; ++j, ++i) {
+        const int buf = i & 1;
+        const int rows = min(kChunkRows, R - (q0 + j) * kChunkRows);
+        const int steps = (rows + 15) / 16;
+        fence_acc(acc);
+        wgmma_fence();
+        const uint64_t da = make_desc(a_s[j], kTilePix * 16, 128);
+        const uint64_t db = make_desc(w_s[buf] + wg * NH * 16, NT * 16, 128);
+        for (int s = 0; s < steps; ++s)
+          wgmma_bf16<NH>(acc, da + (uint64_t)(s * 2 * kTilePix),
+                         db + (uint64_t)(s * 2 * NT));
+        wgmma_commit();
+        // the next W block into the other buffer while these wgmma run
+        if (i + 1 < n_steps) copy_w(i + 1, buf ^ 1);
+        wgmma_wait0();
+        fence_acc(acc);
+        fence_proxy_async();
+        __syncthreads();
+      }
+      acc_to_epi<NH>(epi, acc);
+      __syncthreads();
+      put_tile(epi, out, cut, sp, a, t, ct, NT);
+      __syncthreads();  // epi is rewritten by the next Cout tile
+    }
+  }
+}
+
+// out = the splits' f32 partials summed in split order, rounded once
+template <typename T>
+__global__ void sum_kernel(const float* __restrict__ part, T* __restrict__ out,
+                           int splits, long long total) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int sp = 0; sp < splits; ++sp) s += part[sp * total + i];
+    out[i] = from_f<T>(s);
+  }
+}
+
+// float32, any width: the work items of the bf16 forms, contracted with
+// full-f32 FMAs. NOC = NT / 16 output channels a thread. With one Cout tile
+// an item streams its chunks through one column buffer; with more, its one
+// chunk (the plan's cpi) is sampled once and every Cout tile contracted
+// from it.
 template <int NOC, int VW>
 __global__ void __launch_bounds__(kThreads)
     dcn_fwd_f32_kernel(const float* __restrict__ xg,
@@ -694,7 +895,7 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ mask,
                        const float* __restrict__ wp,
                        const int4* __restrict__ units,
-                       float* __restrict__ out, Args a) {
+                       float* __restrict__ out, Args a, Cut cut) {
   constexpr int NT = NOC * kOcGroups;
   constexpr int kChunkElems = kChunkRows * NT;
   extern __shared__ float4 smem4[];
@@ -706,59 +907,68 @@ __global__ void __launch_bounds__(kThreads)
   const int n_ct = (a.Cout + NT - 1) / NT;
   const int HWo = cv.HWo;
   const int tiles_per_img = (HWo + kTilePix - 1) / kTilePix;
-  const int n_tiles = a.B * tiles_per_img * n_ct;
+  const int n_items = a.B * tiles_per_img * cut.splits;
   const size_t img = (size_t)cv.C * cv.H * cv.W;
   const int p = threadIdx.x % kTilePix;
   const int pg = threadIdx.x % kPixGroups;
   const int og = threadIdx.x / kPixGroups;
   const StoreCol store{col};
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int ct = tile % n_ct;
-    const Tile t(tile / n_ct, tiles_per_img, cv, p);
-    const float* wct = wp + (size_t)ct * n_chunks * kChunkElems;
-    float acc[NOC][kPixPerThread];
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int sp = item % cut.splits;
+    const int q0 = sp * cut.cpi;
+    const int q1 = min(q0 + cut.cpi, n_chunks);
+    const Tile t(item / cut.splits, tiles_per_img, cv, p);
+    float* dst = cut.splits == 1
+                     ? out + (size_t)t.b * a.Cout * HWo
+                     : cut.part + ((size_t)sp * a.B + t.b) * a.Cout * HWo;
+    for (int ct = 0; ct < n_ct; ++ct) {
+      const float* wct = wp + (size_t)ct * n_chunks * kChunkElems;
+      float acc[NOC][kPixPerThread];
 #pragma unroll
-    for (int j = 0; j < NOC; ++j)
+      for (int j = 0; j < NOC; ++j)
 #pragma unroll
-      for (int q = 0; q < kPixPerThread; ++q) acc[j][q] = 0.f;
-    for (int q = 0; q < n_chunks; ++q) {
-      const int r0 = q * kChunkRows;
-      const int rows = min(kChunkRows, R - r0);
-      __syncthreads();  // the last contraction is done with both buffers
-      const float4* src = reinterpret_cast<const float4*>(wct + (size_t)q * kChunkElems);
-      float4* dst = reinterpret_cast<float4*>(w_s);
-      for (int i = threadIdx.x; i < rows * NT / 4; i += kThreads)
-        dst[i] = __ldg(src + i);
-      sample_tile<float, VW>(
-          xg + t.b * img, offset + (size_t)t.b * 2 * cv.GK * HWo + t.pe,
-          mask ? mask + (size_t)t.b * cv.GK * HWo + t.pe : nullptr,
-          units + r0 / VW, rows / VW, r0, p, t.pvalid, t.oy, t.ox, cv, store);
-      __syncthreads();
-      const float* colp = col + pg * kPixPerThread;
-      for (int r = 0; r < rows; ++r) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(colp + (size_t)r * kTilePix);
-        const float* wr = w_s + r * NT + og;
+        for (int q = 0; q < kPixPerThread; ++q) acc[j][q] = 0.f;
+      for (int q = q0; q < q1; ++q) {
+        const int r0 = q * kChunkRows;
+        const int rows = min(kChunkRows, R - r0);
+        __syncthreads();  // the last contraction is done with both buffers
+        const float4* src =
+            reinterpret_cast<const float4*>(wct + (size_t)q * kChunkElems);
+        float4* w4 = reinterpret_cast<float4*>(w_s);
+        for (int i = threadIdx.x; i < rows * NT / 4; i += kThreads)
+          w4[i] = __ldg(src + i);
+        if (ct == 0)  // more than one Cout tile: one chunk, kept
+          sample_tile<float, VW>(
+              xg + t.b * img, offset + (size_t)t.b * 2 * cv.GK * HWo + t.pe,
+              mask ? mask + (size_t)t.b * cv.GK * HWo + t.pe : nullptr,
+              units + r0 / VW, rows / VW, r0, p, t.pvalid, t.oy, t.ox, cv,
+              store);
+        __syncthreads();
+        const float* colp = col + pg * kPixPerThread;
+        for (int r = 0; r < rows; ++r) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(colp + (size_t)r * kTilePix);
+          const float* wr = w_s + r * NT + og;
 #pragma unroll
-        for (int j = 0; j < NOC; ++j) {
-          const float wv = wr[j * kOcGroups];
-          acc[j][0] = fmaf(v.x, wv, acc[j][0]);
-          acc[j][1] = fmaf(v.y, wv, acc[j][1]);
-          acc[j][2] = fmaf(v.z, wv, acc[j][2]);
-          acc[j][3] = fmaf(v.w, wv, acc[j][3]);
+          for (int j = 0; j < NOC; ++j) {
+            const float wv = wr[j * kOcGroups];
+            acc[j][0] = fmaf(v.x, wv, acc[j][0]);
+            acc[j][1] = fmaf(v.y, wv, acc[j][1]);
+            acc[j][2] = fmaf(v.z, wv, acc[j][2]);
+            acc[j][3] = fmaf(v.w, wv, acc[j][3]);
+          }
         }
       }
-    }
-    float* out_b = out + (size_t)t.b * a.Cout * HWo;
 #pragma unroll
-    for (int j = 0; j < NOC; ++j) {
-      const int o = ct * NT + og + j * kOcGroups;
-      if (o >= a.Cout) continue;
+      for (int j = 0; j < NOC; ++j) {
+        const int o = ct * NT + og + j * kOcGroups;
+        if (o >= a.Cout) continue;
 #pragma unroll
-      for (int q = 0; q < kPixPerThread; ++q) {
-        const int px = t.p0 + pg * kPixPerThread + q;
-        if (px < HWo) out_b[(size_t)o * HWo + px] = acc[j][q];
+        for (int q = 0; q < kPixPerThread; ++q) {
+          const int px = t.p0 + pg * kPixPerThread + q;
+          if (px < HWo) dst[(size_t)o * HWo + px] = acc[j][q];
+        }
       }
     }
   }
@@ -812,31 +1022,48 @@ cudaError_t launch_resident(bool vec4, const void* xg, const void* offset,
 template <int NOC>
 cudaError_t launch_f32(bool vec4, const void* xg, const void* offset,
                        const void* mask, const void* wp, const int4* units,
-                       void* out, const Args& a, int n_ct, cudaStream_t s) {
+                       void* out, const Args& a, const Cut& cut,
+                       cudaStream_t s) {
   const float *x = static_cast<const float*>(xg),
               *o = static_cast<const float*>(offset),
               *m = static_cast<const float*>(mask),
               *w = static_cast<const float*>(wp);
   float* y = static_cast<float*>(out);
   const size_t smem = f32_smem(NOC * kOcGroups);
-  const int items = n_pixel_tiles(a) * n_ct;
+  const int items = n_pixel_tiles(a) * cut.splits;
   return vec4 ? launch_persistent(dcn_fwd_f32_kernel<NOC, 4>, smem, items, s,
-                                  x, o, m, w, units, y, a)
+                                  x, o, m, w, units, y, a, cut)
               : launch_persistent(dcn_fwd_f32_kernel<NOC, 1>, smem, items, s,
-                                  x, o, m, w, units, y, a);
+                                  x, o, m, w, units, y, a, cut);
+}
+
+template <typename T>
+cudaError_t launch_sum(const Cut& cut, void* out, const Args& a,
+                       cudaStream_t s) {
+  const long long total = (long long)a.B * a.Cout * a.Ho * a.Wo;
+  if (cut.splits == 1 || total == 0) return cudaSuccess;
+  long long blocks = (total + 255) / 256;
+  const long long cap =
+      (long long)device_attr(cudaDevAttrMultiProcessorCount) * 16;
+  if (blocks > cap) blocks = cap;
+  sum_kernel<T><<<(unsigned)blocks, 256, 0, s>>>(cut.part,
+                                                 static_cast<T*>(out),
+                                                 cut.splits, total);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_transpose(const void* x, void* xg, const Args& a, int Cg,
                              cudaStream_t s) {
-  const long long total = (long long)a.B * a.G * a.H * a.W;
+  const bool vec4 = Cg == 4 && reinterpret_cast<uintptr_t>(xg) % (4 * sizeof(T)) == 0;
+  // a thread (b, g, pixel) for Cg = 4, else a thread an element
+  const long long total = (long long)a.B * a.G * a.H * a.W * (vec4 ? 1 : Cg);
   if (total == 0) return cudaSuccess;
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   const long long cap =
       (long long)device_attr(cudaDevAttrMultiProcessorCount) * 16;
   if (blocks > cap) blocks = cap;
-  const bool vec4 = Cg == 4 && reinterpret_cast<uintptr_t>(xg) % (4 * sizeof(T)) == 0;
   grouped_channels_last_kernel<T><<<(unsigned)blocks, threads, 0, s>>>(
       static_cast<const T*>(x), static_cast<T*>(xg), a.B, a.G, Cg,
       a.H * a.W, vec4 ? 1 : 0);
@@ -867,12 +1094,15 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// Bytes of the workspace fami_dcn_fwd needs for these widths (0 where the
-// resident form takes them): the unit table, then W packed in chunks.
-extern "C" long long fami_dcn_fwd_workspace(int dtype, int C, int Cout,
-                                            int kh, int kw) {
-  const Plan pl = make_plan(dtype, C, Cout, kh * kw);
-  return (long long)(pl.units_bytes + pl.w_bytes);
+// Bytes of the workspace fami_dcn_fwd needs for this call on the current
+// device (0 where the resident form takes it): the unit table, W packed in
+// chunks, and where the reduction is cut across work items their f32
+// partial sums.
+extern "C" long long fami_dcn_fwd_workspace(int dtype, int B, int C, int Cout,
+                                            int Ho, int Wo, int kh, int kw) {
+  const Plan pl = make_plan(dtype, B, C, Cout, Ho * Wo, kh * kw,
+                            device_attr(cudaDevAttrMultiProcessorCount));
+  return (long long)(pl.units_bytes + pl.w_bytes + pl.part_bytes);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, x_grouped, offset, mask, weight and
@@ -902,7 +1132,8 @@ extern "C" int fami_dcn_fwd(const void* x, void* x_grouped, const void* offset,
   const size_t elem = dtype == 0 ? 4 : 2;
   const bool vec4 =
       Cg % 4 == 0 && reinterpret_cast<uintptr_t>(x_grouped) % (4 * elem) == 0;
-  const Plan pl = make_plan(dtype, C, Cout, kh * kw);
+  const Plan pl = make_plan(dtype, B, C, Cout, HWo, kh * kw,
+                            device_attr(cudaDevAttrMultiProcessorCount));
   if (!pl.resident && !aligned16(work)) return (int)cudaErrorInvalidValue;
   cudaError_t err = dtype == 0 ? launch_transpose<float>(x, x_grouped, a, Cg, s)
                                : launch_transpose<bf16>(x, x_grouped, a, Cg, s);
@@ -919,26 +1150,43 @@ extern "C" int fami_dcn_fwd(const void* x, void* x_grouped, const void* offset,
   err = dtype == 0 ? launch_pack<float>(weight, work, a, pl, vw, s)
                    : launch_pack<bf16>(weight, work, a, pl, vw, s);
   if (err != cudaSuccess) return (int)err;
-  const int4* units = static_cast<const int4*>(work);
-  const void* wp = static_cast<unsigned char*>(work) + pl.units_bytes;
+  unsigned char* base = static_cast<unsigned char*>(work);
+  const int4* units = reinterpret_cast<const int4*>(base);
+  const void* wp = base + pl.units_bytes;
+  const Cut cut{pl.splits, pl.cpi,
+                pl.splits > 1 ? reinterpret_cast<float*>(
+                                    base + pl.units_bytes + pl.w_bytes)
+                              : nullptr};
   if (dtype == 1) {
     const bf16 *xb = static_cast<const bf16*>(x_grouped),
                *ob = static_cast<const bf16*>(offset),
                *mb = static_cast<const bf16*>(mask),
                *wb = static_cast<const bf16*>(wp);
     bf16* yb = static_cast<bf16*>(out);
-    const int items = n_pixel_tiles(a) * pl.n_ct;
-    return vec4 ? (int)launch_persistent(dcn_fwd_bf16_chunked_kernel<4>,
-                                         kChunkSmem, items, s, xb, ob, mb, wb,
-                                         units, yb, a)
-                : (int)launch_persistent(dcn_fwd_bf16_chunked_kernel<1>,
-                                         kChunkSmem, items, s, xb, ob, mb, wb,
-                                         units, yb, a);
+    const int items = n_pixel_tiles(a) * pl.splits;
+    if (pl.n_ct > 1)
+      err = vec4 ? launch_persistent(dcn_fwd_bf16_staged_kernel<4>,
+                                     kChunkSmem, items, s, xb, ob, mb, wb,
+                                     units, yb, a, cut)
+                 : launch_persistent(dcn_fwd_bf16_staged_kernel<1>,
+                                     kChunkSmem, items, s, xb, ob, mb, wb,
+                                     units, yb, a, cut);
+    else
+      err = vec4 ? launch_persistent(dcn_fwd_bf16_chunked_kernel<4>,
+                                     kChunkSmem, items, s, xb, ob, mb, wb,
+                                     units, yb, a, cut)
+                 : launch_persistent(dcn_fwd_bf16_chunked_kernel<1>,
+                                     kChunkSmem, items, s, xb, ob, mb, wb,
+                                     units, yb, a, cut);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_sum<bf16>(cut, out, a, s);
   }
   switch (pl.nt) {
-    case 16: return (int)launch_f32<1>(vec4, x_grouped, offset, mask, wp, units, out, a, pl.n_ct, s);
-    case 32: return (int)launch_f32<2>(vec4, x_grouped, offset, mask, wp, units, out, a, pl.n_ct, s);
-    case 48: return (int)launch_f32<3>(vec4, x_grouped, offset, mask, wp, units, out, a, pl.n_ct, s);
-    default: return (int)launch_f32<4>(vec4, x_grouped, offset, mask, wp, units, out, a, pl.n_ct, s);
+    case 16: err = launch_f32<1>(vec4, x_grouped, offset, mask, wp, units, out, a, cut, s); break;
+    case 32: err = launch_f32<2>(vec4, x_grouped, offset, mask, wp, units, out, a, cut, s); break;
+    case 48: err = launch_f32<3>(vec4, x_grouped, offset, mask, wp, units, out, a, cut, s); break;
+    default: err = launch_f32<4>(vec4, x_grouped, offset, mask, wp, units, out, a, cut, s); break;
   }
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_sum<float>(cut, out, a, s);
 }

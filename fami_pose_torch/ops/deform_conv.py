@@ -24,8 +24,10 @@ The backward is ``ops/cuda/csrc/dcn_bwd.cu`` on a CUDA tensor (it replaces
 and :func:`deform_conv2d_backward_plain` on a CPU tensor; one
 ``torch.autograd.Function`` routes both devices. In windowed mode the
 kernel forms dx as the TPU's ``_bwd_dx_kernel`` does, by a gather summed in
-a fixed order (:func:`deform_conv2d_dx_gather_plain` is its plain version),
-so that two runs give the same gradients bit for bit.
+a fixed order (:func:`deform_conv2d_dx_gather_plain` is its plain version);
+in the exact mode it sorts the sources by target pixel and sums each
+pixel's lists in a fixed order (:func:`deform_conv2d_dx_sorted_plain`), so
+that two runs give the same gradients bit for bit in both modes.
 
 The derivative with respect
 to an offset follows the TPU kernel, the one the configured train path runs:
@@ -231,14 +233,16 @@ def _deform_conv_cuda(x, offset, mask, weight, padding, dilation, groups,
     c_out, _, kh, kw = weight.shape
     out = torch.empty((n, c_out, ho, wo), dtype=x.dtype, device=x.device)
     # the kernel's copy of x in (N, G, H, W, C/G) order, which it gathers
-    # from, and its workspace (W packed in chunks and the unit table, for
-    # the widths the resident form does not take)
+    # from, and its workspace (for the widths the resident form does not
+    # take: W packed in chunks, the unit table, and the f32 partials where
+    # the reduction is cut across work items)
     x_grouped = torch.empty_like(x)
     lib = load_library()
-    size = lib.fami_dcn_fwd_workspace(DTYPE_CODES[dtype], c, c_out, kh, kw)
-    work = torch.empty(size, dtype=torch.uint8, device=x.device) \
-        if size else None
     with torch.cuda.device(x.device):  # launches go to the current one
+        size = lib.fami_dcn_fwd_workspace(DTYPE_CODES[dtype], n, c, c_out, ho,
+                                          wo, kh, kw)
+        work = torch.empty(size, dtype=torch.uint8, device=x.device) \
+            if size else None
         err = lib.fami_dcn_fwd(
             x.data_ptr(), x_grouped.data_ptr(), offset.data_ptr(),
             None if mask is None else mask.data_ptr(), weight.data_ptr(),
@@ -419,6 +423,93 @@ def deform_conv2d_dx_gather_plain(x, offset, mask, weight, gout, *,
     return acc.reshape(n, c, h, w).to(x.dtype)
 
 
+def deform_conv2d_dx_sorted_plain(x, offset, mask, weight, gout, *,
+                                  padding=0, dilation=1, offset_groups=None):
+    """dx of the stride-1 exact-mode :func:`deform_conv2d` (no clamp) in the
+    order of the card's sorted gather (``dcn_bwd.cu::dx_sorted_kernel``).
+    A source is (image, group g, tap k, output pixel p), keyed by the floor
+    corner ``(y0, x0)`` of its sample ``p - pad + k_pos * dilation + t``;
+    only keys in ``[-1, H-1] x [-1, W-1]`` can touch the image, the others
+    are dropped. Input pixel q sums the sources of its four candidate keys
+    in ascending key order, ``(qy-1, qx-1)``, ``(qy-1, qx)``, ``(qy, qx-1)``,
+    ``(qy, qx)`` (the corners 11, 10, 01, 00 of those sources), each key's
+    sources by ascending index ``k * Ho * Wo + p``; a source gives ``m *
+    w_corner * dcol`` (corners of weight 0 skipped). The same products as
+    :func:`deform_conv2d_backward_plain`'s scatter, summed in this fixed
+    order in float32 (float64 for float64 inputs) and rounded once into
+    ``x``'s dtype. The order here comes from ``torch.argsort``; the kernel
+    counts and sorts the sources itself. A reference for the kernel, not a
+    path of the model."""
+    n, c, h, w = x.shape
+    c_out, _, kh, kw = weight.shape
+    k = kh * kw
+    ph, pw = _pair(padding)
+    dh, dw = _pair(dilation)
+    g = offset_groups or offset.shape[1] // (2 * k)
+    cg = c // g
+    ho, wo = offset.shape[2], offset.shape[3]
+    hwo = ho * wo
+    f32 = _work_dtype(x)
+    dev = x.device
+
+    off = offset.to(f32).reshape(n, g, k, 2, hwo)
+    fl = torch.floor(off)
+    frac = off - fl
+    go = gout.to(f32).reshape(n, c_out, hwo)
+    w_k = weight.to(f32).reshape(c_out, c, k)
+    # m * dcol of every source, (n, g, k, hwo, cg)
+    md = torch.einsum("ock,nop->nkcp", w_k, go).reshape(n, k, g, cg, hwo)
+    md = md.permute(0, 2, 1, 4, 3)
+    if mask is not None:
+        md = md * mask.to(f32).reshape(n, g, k, hwo, 1)
+    pix = torch.arange(hwo, device=dev)
+    taps = torch.arange(k, device=dev)
+    y0 = ((pix // wo - ph).view(1, 1, 1, hwo)
+          + (taps // kw * dh).view(1, 1, k, 1) + fl[:, :, :, 0])
+    x0 = ((pix % wo - pw).view(1, 1, 1, hwo)
+          + (taps % kw * dw).view(1, 1, k, 1) + fl[:, :, :, 1])
+    keyed = (y0 >= -1) & (y0 <= h - 1) & (x0 >= -1) & (x0 <= w - 1)
+    y0 = torch.where(keyed, y0, torch.zeros_like(y0)).long()
+    x0 = torch.where(keyed, x0, torch.zeros_like(x0)).long()
+    ly, lx = frac[:, :, :, 0], frac[:, :, :, 1]
+    plane = torch.arange(n * g, device=dev).view(n, g, 1, 1)
+    src = (taps.view(1, 1, k, 1) * hwo + pix.view(1, 1, 1, hwo)).expand(
+        n, g, k, hwo)
+    md = md.reshape(-1, cg)
+    targets, orders, weights, rows = [], [], [], []
+    # rank r of the candidate key among q's four: corner (cy, cx) = 11, 10,
+    # 01, 00
+    for r, (cy, cx) in enumerate(((1, 1), (1, 0), (0, 1), (0, 0))):
+        qy, qx = y0 + cy, x0 + cx
+        wt = (ly if cy else 1 - ly) * (lx if cx else 1 - lx)
+        hit = (keyed & (qy >= 0) & (qy < h) & (qx >= 0) & (qx < w)
+               & (wt != 0))
+        t = (plane * h + qy) * w + qx
+        targets.append(t[hit])
+        orders.append((t[hit] * 4 + r) * (k * hwo) + src[hit])
+        weights.append(wt[hit])
+        rows.append(torch.nonzero(hit.reshape(-1)).squeeze(1))
+    order = torch.argsort(torch.cat(orders))
+    target = torch.cat(targets)[order]
+    weight_c = torch.cat(weights)[order]
+    row = torch.cat(rows)[order]
+    acc = torch.zeros(n * g * h * w, cg, dtype=f32, device=dev)
+    if target.numel():
+        # each contribution's place in its pixel's list; the j-th of every
+        # list is added in step j, so each pixel's sum runs in list order
+        first = torch.ones_like(target, dtype=torch.bool)
+        first[1:] = target[1:] != target[:-1]
+        start = torch.cummax(
+            torch.where(first, torch.arange(target.numel(), device=dev),
+                        torch.zeros_like(target)), 0).values
+        place = torch.arange(target.numel(), device=dev) - start
+        for j in range(int(place.max()) + 1):
+            sel = place == j
+            acc[target[sel]] += weight_c[sel].unsqueeze(1) * md[row[sel]]
+    dx = acc.reshape(n, g, h, w, cg).permute(0, 1, 4, 2, 3)
+    return dx.reshape(n, c, h, w).to(x.dtype)
+
+
 def dcn_bwd_smem(dtype, c, c_out, groups):
     """Shared memory of one block of the backward kernel (``dcn_bwd.cu``), in
     bytes. A block owns 3 taps, a chunk of the channels (the whole groups
@@ -427,7 +518,9 @@ def dcn_bwd_smem(dtype, c, c_out, groups):
     = 3 * cp`` columns and ``ocp`` = C_out rounded up to 16, at most 64,
     bfloat16 holds W's slice (ocp x nw) and gout transposed (64 x ocp) as
     the dcol wgmma's operands, gout (64 x 64, rows past C_out zero) and the
-    sampled column (64 x nw) as dW's, dcol in f32 (64 rows of nw + 4);
+    sampled column (64 x nw) as dW's, dcol in f32 (64 rows of nw + 4); the
+    split form (bf16 with C_out past 64, whose dW another kernel
+    contracts) keeps the two gout operands in one buffer;
     float32 holds W's slice (64 x nw), gout (64 rows of 68) and the column
     (nw rows of 68) in f32, and the same dcol. Both: a table of 3 gather units a
     group of the chunk, 16 bytes each. Each region is rounded up to 128
@@ -445,8 +538,9 @@ def dcn_bwd_smem(dtype, c, c_out, groups):
     if dtype != torch.bfloat16:
         return (_a128(64 * nw * 4) + _a128(64 * 68 * 4)
                 + _a128(nw * 68 * 4) + dcol_tab)
-    return (_a128(ocp * nw * 2) + _a128(64 * ocp * 2) + _a128(64 * 64 * 2)
-            + _a128(64 * nw * 2) + dcol_tab)
+    split = c_out > 64
+    return (_a128(ocp * nw * 2) + (0 if split else _a128(64 * ocp * 2))
+            + _a128(64 * 64 * 2) + _a128(64 * nw * 2) + dcol_tab)
 
 
 # the widest window the backward kernel's dx gather takes, ceil(max_offset)
@@ -496,28 +590,25 @@ def _deform_conv_backward_cuda(x, offset, mask, weight, gout, padding,
     dweight = torch.empty_like(weight)
     doffset = torch.empty_like(offset)
     dmask = None if mask is None else torch.empty_like(mask)
-    # scratch: x in (N, G, H, W, C/G) order, in the exact mode the f32 dx
-    # accumulator of that order (its scatter), and the f32 workspace: the
+    # scratch: x in (N, G, H, W, C/G) order and the f32 workspace: the
     # blocks' dW partials, where an offset group has more than 64 channels
-    # the doffset and dmask partials of its 64-channel slices, and in
-    # windowed mode m * dcol for the dx gather (N * 9C * Ho * Wo floats)
+    # the doffset and dmask partials of its 64-channel slices, m * dcol for
+    # the dx gathers (N * 9C * Ho * Wo floats), and in the exact mode the
+    # sort's keys, lists and fractions (int32 and float2 in the same buffer)
     d = float(max_offset) if max_offset is not None else 0.0
     x_grouped = torch.empty_like(x)
-    dx_acc = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
-              if not d > 0 else None)
     lib = load_library()
     with torch.cuda.device(x.device):  # launches go to the current one
-        size = lib.fami_dcn_bwd_workspace(n, c, c_out, ho, wo, kh, kw, groups,
-                                          d)
+        size = lib.fami_dcn_bwd_workspace(n, c, c_out, h, w, ho, wo, kh, kw,
+                                          groups, d)
         work = torch.empty(size, dtype=torch.float32, device=x.device)
         err = lib.fami_dcn_bwd(
             x.data_ptr(), x_grouped.data_ptr(), offset.data_ptr(),
             None if mask is None else mask.data_ptr(), weight.data_ptr(),
             gout.data_ptr(), dx.data_ptr(), doffset.data_ptr(),
             None if dmask is None else dmask.data_ptr(), dweight.data_ptr(),
-            None if dx_acc is None else dx_acc.data_ptr(), work.data_ptr(), DTYPE_CODES[dtype], n, c, h,
-            w, c_out, ho, wo, kh, kw, padding, dilation, groups, d,
-            stream_ptr(x),
+            work.data_ptr(), DTYPE_CODES[dtype], n, c, h, w, c_out, ho, wo,
+            kh, kw, padding, dilation, groups, d, stream_ptr(x),
         )
         check(lib, err, "fami_dcn_bwd")
     deform_conv2d_backward.launches += 1
@@ -529,14 +620,13 @@ def deform_conv2d_backward(x, offset, mask, weight, gout, *, padding=0,
     """Gradients ``(dx, doffset, dmask, dweight)`` of the model's DCN: the
     plain version for CPU tensors, the CUDA kernel (counted in
     ``deform_conv2d_backward.launches``) for CUDA tensors, or an error.
-    On the card, in windowed mode, every output is summed in a fixed
-    order, so two calls on the same inputs agree bit for bit: dweight from
-    per-block partials, dx by the gather of
-    :func:`deform_conv2d_dx_gather_plain`, for windows up to
-    ``MAX_GATHER_OFFSET`` px (a wider one raises ``ValueError``). The exact
-    mode (``max_offset`` None or <= 0) keeps a scatter of dx with float
-    atomics, whose last bits vary from run to run: the exact adjoint has no
-    bounded window to gather from."""
+    On the card every output is summed in a fixed order, so two calls on
+    the same inputs agree bit for bit: dweight from per-block partials, dx
+    in windowed mode by the gather of :func:`deform_conv2d_dx_gather_plain`,
+    for windows up to ``MAX_GATHER_OFFSET`` px (a wider one raises
+    ``ValueError``), and in the exact mode (``max_offset`` None or <= 0) from
+    the sources sorted by target pixel, in the order of
+    :func:`deform_conv2d_dx_sorted_plain`."""
     k = weight.shape[2] * weight.shape[3]
     groups = int(offset_groups or offset.shape[1] // (2 * k))
     if x.device.type == "cpu":

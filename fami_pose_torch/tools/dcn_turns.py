@@ -13,12 +13,18 @@ into a library of their own and calls each library's ``fami_dcn_fwd`` /
 without ``fami_dcn_fwd_workspace`` has the entries of before the kernels
 took every width (no workspace; the backward's ``dw_part`` and
 ``dw_slots``); one whose ``fami_dcn_bwd_workspace`` does not take
-``max_offset`` (before the dx gather) is called without it, and one whose
-source names ``kDcol`` (a dx form chosen by type) with ``dtype`` after it.
-For the main
+``max_offset`` (before the dx gather) is called without it, one whose
+source names ``kDcol`` (a dx form chosen by type) with ``dtype`` after it,
+and one whose ``fami_dcn_bwd`` takes ``dx_acc`` (the exact mode's float
+atomics, before its sorted lists) with that buffer and a workspace entry
+that does not take the input plane; a forward workspace entry that does not
+take the batch and output plane is called without them. For the main
 path's calls (B=8 and the val path's B=32, 96x72, C = C_out = 48, 12
-groups, D = 4; B=8 at D = 8, the auto window's widest), Sub-JHMDB's (B=8,
-64x64, D = 6), the deform blocks' C = 64 (exact, dilation 1, one group)
+groups, D = 4; B=8 at D = 8, the auto window's widest, and in the exact
+mode), Sub-JHMDB's (B=8, 64x64, D = 6), the deform blocks' (exact,
+dilation 1, B=8: every bf16 width of ``chip_smoke.BLOCK_DCN_CASES``, among
+them the six rows of HRNet-W48's branches at C = 96, 192 and 384 with one
+and two groups, and C = 64 with one group, also on a smooth offset field)
 and, with ``--trained FILE``, one DCN's captured inputs (a ``torch.save``
 of ``{"x", "offset", "mask", "weight", "gout", "max_offset"}``, 3x3,
 dilation and padding 3) with their trained offsets and with them zeroed:
@@ -28,6 +34,8 @@ dilation and padding 3) with their trained offsets and with them zeroed:
     other orders);
   * counts the elements of each backward output that differ between two
     calls of the same library (0 where it sums in a fixed order);
+  * sums the six branch rows' forward and backward times of each library,
+    per turn;
   * times each device-side (``chip_smoke.device_ms``: 20 launches in one
     replayed CUDA graph), in the order old, tree, tree, old (``--rounds``
     times), then the backward with its inputs outside the L2
@@ -64,12 +72,20 @@ OLD_ABI = {"fami_dcn_fwd": [P] * 6 + [I] * 13 + [F, P],
 
 
 def workspace_args(csrc_dir):
-    """The arguments past ``groups`` that the backward's workspace entry of
-    the sources in ``csrc_dir`` takes: ``max_offset`` (since the dx
-    gather), ``dtype`` (where the source chooses a dx form by type)."""
+    """What the backward's entries of the sources in ``csrc_dir`` take:
+    ``max_offset`` past ``groups`` in the workspace entry (since the dx
+    gather), ``dtype`` after it (where the source chooses a dx form by
+    type), ``dx_acc`` (the exact mode's scatter buffer, before its sorted
+    lists; without it the workspace entry takes the input plane H, W);
+    ``fwd_call``, whether the forward's workspace entry takes the call's
+    batch and output plane (since the reduction is cut across items)."""
     with open(os.path.join(csrc_dir, "dcn_bwd.cu")) as f:
         text = f.read()
-    return {"max_offset": "kMaxGatherR" in text, "dtype": "kDcol" in text}
+    with open(os.path.join(csrc_dir, "dcn_fwd.cu")) as f:
+        fwd = f.read()
+    return {"max_offset": "kMaxGatherR" in text, "dtype": "kDcol" in text,
+            "dx_acc": "void* dx_acc" in text,
+            "fwd_call": "fami_dcn_fwd_workspace(int dtype, int B" in fwd}
 
 
 def load_old(old_dir, workdir):
@@ -83,18 +99,35 @@ def load_old(old_dir, workdir):
                    check=True)
     lib = ctypes.CDLL(so)
     current = hasattr(lib, "fami_dcn_fwd_workspace")
+    abi = dict(workspace_args(old_dir), current=current)
     for name in ("fami_dcn_fwd", "fami_dcn_bwd"):
         fn = getattr(lib, name)
         fn.argtypes = build.SIGNATURES[name] if current else OLD_ABI[name]
         fn.restype = ctypes.c_int
-    abi = dict(workspace_args(old_dir), current=current)
+    if current and abi["dx_acc"]:
+        lib.fami_dcn_bwd.argtypes = [P] * 12 + [I] * 13 + [F, P]
     if current:
-        lib.fami_dcn_fwd_workspace.argtypes = [I] * 5
+        lib.fami_dcn_fwd_workspace.argtypes = [I] * (8 if abi["fwd_call"]
+                                                     else 5)
         lib.fami_dcn_bwd_workspace.argtypes = (
-            [I] * 8 + [F] * abi["max_offset"] + [I] * abi["dtype"])
+            [I] * (8 + 2 * (not abi["dx_acc"])) + [F] * abi["max_offset"]
+            + [I] * abi["dtype"])
         for name in ("fami_dcn_fwd_workspace", "fami_dcn_bwd_workspace"):
             getattr(lib, name).restype = ctypes.c_longlong
     return lib, abi
+
+
+def smooth_offsets(gen, inputs, cells=(12, 9), std=8.0):
+    """``inputs`` with each offset plane replaced by a smooth field: an
+    ~N(0, std) field on a coarse grid of ``cells``, bilinearly upsampled to
+    the plane, so that neighbouring pixels sample near each other (as a
+    trained model's offsets do) and not i.i.d."""
+    x, off, msk, wgt = inputs
+    coarse = torch.randn(off.shape[0], off.shape[1], *cells, generator=gen,
+                         device=off.device) * std
+    field = torch.nn.functional.interpolate(
+        coarse, size=off.shape[2:], mode="bilinear", align_corners=True)
+    return x, field.to(off.dtype), msk, wgt
 
 
 def ptr(t):
@@ -118,21 +151,27 @@ class Calls:
         self.x, self.off, self.msk, self.wgt = x, off, msk, wgt
         current = abi["current"]
         self.lib, self.current = lib, current
+        self.dx_acc = not current or abi["dx_acc"]
         self.dims = (1, b, c, h, w, cout, h, w, 3, 3, *conv)
         self.out = torch.empty(b, cout, h, w, device="cuda", dtype=x.dtype)
         self.xg = torch.empty_like(x)
         self.grads = [torch.empty_like(x), torch.empty_like(off),
                       None if msk is None else torch.empty_like(msk),
                       torch.empty_like(wgt)]
-        self.acc = torch.empty(x.shape, device="cuda")
+        self.acc = (torch.empty(x.shape, device="cuda") if self.dx_acc
+                    else None)
         if current:
-            size = lib.fami_dcn_fwd_workspace(1, c, cout, 3, 3)
+            code = 1 if x.dtype == torch.bfloat16 else 0
+            size = (lib.fami_dcn_fwd_workspace(code, b, c, cout, h, w, 3, 3)
+                    if abi["fwd_call"] else
+                    lib.fami_dcn_fwd_workspace(code, c, cout, 3, 3))
             self.work = torch.empty(max(size, 16), dtype=torch.uint8,
                                     device="cuda") if size else None
             d = (conv[3],) if abi["max_offset"] else ()  # where taken
             d += (1 if x.dtype == torch.bfloat16 else 0,) * abi["dtype"]
+            plane = () if abi["dx_acc"] else (h, w)  # stride 1, "same"
             self.workspace = lib.fami_dcn_bwd_workspace(
-                b, c, cout, h, w, 3, 3, conv[2], *d)
+                b, c, cout, *plane, h, w, 3, 3, conv[2], *d)
             self.part = torch.empty(self.workspace, device="cuda")
         else:  # the kernels of before: 3 taps a block, 2 blocks an SM
             sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -152,8 +191,8 @@ class Calls:
 
     def bwd(self):
         head = (ptr(self.x), ptr(self.xg), ptr(self.off), ptr(self.msk),
-                ptr(self.wgt), ptr(self.gout), *map(ptr, self.grads),
-                ptr(self.acc), ptr(self.part))
+                ptr(self.wgt), ptr(self.gout), *map(ptr, self.grads))
+        head += (ptr(self.acc),) * self.dx_acc + (ptr(self.part),)
         if not self.current:
             head += (self.slots,)
         err = self.lib.fami_dcn_bwd(*head, *self.dims, stream())
@@ -177,8 +216,8 @@ def main(argv=None):
         raise SystemExit("dcn_turns: needs a CUDA device")
     sys.path.insert(0, ROOT)
     from chip_smoke import (
-        JHMDB_BATCH, JHMDB_DCN_D, JHMDB_PLANE, block_dcn_inputs, dcn_inputs,
-        device_ms, device_ms_cold,
+        BLOCK_DCN_CASES, HRNET_W48_BRANCHES, JHMDB_BATCH, JHMDB_DCN_D,
+        JHMDB_PLANE, block_dcn_inputs, dcn_inputs, device_ms, device_ms_cold,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -192,10 +231,26 @@ def main(argv=None):
                                h=JHMDB_PLANE[0], w=JHMDB_PLANE[1]),
             (3, 3, 12, float(JHMDB_DCN_D))),
         "main B=8 D=8": (lambda: dcn_inputs(gen, bf16, 8), (3, 3, 12, 8.0)),
+        "main B=8 exact": (lambda: dcn_inputs(gen, bf16, 0),
+                           (3, 3, 12, 0.0)),
         "blocks C=64 G=1 exact": (
             lambda: block_dcn_inputs(gen, bf16, 64, 64, 1, (96, 72)),
             (1, 1, 1, 0.0)),
+        "blocks C=64 G=1 exact, smooth offsets": (
+            lambda: smooth_offsets(gen, block_dcn_inputs(
+                gen, bf16, 64, 64, 1, (96, 72))), (1, 1, 1, 0.0)),
     }
+    # the deform blocks' bf16 widths; the six at HRNet-W48's narrower
+    # branches are summed per turn
+    branches = []
+    for dtype, c, c_out, g, hw in BLOCK_DCN_CASES:
+        if dtype != bf16:
+            continue
+        name = f"blocks C={c} C_out={c_out} G={g} exact"
+        if (c, hw) in HRNET_W48_BRANCHES[1:] and c == c_out:
+            branches.append(name)
+        cases[name] = ((lambda c=c, c_out=c_out, g=g, hw=hw: block_dcn_inputs(
+            gen, bf16, c, c_out, g, hw)), (1, 1, g, 0.0))
     gouts = {}
     if args.trained:
         saved = torch.load(args.trained, map_location="cuda")
@@ -262,6 +317,16 @@ def main(argv=None):
                 rows.append(row)
                 print(json.dumps(row), flush=True)
             del calls, inputs, gout
+        for kernel in ("dcn_fwd", "dcn_bwd"):
+            parts = [r for r in rows
+                     if r["case"] in branches and r["kernel"] == kernel]
+            row = {"case": "sum of the six branch rows", "kernel": kernel,
+                   "cases": branches}
+            for key in ("old_ms", "tree_ms"):
+                row[key] = [sum(vals) for vals in zip(*(r[key]
+                                                        for r in parts))]
+            rows.append(row)
+            print(json.dumps(row), flush=True)
         # the chunked forward: C_out tiles of 64 each sample the tile again
         row = {"case": "chunked forward, C = 384, 12x9, B = 8, exact",
                "kernel": "dcn_fwd"}

@@ -7,10 +7,10 @@ These tests need an NVIDIA GPU with ``nvcc`` (they build the kernels from
 
 Tolerances: f32 1e-4 of the output's scale (the kernel sums the 9*C products
 in another order than the plain matmul, the backward's dweight from
-per-block partials, its dx by a gather in windowed mode and with atomics in
-the exact mode); bf16 one bf16 ulp of the largest output (both sides round
-one f32 sum to bf16). In windowed mode every output of the backward repeats
-bit for bit from call to call.
+per-block partials, its dx by a gather in windowed mode and from sorted
+lists in the exact mode); bf16 one bf16 ulp of the largest output (both
+sides round one f32 sum to bf16). In both modes every output of the
+backward repeats bit for bit from call to call.
 
 The last group runs every kernel on buffers placed between unmapped pages,
 so that a read or write outside an argument faults: a check that needs no
@@ -221,7 +221,7 @@ def _offsets(gen, shape, d, dtype):
 
 def _assert_grad_close(name, got, ref, dtype):
     """f32: 1e-4 of the gradient's scale (other sum orders: the gather, or
-    the exact mode's atomics); bf16 outputs: one bf16 ulp (2^-7) of the
+    the exact mode's sorted lists); bf16 outputs: one bf16 ulp (2^-7) of the
     scale, both sides rounding an f32 sum once."""
     assert got.dtype == ref.dtype and got.shape == ref.shape, name
     scale = max(1.0, float(ref.float().abs().max()))
@@ -289,7 +289,7 @@ def _check_backward(gen, x, off, msk, wgt, **kw):
 @pytest.mark.parametrize("max_offset", [4, 1, 0])
 def test_dcn_backward_kernel_shapes(gen, dtype, c, c_out, max_offset):
     """The forward's shape cases for the backward: C in {16, 48} (G = C/4:
-    the 4-channel dx gather, the exact mode's float4 atomics), every C_out,
+    the 4-channel dx gathers of both modes), every C_out,
     D in {4, 1, exact} with integer
     offsets, offsets exactly at +-D and past D, with and without a mask,
     whole and ragged tiles."""
@@ -325,8 +325,8 @@ def test_dcn_backward_kernel_other_groupings(gen, dtype, c, g):
 @pytest.mark.parametrize("max_offset", [4, 0])
 def test_dcn_backward_kernel_smooth_offsets(gen, dtype, max_offset):
     """A smooth field of small offsets (|t| < 1.5 px), as a trained model
-    gives: neighbouring pixels feed the same corners (the exact mode's dx
-    atomics collide; the gather's candidates hit together); at the main
+    gives: neighbouring pixels feed the same corners (the exact mode's
+    lists grow long; the gather's candidates hit together); at the main
     path's channels and plane size."""
     n, c, h, w, g = 2, 48, 96, 72, 12
     x = torch.randn(n, c, h, w, generator=gen, device="cuda").to(dtype)
@@ -355,17 +355,33 @@ def test_dcn_backward_kernel_taps_not_a_multiple_of_three(gen, dtype):
                     offset_groups=4, max_offset=2)
 
 
+def _repeats(x, off, msk, wgt, gout, kw, calls=10):
+    """``calls`` calls of the backward on one input: every output bit for
+    bit equal to the first call's; returns the first call's outputs."""
+    from fami_pose_torch.ops.deform_conv import deform_conv2d_backward
+
+    first = deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
+    for _ in range(calls - 1):
+        again = deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
+        for name, a, b in zip(("dx", "doffset", "dmask", "dweight"), again,
+                              first):
+            assert (a is None and b is None) or torch.equal(a, b), name
+    return first
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("max_offset", [4, 8, 16, 31])
+@pytest.mark.parametrize("max_offset", [4, 8, 16, 31, 0])
 def test_dcn_backward_repeats_bit_for_bit(gen, dtype, max_offset):
-    """Windowed mode: 10 calls on one input give the same dx, doffset,
-    dmask and dweight bit for bit (no float atomics: dx by the fixed-order
-    gather, dweight from per-block partials summed in a fixed order), at
-    the main path's groups and plane, a third of the offsets past D. D = 16
-    and 31 take the gather's 64-bit hit masks (31: one channel a pass, its
-    halo's shared memory at the card's limit)."""
+    """10 calls on one input give the same dx, doffset, dmask and dweight
+    bit for bit (no float atomics: dx by the fixed-order gather in windowed
+    mode and from the sorted lists in the exact mode, max_offset 0; dweight
+    from per-block partials summed in a fixed order), at the main path's
+    groups and plane, a third of the offsets past D (exact: |t| up to 5
+    px). D = 16 and 31 take the gather's 64-bit hit masks (31: one channel
+    a pass, its halo's shared memory at the card's limit). dx is held to
+    the plain version that sums in the kernel's order."""
     from fami_pose_torch.ops.deform_conv import (
-        deform_conv2d_backward, deform_conv2d_dx_gather_plain,
+        deform_conv2d_dx_gather_plain, deform_conv2d_dx_sorted_plain,
     )
 
     n, c, h, w, g = 2, 48, 96, 72, 12
@@ -376,20 +392,54 @@ def test_dcn_backward_repeats_bit_for_bit(gen, dtype, max_offset):
            * 0.05).to(dtype)
     gout = torch.randn(n, 48, h, w, generator=gen, device="cuda").to(dtype)
     kw = dict(padding=3, dilation=3, offset_groups=g, max_offset=max_offset)
-    first = deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
-    for _ in range(9):
-        again = deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
-        for name, a, b in zip(("dx", "doffset", "dmask", "dweight"), again,
-                              first):
-            assert torch.equal(a, b), name
-    # the gather's plain version walks the same window in the same order
-    _assert_grad_close("dx", first[0], deform_conv2d_dx_gather_plain(
+    first = _repeats(x, off, msk, wgt, gout, kw)
+    # the plain versions walk the same sources in the same order
+    ref = (deform_conv2d_dx_gather_plain(x, off, msk, wgt, gout, **kw)
+           if max_offset else deform_conv2d_dx_sorted_plain(
+               x, off, msk, wgt, gout, padding=3, dilation=3,
+               offset_groups=g))
+    _assert_grad_close("dx", first[0], ref, dtype)
+
+
+@pytest.mark.parametrize("dtype,c,c_out,g,with_mask", [
+    (torch.bfloat16, 64, 64, 1, False), (torch.bfloat16, 96, 96, 2, True),
+    (torch.bfloat16, 384, 384, 1, False), (torch.float32, 64, 64, 2, True)])
+def test_dcn_exact_backward_repeats_bit_for_bit_at_the_blocks_widths(
+        gen, dtype, c, c_out, g, with_mask):
+    """The deform blocks' exact mode (dilation and padding 1, offsets ~N(0,
+    8) px, many samples off the image) at their widths, the plane a
+    branch of HRNet-W48 has at that width cut to two images: 10 calls bit
+    for bit, dx held to the sorted plain version and every output to the
+    plain backward."""
+    from fami_pose_torch.ops.deform_conv import (
+        deform_conv2d_backward_plain, deform_conv2d_dx_sorted_plain,
+    )
+
+    h, w = {64: (96, 72), 96: (48, 36), 384: (12, 9)}[c]
+    x = torch.randn(2, c, h, w, generator=gen, device="cuda").to(dtype)
+    off = (torch.randn(2, 18 * g, h, w, generator=gen, device="cuda")
+           * 8).to(dtype)
+    msk = (torch.rand(2, 9 * g, h, w, generator=gen, device="cuda")
+           .to(dtype) if with_mask else None)
+    wgt = (torch.randn(c_out, c, 3, 3, generator=gen, device="cuda")
+           * (0.4 / c ** 0.5)).to(dtype)
+    gout = torch.randn(2, c_out, h, w, generator=gen, device="cuda").to(dtype)
+    kw = dict(padding=1, dilation=1, offset_groups=g)
+    first = _repeats(x, off, msk, wgt, gout, dict(kw, max_offset=None))
+    _assert_grad_close("dx", first[0], deform_conv2d_dx_sorted_plain(
         x, off, msk, wgt, gout, **kw), dtype)
+    ref = deform_conv2d_backward_plain(x, off, msk, wgt, gout,
+                                       max_offset=None, **kw)
+    for name, a, b in zip(("dx", "doffset", "dmask", "dweight"), first, ref):
+        if b is None:
+            assert a is None, name
+        else:
+            _assert_grad_close(name, a, b, dtype)
 
 
 def test_dcn_backward_refuses_a_window_past_31_px(gen):
     """A window wider than the gather's 31 px raises before any launch,
-    instead of falling back to the exact mode's atomic scatter."""
+    instead of falling back to the exact mode's sorted lists."""
     from fami_pose_torch.ops.deform_conv import deform_conv2d_backward
 
     before = deform_conv2d_backward.launches
@@ -661,8 +711,8 @@ def test_deform_blocks_on_the_card_launch_the_kernels(gen, name):
     """Each block at C = 48 on the card (f32, TF32 off) against the port on
     the CPU with the same weights, by ``chip_smoke.block_card_vs_cpu``: one
     ``dcn_fwd`` and one ``dcn_bwd`` launch, the output and every gradient
-    within 1e-4 of its scale (the blocks' exact mode sums dx with atomics;
-    the DCN's bias feeds a train-mode BatchNorm, which makes its gradient
+    within 1e-4 of its scale (the blocks' exact mode sums dx from sorted
+    lists, in another order than the CPU's scatter; the DCN's bias feeds a train-mode BatchNorm, which makes its gradient
     zero up to rounding: it is held to 1e-4 of the largest gradient)."""
     from chip_smoke import block_card_vs_cpu
 
@@ -1050,10 +1100,10 @@ def test_dcn_kernels_stay_inside_their_buffers(guarded, gen, dtype,
                                                max_offset, case):
     """The forward (its channels-last copy of x included) and the backward
     (its copy, its main kernel on the vector and scalar paths, the ragged
-    last tile, the dW sum; at D = 4 the m * dcol scratch and the dx gather,
-    in the exact mode the zeroed accumulator, the vector and scalar atomics
-    and the finishing transpose) on every internal path; results equal to
-    the wrappers' (dx bit for bit at D = 4)."""
+    last tile, the dW sum; the m * dcol scratch; at D = 4 the dx gather,
+    in the exact mode the sort's count, scan, placement and list sort and
+    the sorted gather, vector and scalar) on every internal path; results
+    equal to the wrappers', bit for bit."""
     from fami_pose_torch.ops.deform_conv import deform_conv2d_backward
 
     n, c, h, w, g, c_out = DCN_GUARDED[case]
@@ -1068,7 +1118,7 @@ def test_dcn_kernels_stay_inside_their_buffers(guarded, gen, dtype,
     lib = _kernel_library()
     px, pxg, po, pm, pw, pout = (guarded.put(t)
                                  for t in (x, x, off, msk, wgt, ref))
-    size = lib.fami_dcn_fwd_workspace(code, c, c_out, 3, 3)
+    size = lib.fami_dcn_fwd_workspace(code, n, c, c_out, h, w, 3, 3)
     pwork = guarded.put(torch.zeros(size, dtype=torch.uint8,
                                     device="cuda")) if size else None
     dims = (code, n, c, h, w, c_out, h, w, 3, 3, 3, 3, g, float(max_offset),
@@ -1078,21 +1128,14 @@ def test_dcn_kernels_stay_inside_their_buffers(guarded, gen, dtype,
     assert torch.equal(guarded.get(pout, ref), ref)
     gout = torch.randn(ref.shape, generator=gen, device="cuda").to(dtype)
     ref_b = deform_conv2d_backward(x, off, msk, wgt, gout, **kw)
-    acc = torch.zeros(x.shape, device="cuda")
-    part = torch.zeros(lib.fami_dcn_bwd_workspace(n, c, c_out, h, w, 3, 3, g,
-                                                  float(max_offset)),
-                       device="cuda")
-    pg, pxg2, pdx, pdo, pdm, pdw, pacc, ppart = (
-        guarded.put(t) for t in (gout, x, x, off, msk, wgt, acc, part))
-    if max_offset:
-        pacc = None  # the gather takes no dx accumulator
+    part = torch.zeros(lib.fami_dcn_bwd_workspace(
+        n, c, c_out, h, w, h, w, 3, 3, g, float(max_offset)), device="cuda")
+    pg, pxg2, pdx, pdo, pdm, pdw, ppart = (
+        guarded.put(t) for t in (gout, x, x, off, msk, wgt, part))
     assert lib.fami_dcn_bwd(px, pxg2, po, pm, pw, pg, pdx, pdo, pdm, pdw,
-                            pacc, ppart, *dims) == 0
+                            ppart, *dims) == 0
     guarded.sync()
-    if max_offset:
-        assert torch.equal(guarded.get(pdx, x), ref_b[0])
-    else:
-        _assert_grad_close("dx", guarded.get(pdx, x), ref_b[0], dtype)
+    assert torch.equal(guarded.get(pdx, x), ref_b[0])
     assert torch.equal(guarded.get(pdo, off), ref_b[1])
     assert torch.equal(guarded.get(pdm, msk), ref_b[2])
     _assert_grad_close("dweight", guarded.get(pdw, wgt), ref_b[3], dtype)
