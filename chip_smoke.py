@@ -522,9 +522,10 @@ DCN_KERNEL_NAMES = (
     "dcn_fwd_bf16_kernel", "dcn_fwd_bf16_chunked_kernel",
     "dcn_fwd_bf16_staged_kernel", "dcn_fwd_f32_kernel", "sum_kernel",
     "pack_kernel", "grouped_channels_last_kernel", "dcn_bwd_bf16_kernel",
-    "dcn_bwd_f32_kernel", "dx_gather_kernel", "dx_sorted_kernel",
-    "sort_count_kernel", "sort_scan_kernel", "sort_place_kernel",
-    "sort_lists_kernel", "prep_kernel", "finish_kernel", "dw_split_kernel")
+    "dcn_bwd_f32_kernel", "dx_gather_kernel", "dx_tiles_kernel",
+    "dx_lists_kernel", "bucket_count_kernel", "bucket_scan_kernel",
+    "bucket_place_kernel", "key_sort_kernel", "prep_kernel", "finish_kernel",
+    "dw_split_kernel")
 
 
 def kernel_instance(mangled, names):

@@ -37,9 +37,10 @@
 // (cudaErrorInvalidValue). The exact mode (no clamp) has no bounded window,
 // so it gathers from lists: every source (group, tap, pixel) is keyed by the
 // floor corner (y0, x0) of its sample, keys in [-1, H-1] x [-1, W-1] (the
-// others cannot touch the image), and a counting sort written here (ranks
-// claimed by integer atomics, a scan, the placement, then each list sorted
-// by source index k * HWo + p) gives every key one order whatever the
+// others cannot touch the image), and a two-level counting sort written
+// here (the sources bucketed by tile of 16 x 16 keys, then each tile's by
+// key, both stable, ranks taken within a warp by __match_any_sync, no
+// atomics on the entries' places) gives every key one order whatever the
 // threads' order. dx(q) sums the lists of its four candidate keys,
 // (qy-1, qx-1), (qy-1, qx), (qy, qx-1), (qy, qx), in that order, each by
 // ascending source index (ops/deform_conv.py::deform_conv2d_dx_sorted_plain
@@ -64,16 +65,7 @@
 // Design (launches on the caller's stream, counted as one call):
 //   0. prep_kernel copies x (B, C, H, W) to a scratch buffer in grouped
 //      channels-last order (B, G, H, W, Cg), as the forward does, so that
-//      the Cg channels of one group at one corner are one vector load. In
-//      the exact mode the sort's four passes follow (they read the
-//      offsets alone): sort_count_kernel gives each source the next rank of
-//      its key (an integer atomic), sort_scan_kernel turns each (image,
-//      group) plane's counts into list starts, sort_place_kernel writes
-//      each source's index and offsets at its start + rank,
-//      sort_lists_kernel sorts each key's list by source index (a thread a
-//      key, a bitonic network in registers up to 16 entries, insertion in
-//      place past that: O(L^2), which only offsets that send many sources
-//      to one corner reach).
+//      the Cg channels of one group at one corner are one vector load.
 //   1. dcn_bwd_bf16_kernel: persistent blocks of 256 threads, two an SM at
 //      the main-path shape. A block owns one work item (tap group, channel
 //      chunk, Cout chunk) and walks 64-pixel tiles with it:
@@ -145,19 +137,45 @@
 //      call 0.72 ms at B=8, D = 4 against 0.43 with the masks, PERF.md),
 //      and sums the products; the sum is rounded once into x's type and
 //      written NCHW.
-//      dx_sorted_kernel (the exact mode): a thread owns one input pixel
-//      and 4 channels of its group (1 where Cg % 4 != 0), the threads of
-//      one pixel side by side, and walks its four lists in order, 4
-//      entries' loads in flight at a time, each source's m * dcol read
-//      from the scratch at its index, its corner weight from its entry's
-//      offsets (their fractions, as the main kernel takes them); rounded
-//      once, NCHW. Forms measured before this one
-//      (PERF.md, B=8 main path): the lists sorted by insertion in global
-//      memory (0.37 ms of a 1.18 ms call); the count, scan, placement and
-//      sort in one block a plane with shared-memory counters (0.97 ms of
-//      1.42: a block a plane leaves SMs idle, 8 blocks at G = 1, and its
-//      sort ran in local memory); each list sorted in registers by every
-//      gather thread that reads it (the gather 0.69 ms of 1.19).
+//      The exact mode, after the main kernel (its four sorting passes read
+//      the offsets and the entries alone; no float atomics, no library
+//      sort, every step linear in the lists' lengths):
+//        - bucket_count_kernel: a warp a chunk of a plane's sources counts
+//          them by key tile (16 x 16 keys; shared-memory counters of its
+//          own);
+//        - bucket_scan_kernel: each plane's counts in (key tile, chunk)
+//          order -> starts;
+//        - bucket_place_kernel: each source's entry (its key in the tile,
+//          its index, its offsets: 8 bytes in bf16) at its tile's start for
+//          the chunk + its rank among the chunk's sources of that tile
+//          (__match_any_sync a round), so each tile's entries lie in
+//          ascending source index;
+//        - key_sort_kernel: a block a key tile sorts its entries by key,
+//          in shared memory where they fit (stable: counts of (key, warp),
+//          a scan, the placement ranked by ballots), so each key's list
+//          lies in ascending source index;
+//        - dx_tiles_kernel (a group of 4 channels, the main path): a block
+//          a 16 x 16 pixel tile lays its 17 x 17 keys' lists end to end
+//          and streams them through shared memory in windows of 2,816
+//          entries: each entry's fractions and its m * dcol
+//          row read once from device memory for the four pixels that share
+//          its key; a thread a pixel then adds the part of its four lists
+//          in the window, keys in order, each list by source index, its
+//          corner weight from the entry's offsets (their fractions, as the
+//          main kernel takes them); rounded once, NCHW. A tile with more
+//          entries than a window (a hot spot) takes more windows;
+//        - dx_lists_kernel (other groups: the deform blocks): a thread a
+//          (pixel, 4 channels or 1), the chunks of a pixel side by side
+//          reading each entry together and its m * dcol row in one run,
+//          each list read in place, in the same order.
+//      The form before this one (PERF.md) sorted every key's list in device
+//      memory: ranks by one integer atomic a source, placement, each list
+//      sorted by one thread (insertion past 16 entries: O(L^2)), then a
+//      thread a pixel read each list and each m * dcol row four times from
+//      device memory. Measured and not kept on the way (PERF.md): sorting
+//      each pixel tile's lists on chip from buckets split by the keys two
+//      tiles share, a thread a 2 x 2 pixel quad, lanes ranked by ballots in
+//      the placement or by __match_any_sync in the key sort.
 //   3. finish_kernel sums the blocks' dW partials into (Cout, C, kh, kw) in
 //      W's type, and, where groups span chunks, the doffset and dmask
 //      partials.
@@ -186,17 +204,26 @@
 // bound; with the dx gather 0.4259-0.4268 ms, of which the gather kernel
 // takes ~0.24 (PERF.md). In turns with the form of before the sorted lists
 // and the split form (tools/dcn_turns.py, PERF.md): the exact mode at the
-// main-path shape 0.6710-0.6737 ms against its atomics' 0.2992-0.3014 (the
-// sort's count 0.095, placement 0.101 and list sort 0.073, the sorted
-// gather 0.199); the deform blocks' six branch calls (C = 96 / 192 / 384,
-// G = 1 and 2, 48x36 / 24x18 / 12x9, B = 8) 1.9620-1.9660 ms against
-// 5.3567-5.4027. Registers of every instance of this form (-Xptxas -v,
-// chip_smoke.py phase build): dcn_bwd_bf16_kernel 114-128, spilling only in
-// the wide CP = 64 instances (<64, 1, true> 28 bytes stored, 32 loaded;
-// <64, 4, true> 24 and 24: the split form's and a group past 64 channels'
-// calls); dcn_bwd_f32_kernel 128-232, dw_split_kernel 64-118,
-// dx_gather_kernel 43-48, dx_sorted_kernel 40-52, the sort's kernels
-// 28-94, no spills.
+// main-path shape 0.6710-0.6737 ms against its atomics' 0.2992-0.3014; the
+// deform blocks' six branch calls (C = 96 / 192 / 384, G = 1 and 2, 48x36
+// / 24x18 / 12x9, B = 8) 1.9620-1.9660 ms against 5.3567-5.4027. The
+// exact mode's dx of this form, in turns with the form before it (global
+// per-key lists: 0.6762-0.6767 ms): 0.4933-0.4943 ms at the main-path
+// shape, of which the main kernel 0.175, bucket_count_kernel 0.038,
+// bucket_scan_kernel 0.005, bucket_place_kernel 0.062, key_sort_kernel
+// 0.061, dx_tiles_kernel 0.134 (the dx part's bytes, m * dcol and the
+// offsets read once and dx written once, ~0.037 ms at 3.35 TB/s); with
+// 1,000 sources of each plane on one corner 0.589-0.591 against 19.1-19.8;
+// the deform blocks' exact calls within -7..+2% (PERF.md). Registers of
+// every instance of this form (-Xptxas -v): dcn_bwd_bf16_kernel
+// 114-128, spilling only in the wide CP = 64
+// instances (<64, 1, true> 28 bytes stored, 32 loaded; <64, 4, true> 24
+// and 24: the split form's and a group past 64 channels' calls);
+// dcn_bwd_f32_kernel 128-232, dw_split_kernel 64-118, dx_gather_kernel
+// 43-48; the exact mode's bucket_count_kernel 58-60, bucket_scan_kernel
+// 32, bucket_place_kernel 71-74, key_sort_kernel 48-62, dx_tiles_kernel
+// 100-115 (<bf16> 100: two blocks an SM; bounding it to three was 35%
+// slower), dx_lists_kernel 48-64; no spills.
 
 #include "dcn_common.cuh"
 
@@ -332,20 +359,77 @@ int max_slots(const Plan& pl, int sms) {
   return (kBlocksPerSm * sms + pl.work - 1) / pl.work;
 }
 
+// ---- the exact mode's grid of keys --------------------------------------
+
+// A source (group, tap k, output pixel p) of a plane (image, group) is keyed
+// by the floor corner (y0, x0) of its sample, taken as (ky, kx) = (y0 + 1,
+// x0 + 1) in [0, H] x [0, W]. The key space is cut into tiles of 16 x 16
+// keys, kt = (ky / 16) * ktx + kx / 16; a key's place in its tile is lk =
+// (ky % 16) * 16 + kx % 16. An entry's word holds lk << 24 | s, the source
+// index s = k * HWo + p in the low 24 bits.
+constexpr int kKeyTile = 16;
+constexpr int kTileKeys = kKeyTile * kKeyTile;  // 256: one a thread
+constexpr int kHalo = kKeyTile + 1;             // a pixel tile's 17 x 17 keys
+constexpr int kHaloKeys = kHalo * kHalo;
+constexpr int kSrcBits = 24;
+constexpr int kSrcMask = (1 << kSrcBits) - 1;
+constexpr int kWarps = kThreads / 32;
+// the bucket kernels' counters, kWarps ints a key tile: 48 KB at most
+constexpr int kMaxKeyTiles = 1536;
+constexpr int kBatch = 8;  // rounds of 32 a lane loads before it ranks them
+// the gather's window: entries and their m * dcol, 3 blocks an SM
+constexpr int kWindowSmem = 66 * 1024;
+// the key sort's tile in shared memory: the entries and their sorted copy,
+// 4 blocks an SM
+constexpr int kSortSmem = 44 * 1024;
+static_assert(kThreads == kTileKeys, "key_sort_kernel: a thread a key");
+
+// How a plane's sources are cut: ktx key tiles a row, kt in all, ptx_n x
+// pty_n pixel tiles; the bucket kernels' warps take
+// `rounds` rounds of 32 sources each (a chunk), nc chunks a plane; rows of
+// ints a plane for the counts (kt x nc, then the plane's total) and for
+// the keys' starts (kt x 257: a key tile's 256 starts, then its end). At
+// least kt / 8 rounds, so that the counts stay under a quarter of the
+// sources.
+struct ExactGrid {
+  int ktx, kt, rounds, nc, ptx_n, pty_n;
+  long long cnt_row, kst_row;
+};
+
+__host__ __device__ inline ExactGrid exact_grid(int H, int W, int K,
+                                                int HWo) {
+  ExactGrid e;
+  e.ktx = (W + kKeyTile) / kKeyTile;  // ceil((W + 1) / 16)
+  e.kt = (H + kKeyTile) / kKeyTile * e.ktx;
+  e.ptx_n = (W + kKeyTile - 1) / kKeyTile;  // pixel tiles
+  e.pty_n = (H + kKeyTile - 1) / kKeyTile;
+  // 16 rounds a chunk, fewer where a plane has too few sources for 32
+  // chunks, but at least kt / 8
+  const long long sources = (long long)K * HWo;
+  e.rounds = sources >= 16LL * 32 * 32 ? 16 : (int)((sources + 1023) / 1024);
+  if (e.rounds < (e.kt + kWarps - 1) / kWarps)
+    e.rounds = (e.kt + kWarps - 1) / kWarps;
+  if (e.rounds < 1) e.rounds = 1;
+  const long long per_chunk = 32LL * e.rounds;
+  e.nc = (int)((sources + per_chunk - 1) / per_chunk);
+  e.cnt_row = (long long)e.kt * e.nc + 1;
+  e.kst_row = (long long)e.kt * (kTileKeys + 1);
+  return e;
+}
+
 // float32 scratch: the dW partials (a slot's copy of dW for each of its tap
 // groups), then, where groups span chunks, the doffset and dmask partials
 // of each slice, then m * dcol in (B, G, K, HWo, Cg) order from the 16-byte
 // aligned element `md`, which the dx gathers read; in the split form the
-// stored columns (`col`). In the exact mode the sort's int32 arrays
-// follow, each 16-byte aligned: `keys`, a row of NK + 1
-// entries for each (image, group) plane (NK = (H + 1)(W + 1) keys), whose
-// entry key holds the key's count, after the scan its list's start (entry
-// NK: the plane's total, so key's list is [row[key], row[key + 1])); `ent`,
-// K * HWo entries a plane, each list's entries (the source index s and its
-// offsets: 8 bytes in bf16, 16 in f32; room for 16); `rank`, each source's
-// place in its key's list, in source order.
+// stored columns (`col`). In the exact mode the bucket sort's arrays
+// follow, each 16-byte aligned: `cnt`, a row of kt * nc + 1 int32 a plane
+// (ExactGrid), the counts and after the scan each (key tile, chunk)'s
+// start (slot kt * nc: the plane's total); `kst`, a row of kt * 257 int32
+// a plane, each key's start in its plane's sorted entries and each key
+// tile's end; `ent` and `ent2`, K * HWo entries a plane each (8 bytes in
+// bf16, 16 in f32; room for 16), the entries by key tile, then by key.
 struct Scratch {
-  long long dw, doff, dmsk, md, col, keys, ent, rank, total;
+  long long dw, doff, dmsk, md, col, cnt, kst, ent, ent2, total;
 };
 
 inline long long align4(long long n) { return (n + 3) & ~3LL; }
@@ -361,14 +445,16 @@ Scratch scratch_floats(const Plan& pl, int slots, int B, int C, int Cout,
   // the split form's stored columns: a 64 x 3cp bf16 block a (tile, item)
   const long long tiles = (long long)B * ((HWo + kTilePix - 1) / kTilePix);
   s.col = align4(s.md + (long long)B * K * C * HWo);
-  s.keys = s.col + (pl.split ? tiles * pl.tap_groups * pl.n_ci *
-                                   kTilePix * kTaps * pl.cp / 2
-                             : 0);
-  s.ent = align4(s.keys + (long long)B * G * ((long long)(H + 1) * (W + 1) + 1));
-  s.rank = align4(s.ent + 4 * n_msk);
+  s.cnt = s.col + (pl.split ? tiles * pl.tap_groups * pl.n_ci *
+                                  kTilePix * kTaps * pl.cp / 2
+                            : 0);
+  const ExactGrid eg = exact_grid(H, W, K, HWo);
+  s.kst = align4(s.cnt + (long long)B * G * eg.cnt_row);
+  s.ent = align4(s.kst + (long long)B * G * eg.kst_row);
+  s.ent2 = align4(s.ent + 4 * n_msk);
   // the regions from `col` on start at a 16-byte aligned base, 3 floats
   // of slack
-  s.total = (sorted ? s.rank + n_msk : s.keys) + 3;
+  s.total = (sorted ? s.ent2 + 4 * n_msk : s.cnt) + 3;
   return s;
 }
 
@@ -1319,90 +1405,224 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- the exact mode: sources sorted by key -----------------------------------
+// ---- the exact mode: sources bucketed by key tile, sorted in each tile ------
 
-// The key of a source whose sample lies at (oy + sy + ty, ox + sx + tx):
-// its floor corner (y0, x0) as (y0 + 1) * (W + 1) + x0 + 1, or -1 where the
-// corner lies outside [-1, H-1] x [-1, W-1] (no corner of it touches the
-// image; NaN offsets too). The sum is taken in float, exact for the
-// integers it holds, so a huge offset never reaches an int conversion.
-__device__ __forceinline__ int source_key(float ty, float tx, int py, int px,
-                                          int H, int W) {
-  const float yf = (float)py + floorf(ty);
-  const float xf = (float)px + floorf(tx);
-  if (!(yf >= -1.f && yf <= (float)(H - 1) && xf >= -1.f &&
-        xf <= (float)(W - 1)))
-    return -1;
-  return ((int)yf + 1) * (W + 1) + (int)xf + 1;
-}
-
-// Source i of all B * G * K * HWo, ordered (plane = b * G + g, k, p): its
-// plane, its index s = k * HWo + p in the plane, its offsets and key
-struct Source {
-  int plane, s, key;
-  float ty, tx;
-  template <typename T>
-  __device__ __forceinline__ Source(long long i, const T* __restrict__ off,
-                                    const Args& a, int K, int HWo) {
-    const long long row = i / HWo;  // plane * K + k
-    const int p = (int)(i - row * HWo);
-    const int k = (int)(row % K);
-    plane = (int)(row / K);
-    s = k * HWo + p;
-    ty = to_f(__ldg(off + 2 * row * HWo + p));
-    tx = to_f(__ldg(off + (2 * row + 1) * HWo + p));
-    const int ky = k / a.kw;
-    const int oy = p / a.Wo;
-    key = source_key(ty, tx, oy + ky * a.dil - a.pad,
-                     p - oy * a.Wo + (k - ky * a.kw) * a.dil - a.pad, a.H,
-                     a.W);
+// A list entry: the word (lk << 24 | s) and the source's offsets as given,
+// from which the gather takes the fractions ty - floor(ty), tx - floor(tx)
+// as the main kernel does. bf16: int2 (the word, the two offsets' bits);
+// f32: int4.
+template <typename T>
+struct Entry;
+template <>
+struct Entry<bf16> {
+  using V = int2;
+  static __device__ __forceinline__ V make(int word, float ty, float tx) {
+    // ty, tx came from bf16: the conversion back is exact
+    return make_int2(word, (int)((uint32_t)__bfloat16_as_ushort(
+                                     __float2bfloat16_rn(ty)) |
+                                 ((uint32_t)__bfloat16_as_ushort(
+                                      __float2bfloat16_rn(tx)) << 16)));
+  }
+  static __device__ __forceinline__ float ty(V e) {
+    return __bfloat162float(__ushort_as_bfloat16((uint16_t)(e.y & 0xffff)));
+  }
+  static __device__ __forceinline__ float tx(V e) {
+    return __bfloat162float(
+        __ushort_as_bfloat16((uint16_t)((uint32_t)e.y >> 16)));
+  }
+};
+template <>
+struct Entry<float> {
+  using V = int4;
+  static __device__ __forceinline__ V make(int word, float ty, float tx) {
+    return make_int4(word, __float_as_int(ty), __float_as_int(tx), 0);
+  }
+  static __device__ __forceinline__ float ty(V e) {
+    return __int_as_float(e.y);
+  }
+  static __device__ __forceinline__ float tx(V e) {
+    return __int_as_float(e.z);
   }
 };
 
-// The lists, in four passes over the call's sources (plane = (image,
-// group), a row of NK + 1 entries of `keys` a plane, zeroed first):
-//   1. sort_count_kernel: each source claims the next rank of its key
-//      (an integer atomic on entry key) and stores it (`rank`, in source
-//      order); the ranks' order within a key follows the atomics;
-//   2. sort_scan_kernel: each row's counts -> the exclusive prefix sums,
-//      the lists' starts (entry NK: the plane's total), a block a plane;
-//   3. sort_place_kernel: each source's entry (its index s = k * HWo + p
-//      and its offsets ty, tx as given: one 8-byte store in bf16, 16 in
-//      f32) at start + rank of its key's list, [row[key], row[key + 1]), in
-//      the order of the ranks;
-//   4. sort_lists_kernel: each list in ascending source index.
-template <typename T>
-__global__ void sort_count_kernel(const T* __restrict__ offset,
-                                  int* __restrict__ keys,
-                                  int* __restrict__ rank, Args a,
-                                  long long n_src) {
-  const int K = a.kh * a.kw, HWo = a.Ho * a.Wo;
-  const long long nk1 = (long long)(a.H + 1) * (a.W + 1) + 1;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_src; i += (long long)gridDim.x * blockDim.x) {
-    const Source src(i, offset, a, K, HWo);
-    rank[i] = src.key >= 0 ? atomicAdd(keys + src.plane * nk1 + src.key, 1)
-                           : -1;
+// A lane's walk over its chunk's sources s, s + 32, s + 64, ... of a plane:
+// the tap k (its row and column in the kernel) and the output pixel p = (oy,
+// ox) of s, kept by additions, so that the loop does no integer division
+struct Walk {
+  int s, k, p, oy, ox, tky, tkx;
+  __device__ __forceinline__ Walk(int s0, const Args& a, int HWo) {
+    s = s0;
+    k = s0 / HWo;
+    p = s0 - k * HWo;
+    oy = p / a.Wo;
+    ox = p - oy * a.Wo;
+    tky = k / a.kw;
+    tkx = k - tky * a.kw;
   }
+  __device__ __forceinline__ void step(const Args& a, int HWo) {
+    s += 32;
+    p += 32;
+    ox += 32;
+    while (ox >= a.Wo) {
+      ox -= a.Wo;
+      ++oy;
+    }
+    while (oy >= a.Ho) {
+      oy -= a.Ho;
+      p -= HWo;
+      ++k;
+      if (++tkx == a.kw) {
+        tkx = 0;
+        ++tky;
+      }
+    }
+  }
+};
+
+// The key tile of a source whose sample lies at (py + ty, px + tx), and its
+// entry word, or -1 where its floor corner lies outside [-1, H-1] x [-1,
+// W-1] (no corner of the sample touches the image; NaN offsets too). The
+// sums are taken in float, exact for the integers they hold, so a huge
+// offset never reaches an int conversion.
+__device__ __forceinline__ int key_tile_of(float ty, float tx, int py,
+                                           int px, int s, const Args& a,
+                                           int ktx, int* word) {
+  const float yf = (float)py + floorf(ty);
+  const float xf = (float)px + floorf(tx);
+  if (!(yf >= -1.f && yf <= (float)(a.H - 1) && xf >= -1.f &&
+        xf <= (float)(a.W - 1)))
+    return -1;
+  const int ky = (int)yf + 1;
+  const int kx = (int)xf + 1;
+  const uint32_t lk = (ky % kKeyTile) * kKeyTile + kx % kKeyTile;
+  *word = (int)((lk << kSrcBits) | (uint32_t)s);
+  return (ky / kKeyTile) * ktx + kx / kKeyTile;
+}
+
+// The next kBatch rounds of a lane's walk (u < n_rounds, s < n): each
+// source's offsets (one coalesced row of 32 a round), key tile (or -1) and
+// entry word
+template <typename T>
+__device__ __forceinline__ void walk_batch(const T* __restrict__ offset,
+                                           int plane, Walk& wk, int n_rounds,
+                                           int n, const Args& a, int K,
+                                           int HWo, int ktx,
+                                           int (&kt)[kBatch],
+                                           int (&word)[kBatch],
+                                           float (&ty)[kBatch],
+                                           float (&tx)[kBatch]) {
+  int py[kBatch], px[kBatch], s[kBatch];
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    s[u] = u < n_rounds && wk.s < n ? wk.s : -1;
+    py[u] = wk.oy + wk.tky * a.dil - a.pad;
+    px[u] = wk.ox + wk.tkx * a.dil - a.pad;
+    ty[u] = 0.f;
+    tx[u] = 0.f;
+    if (s[u] >= 0) {
+      const T* o = offset + 2 * ((long long)plane * K + wk.k) * HWo + wk.p;
+      ty[u] = to_f(__ldg(o));
+      tx[u] = to_f(__ldg(o + HWo));
+    }
+    wk.step(a, HWo);
+  }
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    word[u] = 0;
+    kt[u] = s[u] >= 0 ? key_tile_of(ty[u], tx[u], py[u], px[u], s[u], a,
+                                     ktx, &word[u])
+                      : -1;
+  }
+}
+
+// Within a warp, the lanes whose `bin` (-1 or more) equals this lane's
+// (every lane takes part): their mask, the leader (the first of them) and
+// this lane's place among them
+struct Peers {
+  unsigned mask;
+  int leader, before;
+  __device__ __forceinline__ explicit Peers(int bin) {
+    mask = __match_any_sync(0xffffffffu, bin);
+    leader = __ffs(mask) - 1;
+    before = __popc(mask & ((1u << (threadIdx.x & 31)) - 1u));
+  }
+  // the same from one ballot a bit, for bins of `bits` bits (faster than
+  // __match_any_sync for the key sort's 8-bit keys); `all_keyed`: no lane
+  // holds -1
+  __device__ __forceinline__ Peers(int bin, int bits, bool all_keyed) {
+    const unsigned keyed =
+        all_keyed ? 0xffffffffu : __ballot_sync(0xffffffffu, bin >= 0);
+    mask = bin >= 0 ? keyed : ~keyed;
+#pragma unroll
+    for (int i = 0; i < bits; ++i) {
+      const bool set = (bin >> i) & 1;
+      const unsigned b = __ballot_sync(0xffffffffu, set);
+      mask &= set ? b : ~b;
+    }
+    leader = __ffs(mask) - 1;
+    before = __popc(mask & ((1u << (threadIdx.x & 31)) - 1u));
+  }
+};
+
+// The bucket kernels: global warp w = plane * nc + chunk takes the chunk's
+// sources s in [chunk * 32 * rounds, ...), in order, each warp with kt
+// counters of its own in shared memory.
+//   bucket_count_kernel: each key tile's sources in the chunk, stored at
+//     [plane][kt * nc + chunk] of the counts (every slot written);
+//   bucket_scan_kernel: each plane's counts, in (key tile, chunk) order,
+//     -> their exclusive prefix sums; the row's last slot, the total;
+//   bucket_place_kernel: each source's entry at its key tile's start for
+//     the chunk + its rank among the chunk's sources of that tile (one
+//     __match_any_sync a round ranks the lanes). So each key tile's entries
+//     lie in ascending source index, whatever order the blocks ran in.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    bucket_count_kernel(const T* __restrict__ offset, int* __restrict__ cnt,
+                        Args a, ExactGrid eg, int planes) {
+  extern __shared__ int bucket_ctr[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* c = bucket_ctr + warp * eg.kt;
+  const long long gw = (long long)blockIdx.x * kWarps + warp;
+  if (gw >= (long long)planes * eg.nc) return;
+  for (int i = lane; i < eg.kt; i += 32) c[i] = 0;
+  __syncwarp();
+  const int plane = (int)(gw / eg.nc);
+  const int chunk = (int)(gw - (long long)plane * eg.nc);
+  const int K = a.kh * a.kw, HWo = a.Ho * a.Wo, n = K * HWo;
+  Walk wk(chunk * eg.rounds * 32 + lane, a, HWo);
+  for (int r0 = 0; r0 < eg.rounds; r0 += kBatch) {
+    int kt[kBatch], word[kBatch];
+    float ty[kBatch], tx[kBatch];
+    walk_batch(offset, plane, wk, eg.rounds - r0, n, a, K, HWo, eg.ktx, kt,
+               word, ty, tx);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (kt[u] >= 0) atomicAdd(c + kt[u], 1);
+  }
+  __syncwarp();
+  int* row = cnt + plane * eg.cnt_row;
+  for (int i = lane; i < eg.kt; i += 32)
+    row[(long long)i * eg.nc + chunk] = c[i];
 }
 
 constexpr int kScanThreads = 1024;
 
-// One row: entries [0, NK] -> their exclusive prefix sums, 4 entries a
-// thread and 4096 a step, the carry between steps
+// One row of n ints: the first n - 1 (the counts; the last slot is taken
+// as 0) -> their exclusive prefix sums, so that slot n - 1 gets the total;
+// 4 entries a thread and 4096 a step, the carry between steps
 __global__ void __launch_bounds__(kScanThreads)
-    sort_scan_kernel(int* __restrict__ keys, int n) {
+    bucket_scan_kernel(int* __restrict__ rows, long long n) {
   __shared__ int warp_sum[kScanThreads / 32];
   __shared__ int step_total;
-  int* row = keys + (size_t)blockIdx.x * n;
+  int* row = rows + blockIdx.x * n;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int carry = 0;
-  for (int base = 0; base < n; base += 4 * kScanThreads) {
+  for (long long base = 0; base < n; base += 4 * kScanThreads) {
     int v[4], sum = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int i = base + 4 * tid + j;
-      v[j] = i < n ? row[i] : 0;
+      const long long i = base + 4 * tid + j;
+      v[j] = i < n - 1 ? row[i] : 0;
       sum += v[j];
     }
     int incl = sum;  // inclusive over the warp's threads
@@ -1428,7 +1648,7 @@ __global__ void __launch_bounds__(kScanThreads)
     int run = carry + warp_sum[warp] + incl - sum;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int i = base + 4 * tid + j;
+      const long long i = base + 4 * tid + j;
       if (i < n) row[i] = run;
       run += v[j];
     }
@@ -1437,150 +1657,351 @@ __global__ void __launch_bounds__(kScanThreads)
   }
 }
 
-// A list entry: the source index and its offsets as given, from which the
-// gather takes the fractions ty - floor(ty), tx - floor(tx) as the main
-// kernel does. bf16: int2 (s, the two offsets' bits); f32: int4.
 template <typename T>
-struct Entry;
-template <>
-struct Entry<bf16> {
-  using V = int2;
-  static __device__ __forceinline__ V make(int s, float ty, float tx) {
-    // ty, tx came from bf16: the conversion back is exact
-    return make_int2(s, (int)((uint32_t)__bfloat16_as_ushort(
-                                  __float2bfloat16_rn(ty)) |
-                              ((uint32_t)__bfloat16_as_ushort(
-                                   __float2bfloat16_rn(tx)) << 16)));
-  }
-  static __device__ __forceinline__ V none() { return make_int2(0, 0); }
-  static __device__ __forceinline__ float ty(V e) {
-    return __bfloat162float(__ushort_as_bfloat16((uint16_t)(e.y & 0xffff)));
-  }
-  static __device__ __forceinline__ float tx(V e) {
-    return __bfloat162float(__ushort_as_bfloat16((uint16_t)((uint32_t)e.y >> 16)));
-  }
-};
-template <>
-struct Entry<float> {
-  using V = int4;
-  static __device__ __forceinline__ V make(int s, float ty, float tx) {
-    return make_int4(s, __float_as_int(ty), __float_as_int(tx), 0);
-  }
-  static __device__ __forceinline__ V none() { return make_int4(0, 0, 0, 0); }
-  static __device__ __forceinline__ float ty(V e) { return __int_as_float(e.y); }
-  static __device__ __forceinline__ float tx(V e) { return __int_as_float(e.z); }
-};
-
-template <typename T>
-__global__ void sort_place_kernel(const T* __restrict__ offset,
-                                  const int* __restrict__ keys,
-                                  const int* __restrict__ rank,
-                                  typename Entry<T>::V* __restrict__ ent,
-                                  Args a, long long n_src) {
-  const int K = a.kh * a.kw, HWo = a.Ho * a.Wo;
-  const long long nk1 = (long long)(a.H + 1) * (a.W + 1) + 1;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_src; i += (long long)gridDim.x * blockDim.x) {
-    const int r = rank[i];
-    if (r < 0) continue;
-    const Source src(i, offset, a, K, HWo);
-    const size_t at = (size_t)src.plane * K * HWo +
-                      __ldg(keys + src.plane * nk1 + src.key) + r;
-    ent[at] = Entry<T>::make(src.s, src.ty, src.tx);
-  }
-}
-
-// n <= N entries e[0 .. n) in ascending source index: Batcher's bitonic
-// network over registers (every index a constant once unrolled), each
-// entry moved whole
-template <int N, typename V>
-__device__ __forceinline__ void sort_entries(V* __restrict__ e, int n) {
-  V v[N];
+__global__ void __launch_bounds__(kThreads)
+    bucket_place_kernel(const T* __restrict__ offset,
+                        const int* __restrict__ cnt,
+                        typename Entry<T>::V* __restrict__ ent, Args a,
+                        ExactGrid eg, int planes) {
+  extern __shared__ int bucket_ctr[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* c = bucket_ctr + warp * eg.kt;
+  const long long gw = (long long)blockIdx.x * kWarps + warp;
+  if (gw >= (long long)planes * eg.nc) return;
+  const int plane = (int)(gw / eg.nc);
+  const int chunk = (int)(gw - (long long)plane * eg.nc);
+  const int* row = cnt + plane * eg.cnt_row;
+  for (int i = lane; i < eg.kt; i += 32)
+    c[i] = row[(long long)i * eg.nc + chunk];
+  __syncwarp();
+  const int K = a.kh * a.kw, HWo = a.Ho * a.Wo, n = K * HWo;
+  typename Entry<T>::V* e = ent + (long long)plane * n;
+  Walk wk(chunk * eg.rounds * 32 + lane, a, HWo);
+  for (int r0 = 0; r0 < eg.rounds; r0 += kBatch) {
+    int kt[kBatch], word[kBatch];
+    float ty[kBatch], tx[kBatch];
+    walk_batch(offset, plane, wk, eg.rounds - r0, n, a, K, HWo, eg.ktx, kt,
+               word, ty, tx);
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if (i < n) {
-      v[i] = e[i];
-    } else {
-      v[i] = e[0];
-      v[i].x = 0x7fffffff;  // past every index: sorts last
-    }
-  }
-#pragma unroll
-  for (int k = 2; k <= N; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const int l = i ^ j;
-        if (l > i) {
-          const bool swap = (v[i].x > v[l].x) == ((i & k) == 0);
-          const V a = v[i], b = v[l];
-          v[i] = swap ? b : a;
-          v[l] = swap ? a : b;
-        }
+    for (int u = 0; u < kBatch; ++u) {
+      const Peers pr(kt[u]);
+      int at = 0;
+      if (lane == pr.leader && kt[u] >= 0) {
+        at = c[kt[u]];
+        c[kt[u]] = at + __popc(pr.mask);
       }
+      at = __shfl_sync(0xffffffffu, at, pr.leader) + pr.before;
+      if (kt[u] >= 0) e[at] = Entry<T>::make(word[u], ty[u], tx[u]);
+      __syncwarp();
     }
   }
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    if (i < n) e[i] = v[i];
 }
 
-// Each key's list sorted by source index, a thread a key: up to 16
-// entries in registers, a longer list by insertion in place (O(L^2), only
-// where offsets send many sources to one corner)
+// Exclusive prefix sum over the block's 256 threads of v; `total` gets the
+// sum. Every thread calls it.
+__device__ __forceinline__ int block_scan(int v, int* warp_sum, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += t;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int own = lane < kWarps ? warp_sum[lane] : 0;
+    int w_incl = own;
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, w_incl, d);
+      if (lane >= d) w_incl += t;
+    }
+    if (lane < kWarps) warp_sum[lane] = w_incl - own;
+    if (lane == kWarps - 1) warp_sum[kWarps] = w_incl;
+  }
+  __syncthreads();
+  *total = warp_sum[kWarps];
+  return warp_sum[warp] + incl - v;
+}
+
+// Each key tile's entries (in ascending source index) by key, a block a
+// (key tile, plane): a stable counting sort of the 256 keys. Warp w takes
+// the w-th eighth of the entries in rounds of 32 and counts (key, w); a
+// scan in (key, w) order gives each (key, w) its start; a second pass ranks
+// each round's lanes by key (Peers) and puts every entry at its start +
+// rank. So each key's list lies in ascending source index, and `kst` gets
+// each key's start and the tile's end. A tile of at most kSortSmem / (2 *
+// entry) entries (the main path's and the deform blocks' tiles) is sorted
+// in shared memory, read and written back in whole rows; a fuller one (a
+// hot spot) from one array to the other in device memory, by the same two
+// passes: linear in the lists' lengths either way.
 template <typename V>
-__global__ void sort_lists_kernel(const int* __restrict__ keys,
-                                  V* __restrict__ ent, int nk,
-                                  int per_plane, long long n_keys) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_keys; i += (long long)gridDim.x * blockDim.x) {
-    const long long plane = i / nk;
-    const int* row = keys + plane * (nk + 1) + (i - plane * nk);
-    const int lo = row[0], n = row[1] - lo;
-    V* e = ent + plane * per_plane + lo;
-    if (n <= 1) {
-      continue;
-    } else if (n <= 4) {
-      sort_entries<4>(e, n);
-    } else if (n <= 8) {
-      sort_entries<8>(e, n);
-    } else if (n <= 16) {
-      sort_entries<16>(e, n);
-    } else {
-      for (int j = 1; j < n; ++j) {
-        const V r = e[j];
-        int at = j;
-        while (at > 0 && e[at - 1].x > r.x) {
-          e[at] = e[at - 1];
-          --at;
-        }
-        e[at] = r;
-      }
+__global__ void __launch_bounds__(kThreads)
+    key_sort_kernel(const int* __restrict__ cnt, const V* __restrict__ ent,
+                    V* __restrict__ ent2, int* __restrict__ kst, ExactGrid eg,
+                    int per_plane) {
+  constexpr int cap = kSortSmem / (2 * (int)sizeof(V));
+  extern __shared__ __align__(16) unsigned char sort_smem[];
+  __shared__ int c[kTileKeys * kWarps];
+  __shared__ int warp_sum[kWarps + 1];
+  const int kt = blockIdx.x, plane = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int* row = cnt + plane * eg.cnt_row;
+  const int a0 = row[(long long)kt * eg.nc];
+  const int n = row[(long long)(kt + 1) * eg.nc] - a0;
+  const V* g_src = ent + (long long)plane * per_plane + a0;
+  V* g_dst = ent2 + (long long)plane * per_plane + a0;
+  const bool staged = n <= cap;
+  V* s_in = reinterpret_cast<V*>(sort_smem);
+  const V* src = staged ? s_in : g_src;
+  V* dst = staged ? s_in + cap : g_dst;
+  if (staged)
+#pragma unroll 8
+    for (int x = tid; x < n; x += kThreads) s_in[x] = g_src[x];
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) c[w * kThreads + tid] = 0;
+  __syncthreads();
+  const int per_warp = (n + kThreads - 1) / kThreads * 32;
+  const int lo = warp * per_warp;
+  const int hi = min(lo + per_warp, n);
+  for (int x0 = lo; x0 < hi; x0 += 32 * kBatch) {
+    int lk[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int x = x0 + 32 * u + lane;
+      lk[u] = x < hi ? (int)((uint32_t)src[x].x >> kSrcBits) : -1;
     }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (lk[u] >= 0) atomicAdd(c + lk[u] * kWarps + warp, 1);
+  }
+  __syncthreads();
+  int v[kWarps], sum = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    v[w] = c[tid * kWarps + w];
+    sum += v[w];
+  }
+  int total;
+  int run = block_scan(sum, warp_sum, &total);
+  int* krow = kst + plane * eg.kst_row + (long long)kt * (kTileKeys + 1);
+  krow[tid] = a0 + run;
+  if (tid == 0) krow[kTileKeys] = a0 + n;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    c[tid * kWarps + w] = run;
+    run += v[w];
+  }
+  __syncthreads();
+  for (int x0 = lo; x0 < hi; x0 += 32 * kBatch) {
+    V e[kBatch];
+    int lk[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int x = x0 + 32 * u + lane;
+      if (x < hi) e[u] = src[x];
+      lk[u] = x < hi ? (int)((uint32_t)e[u].x >> kSrcBits) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (x0 + 32 * u >= hi) break;  // the warp's range ends
+      const Peers pr(lk[u], 8, x0 + 32 * u + 32 <= hi);
+      int at = 0;
+      if (lane == pr.leader && lk[u] >= 0) {
+        at = c[lk[u] * kWarps + warp];
+        c[lk[u] * kWarps + warp] = at + __popc(pr.mask);
+      }
+      at = __shfl_sync(0xffffffffu, at, pr.leader) + pr.before;
+      if (lk[u] >= 0) dst[at] = e[u];
+      __syncwarp();
+    }
+  }
+  if (staged) {
+    __syncthreads();
+#pragma unroll 8
+    for (int x = tid; x < n; x += kThreads) g_dst[x] = dst[x];
   }
 }
 
-constexpr int kGatherIlp = 4;  // list entries a gather thread loads together
+// The tiled gather's window: the entries a block holds, for each its
+// fractions and its m * dcol row (8 + 16 bytes)
+constexpr int kWindow = kWindowSmem / 24 & ~15;
 
-// dx by the sorted lists (the exact mode): thread (plane, q, chunk of CW
-// channels), the chunks of one pixel side by side; the pixel's four
-// candidate keys (qy - 1 + ry, qx - 1 + rx) in ascending order, each of the
-// sources' corner (1 - ry, 1 - rx), each list in its (sorted) order, 4
-// entries' loads in flight at a time; the sum rounded once into T, written
-// NCHW. (A thread for a 2 x 2 block of pixels, which reads each entry once
-// for four of them, was slower at B=8: 0.37 against 0.34 ms, PERF.md.)
+constexpr int kGatherIlp = 4;  // list entries a thread takes together
+constexpr int kStageIlp = 8;   // rows a thread stages together
+
+// dx by pixel tile (the exact mode where a group has 4 channels: the main
+// path): a block a (16 x 16 pixel tile, plane). Pixel q's four
+// candidate keys (qy-1+ry, qx-1+rx) are (ky, kx) = (qy+ry, qx+rx), so the
+// tile's sums read the 17 x 17 keys from its corner on: rows of 16 in its
+// own key tiles and one key of the next key tile to the right, the last
+// row in the key tiles below. The block lays those keys' sorted lists end
+// to end in key order (row by row) and streams that sequence through
+// shared memory in windows of kWindow entries, a thread an entry
+// (kStageIlp entries, then their m * dcol rows, in flight): each entry's
+// fractions ty - floor(ty), tx - floor(tx) taken once, its row read once
+// from the scratch for the four pixels that share its key. Then a thread a
+// pixel adds the part of its four lists in the window: keys in order, each
+// list in ascending source index, corners of weight 0 skipped, one fmaf
+// each, the sum rounded once into T and written NCHW. A tile whose lists
+// hold more than one window (a hot spot: offsets that draw many samples to
+// a few corners) takes as many windows as it needs, each entry read once:
+// its cost is linear in the lists' lengths, and the order is the same.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dx_tiles_kernel(const int* __restrict__ kst,
+                    const typename Entry<T>::V* __restrict__ ent2,
+                    const float* __restrict__ mdc, T* __restrict__ dx, Args a,
+                    ExactGrid eg) {
+  using V = typename Entry<T>::V;
+  constexpr int cap = kWindow;
+  extern __shared__ __align__(16) unsigned char window_smem[];
+  float2* fr = reinterpret_cast<float2*>(window_smem);
+  float4* ms = reinterpret_cast<float4*>(window_smem + (size_t)cap * 8);
+  __shared__ int kbeg[kHaloKeys + 1];  // each key's start in the sequence
+  __shared__ int kdel[kHaloKeys];      // its start in ent2 minus that
+  __shared__ int warp_sum[kWarps + 1];
+  const int tid = threadIdx.x;
+  const int pty = blockIdx.x / eg.ptx_n, ptx = blockIdx.x - pty * eg.ptx_n;
+  const int plane = blockIdx.z;
+  const int Cg = 4;
+  const int per_plane = a.kh * a.kw * a.Ho * a.Wo;
+  const int* krow = kst + plane * eg.kst_row;
+  // 1. the 289 keys' lists: thread t takes keys 2t and 2t + 1
+  int kn[2], ks[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = 2 * tid + h;
+    const int ky = pty * kKeyTile + j / kHalo;
+    const int kx = ptx * kKeyTile + j % kHalo;
+    kn[h] = 0;
+    ks[h] = 0;
+    if (j < kHaloKeys && ky <= a.H && kx <= a.W) {
+      const long long at =
+          (long long)((ky / kKeyTile) * eg.ktx + kx / kKeyTile) *
+              (kTileKeys + 1) +
+          (ky % kKeyTile) * kKeyTile + kx % kKeyTile;
+      ks[h] = krow[at];
+      kn[h] = krow[at + 1] - ks[h];
+    }
+  }
+  int n;
+  const int first = block_scan(kn[0] + kn[1], warp_sum, &n);
+  if (2 * tid < kHaloKeys) {
+    kbeg[2 * tid] = first;
+    kdel[2 * tid] = ks[0] - first;
+  }
+  if (2 * tid + 1 < kHaloKeys) {
+    kbeg[2 * tid + 1] = first + kn[0];
+    kdel[2 * tid + 1] = ks[1] - first - kn[0];
+  }
+  if (tid == 0) kbeg[kHaloKeys] = n;
+  __syncthreads();
+  const int py = tid / kKeyTile, px = tid % kKeyTile;
+  const V* e_plane = ent2 + (long long)plane * per_plane;
+  const float4* md =
+      reinterpret_cast<const float4*>(mdc) + (long long)plane * per_plane;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int w0 = 0; w0 < n; w0 += cap) {
+    const int wn = min(cap, n - w0);
+    // 2. the window, a thread an entry, kStageIlp in flight: its key row
+    //    by a search of the rows' starts, then the row's own run (16 keys
+    //    of its key tile) or its last key (of the key tile to the right);
+    //    its fractions and its m * dcol row
+    for (int x0 = tid; x0 < wn; x0 += kThreads * kStageIlp) {
+      V e[kStageIlp];
+#pragma unroll
+      for (int u = 0; u < kStageIlp; ++u) {
+        const int at = w0 + x0 + u * kThreads;
+        if (at < w0 + wn) {
+          int lo = 0, hi = kHalo;  // the last row with kbeg[row * 17] <= at
+          while (hi - lo > 1) {
+            const int mid = (lo + hi) >> 1;
+            if (kbeg[mid * kHalo] <= at) lo = mid; else hi = mid;
+          }
+          const int k0 =
+              lo * kHalo + (at >= kbeg[lo * kHalo + kKeyTile] ? kKeyTile : 0);
+          e[u] = __ldg(e_plane + at + kdel[k0]);
+        }
+      }
+      float4 mv[kStageIlp];
+#pragma unroll
+      for (int u = 0; u < kStageIlp; ++u)
+        if (x0 + u * kThreads < wn) mv[u] = __ldg(md + (e[u].x & kSrcMask));
+#pragma unroll
+      for (int u = 0; u < kStageIlp; ++u) {
+        const int x = x0 + u * kThreads;
+        if (x < wn) {
+          const float ty = Entry<T>::ty(e[u]), tx = Entry<T>::tx(e[u]);
+          fr[x] = make_float2(ty - floorf(ty), tx - floorf(tx));
+          ms[x] = mv[u];
+        }
+      }
+    }
+    __syncthreads();
+    // 3. the pixel's four lists, the part in this window
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int key = (py + (r >> 1)) * kHalo + px + (r & 1);
+      const int lo = max(kbeg[key], w0) - w0;
+      const int hi = min(kbeg[key + 1], w0 + wn) - w0;
+      for (int x0 = lo; x0 < hi; x0 += kGatherIlp) {
+        float w[kGatherIlp];
+        float4 mv[kGatherIlp];
+#pragma unroll
+        for (int u = 0; u < kGatherIlp; ++u) {
+          w[u] = 0.f;
+          if (x0 + u < hi) {
+            const float2 f = fr[x0 + u];
+            w[u] = ((r >> 1) ? 1.f - f.x : f.x) * ((r & 1) ? 1.f - f.y : f.y);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kGatherIlp; ++u)
+          if (w[u] != 0.f) mv[u] = ms[x0 + u];
+#pragma unroll
+        for (int u = 0; u < kGatherIlp; ++u) {
+          if (w[u] != 0.f) {
+            acc[0] = fmaf(w[u], mv[u].x, acc[0]);
+            acc[1] = fmaf(w[u], mv[u].y, acc[1]);
+            acc[2] = fmaf(w[u], mv[u].z, acc[2]);
+            acc[3] = fmaf(w[u], mv[u].w, acc[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next window overwrites fr and ms
+  }
+  const int qy = pty * kKeyTile + py, qx = ptx * kKeyTile + px;
+  if (qy < a.H && qx < a.W) {
+    const int b = plane / a.G;
+    const int g = plane - b * a.G;
+    const size_t hw = (size_t)a.H * a.W;
+    T* out = dx + ((size_t)b * a.C + g * Cg) * hw + (size_t)qy * a.W + qx;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j * hw] = from_f<T>(acc[j]);
+  }
+}
+
+// dx by lists (the exact mode where a group has other than 4 channels: the
+// deform blocks' widths): a thread a
+// (plane, input pixel, CW channels), the chunks of one pixel side by side,
+// so that they read each entry together and its m * dcol row in one run;
+// the pixel's four keys in order, each key's sorted list read in place
+// (its start from `kst`), kGatherIlp entries' loads in flight at a time;
+// the same sums, one fmaf each in the same order, rounded once, NCHW.
 template <typename T, int CW>
 __global__ void __launch_bounds__(kThreads)
-    dx_sorted_kernel(const int* __restrict__ keys,
-                     const typename Entry<T>::V* __restrict__ ent,
-                     const float* __restrict__ mdc, T* __restrict__ dx,
-                     Args a, long long n_threads) {
+    dx_lists_kernel(const int* __restrict__ kst,
+                    const typename Entry<T>::V* __restrict__ ent2,
+                    const float* __restrict__ mdc, T* __restrict__ dx, Args a,
+                    ExactGrid eg, long long n_threads) {
+  using V = typename Entry<T>::V;
   const int Cg = a.C / a.G;
   const int chunks = Cg / CW;
   const int HW = a.H * a.W;
   const int per_plane = a.kh * a.kw * a.Ho * a.Wo;
-  const int nk1 = (a.H + 1) * (a.W + 1) + 1;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < n_threads; i += (long long)gridDim.x * blockDim.x) {
     const long long pq = i / chunks;
@@ -1589,42 +2010,52 @@ __global__ void __launch_bounds__(kThreads)
     const int q = (int)(pq - (long long)plane * HW);
     const int qy = q / a.W;
     const int qx = q - qy * a.W;
-    const int* row = keys + (size_t)plane * nk1 + qy * (a.W + 1) + qx;
-    using V = typename Entry<T>::V;
-    const V* e = ent + (size_t)plane * per_plane;
-    const float* md = mdc + (size_t)plane * per_plane * Cg + c0;
+    const int* krow = kst + plane * eg.kst_row;
+    const V* e = ent2 + (long long)plane * per_plane;
+    const float* md = mdc + (long long)plane * per_plane * Cg + c0;
     float acc[CW];
 #pragma unroll
     for (int j = 0; j < CW; ++j) acc[j] = 0.f;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int key = (r >> 1) * (a.W + 1) + (r & 1);
-      const int lo = row[key], hi = row[key + 1];
-      for (int e0 = lo; e0 < hi; e0 += kGatherIlp) {
-        const int n = min(kGatherIlp, hi - e0);
-        V ev[kGatherIlp];
-        float mv[kGatherIlp][CW];
-#pragma unroll
-        for (int u = 0; u < kGatherIlp; ++u)
-          ev[u] = u < n ? __ldg(e + e0 + u) : Entry<T>::none();
+      const int ky = qy + (r >> 1), kx = qx + (r & 1);
+      const long long at =
+          (long long)((ky / kKeyTile) * eg.ktx + kx / kKeyTile) *
+              (kTileKeys + 1) +
+          (ky % kKeyTile) * kKeyTile + kx % kKeyTile;
+      const int lo = krow[at], hi = krow[at + 1];
+      for (int x0 = lo; x0 < hi; x0 += kGatherIlp) {
+        float w[kGatherIlp], mv[kGatherIlp][CW];
+        int src[kGatherIlp];
 #pragma unroll
         for (int u = 0; u < kGatherIlp; ++u) {
-          const float* src = md + (size_t)ev[u].x * Cg;
-          if constexpr (CW == 4) {
-            const float4 m4 = __ldg(reinterpret_cast<const float4*>(src));
-            mv[u][0] = m4.x; mv[u][1] = m4.y; mv[u][2] = m4.z; mv[u][3] = m4.w;
-          } else {
-            mv[u][0] = __ldg(src);
+          w[u] = 0.f;
+          src[u] = 0;
+          if (x0 + u < hi) {
+            const V ev = __ldg(e + x0 + u);
+            const float ty = Entry<T>::ty(ev), tx = Entry<T>::tx(ev);
+            const float ly = ty - floorf(ty), lx = tx - floorf(tx);
+            w[u] = ((r >> 1) ? 1.f - ly : ly) * ((r & 1) ? 1.f - lx : lx);
+            src[u] = ev.x & kSrcMask;
           }
         }
 #pragma unroll
         for (int u = 0; u < kGatherIlp; ++u) {
-          const float ty = Entry<T>::ty(ev[u]), tx = Entry<T>::tx(ev[u]);
-          const float ly = ty - floorf(ty), lx = tx - floorf(tx);
-          const float w = ((r >> 1) ? 1.f - ly : ly) * ((r & 1) ? 1.f - lx : lx);
-          if (u < n && w != 0.f) {
+          if (w[u] != 0.f) {
+            const float* m = md + (size_t)src[u] * Cg;
+            if constexpr (CW == 4) {
+              const float4 m4 = __ldg(reinterpret_cast<const float4*>(m));
+              mv[u][0] = m4.x; mv[u][1] = m4.y; mv[u][2] = m4.z; mv[u][3] = m4.w;
+            } else {
+              mv[u][0] = __ldg(m);
+            }
+          }
+        }
 #pragma unroll
-            for (int j = 0; j < CW; ++j) acc[j] = fmaf(w, mv[u][j], acc[j]);
+        for (int u = 0; u < kGatherIlp; ++u) {
+          if (w[u] != 0.f) {
+#pragma unroll
+            for (int j = 0; j < CW; ++j) acc[j] = fmaf(w[u], mv[u][j], acc[j]);
           }
         }
       }
@@ -1828,57 +2259,95 @@ cudaError_t launch_gather(bool vec4, const void* offset, const float* mdc,
              : launch_gather_m<T, 1, u64>(offset, mdc, dx, a, R, s);
 }
 
-// The exact mode's dx: the sort's four passes over the offsets, then the
-// sorted gather from the m * dcol scratch
 template <typename T>
-cudaError_t sorted_dx(const void* offset, const float* mdc, void* dx,
-                      float* work, const Scratch& sc, bool vec4,
-                      const Args& a, int sms, cudaStream_t s) {
+cudaError_t launch_dx_tiles(const int* kst, const void* ent2, const float* mdc,
+                            void* dx, const Args& a, const ExactGrid& eg,
+                            int planes, cudaStream_t s) {
+  auto kernel = dx_tiles_kernel<T>;
+  const size_t smem = (size_t)kWindow * 24;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(eg.pty_n * eg.ptx_n, 1, planes);
+  kernel<<<grid, kThreads, smem, s>>>(
+      kst, static_cast<const typename Entry<T>::V*>(ent2), mdc,
+      static_cast<T*>(dx), a, eg);
+  return cudaGetLastError();
+}
+
+template <typename T, int CW>
+cudaError_t launch_dx_lists(const int* kst, const void* ent2, const float* mdc,
+                            void* dx, const Args& a, const ExactGrid& eg,
+                            int planes, int sms, cudaStream_t s) {
+  const long long n_threads = (long long)planes * a.H * a.W * (a.C / a.G / CW);
+  long long blocks = (n_threads + kThreads - 1) / kThreads;
+  if (blocks > 64LL * sms) blocks = 64LL * sms;
+  dx_lists_kernel<T, CW><<<(unsigned)blocks, kThreads, 0, s>>>(
+      kst, static_cast<const typename Entry<T>::V*>(ent2), mdc,
+      static_cast<T*>(dx), a, eg, n_threads);
+  return cudaGetLastError();
+}
+
+// Whether the exact mode's dx takes the call: at most 2^24 sources (taps x
+// output pixels) a plane, whose index fits an entry's word, at most
+// kMaxKeyTiles key tiles ((H + 1) x (W + 1) keys), whose counters fit a
+// block's shared memory, and at most 65535 planes (a grid's y and z)
+bool exact_takes(const Args& a) {
+  const int K = a.kh * a.kw;
+  return (long long)K * a.Ho * a.Wo <= (1LL << kSrcBits) &&
+         exact_grid(a.H, a.W, K, a.Ho * a.Wo).kt <= kMaxKeyTiles &&
+         (long long)a.B * a.G <= 65535;
+}
+
+// The exact mode's dx: the sources bucketed by key tile (count, scan,
+// placement: two passes over the offsets), each key tile's entries sorted
+// by key, then the gather by pixel tile (a group of 4 channels, the main
+// path) or by lists (other groups, a pixel's chunks side by side reading
+// each m * dcol row in one run)
+template <typename T>
+cudaError_t exact_dx(const void* offset, const float* mdc, void* dx,
+                     float* work, const Scratch& sc, bool vec4, const Args& a,
+                     int sms, cudaStream_t s) {
   const int K = a.kh * a.kw;
   const int HWo = a.Ho * a.Wo;
-  const int nk = (a.H + 1) * (a.W + 1);
   const int planes = a.B * a.G;
-  const long long n_src = (long long)planes * K * HWo;
-  // the sort's arrays from a 16-byte aligned base (the entries are int4;
-  // the workspace holds 3 floats of slack for it)
+  const ExactGrid eg = exact_grid(a.H, a.W, K, HWo);
+  // the arrays from a 16-byte aligned base (the f32 entries are int4; the
+  // workspace holds 3 floats of slack for it)
   float* base = reinterpret_cast<float*>(
       (reinterpret_cast<uintptr_t>(work) + 15) & ~uintptr_t(15));
-  int* keys = reinterpret_cast<int*>(base + sc.keys);
+  int* cnt = reinterpret_cast<int*>(base + sc.cnt);
+  int* kst = reinterpret_cast<int*>(base + sc.kst);
   using V = typename Entry<T>::V;
   V* ent = reinterpret_cast<V*>(base + sc.ent);
-  int* rank = reinterpret_cast<int*>(base + sc.rank);
+  V* ent2 = reinterpret_cast<V*>(base + sc.ent2);
   const T* off = static_cast<const T*>(offset);
-  auto blocks = [&](long long n) {
-    long long b = (n + 255) / 256;
-    if (b > 64LL * sms) b = 64LL * sms;
-    return (unsigned)(b < 1 ? 1 : b);
-  };
-  cudaError_t err = cudaMemsetAsync(
-      keys, 0, (size_t)planes * (nk + 1) * sizeof(int), s);
+  if (planes == 0) return cudaSuccess;
+  const long long warps = (long long)planes * eg.nc;
+  const unsigned blocks = (unsigned)((warps + kWarps - 1) / kWarps);
+  const size_t ctr = (size_t)kWarps * eg.kt * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      key_sort_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSortSmem);
   if (err != cudaSuccess) return err;
-  if (n_src > 0) {
-    sort_count_kernel<T><<<blocks(n_src), 256, 0, s>>>(off, keys, rank, a,
-                                                       n_src);
-    sort_scan_kernel<<<planes, kScanThreads, 0, s>>>(keys, nk + 1);
-    sort_place_kernel<T><<<blocks(n_src), 256, 0, s>>>(off, keys, rank, ent,
-                                                       a, n_src);
-    const long long n_keys = (long long)planes * nk;
-    sort_lists_kernel<V><<<blocks(n_keys), 256, 0, s>>>(keys, ent, nk,
-                                                        K * HWo, n_keys);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+  if (blocks > 0) {
+    bucket_count_kernel<T><<<blocks, kThreads, ctr, s>>>(off, cnt, a, eg,
+                                                         planes);
   }
-  const int Cg = a.C / a.G;
-  const int cw = vec4 ? 4 : 1;
-  const long long n_threads = (long long)planes * a.H * a.W * (Cg / cw);
-  if (n_threads == 0) return cudaSuccess;
+  bucket_scan_kernel<<<planes, kScanThreads, 0, s>>>(cnt, eg.cnt_row);
+  if (blocks > 0) {
+    bucket_place_kernel<T><<<blocks, kThreads, ctr, s>>>(off, cnt, ent, a,
+                                                         eg, planes);
+  }
+  key_sort_kernel<V><<<dim3(eg.kt, planes), kThreads, kSortSmem, s>>>(
+      cnt, ent, ent2, kst, eg, K * HWo);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (vec4 && a.C == 4 * a.G)
+    return launch_dx_tiles<T>(kst, ent2, mdc, dx, a, eg, planes, s);
   if (vec4)
-    dx_sorted_kernel<T, 4><<<blocks(n_threads), kThreads, 0, s>>>(
-        keys, ent, mdc, static_cast<T*>(dx), a, n_threads);
-  else
-    dx_sorted_kernel<T, 1><<<blocks(n_threads), kThreads, 0, s>>>(
-        keys, ent, mdc, static_cast<T*>(dx), a, n_threads);
-  return cudaGetLastError();
+    return launch_dx_lists<T, 4>(kst, ent2, mdc, dx, a, eg, planes, sms, s);
+  return launch_dx_lists<T, 1>(kst, ent2, mdc, dx, a, eg, planes, sms, s);
 }
 
 template <typename T>
@@ -1894,7 +2363,7 @@ cudaError_t run_all(const void* x, void* xg, const void* offset,
   const int slot_cap = max_slots(pl, sms);
   // the dx gather's window radius, or 0 for the exact mode's sorted lists
   const int R = gather_radius(a.dmax);
-  if (R < 0) return cudaErrorInvalidValue;
+  if (R < 0 || (R == 0 && !exact_takes(a))) return cudaErrorInvalidValue;
   const Scratch sc = scratch_floats(pl, slot_cap, a.B, a.C, a.Cout, a.H, a.W,
                                     a.G, K, a.Ho * a.Wo, R == 0);
   float* mdc = work + sc.md;
@@ -1950,10 +2419,11 @@ cudaError_t run_all(const void* x, void* xg, const void* offset,
   }
   if (err != cudaSuccess) return err;
   if (!pl.split) dw_slots = grid / pl.work;
-  // 2. dx: the gather in windowed mode, the sorted lists in the exact mode
+  // 2. dx: the gather in windowed mode, the tiles' sorted lists in the exact
+  //    mode
   if (HW > 0) {
     err = R > 0 ? launch_gather<T>(vec4, offset, mdc, dx, a, R, s)
-                : sorted_dx<T>(offset, mdc, dx, work, sc, vec4, a, sms, s);
+                : exact_dx<T>(offset, mdc, dx, work, sc, vec4, a, sms, s);
     if (err != cudaSuccess) return err;
   }
   // 3. the dW partials summed into dweight, the doffset and dmask partials

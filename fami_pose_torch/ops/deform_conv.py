@@ -426,7 +426,8 @@ def deform_conv2d_dx_gather_plain(x, offset, mask, weight, gout, *,
 def deform_conv2d_dx_sorted_plain(x, offset, mask, weight, gout, *,
                                   padding=0, dilation=1, offset_groups=None):
     """dx of the stride-1 exact-mode :func:`deform_conv2d` (no clamp) in the
-    order of the card's sorted gather (``dcn_bwd.cu::dx_sorted_kernel``).
+    order of the card's exact-mode gathers (``dcn_bwd.cu::dx_tiles_kernel``
+    and ``dx_lists_kernel``).
     A source is (image, group g, tap k, output pixel p), keyed by the floor
     corner ``(y0, x0)`` of its sample ``p - pad + k_pos * dilation + t``;
     only keys in ``[-1, H-1] x [-1, W-1]`` can touch the image, the others
@@ -437,9 +438,9 @@ def deform_conv2d_dx_sorted_plain(x, offset, mask, weight, gout, *,
     w_corner * dcol`` (corners of weight 0 skipped). The same products as
     :func:`deform_conv2d_backward_plain`'s scatter, summed in this fixed
     order in float32 (float64 for float64 inputs) and rounded once into
-    ``x``'s dtype. The order here comes from ``torch.argsort``; the kernel
-    counts and sorts the sources itself. A reference for the kernel, not a
-    path of the model."""
+    ``x``'s dtype. The order here comes from ``torch.argsort``; the kernels
+    bucket the sources by tile of 16 x 16 keys and sort each tile's by key
+    themselves. A reference for the kernels, not a path of the model."""
     n, c, h, w = x.shape
     c_out, _, kh, kw = weight.shape
     k = kh * kw
@@ -543,6 +544,13 @@ def dcn_bwd_smem(dtype, c, c_out, groups):
             + _a128(64 * 64 * 2) + _a128(64 * nw * 2) + dcol_tab)
 
 
+# the exact mode's dx (``dcn_bwd.cu``) keys each source (tap, output pixel)
+# of a plane by the floor corner of its sample in tiles of 16 x 16 keys: at
+# most 2^24 sources a plane (the index's bits in an entry) and 1536 key
+# tiles ((H + 1) x (W + 1) keys: the counters a block holds)
+EXACT_MAX_SOURCES = 1 << 24
+EXACT_MAX_KEY_TILES = 1536
+
 # the widest window the backward kernel's dx gather takes, ceil(max_offset)
 # (``dcn_bwd.cu``'s ``kMaxGatherR``: a window row of 2R + 1 candidates is one
 # 64-bit mask word)
@@ -554,10 +562,12 @@ def _check_backward_args(x, offset, mask, weight, gout, padding, dilation,
     """The backward kernel's checks, as ``_check_kernel_args`` for the
     forward: the same shape and type checks, ``gout`` of the output's
     shape on x's device, and a window (``max_offset`` > 0) of at most
-    ``MAX_GATHER_OFFSET`` px. Returns (Ho, Wo)."""
+    ``MAX_GATHER_OFFSET`` px; in the exact mode at most
+    ``EXACT_MAX_SOURCES`` sources and ``EXACT_MAX_KEY_TILES`` key tiles a
+    plane, and at most 65535 planes (image x group). Returns (Ho, Wo)."""
     ho, wo = _check_kernel_args(x, offset, mask, weight, padding, dilation,
                                 groups)
-    n = x.shape[0]
+    n, _, h, w = x.shape
     c_out = weight.shape[0]
     if tuple(gout.shape) != (n, c_out, ho, wo) or gout.device != x.device:
         raise ValueError(f"gout {tuple(gout.shape)} on {gout.device}, expected "
@@ -568,6 +578,16 @@ def _check_backward_args(x, offset, mask, weight, gout, padding, dilation,
             f"max_offset {d}: the DCN backward kernel gathers dx over windows "
             f"of at most {MAX_GATHER_OFFSET} px; use the exact mode "
             f"(max_offset None) for wider offsets")
+    if d <= 0:
+        sources = weight.shape[2] * weight.shape[3] * ho * wo
+        key_tiles = ((h + 16) // 16) * ((w + 16) // 16)
+        if (sources > EXACT_MAX_SOURCES or key_tiles > EXACT_MAX_KEY_TILES
+                or n * groups > 65535):
+            raise ValueError(
+                f"the exact mode's dx kernel takes at most {EXACT_MAX_SOURCES} "
+                f"sources ({sources}: taps x output pixels) and "
+                f"{EXACT_MAX_KEY_TILES} tiles of 16 x 16 keys ({key_tiles}) a "
+                f"plane, and 65535 planes ({n * groups})")
     return ho, wo
 
 
@@ -594,7 +614,8 @@ def _deform_conv_backward_cuda(x, offset, mask, weight, gout, padding,
     # blocks' dW partials, where an offset group has more than 64 channels
     # the doffset and dmask partials of its 64-channel slices, m * dcol for
     # the dx gathers (N * 9C * Ho * Wo floats), and in the exact mode the
-    # sort's keys, lists and fractions (int32 and float2 in the same buffer)
+    # bucket sort's counts, key starts and two arrays of entries (int32 in
+    # the same buffer)
     d = float(max_offset) if max_offset is not None else 0.0
     x_grouped = torch.empty_like(x)
     lib = load_library()

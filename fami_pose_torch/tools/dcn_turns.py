@@ -25,13 +25,16 @@ mode), Sub-JHMDB's (B=8, 64x64, D = 6), the deform blocks' (exact,
 dilation 1, B=8: every bf16 width of ``chip_smoke.BLOCK_DCN_CASES``, among
 them the six rows of HRNet-W48's branches at C = 96, 192 and 384 with one
 and two groups, and C = 64 with one group, also on a smooth offset field)
-and, with ``--trained FILE``, one DCN's captured inputs (a ``torch.save``
+the main path's exact mode with ~1,000 sources of each image's first plane
+on one floor corner (a hot spot: the longest key list ~1,000 long) and,
+with ``--trained FILE``, one DCN's captured inputs (a ``torch.save``
 of ``{"x", "offset", "mask", "weight", "gout", "max_offset"}``, 3x3,
 dilation and padding 3) with their trained offsets and with them zeroed:
 
   * compares the outputs (the forward bit for bit where the arithmetic is
     the same; the backward's largest difference: the libraries sum dx in
-    other orders);
+    other orders; in the exact mode, where both sum in the same fixed
+    order, whether dx is bit for bit the old library's);
   * counts the elements of each backward output that differ between two
     calls of the same library (0 where it sums in a fixed order);
   * sums the six branch rows' forward and backward times of each library,
@@ -43,9 +46,15 @@ dilation and padding 3) with their trained offsets and with them zeroed:
     the read alone), old, tree, tree, old;
   * records each library's backward workspace, in float32 elements.
 
-Then, this tree alone, the chunked forward's cost of sampling a pixel tile
-again for each C_out tile of 64: C = 384 at 12x9, B = 8, exact, C_out 64
-(one tile) against 384 (six).
+Then, this tree alone: the chunked forward's cost of sampling a pixel tile
+again for each C_out tile of 64 (C = 384 at 12x9, B = 8, exact, C_out 64,
+one tile, against 384, six); each kernel's device time in one backward
+call of the exact rows (``torch.profiler`` over 10 calls, ms a call); and,
+as a yardstick beside the exact mode's dx (a reading only, never a path of
+the port), one ``Tensor.index_put_(..., accumulate=True)`` of the main
+path's precomputed (input pixel, m * w * dcol row) pairs under
+``torch.use_deterministic_algorithms(True)``: the library's sort-based
+deterministic scatter of the same sum, in its own order.
 
 It prints one JSON line per case and the card's name and power limit, and
 writes them all to ``--out``. Needs a CUDA device and ``nvcc``; run it from
@@ -128,6 +137,110 @@ def smooth_offsets(gen, inputs, cells=(12, 9), std=8.0):
     field = torch.nn.functional.interpolate(
         coarse, size=off.shape[2:], mode="bilinear", align_corners=True)
     return x, field.to(off.dtype), msk, wgt
+
+
+def hot_corner(inputs, count=1000, dilation=3, point=(48.25, 24.5)):
+    """``inputs`` (a 3x3 DCN, padding = dilation) with the first ``count``
+    sources (tap-major: tap 0's output pixels first) of each image's first
+    group sampled at ``point``: that many sources on one floor corner,
+    whose four corners all weigh more than 0 (the offsets exact in bf16 at
+    96 x 72)."""
+    x, off, msk, wgt = inputs
+    b, _, h, w = off.shape
+    dev = off.device
+    o = off.float().view(b, -1, 9, 2, h * w).clone()
+    k = torch.arange(9, device=dev).view(9, 1)
+    pix = torch.arange(h * w, device=dev).view(1, h * w)
+    base_y = pix // w + (k // 3 - 1) * dilation
+    base_x = pix % w + (k % 3 - 1) * dilation
+    pick = (k * h * w + pix) < count
+    o[:, 0, :, 0] = torch.where(pick, point[0] - base_y, o[:, 0, :, 0])
+    o[:, 0, :, 1] = torch.where(pick, point[1] - base_x, o[:, 0, :, 1])
+    return x, o.view(off.shape).to(off.dtype), msk, wgt
+
+
+def scatter_pairs(x, off, msk, wgt, gout, padding, dilation):
+    """The exact-mode dx as (row, contribution) pairs: row = (image, group,
+    input pixel) of dx laid out (B, G, H, W, Cg), contribution = m * w *
+    dcol of one source's corner (Cg floats), for every corner of non-zero
+    weight on the image; float32. Returns (rows, contributions, B*G*H*W)."""
+    n, c, h, w = x.shape
+    c_out = wgt.shape[0]
+    g = off.shape[1] // 18
+    cg = c // g
+    hwo = h * w
+    dev = x.device
+    o = off.float().view(n, g, 9, 2, hwo)
+    fl = torch.floor(o)
+    frac = o - fl
+    md = torch.einsum("ock,nop->nkcp", wgt.float().view(c_out, c, 9),
+                      gout.float().view(n, c_out, hwo))
+    md = md.reshape(n, 9, g, cg, hwo).permute(0, 2, 1, 4, 3)
+    if msk is not None:
+        md = md * msk.float().view(n, g, 9, hwo, 1)
+    md = md.reshape(-1, cg)
+    pix = torch.arange(hwo, device=dev)
+    taps = torch.arange(9, device=dev)
+    y0 = ((pix // w - padding).view(1, 1, 1, hwo)
+          + (taps // 3 * dilation).view(1, 1, 9, 1) + fl[:, :, :, 0])
+    x0 = ((pix % w - padding).view(1, 1, 1, hwo)
+          + (taps % 3 * dilation).view(1, 1, 9, 1) + fl[:, :, :, 1])
+    plane = torch.arange(n * g, device=dev).view(n, g, 1, 1)
+    ly, lx = frac[:, :, :, 0], frac[:, :, :, 1]
+    rows, contribs = [], []
+    for cy, cx in ((1, 1), (1, 0), (0, 1), (0, 0)):
+        qy, qx = y0 + cy, x0 + cx
+        wt = (ly if cy else 1 - ly) * (lx if cx else 1 - lx)
+        hit = (qy >= 0) & (qy < h) & (qx >= 0) & (qx < w) & (wt != 0)
+        rows.append(((plane * h + qy) * w + qx)[hit].long())
+        contribs.append(wt[hit].unsqueeze(1) * md[hit.reshape(-1)])
+    return torch.cat(rows), torch.cat(contribs), n * g * h * w
+
+
+def library_scatter_ms(rows, contribs, n_rows, reps=5):
+    """Device time (CUDA events, best of ``reps`` after two warm-up calls)
+    of one ``index_put_(..., accumulate=True)`` of the pairs into a zeroed
+    (n_rows, Cg) float32 buffer, under
+    ``torch.use_deterministic_algorithms(True)``; returns (ms, buffer)."""
+    out = torch.zeros(n_rows, contribs.shape[1], device=rows.device)
+    torch.use_deterministic_algorithms(True)
+    try:
+        best = float("inf")
+        for i in range(2 + reps):
+            out.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out.index_put_((rows,), contribs, accumulate=True)
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 2:
+                best = min(best, start.elapsed_time(end))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return best, out
+
+
+def kernel_split(fn, calls=10):
+    """Each CUDA kernel's device ms a call of ``fn`` (``torch.profiler``
+    over ``calls`` calls after three warm-up calls), by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            split[e.key[:80]] = us / 1e3 / calls
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
 
 
 def ptr(t):
@@ -233,6 +346,8 @@ def main(argv=None):
         "main B=8 D=8": (lambda: dcn_inputs(gen, bf16, 8), (3, 3, 12, 8.0)),
         "main B=8 exact": (lambda: dcn_inputs(gen, bf16, 0),
                            (3, 3, 12, 0.0)),
+        "main B=8 exact, 1,000 sources on one corner": (
+            lambda: hot_corner(dcn_inputs(gen, bf16, 0)), (3, 3, 12, 0.0)),
         "blocks C=64 G=1 exact": (
             lambda: block_dcn_inputs(gen, bf16, 64, 64, 1, (96, 72)),
             (1, 1, 1, 0.0)),
@@ -251,6 +366,9 @@ def main(argv=None):
             branches.append(name)
         cases[name] = ((lambda c=c, c_out=c_out, g=g, hw=hw: block_dcn_inputs(
             gen, bf16, c, c_out, g, hw)), (1, 1, g, 0.0))
+    # the exact rows whose backward is split by kernel (this tree)
+    exact_split = ("main B=8 exact", "blocks C=64 G=1 exact",
+                   "main B=8 exact, 1,000 sources on one corner")
     gouts = {}
     if args.trained:
         saved = torch.load(args.trained, map_location="cuda")
@@ -304,6 +422,9 @@ def main(argv=None):
                     row["dx_elements_differing"] = int(
                         (calls["tree"].grads[0] != calls["old"].grads[0])
                         .sum())
+                    if conv[3] <= 0:
+                        row["dx_bit_for_bit"] = bool(torch.equal(
+                            calls["tree"].grads[0], calls["old"].grads[0]))
                     row["differing_in_a_second_call"] = repeat
                     row["workspace_floats"] = {
                         k: c.workspace for k, c in calls.items()}
@@ -314,6 +435,24 @@ def main(argv=None):
                     for which in ("old", "tree", "tree", "old"):
                         row.setdefault(f"{which}_cold_ms", []).append(
                             device_ms_cold(calls[which].bwd, launches=20))
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+            if conv[3] <= 0 and name in exact_split:
+                row = {"case": name, "kernel": "dcn_bwd",
+                       "tree_split_ms": kernel_split(calls["tree"].bwd)}
+                if name == "main B=8 exact":
+                    pairs = scatter_pairs(*inputs, gout, conv[0], conv[1])
+                    ms, out = library_scatter_ms(*pairs)
+                    b, c, h, w = inputs[0].shape
+                    g = conv[2]
+                    lib_dx = out.view(b, g, h, w, c // g).permute(
+                        0, 1, 4, 2, 3).reshape(b, c, h, w)
+                    row["library_index_put_ms"] = ms
+                    row["library_pairs"] = int(pairs[0].numel())
+                    row["library_max_abs_diff_to_tree_dx"] = float(
+                        (lib_dx - calls["tree"].grads[0].float()).abs()
+                        .max())
+                    del pairs, out, lib_dx
                 rows.append(row)
                 print(json.dumps(row), flush=True)
             del calls, inputs, gout

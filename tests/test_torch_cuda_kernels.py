@@ -437,6 +437,49 @@ def test_dcn_exact_backward_repeats_bit_for_bit_at_the_blocks_widths(
             _assert_grad_close(name, a, b, dtype)
 
 
+# entries a window of the exact mode's dx_tiles_kernel holds with 4
+# channels a group (dcn_bwd.cu: 66 KiB over 8 + 16 bytes an entry, rounded
+# down to 16)
+EXACT_WINDOW = 2816
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["corner", "border", "off"])
+@pytest.mark.parametrize("setting", ["main", "blocks"])
+def test_dcn_exact_backward_at_hot_spots(gen, dtype, kind, setting):
+    """The exact mode at two images of 96 x 72, at the main path's groups
+    (C = 48, G = 12, dilation 3, a mask: dx by pixel tile) and at the
+    blocks' C = 64, G = 1 (dilation 1, no mask: dx by lists), on
+    tests/dcn_hot_spots.py's fields: 4,000 sources of each image's first
+    plane on one corner (more than a window of the tiled gather holds, so
+    that tile streams several windows; the key sort's tile too big for its
+    shared memory), every source of the first plane on the keys two pixel
+    tiles share, nine in ten sources off the image. 10 calls bit for bit;
+    dx held to the plain version that sums in the kernel's order."""
+    import numpy as np
+    from dcn_hot_spots import corner_count, hot_spot_offsets
+    from fami_pose_torch.ops.deform_conv import deform_conv2d_dx_sorted_plain
+
+    c, g, dil = {"main": (48, 12, 3), "blocks": (64, 1, 1)}[setting]
+    h, w = 96, 72
+    off_np = hot_spot_offsets(3, 2, g, h, w, dil, kind, count=4000)
+    if kind == "corner":
+        assert corner_count(off_np, dil, h, w) > EXACT_WINDOW
+    off = torch.from_numpy(off_np).to("cuda", dtype)
+    x = torch.randn(2, c, h, w, generator=gen, device="cuda").to(dtype)
+    msk = (torch.rand(2, 9 * g, h, w, generator=gen, device="cuda").to(dtype)
+           if setting == "main" else None)
+    wgt = (torch.randn(c, c, 3, 3, generator=gen, device="cuda")
+           * (0.4 / c ** 0.5)).to(dtype)
+    gout = torch.randn(2, c, h, w, generator=gen, device="cuda").to(dtype)
+    kw = dict(padding=dil, dilation=dil, offset_groups=g)
+    first = _repeats(x, off, msk, wgt, gout, dict(kw, max_offset=None))
+    ref = deform_conv2d_dx_sorted_plain(x, off, msk, wgt, gout, **kw)
+    assert float(ref.float().abs().max()) > 0
+    assert not np.isnan(first[0].float().cpu().numpy()).any()
+    _assert_grad_close("dx", first[0], ref, dtype)
+
+
 def test_dcn_backward_refuses_a_window_past_31_px(gen):
     """A window wider than the gather's 31 px raises before any launch,
     instead of falling back to the exact mode's sorted lists."""
@@ -1101,9 +1144,9 @@ def test_dcn_kernels_stay_inside_their_buffers(guarded, gen, dtype,
     """The forward (its channels-last copy of x included) and the backward
     (its copy, its main kernel on the vector and scalar paths, the ragged
     last tile, the dW sum; the m * dcol scratch; at D = 4 the dx gather,
-    in the exact mode the sort's count, scan, placement and list sort and
-    the sorted gather, vector and scalar) on every internal path; results
-    equal to the wrappers', bit for bit."""
+    in the exact mode the bucket count, scan and placement, the key sort
+    and the tiled gather, vector and scalar) on every internal path;
+    results equal to the wrappers', bit for bit."""
     from fami_pose_torch.ops.deform_conv import deform_conv2d_backward
 
     n, c, h, w, g, c_out = DCN_GUARDED[case]

@@ -1,7 +1,7 @@
 """The plain sorted-list dx of the exact-mode DCN on the CPU.
 
 :func:`deform_conv2d_dx_sorted_plain` sums each input pixel's sources in the
-order of the card's exact-mode ``dcn_bwd.cu::dx_sorted_kernel``: the
+order of the card's exact-mode ``dcn_bwd.cu::dx_tiles_kernel``: the
 pixel's four candidate floor-corner keys in ascending order, each key's
 sources by ascending index ``k * Ho * Wo + p``. It is held
 
@@ -14,7 +14,12 @@ sources by ascending index ``k * Ho * Wo + p``. It is held
 at dilation 1 with padding 1 (the deform blocks) and dilation 3 with
 padding 3 (the main path), groups of Cg in {1, 3, 4, 8} channels, with and
 without a mask, on offsets that are fractional, integers, ~N(0, 8) px, a
-mix of those, and wholly off the image.
+mix of those, and wholly off the image; and, against the scatter, on the hot
+spots of ``tests/dcn_hot_spots.py`` (hundreds of sources on one corner,
+every source of a plane on the keys two 16 x 16 pixel tiles share, most
+sources off the image), whose long lists the card's tiled gather streams
+through shared memory in several windows. The exact mode's size limits
+(``_check_backward_args``) are held here too.
 """
 
 import jax
@@ -23,8 +28,10 @@ import numpy as np
 import pytest
 import torch
 
+from dcn_hot_spots import KINDS, corner_count, hot_spot_offsets
 from fami_pose_tpu.ops.deform_conv import deform_conv2d as jax_deform_conv2d
 from fami_pose_torch.ops.deform_conv import (
+    EXACT_MAX_KEY_TILES, EXACT_MAX_SOURCES, _check_backward_args,
     deform_conv2d_backward_plain, deform_conv2d_dx_sorted_plain,
 )
 
@@ -196,3 +203,64 @@ def test_sorted_dx_sums_each_pixel_in_key_then_source_order():
     ref = deform_conv2d_backward_plain(x, off, msk, wgt, gout, padding=1,
                                        dilation=1)[0]
     assert float(ref[0, 0, 1, 1]) == 1.0 + 2.0 ** -23
+
+
+# (dilation, G, Cg, mask, plane): the main path's 12 groups of 4 at dilation
+# 3 with a mask, the blocks' one group of 8 at dilation 1 without; two
+# images each
+HOT_SETTINGS = [(3, 12, 4, True, (16, 12)), (1, 1, 8, False, (18, 17))]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("setting", range(len(HOT_SETTINGS)),
+                         ids=["dil3-G12-Cg4-mask", "dil1-G1-Cg8-nomask"])
+def test_sorted_dx_matches_the_scatter_at_hot_spots(kind, setting):
+    """Hot spots against the scatter at 1e-6 of dx's scale: 600 sources of
+    each image's first plane on one corner (a list 600 long), every
+    source of the first plane on shared tile-border keys, nine in ten
+    sources off the image."""
+    dil, g, cg, with_mask, (h, w) = HOT_SETTINGS[setting]
+    rng = np.random.RandomState(7 + setting)
+    n, c = 2, g * cg
+    off = hot_spot_offsets(11 + setting, n, g, h, w, dil, kind, count=600)
+    if kind == "corner":
+        assert corner_count(off, dil, h, w) >= 600
+    x = rng.randn(n, c, h, w).astype(np.float32)
+    msk = rng.rand(n, 9 * g, h, w).astype(np.float32) if with_mask else None
+    wgt = (rng.randn(C_OUT, c, 3, 3) * 0.2).astype(np.float32)
+    gout = rng.randn(n, C_OUT, h, w).astype(np.float32)
+    args = [None if a is None else torch.from_numpy(a)
+            for a in (x, off, msk, wgt, gout)]
+    kw = dict(padding=dil, dilation=dil, offset_groups=g)
+    got = deform_conv2d_dx_sorted_plain(*args, **kw)
+    ref = deform_conv2d_backward_plain(*args, max_offset=None, **kw)[0]
+    assert float(ref.abs().max()) > 0
+    _assert_matches(got.numpy(), ref.numpy(), 1e-6)
+
+
+@pytest.mark.parametrize("case", ["sources", "key tiles", "planes", "taken"])
+def test_exact_mode_size_limits(case):
+    """The exact mode's dx kernel takes at most EXACT_MAX_SOURCES sources
+    (taps x output pixels) and EXACT_MAX_KEY_TILES tiles of 16 x 16 keys a
+    plane and 65535 planes; past any of them the check refuses by name,
+    and a windowed call of the same size is not refused for it."""
+    # (N, G, H, W): 9 * 1366^2 > 2^24 sources; 640^2 has 41^2 = 1681 key
+    # tiles (9 * 640^2 < 2^24); 65536 planes; 623^2: 39^2 = 1521 tiles
+    n, g, h, w = {"sources": (1, 1, 1366, 1366), "key tiles": (1, 1, 640, 640),
+                  "planes": (65536, 1, 1, 1), "taken": (1, 1, 623, 623)}[case]
+    x = torch.empty(n, g, h, w)
+    off = torch.empty(n, 18 * g, h, w)
+    wgt = torch.empty(1, g, 3, 3)
+    gout = torch.empty(n, 1, h, w)
+    if case == "sources":
+        assert 9 * h * w > EXACT_MAX_SOURCES
+    if case in ("key tiles", "taken"):
+        assert (((h + 16) // 16) ** 2 > EXACT_MAX_KEY_TILES) == (
+            case == "key tiles")
+    if case == "taken":
+        assert _check_backward_args(x, off, None, wgt, gout, 1, 1, g) == (h, w)
+        return
+    with pytest.raises(ValueError, match="exact mode's dx kernel"):
+        _check_backward_args(x, off, None, wgt, gout, 1, 1, g)
+    assert _check_backward_args(x, off, None, wgt, gout, 1, 1, g,
+                                max_offset=4) == (h, w)
