@@ -42,7 +42,7 @@ Tolerances, by check:
   255 tensors, every DCN weight, offset and mask conv, the offset head's
   last layer and the stem among them (measured here). Those tensors are
   held, per tensor in L2, to ``|port - JAX| <= 3 |JAX - f32| + 2^-6 |f32|``
-  (``chip_smoke.bf16_rule``, by which phase ``train-levers`` also holds the
+  (``bf16_judge.bf16_rule``, by which phase ``train-levers`` also holds the
   card's step against the CPU's: JAX's own gap alone, plus a fixed bf16
   scale; norms in float64, as float32 squares entries under ~1e-19 to
   zero; measured at most 0.64 of
@@ -58,6 +58,25 @@ Tolerances, by check:
   Over 2 gloo processes, one sample each, the averaged gradient (each
   rank's bf16 gradient summed across ranks in float32) is held by the same
   rule, and the ranks to each other bit for bit.
+* ``BF16_GRADS`` judged by ensembles of roundings
+  (``fami_pose_torch/tools/bf16_judge.py``; its tolerances ``BF16_TAME``,
+  ``BF16_CROSS``, ``BF16_SCALE`` as above, the spread of the members in
+  place of one gap): the port's ensemble (the nominal step, the nudged
+  steps of ``NUDGE_SEEDS``) holds 186 of 255 tensors (``bf16_rule`` holds
+  166) and its held-out control steps (``CONTROL_SEEDS``) break none
+  (measured at most 0.69 of the bound), nor does the step whose DCN
+  rounds the sampled column to bf16 as the card's kernels do (at most
+  0.17; ``torch_bf16_ensemble.card_rounding``); JAX's ensemble (its one compiled step on the batch and on nudged
+  copies: no new compile) holds the port in gradients (150 held, at most
+  0.36), loss terms and statistics; the port's ensemble holds JAX's loss
+  terms and statistics, and of JAX's gradients breaks 20 of the 186 held,
+  on each of which JAX's own gap to the f32 step is 3.5 to 316 times the
+  largest port rounding's (asserted: at least ``BF16_CROSS``; XLA's CPU
+  backend sums bf16 bias gradients in bf16,
+  ``tests/test_torch_bf16_ensemble.py``); a fault planted in a control
+  step (x2, x0, x-1, and x1.25 but at the stem conv, whose sharpness is
+  x1.5: ``BF16_COARSE``) breaks the rule at its tensor alone; and a
+  gradient taken from the f32 step is named (``not_bf16``).
 """
 
 import json
@@ -72,9 +91,7 @@ import optax
 import pytest
 import torch
 
-from chip_smoke import (
-    BF16_CROSS, BF16_HELD, BF16_SCALE, SyntheticPoseDataset, bf16_rule,
-)
+from chip_smoke import SyntheticPoseDataset
 from fami_pose_tpu.config import get_cfg as jax_get_cfg
 from fami_pose_tpu.data import loader as jax_loader
 from fami_pose_tpu.data.posetrack import PoseTrackDataset as JaxPoseTrack
@@ -113,10 +130,18 @@ from fami_pose_torch.models.bridge import state_dict_from_flax
 from fami_pose_torch.models.build import build_model
 from fami_pose_torch.models.fami_pose import FAMIPose
 from fami_pose_torch.optim import build_optimizer
+from fami_pose_torch.tools import bf16_judge as J
+from fami_pose_torch.tools.bf16_judge import (
+    BF16_CROSS, BF16_HELD, BF16_SCALE, bf16_rule,
+)
 from fami_pose_torch.utils.profiling import StepTimer, trace
 from fami_pose_torch.utils.registry import CORE_FUNCTION_REGISTRY, MODEL_REGISTRY
 from fixtures import make_cfg, make_posetrack_fixture
 from test_torch_pretrained import backbone_pth
+from torch_bf16_ensemble import (
+    card_rounded_step, jax_ensemble, jax_outputs, port_outputs,
+    running_stats, strays, with_f32, with_fault,
+)
 from torch_dist import run_ranks
 from torch_port_helpers import make_port_cfg, random_variables
 
@@ -329,6 +354,11 @@ def test_remat_step_matches_jax_remat(variables, raw_batch, jax_remat):
 # conv on a 1x1 map comes back as garbage (NaN, or up to 1e38) from run to
 # run; at 128x128 it takes 2x2
 BF16_SIZE = 128
+# the judge's sharpness where it is coarser than bf16_judge.FINE_FAULT
+# (measured here)
+BF16_COARSE = {"hrnet.conv1.weight": 1.5}
+
+
 def tame_variables(variables):
     """``variables`` with every BatchNorm's scale set to 0.1 and its shift
     to 1 (each +-10%, seeded), so that each ReLU after a BatchNorm passes
@@ -487,8 +517,9 @@ def bf16_world(bf16_inputs):
                           opt_state=tx.init(params), tx=tx)
     jb = jax_loader.prepare_train_batch(*raw_batch, 2, (size, size), (hm, hm))
     step = jax_make_train_step(model, donate=False, bf16_grads=True)
-    new, metrics = step.lower(state, jb).compile(
-        compiler_options={"xla_allow_excess_precision": False})(state, jb)
+    compiled = step.lower(state, jb).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+    new, metrics = compiled(state, jb)
     jax_side = dict(
         grads=state_dict_from_flax({"params": jax.tree.map(
             lambda a: np.asarray(a, np.float32), new.opt_state[1])}),
@@ -499,7 +530,9 @@ def bf16_world(bf16_inputs):
     batch = _bf16_batch(raw_batch)
     return dict(jax=jax_side,
                 port=_port_bf16_step(variables, batch, "bfloat16", True),
-                f32=_port_bf16_step(variables, batch, "float32", False))
+                f32=_port_bf16_step(variables, batch, "float32", False),
+                jax_step=lambda b: jax_outputs(*compiled(state, b)),
+                jax_batch=jb)
 
 
 def test_bf16_grads_are_bf16_values(bf16_world):
@@ -577,7 +610,7 @@ def test_two_process_bf16_grads_step_matches_jax(bf16_inputs, bf16_world,
     batch each: each rank forms its gradient in bfloat16, the sum across
     ranks is taken in float32 (``engine/steps.py``), so the averaged
     gradient is not JAX's bf16 sum of the global batch's; it is held to
-    JAX's step by ``chip_smoke.bf16_rule`` as the one-process step is
+    JAX's step by ``bf16_judge.bf16_rule`` as the one-process step is
     (the same tensors held, none broken), and both ranks end bit for bit
     equal."""
     variables, raw_batch = bf16_inputs
@@ -592,6 +625,83 @@ def test_two_process_bf16_grads_step_matches_jax(bf16_inputs, bf16_world,
     held, broken, ratios = bf16_rule(r0, ref, f32)
     assert not broken, {n: ratios[n] for n in broken}
     assert held == bf16_rule(bf16_world["port"]["grads"], ref, f32)[0]
+
+
+# -- BF16_GRADS judged by ensembles of roundings -------------------------------------
+
+
+@pytest.fixture(scope="module")
+def bf16_ensembles(bf16_inputs, bf16_world):
+    """The port's CPU ensemble of the ``BF16_GRADS`` step
+    (``bf16_judge.cpu_ensemble``: the nominal step, the nudged steps, the
+    held-out control steps), the step whose DCN rounds as the card's, and
+    JAX's ensemble (its one compiled step on the batch and on nudged
+    copies)."""
+    variables, raw_batch = bf16_inputs
+    cfg, model = _port_model(variables, "bfloat16")
+    f32 = bf16_world["f32"]
+    return dict(
+        port=J.cpu_ensemble(J.reloaded(model), cfg, _bf16_batch(raw_batch),
+                            True),
+        card=card_rounded_step(J.reloaded(model), cfg,
+                               _bf16_batch(raw_batch), True),
+        jax=jax_ensemble(bf16_world["jax_step"], bf16_world["jax_batch"]),
+        f32=port_outputs(f32), before=running_stats(f32["before"]))
+
+
+def _ens_judge(e, cand, ens):
+    return J.judge(cand, ens, e["f32"], e["before"])
+
+
+def test_bf16_grads_ensemble_passes_its_control(bf16_ensembles):
+    e = bf16_ensembles
+    v = _ens_judge(e, e["port"]["members"][0], e["port"])
+    assert v["control"]["broken"] == {}
+    assert v["held"] >= 0.6 * v["of"], v["held"]
+    assert set(BF16_HELD) <= set(v["named_held"])
+    assert _ens_judge(e, e["card"], e["port"])["broken"] == []
+
+
+def test_jax_bf16_grads_ensemble_holds_the_port(bf16_ensembles):
+    e = bf16_ensembles
+    v = _ens_judge(e, e["port"]["members"][0], e["jax"])
+    assert v["broken"] == [], v["worst"]
+    assert v["terms"]["broken"] == [] and v["stats"]["broken"] == []
+    assert v["not_bf16"] == []
+    assert set(BF16_HELD) <= set(v["named_held"])
+
+
+def test_the_ports_bf16_grads_ensemble_on_jax(bf16_ensembles):
+    e = bf16_ensembles
+    v = _ens_judge(e, e["jax"]["members"][0], e["port"])
+    assert v["terms"]["broken"] == [] and v["stats"]["broken"] == []
+    assert v["not_bf16"] == []
+    gap = strays(e["jax"]["members"][0], e["port"], e["f32"], v["broken"])
+    assert all(r >= J.BF16_CROSS for r in gap.values()), gap
+
+
+@pytest.mark.parametrize("fault", J.FAULTS + (J.FINE_FAULT,))
+@pytest.mark.parametrize("name", BF16_HELD)
+def test_bf16_grads_ensemble_catches_a_planted_fault(bf16_ensembles, name,
+                                                     fault):
+    """In the control's first step (held out, held by the ensemble), each
+    fault breaks the rule at its tensor and nowhere else; x1.25 but where
+    the judge is coarser (``BF16_COARSE``)."""
+    e = bf16_ensembles
+    v = _ens_judge(e, with_fault(e["port"]["controls"][0], name, fault),
+                   e["port"])
+    caught = fault != J.FINE_FAULT or name not in BF16_COARSE
+    assert v["broken"] == ([name] if caught else []), v["faults"]
+
+
+@pytest.mark.parametrize("name", BF16_HELD)
+def test_bf16_grads_ensemble_tells_a_float32_gradient_apart(bf16_ensembles,
+                                                            name):
+    e = bf16_ensembles
+    cand = e["port"]["controls"][0]
+    assert _ens_judge(e, cand, e["port"])["not_bf16"] == []
+    v = _ens_judge(e, with_f32(cand, e["f32"], name), e["port"])
+    assert v["broken"] == [] and v["not_bf16"] == [name]
 
 
 # -- profiler, metric writer, async checkpoints ----------------------------------
